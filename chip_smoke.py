@@ -1,0 +1,466 @@
+"""Drive the PyTorch/CUDA port (``mmlspark_tpu_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases; any failure exits nonzero and prints no result line:
+
+1. card   — ``nvidia-smi`` name and power limit, the torch device name.
+2. build  — compile ``mmlspark_tpu_torch/csrc`` with nvcc (timed).
+3. kernels against their plain PyTorch versions on the card, at the GBDT
+   bench shapes (1M rows x 200 features, 255 bins): ``hist_accumulate`` at
+   N = 1, 8, 16 nodes in every lane layout, ``frontier_finish`` in direct,
+   subtract and depth-gated modes.  Histograms must be bit-identical; best
+   splits equal, except where the two best gains are within 1e-6 relative
+   (an f32 near-tie), with left stats within rtol 1e-5.  Then each kernel,
+   its plain version and one library call are timed with CUDA events at the
+   main path's level-4 frontier step (8 parents, smaller children only).
+4. slice  — ``LightGBMClassifier(max_depth=5, num_iterations=8)`` fits on
+   1M x 200 binary data (the label of ``bench.py``'s GBDT phase), then
+   transforms 100k fresh rows.  The kernels' launch counts are zeroed just
+   before the fit and read just after the transform: each kernel must have
+   run (8 trees x 5 levels = 40 launches each).  Accuracy must reach 0.9;
+   the card's leaf walk must equal the CPU's; one depth-5 tree grown on the
+   card must equal the same tree grown by the plain versions on the CPU.
+5. results — one ``{"kernels": [...]}`` line, the card's name and power
+   limit, and the last line ``{"ok": true, "device": {...}}``.
+
+Details (per-level kernel times, every comparison) go to
+``chiprun_out/chip_smoke_detail.json``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N_ROWS, N_FEAT, N_BINS, QUANT_BINS = 1_000_000, 200, 255, 16
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+SCALAR_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+SOURCE = "mmlspark_tpu_torch/csrc/frontier.cu"
+REPLACES = {"hist_accumulate": "mmlspark_tpu/ops/pallas_histogram.py:199",
+            "frontier_finish": "mmlspark_tpu/ops/pallas_histogram.py:240"}
+DETAIL = {}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, after
+    one warm-up call, between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def best_error(kernel_best, plain_best) -> float:
+    """Compare two (N_out, 9) best-split records; raise unless the picks are
+    equal or an f32 near-tie.  Returns the max abs difference."""
+    k, p = kernel_best.double().cpu(), plain_best.double().cpu()
+    same = (k[:, 1] == p[:, 1]) & (k[:, 2] == p[:, 2])
+    tie = (k[:, 0] - p[:, 0]).abs() <= 1e-6 * p[:, 0].abs()
+    if not bool((same | tie).all()):
+        raise AssertionError(f"best splits differ:\n{k}\n{p}")
+    np.testing.assert_array_equal(k[:, 6:].numpy(), p[:, 6:].numpy())
+    ks, ps = k[same], p[same]
+    fin = torch.isfinite(ps[:, 0])
+    np.testing.assert_allclose(ks[fin][:, [0, 3, 4, 5]].numpy(),
+                               ps[fin][:, [0, 3, 4, 5]].numpy(), rtol=1e-5,
+                               atol=1e-6)
+    d = (ks - ps).abs()
+    d[~torch.isfinite(d)] = 0.0          # -inf == -inf at gated nodes
+    return float(d.max()) if d.numel() else 0.0
+
+
+def kernel_phase(dev):
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    from mmlspark_tpu_torch.ops.histogram import quantize_gradients
+
+    n, F, B = N_ROWS, N_FEAT, N_BINS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    binned = torch.randint(0, B, (F, n), generator=gen, device=dev,
+                           dtype=torch.uint8).t()       # feature-major
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev) * 0.25 + 1e-3
+    qg, qh, gs, hs = quantize_gradients(g, h, QUANT_BINS, generator=gen)
+    errs = {"hist_accumulate": 0.0, "frontier_finish": 0.0}
+    checks = []
+
+    def node_ids(N, per_node):
+        if per_node is None:
+            return torch.randint(0, N, (n,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+        ids = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        rows = torch.randperm(n, generator=gen, device=dev)[:per_node * N]
+        ids[rows] = (torch.arange(per_node * N, device=dev) % N) \
+            .to(torch.int32)
+        return ids
+
+    # hist_accumulate + decode, every lane layout, N = 1, 8, 16
+    for N in (1, 8, 16):
+        for per_node in (None, 4000, 128):        # wide, 2ch, all3
+            ids = node_ids(N, per_node)
+            lanes, mode, cbits, hbits = CH.pack(qg, qh, n, per_node or n,
+                                                QUANT_BINS)
+            acc = CH.hist_accumulate(binned, lanes, ids, N, B)
+            acc_p = CH.hist_accumulate_plain(binned, lanes, ids, N, B)
+            torch.cuda.synchronize()
+            if not torch.equal(acc, acc_p):
+                raise AssertionError(f"hist_accumulate differs at N={N} "
+                                     f"{mode}")
+            hist, _ = CH.frontier_finish(acc, mode, cbits, hbits)
+            hist_p, _ = CH.frontier_finish_plain(acc, mode, cbits, hbits)
+            torch.cuda.synchronize()
+            if not torch.equal(hist, hist_p):
+                raise AssertionError(f"decode differs at N={N} {mode}")
+            checks.append({"kernel": "hist_accumulate+decode", "nodes": N,
+                           "layout": mode, "bit_identical": True})
+            log(f"[kernels] hist_accumulate N={N:2d} {mode:4s}: "
+                f"bit-identical")
+
+    # frontier_finish: direct (root), subtract (level 4), depth-gated
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+    fmask[7] = False
+    edge_ok = torch.ones((F, B), dtype=torch.bool, device=dev)
+    edge_ok[:, B - 1] = False
+    edge_ok[3, 100:] = False
+
+    def gains(depth_ok=None):
+        return CH.GainParams(gs, hs, fmask, edge_ok, depth_ok, l1=0.0,
+                             l2=0.0, min_data=20.0, min_hess=1e-3)
+
+    P = 8
+    parent_ids = node_ids(P, None)
+    small_left = torch.rand(P, generator=gen, device=dev) < 0.5
+    in_small = torch.rand(n, generator=gen, device=dev) < 0.5
+    small_ids = torch.where(in_small, parent_ids, -1).to(torch.int32)
+    lanes_n, mode_n, cb_n, hb_n = CH.pack(qg, qh, n, n, QUANT_BINS)
+    parent = CH.frontier_finish_plain(
+        CH.hist_accumulate_plain(binned, lanes_n, parent_ids, P, B),
+        mode_n, cb_n, hb_n)[0]
+    bound4 = n // 2 + 2 * P
+    lanes4, mode4, cb4, hb4 = CH.pack(qg, qh, n, bound4, QUANT_BINS)
+    acc4 = CH.hist_accumulate(binned, lanes4, small_ids, P, B)
+    root_ids = torch.zeros(n, dtype=torch.int32, device=dev)
+    acc0 = CH.hist_accumulate(binned, lanes_n, root_ids, 1, B)
+    cases = {
+        "direct": (acc0, mode_n, cb_n, hb_n, None, None, gains()),
+        "subtract": (acc4, mode4, cb4, hb4, parent, small_left, gains()),
+        "depth_ok=True": (acc4, mode4, cb4, hb4, parent, small_left,
+                          gains(torch.tensor(True, device=dev))),
+        "depth_ok=False": (acc0, mode_n, cb_n, hb_n, None, None,
+                           gains(torch.tensor(False, device=dev))),
+    }
+    for name, (acc, mode, cb, hb, par, sl, gp) in cases.items():
+        hist, best = CH.frontier_finish(acc, mode, cb, hb, par, sl, gp)
+        hist_p, best_p = CH.frontier_finish_plain(acc, mode, cb, hb, par, sl,
+                                                  gp)
+        torch.cuda.synchronize()
+        if not torch.equal(hist, hist_p):
+            raise AssertionError(f"frontier_finish {name}: histograms differ")
+        err = best_error(best, best_p)
+        errs["frontier_finish"] = max(errs["frontier_finish"], err)
+        if name == "depth_ok=False" and not bool(
+                torch.isneginf(best[:, 0]).all()):
+            raise AssertionError("depth gate off must gate every candidate")
+        checks.append({"kernel": "frontier_finish", "mode": name,
+                       "hist_bit_identical": True, "best_max_abs_err": err,
+                       "best_bit_identical": bool(torch.equal(best, best_p))})
+        log(f"[kernels] frontier_finish {name:14s}: hist bit-identical, "
+            f"best max|diff| {err:.3g}, "
+            f"bit-identical={torch.equal(best, best_p)}")
+
+    # timing at the level-4 frontier step of a depth-5 tree
+    C = lanes4.shape[0]
+    active = int((small_ids >= 0).sum())
+    t_acc = time_ms(lambda: CH.hist_accumulate(binned, lanes4, small_ids,
+                                               P, B), 20)
+    t_acc_plain = time_ms(lambda: CH.hist_accumulate_plain(
+        binned, lanes4, small_ids, P, B), 3)
+    S = P * F * B
+    seg = (small_ids.to(torch.int64)[:, None] * F
+           + torch.arange(F, device=dev)[None, :]) * B \
+        + binned.to(torch.int64)
+    seg = torch.where(small_ids[:, None] >= 0, seg, S).reshape(-1)
+    src = lanes4.t()[:, None, :].expand(n, F, C).reshape(n * F, C) \
+        .contiguous()
+    dst = torch.zeros((S + 1, C), dtype=torch.int32, device=dev)
+    t_acc_lib = time_ms(lambda: dst.index_add_(0, seg, src), 5)
+    del seg, src, dst
+    acc_bytes = n * 4 + active * (F + 4 * C) + C * P * F * B * 4
+    acc_bound, acc_by = bound_ms(acc_bytes, active * F * C)
+
+    gp = gains()
+    t_fin = time_ms(lambda: CH.frontier_finish(acc4, mode4, cb4, hb4,
+                                               parent, small_left, gp), 50)
+    t_fin_plain = time_ms(lambda: CH.frontier_finish_plain(
+        acc4, mode4, cb4, hb4, parent, small_left, gp), 3)
+    n_out = 2 * P
+    fin_bytes = (C * P * F * B * 4 + P * F * B * 12 + n_out * F * B * 12
+                 + F + F * B + P + 8 + n_out * 36)
+    fin_bound, fin_by = bound_ms(fin_bytes, n_out * F * B * 24)
+
+    # per-level kernel times of one depth-5 tree (direct root, then the
+    # smaller children of 1, 2, 4, 8 parents)
+    levels = []
+    for d in range(5):
+        Pd = max(1, 2 ** d // 2)
+        if d == 0:
+            ids, bound = root_ids, n
+        else:
+            ids = torch.where(in_small, node_ids(Pd, None), -1) \
+                .to(torch.int32)
+            bound = n // 2 + 2 ** d
+        lanes_d, mode_d, cb_d, hb_d = CH.pack(qg, qh, n, bound, QUANT_BINS)
+        acc_d = CH.hist_accumulate(binned, lanes_d, ids, Pd, B)
+        par_d = None if d == 0 else torch.zeros((Pd, F, B, 3),
+                                                dtype=torch.int32, device=dev)
+        sl_d = None if d == 0 else small_left[:Pd]
+        ta = time_ms(lambda: CH.hist_accumulate(binned, lanes_d, ids, Pd, B),
+                     10)
+        tf = time_ms(lambda: CH.frontier_finish(acc_d, mode_d, cb_d, hb_d,
+                                                par_d, sl_d, gp), 20)
+        levels.append({"level": d, "parents": Pd, "layout": mode_d,
+                       "hist_accumulate_ms": ta, "frontier_finish_ms": tf})
+        log(f"[kernels] level {d}: {Pd} parent(s), {mode_d}: "
+            f"hist_accumulate {ta:.4f} ms, frontier_finish {tf:.4f} ms")
+    torch.cuda.synchronize()
+    DETAIL["checks"] = checks
+    DETAIL["levels"] = levels
+    DETAIL["level4_active_rows"] = active
+    return {
+        "hist_accumulate": dict(max_abs_err=errs["hist_accumulate"],
+                                ms=t_acc, plain_ms=t_acc_plain,
+                                bound_ms=acc_bound, bound_by=acc_by,
+                                library_ms=t_acc_lib),
+        "frontier_finish": dict(max_abs_err=errs["frontier_finish"],
+                                ms=t_fin, plain_ms=t_fin_plain,
+                                bound_ms=fin_bound, bound_by=fin_by,
+                                library_ms=None),
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice, through the estimator
+# ---------------------------------------------------------------------------
+
+def bench_data(n: int, seed: int):
+    """bench.py's GBDT phase data: N(0, 1) features, noisy linear label."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, N_FEAT)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] + rng.normal(scale=0.3, size=n)
+         > 0).astype(np.float32)
+    return X, y
+
+
+def slice_phase(dev):
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+
+    X, y = bench_data(N_ROWS, seed=0)
+    Xt, yt = bench_data(100_000, seed=1)
+    df = DataFrame.from_dict({"features": X, "label": y})
+    df_t = DataFrame.from_dict({"features": Xt, "label": yt})
+    clf = LightGBMClassifier().set_params(max_depth=5, num_iterations=8)
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = clf.fit(df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.transform(df_t).collect()
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    launches = CH.launch_counts()
+    log(f"[slice] launches during fit+transform: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    prob = np.stack(out["probability"])
+    if prob.shape != (100_000, 2) or not np.isfinite(prob).all():
+        raise AssertionError(f"bad probabilities {prob.shape}")
+    acc = float((out["prediction"] == yt).mean())
+    log(f"[slice] accuracy on 100k fresh rows: {acc:.4f}")
+    if acc < 0.9:
+        raise AssertionError(f"accuracy {acc} < 0.9")
+    booster = model.booster
+    leaves_gpu = booster.predict_leaf(Xt[:20000])
+    leaves_cpu = booster.predict_leaf(Xt[:20000], device="cpu")
+    if not np.array_equal(leaves_gpu, leaves_cpu):
+        raise AssertionError("card and CPU leaf walks differ")
+    fit_rps = N_ROWS / fit_s
+    transform_rps = 100_000 / transform_s
+    log(f"[slice] fit {fit_s:.3f} s = {fit_rps:.0f} rows/s; transform "
+        f"{transform_s:.3f} s = {transform_rps:.0f} rows/s")
+    DETAIL["slice"] = {"fit_s": fit_s, "fit_rows_per_s": fit_rps,
+                       "transform_s": transform_s,
+                       "transform_rows_per_s": transform_rps,
+                       "accuracy": acc, "launches": launches}
+    return launches
+
+
+def fit_phases(dev):
+    """Where the fit's time goes: the trainer's own phase clocks, then a
+    second fit under ``torch.profiler`` for the device time of each kernel
+    in the boosting loop and the loop's device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    X, y = bench_data(N_ROWS, seed=0)
+    params = GBDTParams(num_iterations=8, max_depth=5, objective="binary")
+    ex = dict(train(X, y, params).extras)
+    ex["boosting_row_iterations_per_s"] = N_ROWS * 8 / ex["boosting_s"]
+    log("[slice] train() phases: " + ", ".join(
+        f"{k} {v:.4g}" for k, v in ex.items()))
+    DETAIL["train_phases"] = ex
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        prof_ex = train(X, y, params).extras
+    by_kernel = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memcpy" in evt.key.lower():      # the host-to-card transfer
+            continue
+        by_kernel[evt.key] = evt.self_device_time_total / 1e3   # ms
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    share = busy_ms / (prof_ex["boosting_s"] * 1e3)
+    log(f"[slice] profiled fit: boosting {prof_ex['boosting_s']:.4f} s, "
+        f"device kernels {busy_ms:.3f} ms (busy share {share:.3f})")
+    for name, ms in top:
+        log(f"[slice]   {ms:9.3f} ms  {name[:90]}")
+    DETAIL["profile"] = {"boosting_s": prof_ex["boosting_s"],
+                         "device_kernel_ms": busy_ms, "busy_share": share,
+                         "top_kernels_ms": top}
+
+
+def grower_check(dev):
+    """One depth-5 tree on the card equals the same tree grown by the plain
+    versions on the CPU, from the same data and quantizer uniforms."""
+    from mmlspark_tpu_torch.lightgbm import BinMapper, GBDTParams
+    from mmlspark_tpu_torch.lightgbm.core import make_tree_grower
+    rng = np.random.default_rng(5)
+    n, F = 50_000, 20
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] * X[:, 2] > 0).astype(np.float32)
+    mapper = BinMapper(255).fit(X)
+    binned = mapper.transform(X)
+    p = 1 / (1 + np.exp(-rng.normal(scale=0.5, size=n)))
+    g = (p - y).astype(np.float32)
+    h = (p * (1 - p)).astype(np.float32)
+    u = rng.random((2, n), dtype=np.float32)
+    params = GBDTParams(max_depth=5, use_quantized_grad=True,
+                        lambda_l2=1.0).resolve()
+    grow = make_tree_grower(5, F, 255, params)
+    trees = []
+    for d in (dev, torch.device("cpu")):
+        def t(a):
+            return torch.from_numpy(a).to(d)
+        trees.append(grow(t(binned).t().contiguous().t(), t(g), t(h),
+                          torch.ones(n, dtype=torch.bool, device=d),
+                          torch.ones(F, dtype=torch.bool, device=d),
+                          t(mapper.edges), noise=t(u)))
+    gpu, cpu = ([x.cpu() for x in tr] for tr in trees)
+    identical = []
+    for name, a, b in zip(trees[0]._fields, gpu, cpu):
+        if a.is_floating_point():   # f32 math on both: within rtol 1e-6
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                       atol=0, err_msg=name)
+        elif not torch.equal(a, b):
+            raise AssertionError(f"grower on the card differs in {name}")
+        identical.append(bool(torch.equal(a, b)))
+    log(f"[slice] depth-5 tree on the card equals the CPU plain-version "
+        f"tree (bit-identical in {sum(identical)}/{len(identical)} arrays)")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    smi = nvidia_smi()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    log(f"[card] {smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
+
+    from mmlspark_tpu_torch.kernels import _build
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.load_library()
+    log(f"[build] {path} built and loaded in {time.perf_counter() - t0:.1f} s")
+    with open(os.path.join(os.path.dirname(path), "nvcc.log")) as f:
+        for line in f:
+            if "registers" in line or "Compiling entry" in line:
+                log("[build] " + line.strip())
+
+    t0 = time.perf_counter()
+    stats = kernel_phase(dev)
+    torch.cuda.synchronize()
+    log(f"[kernels] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    launches = slice_phase(dev)
+    grower_check(dev)
+    fit_phases(dev)
+    torch.cuda.synchronize()
+    log(f"[slice] phase done in {time.perf_counter() - t0:.1f} s")
+
+    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[name], "launches": launches[name],
+                **stats[name]} for name in ("hist_accumulate",
+                                            "frontier_finish")]
+    for k in kernels:
+        for key, v in k.items():
+            if isinstance(v, float) and not math.isfinite(v):
+                raise AssertionError(f"{k['name']}.{key} is {v}")
+    DETAIL.update(card=smi, kind=kind, kernels=kernels)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
+              "w") as f:
+        json.dump(DETAIL, f, indent=1, default=str)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,28 @@
+"""mmlspark_tpu_torch — the PyTorch/CUDA port of ``mmlspark_tpu``.
+
+The JAX package beside it is the reference: every module here sits at the
+same relative path as its counterpart and keeps its public names, so a
+reader can find each twin.  This package imports ``torch`` and numpy and
+never ``jax`` or ``mmlspark_tpu``; what it needs from the JAX package's
+jax-free modules (``core/``, ``utils/pickling.py``) it keeps as its own copy.
+
+Ported so far (the GBDT main path, level-wise):
+
+- ``core``      — DataFrame, Params, Pipeline, persistence (copies)
+- ``ops``       — quantized histogram ops; ``ops.cuda_histogram`` holds the
+  two hand-written Hopper kernels (``csrc/frontier.cu``) that replace the
+  fused Pallas frontier kernel, each beside its plain PyTorch version
+- ``lightgbm``  — BinMapper, ``train()`` with the level-wise grower,
+  LightGBMClassifier/Regressor
+- ``models``    — the GBDT booster artifact and its scoring walk
+- ``convert``   — state carried across from the JAX package
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(see ``_device.resolve_device``).
+"""
+
+__version__ = "0.2.0"
+
+from ._device import resolve_device  # noqa: E402
+
+__all__ = ["resolve_device", "__version__"]

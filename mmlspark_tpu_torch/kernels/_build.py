@@ -1,0 +1,107 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``.cu`` file under ``mmlspark_tpu_torch/csrc`` is compiled by ``nvcc``
+for Hopper (``sm_90a``) into one shared library with a plain C interface,
+which ``ctypes`` loads.  The build runs at first use, into
+``mmlspark_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where the
+hash covers the sources and the flags, so an edited source rebuilds and an
+unchanged one is loaded as it is.  Each C entry point launches on the
+stream it is given and returns ``cudaGetLastError()``; the wrappers in
+``ops.cuda_histogram`` raise when it is not 0.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine has no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_ROOT = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v"]
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_SIGNATURES = {
+    "hist_accumulate_launch": [_P, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _P],
+    "frontier_finish_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
+                               _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "",
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the port's CUDA kernels")
+
+
+def _digest(sources: list) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the sources unless a library for their hash exists; returns
+    the library path (its ``nvcc.log`` sits beside it).  The ``.so``
+    appears by an atomic rename, so a concurrent or interrupted build never
+    leaves a half-written library."""
+    sources = [s for s in _sources() if s.endswith(".cu")]
+    out_dir = os.path.join(BUILD_ROOT, _digest(_sources()))
+    lib = os.path.join(out_dir, "libmmlspark_kernels.so")
+    if os.path.isfile(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built at first use and loaded once."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.frontier_error_string.argtypes = [ctypes.c_int]
+            lib.frontier_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib

@@ -1,0 +1,8 @@
+from .binning import BinMapper
+from .core import GBDTParams, TrainResult, train
+from .estimators import (LightGBMClassificationModel, LightGBMClassifier,
+                         LightGBMRegressionModel, LightGBMRegressor)
+
+__all__ = ["BinMapper", "GBDTParams", "train", "TrainResult",
+           "LightGBMClassifier", "LightGBMClassificationModel",
+           "LightGBMRegressor", "LightGBMRegressionModel"]

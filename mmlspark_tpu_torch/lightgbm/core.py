@@ -1,0 +1,658 @@
+"""GBDT training core — level-wise tree growth in PyTorch (port of
+``mmlspark_tpu/lightgbm/core.py``, the single-shard numerical subset).
+
+One boosting iteration: objective gradients, per-row quantization
+(``ops.histogram.quantize_gradients``), then one tree grown level by level.
+Each level is one fused frontier step (``ops.cuda_histogram.fused_frontier``:
+the smaller child's histogram build, the integer sibling subtraction and the
+split-gain scan, on the two Hopper kernels) while the frontier has at most
+``FUSED_MAX_NODES`` parents — the JAX package's per-level gate — and a
+histogram build plus a torch gain scan past it.  The host drives a plain
+per-iteration loop; tree arrays stay on the device until the end.
+
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP.md entry: the leaf-wise grower, dart/goss/rf, bagging, categorical
+features, multiclass/ranking and the other objectives, row sharding and
+voting, checkpoints and the live monitor.  The JAX package's scan-chunked
+multi-iteration path exists to amortize a device relay's per-dispatch
+latency; the port launches per iteration and has no counterpart.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, default_quantized, resolve_device
+from ..models.gbdt import GBDTBooster, perfect_tree_children
+from ..ops import cuda_histogram
+from ..ops import histogram as hist_ops
+from .binning import BinMapper
+
+
+@dataclasses.dataclass
+class GBDTParams:
+    num_iterations: int = 100
+    learning_rate: float = 0.1
+    max_depth: int = 0               # leaf-wise: depth cap (0 = uncapped);
+    #                                  level-wise: tree depth (0 -> 5)
+    num_leaves: Optional[int] = None  # leaf-wise leaf budget
+    growth: str = "auto"             # leaf | level | auto (leaf iff
+    #                                  num_leaves given, else level)
+    max_bin: int = 255
+    objective: str = "binary"
+    num_class: int = 1
+    boosting_type: str = "gbdt"      # gbdt | rf | dart | goss
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    min_gain_to_split: float = 0.0
+    bagging_fraction: float = 1.0
+    bagging_freq: int = 0
+    feature_fraction: float = 1.0
+    # goss
+    top_rate: float = 0.2
+    other_rate: float = 0.1
+    # dart
+    drop_rate: float = 0.1
+    max_drop: int = 50
+    skip_drop: float = 0.5
+    # misc
+    max_delta_step: float = 0.0
+    sigmoid: float = 1.0
+    alpha: float = 0.9
+    tweedie_variance_power: float = 1.5
+    early_stopping_round: int = 0
+    metric: str = ""
+    seed: int = 0
+    verbosity: int = -1
+    categorical_features: Optional[Tuple[int, ...]] = None
+    max_cat_to_onehot: int = 4
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0
+    max_cat_threshold: int = 32
+    cat_subset: Optional[Tuple[int, ...]] = None
+    voting_k: int = 0
+    # quantized training (LightGBM 4.x): None = on for the card, off on
+    # the CPU (train() resolves it, as the JAX package does)
+    use_quantized_grad: Optional[bool] = None
+    num_grad_quant_bins: int = 16
+
+    def resolve(self) -> "GBDTParams":
+        """Normalize growth mode, as the JAX package does."""
+        p = dataclasses.replace(self)
+        if p.growth == "auto":
+            p.growth = "leaf" if p.num_leaves else "level"
+        if p.growth == "level":
+            if p.max_depth <= 0:
+                p.max_depth = max(1, int(math.ceil(math.log2(
+                    max(2, p.num_leaves))))) if p.num_leaves else 5
+            p.num_leaves = 2 ** p.max_depth
+        elif p.growth == "leaf":
+            p.num_leaves = p.num_leaves or 31
+            if p.num_leaves < 2:
+                raise ValueError("num_leaves must be >= 2")
+        else:
+            raise ValueError(f"growth must be leaf|level|auto, got "
+                             f"{p.growth!r}")
+        if p.boosting_type == "rf" and p.bagging_freq == 0:
+            p.bagging_freq, p.bagging_fraction = 1, min(p.bagging_fraction,
+                                                        0.632)
+        if not 4 <= p.num_grad_quant_bins <= 128:
+            raise ValueError("num_grad_quant_bins must be in [4, 128] "
+                             f"(int8 operand lanes), got "
+                             f"{p.num_grad_quant_bins}")
+        return p
+
+    @property
+    def depth_bound(self) -> int:
+        """Walk-iteration bound for trees grown under these params (call on
+        a resolved instance)."""
+        if self.growth == "level":
+            return max(1, self.max_depth)
+        cap = self.max_depth if self.max_depth > 0 \
+            else (self.num_leaves or 31) - 1
+        return max(1, min(cap, (self.num_leaves or 31) - 1))
+
+
+def _not_ported(what: str, entry: str):
+    return NotImplementedError(
+        f"{what} is not ported to mmlspark_tpu_torch yet (ROADMAP.md, "
+        f"port queue: {entry})")
+
+
+# ---------------------------------------------------------------------------
+# objectives: (scores (n, K), y, w) -> grad, hess (n, K)
+# ---------------------------------------------------------------------------
+
+def make_objective(params: GBDTParams) -> Callable:
+    sig = params.sigmoid
+
+    def binary(scores, y, w):
+        p = 1.0 / (1.0 + torch.exp(-sig * scores[:, 0]))
+        g = sig * (p - y)
+        h = torch.clamp(sig * sig * p * (1.0 - p), min=1e-16)
+        return (g * w)[:, None], (h * w)[:, None]
+
+    def l2(scores, y, w):
+        g = scores[:, 0] - y
+        return (g * w)[:, None], (w * torch.ones_like(g))[:, None]
+
+    table = {"binary": binary, "regression": l2}
+    if params.objective not in table:
+        raise _not_ported(f"objective {params.objective!r}",
+                          "multiclass, ranker and the other objectives")
+    return table[params.objective]
+
+
+# ---------------------------------------------------------------------------
+# tree grower
+# ---------------------------------------------------------------------------
+
+def _use_fused_frontier(use_quant: bool, has_cat: bool, num_bins: int,
+                        quant_bins: int) -> bool:
+    """One eligibility predicate for the fused frontier step: the quantized
+    numerical-split path.  The ``cuda`` backend plays the part of the JAX
+    package's ``pallas``: the Hopper kernels for a CUDA tensor, their plain
+    PyTorch versions for a CPU tensor."""
+    return (use_quant and not has_cat
+            and cuda_histogram.supported(num_bins, quant_bins))
+
+
+class Tree(NamedTuple):
+    """One grown tree (BFS perfect layout) plus each row's leaf."""
+    left_child: torch.Tensor       # (I,) int32
+    right_child: torch.Tensor
+    split_feature: torch.Tensor    # (I,) int32, -1 = no split
+    threshold: torch.Tensor        # (I,) float32
+    threshold_bin: torch.Tensor    # (I,) int32
+    split_gain: torch.Tensor       # (I,) float32
+    internal_value: torch.Tensor   # (I,) float32
+    internal_count: torch.Tensor   # (I,) float32
+    leaf_value: torch.Tensor       # (L,) float32
+    leaf_count: torch.Tensor       # (L,) float32
+    leaf_of_row: torch.Tensor      # (n,) int64
+
+
+def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
+                     params: GBDTParams):
+    """Level-wise grower.  Returns ``grow(binned, grad, hess, hist_mask,
+    feat_mask, edges, *, generator=None, noise=None) -> Tree``.
+
+    ``binned`` is ``(n, F)`` uint8 (the trainer passes the transposed view
+    of a feature-major matrix); ``noise`` (``(2, n)`` uniforms) or
+    ``generator`` feeds the quantizer's stochastic rounding.  Levels whose
+    frontier has at most ``cuda_histogram.FUSED_MAX_NODES`` parents take
+    the fused frontier step (read per call, so a test can lower it); deeper
+    levels build the smaller child's histogram and scan gains in torch."""
+    use_quant = bool(params.use_quantized_grad)
+    quant_bins = params.num_grad_quant_bins
+    D, F, B = max_depth, num_features, num_bins
+    I, L = 2 ** D - 1, 2 ** D
+    has_cat = bool(params.categorical_features)
+    use_fused = _use_fused_frontier(use_quant, has_cat, B, quant_bins)
+    l1, l2 = params.lambda_l1, params.lambda_l2
+    min_data = float(params.min_data_in_leaf)
+    min_hess = params.min_sum_hessian_in_leaf
+    min_gain = params.min_gain_to_split
+    max_delta = params.max_delta_step
+    lc_np, rc_np = perfect_tree_children(D)
+
+    def thresh(G):
+        return torch.sign(G) * torch.clamp(G.abs() - l1, min=0.0)
+
+    def leaf_score(G, H):
+        return thresh(G) ** 2 / (H + l2)
+
+    def leaf_output(G, H):
+        v = -thresh(G) / (H + l2)
+        if max_delta > 0:
+            v = torch.clamp(v, -max_delta, max_delta)
+        return v
+
+    def split_gains(hist_d, feat_mask, edge_ok):
+        """(nodes, F, B, 3) float histograms -> (gain, left-stat pick, node
+        totals): numerical split at bin t takes bins <= t left."""
+        cum = torch.cumsum(hist_d, dim=2)
+        tot = cum[:, :1, -1, :]                    # (nodes, 1, 3)
+        GL, HL, CL = cum[..., 0], cum[..., 1], cum[..., 2]
+        Gp, Hp, Cp = tot[..., 0], tot[..., 1], tot[..., 2]
+        GR, HR, CR = (Gp[:, :, None] - GL, Hp[:, :, None] - HL,
+                      Cp[:, :, None] - CL)
+        gain = (leaf_score(GL, HL) + leaf_score(GR, HR)
+                - leaf_score(Gp, Hp)[:, :, None])
+        valid = ((CL >= min_data) & (CR >= min_data)
+                 & (HL >= min_hess) & (HR >= min_hess)
+                 & feat_mask[None, :, None] & edge_ok[None])
+        gain = torch.where(valid, gain, torch.full_like(gain, -math.inf))
+        return gain, cum, (Gp[:, 0], Hp[:, 0], Cp[:, 0])
+
+    def grow(binned, grad, hess, hist_mask, feat_mask, edges, *,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None) -> Tree:
+        dev = binned.device
+        n = binned.shape[0]
+        rows = torch.arange(n, device=dev)
+        if use_quant:
+            # quantize once per tree: every level's histogram is an exact
+            # integer function of the same per-row ints, so the sibling
+            # subtraction never leaves integer space
+            qg, qh, g_scale, h_scale = hist_ops.quantize_gradients(
+                grad, hess, quant_bins, generator=generator, noise=noise)
+
+        def hist(node_a, num_nodes, max_rows=None):
+            if use_quant:
+                return hist_ops.build_quantized(
+                    binned, qg, qh, node_a, num_nodes, B,
+                    quant_bins=quant_bins, max_rows=max_rows,
+                    node_rows_bound=max_rows)
+            return hist_ops.build_histograms(binned, grad, hess, node_a,
+                                             num_nodes, B)
+
+        def dehist(h_):
+            if not use_quant:
+                return h_
+            return hist_ops.dequantize_histogram(h_, g_scale, h_scale)
+
+        node = torch.zeros((n,), dtype=torch.int64, device=dev)
+        split_feature = torch.full((I,), -1, dtype=torch.int32, device=dev)
+        threshold_bin = torch.zeros((I,), dtype=torch.int32, device=dev)
+        threshold = torch.zeros((I,), dtype=torch.float32, device=dev)
+        split_gain = torch.zeros((I,), dtype=torch.float32, device=dev)
+        internal_value = torch.zeros((I,), dtype=torch.float32, device=dev)
+        internal_count = torch.zeros((I,), dtype=torch.float32, device=dev)
+        edge_ok2 = torch.cat([torch.isfinite(edges),
+                              torch.zeros((F, 1), dtype=torch.bool,
+                                          device=dev)], dim=1)
+        prev_hist = small_left = best_stats = None
+        for d in range(D):
+            nodes_d = 2 ** d
+            off = nodes_d - 1                       # BFS offset of the level
+            if d > 0:
+                # LightGBM's smaller-child rule: rebuild only each parent's
+                # smaller child, sibling = parent - small
+                is_left = node % 2 == 0
+                in_small = is_left == small_left[node // 2]
+                small_node = torch.where(hist_mask & in_small, node // 2, -1)
+            if use_fused and max(1, nodes_d // 2) <= \
+                    cuda_histogram.FUSED_MAX_NODES:
+                if d == 0:
+                    hist_d, fused_best = cuda_histogram.fused_frontier(
+                        binned, qg, qh, torch.where(hist_mask, node, -1), 1,
+                        B, g_scale, h_scale, feat_mask, edge_ok2,
+                        quant_bins=quant_bins, l1=l1, l2=l2,
+                        min_data=min_data, min_hess=min_hess)
+                else:
+                    hist_d, fused_best = cuda_histogram.fused_frontier(
+                        binned, qg, qh, small_node, nodes_d // 2, B,
+                        g_scale, h_scale, feat_mask, edge_ok2,
+                        quant_bins=quant_bins, l1=l1, l2=l2,
+                        min_data=min_data, min_hess=min_hess,
+                        parent_hist=prev_hist, small_left=small_left,
+                        node_rows_bound=n // 2 + nodes_d)
+                best_gain, bf, bb, bsel, tot3f = fused_best
+                bf, bb = bf.to(torch.int64), bb.to(torch.int64)
+                Gp0, Hp0, Cp0 = tot3f[:, 0], tot3f[:, 1], tot3f[:, 2]
+            else:
+                if d == 0:
+                    hist_d = hist(torch.where(hist_mask, node, -1), 1)
+                else:
+                    # at most floor(n/2) rows are in smaller children
+                    hist_small = hist(small_node, nodes_d // 2,
+                                      max_rows=n // 2 + nodes_d)
+                    hist_sib = prev_hist - hist_small
+                    sl4 = small_left[:, None, None, None]
+                    hist_d = torch.stack(
+                        [torch.where(sl4, hist_small, hist_sib),
+                         torch.where(sl4, hist_sib, hist_small)],
+                        dim=1).reshape(nodes_d, F, B, 3)
+                gain, pick, (Gp0, Hp0, Cp0) = split_gains(
+                    dehist(hist_d), feat_mask, edge_ok2)
+                flat = gain.reshape(nodes_d, F * B)
+                best = torch.argmax(flat, dim=1)
+                best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
+                bf, bb = best // B, best % B
+                bsel = pick[torch.arange(nodes_d, device=dev), bf, bb, :]
+            prev_hist = hist_d
+            do_split = best_gain > min_gain
+
+            idx = off + torch.arange(nodes_d, device=dev)
+            split_feature[idx] = torch.where(do_split, bf, -1) \
+                .to(torch.int32)
+            threshold_bin[idx] = bb.to(torch.int32)
+            threshold[idx] = edges[bf, torch.clamp(bb, 0, B - 2)]
+            split_gain[idx] = torch.where(do_split, best_gain,
+                                          torch.zeros_like(best_gain))
+            internal_value[idx] = leaf_output(Gp0, Hp0)
+            internal_count[idx] = Cp0
+
+            # left/right child stats at the chosen split -> the last level's
+            # leaf values come straight from here (no extra leaf pass)
+            tot3 = torch.stack([Gp0, Hp0, Cp0], dim=-1)
+            left_stats = torch.where(do_split[:, None], bsel, tot3)
+            right_stats = tot3 - left_stats
+            best_stats = (left_stats, right_stats)
+            # the next level rebuilds only each parent's smaller child
+            small_left = left_stats[:, 2] <= right_stats[:, 2]
+
+            # route every row (masked rows too: they need leaf ids)
+            row_bin = binned[rows, bf[node]].to(torch.int64)
+            go_right = do_split[node] & (row_bin > bb[node])
+            node = 2 * node + go_right.to(torch.int64)
+
+        left_stats, right_stats = best_stats
+        lv = torch.stack([leaf_output(left_stats[:, 0], left_stats[:, 1]),
+                          leaf_output(right_stats[:, 0], right_stats[:, 1])],
+                         dim=1).reshape(L)
+        lc = torch.stack([left_stats[:, 2], right_stats[:, 2]],
+                         dim=1).reshape(L)
+        leaf_value = torch.where(lc > 0, lv, torch.zeros_like(lv))
+        return Tree(torch.from_numpy(lc_np).to(dev),
+                    torch.from_numpy(rc_np).to(dev), split_feature,
+                    threshold, threshold_bin, split_gain, internal_value,
+                    internal_count, leaf_value, lc, node)
+
+    return grow
+
+
+# ---------------------------------------------------------------------------
+# binned tree walk (valid-set scoring and warm-start replay)
+# ---------------------------------------------------------------------------
+
+def make_binned_walker(depth_bound: int):
+    """Binned-space pointer chase over one array-of-nodes tree (leaf slots
+    encoded ``~leaf_id``; leaves self-loop, so ``depth_bound`` rounds
+    resolve every shape).  Returns ``walk(binned, split_feature,
+    threshold_bin, left_child, right_child) -> (n,) leaf ids``."""
+    D = max(1, depth_bound)
+
+    def walk(binned, split_feature, threshold_bin, left_child, right_child):
+        n = binned.shape[0]
+        rows = torch.arange(n, device=binned.device)
+        sf = split_feature.to(torch.int64)
+        tb = threshold_bin.to(torch.int64)
+        lc = left_child.to(torch.int64)
+        rc = right_child.to(torch.int64)
+        node = torch.zeros((n,), dtype=torch.int64, device=binned.device)
+        for _ in range(D):
+            j = node.clamp(min=0)
+            f = sf[j]
+            row_bin = binned[rows, f.clamp(min=0)].to(torch.int64)
+            go_right = (f >= 0) & (row_bin > tb[j])
+            child = torch.where(go_right, rc[j], lc[j])
+            node = torch.where(node >= 0, child, node)
+        return ~node
+
+    return walk
+
+
+# ---------------------------------------------------------------------------
+# metrics (host numpy, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def _metric_binary_logloss(y, raw, w=None):
+    p = 1.0 / (1.0 + np.exp(-raw[:, 0]))
+    p = np.clip(p, 1e-15, 1 - 1e-15)
+    ll = -(y * np.log(p) + (1 - y) * np.log(1 - p))
+    return float(np.average(ll, weights=w))
+
+
+def _metric_auc(y, raw, w=None):
+    s = raw[:, 0]
+    order = np.argsort(s)
+    y_s = y[order]
+    w_s = np.ones_like(y_s, dtype=np.float64) if w is None \
+        else np.asarray(w)[order]
+    pos = (y_s > 0).astype(np.float64) * w_s
+    neg = (1.0 - (y_s > 0)) * w_s
+    cum_neg = np.cumsum(neg)
+    return float(np.sum(pos * (cum_neg - 0.5 * neg)) /
+                 max(1e-12, np.sum(pos) * np.sum(neg)))
+
+
+def _metric_l2(y, raw, w=None):
+    return float(np.average((raw[:, 0] - y) ** 2, weights=w))
+
+
+def _metric_rmse(y, raw, w=None):
+    return math.sqrt(_metric_l2(y, raw, w))
+
+
+def _metric_l1(y, raw, w=None):
+    return float(np.average(np.abs(raw[:, 0] - y), weights=w))
+
+
+METRICS = {"binary_logloss": (_metric_binary_logloss, False),
+           "auc": (_metric_auc, True),
+           "l2": (_metric_l2, False), "mse": (_metric_l2, False),
+           "rmse": (_metric_rmse, False), "l1": (_metric_l1, False),
+           "mae": (_metric_l1, False)}
+
+
+def default_metric(objective: str) -> str:
+    return {"binary": "binary_logloss", "regression": "l2"}.get(objective,
+                                                                 "l2")
+
+
+def resolve_metric(metric_name: str, p: GBDTParams):
+    """(metric_fn, larger_better) for a requested or default metric name;
+    unknown names fall back to the objective's default."""
+    if metric_name in METRICS:
+        return METRICS[metric_name]
+    return METRICS.get(default_metric(p.objective), METRICS["l2"])
+
+
+# ---------------------------------------------------------------------------
+# training driver
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TrainResult:
+    booster: GBDTBooster
+    evals: List[Dict[str, float]]
+    bin_mapper: BinMapper
+    # host wall seconds per phase: binning, transfer, boosting
+    extras: Optional[Dict[str, float]] = None
+
+
+_TREE_KEYS = ("left_child", "right_child", "split_feature", "threshold",
+              "threshold_bin", "split_gain", "internal_value",
+              "internal_count", "leaf_value", "leaf_count")
+
+
+def _check_ported(p: GBDTParams, *, group_ptr, shard_rows, checkpoint_dir,
+                  checkpoint_every, monitor_port,
+                  monitor_stall_timeout_s) -> None:
+    if p.growth == "leaf":
+        raise _not_ported("leaf-wise growth (num_leaves)",
+                          "the leaf-wise grower")
+    if p.boosting_type != "gbdt":
+        raise _not_ported(f"boosting_type {p.boosting_type!r}",
+                          "dart/goss/rf/bagging/categorical")
+    if p.bagging_freq > 0 and p.bagging_fraction < 1.0:
+        raise _not_ported("bagging", "dart/goss/rf/bagging/categorical")
+    if p.categorical_features:
+        raise _not_ported("categorical features",
+                          "dart/goss/rf/bagging/categorical")
+    if p.objective == "multiclass" or group_ptr is not None:
+        raise _not_ported("multiclass and ranking",
+                          "multiclass, ranker and the other objectives")
+    if shard_rows or p.voting_k:
+        raise _not_ported("row sharding and voting",
+                          "the sharded GBDT over NCCL")
+    if checkpoint_dir or checkpoint_every:
+        raise _not_ported("checkpoints", "train_streamed, checkpoints and "
+                          "resume")
+    if monitor_port is not None or monitor_stall_timeout_s is not None:
+        raise _not_ported("the training monitor", "compute-plane telemetry")
+
+
+def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
+          sample_weight: Optional[np.ndarray] = None,
+          valid: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+          group_ptr: Optional[np.ndarray] = None,
+          init_booster: Optional[GBDTBooster] = None,
+          feature_names: Optional[List[str]] = None,
+          callbacks: Optional[List[Callable]] = None,
+          shard_rows: bool = False,
+          checkpoint_dir: Optional[str] = None,
+          checkpoint_every: int = 0,
+          monitor_port: Optional[int] = None,
+          monitor_stall_timeout_s: Optional[float] = None,
+          device: DeviceLike = None) -> TrainResult:
+    """Boosting loop (the JAX package's ``train`` for the level-wise,
+    single-shard, gbdt subset).  Runs on the card unless ``device="cpu"``;
+    ``use_quantized_grad=None`` turns quantized histograms on for the card
+    and off on the CPU.  Per iteration the quantizer's noise comes from a
+    ``torch.Generator`` seeded with ``seed * 1000003 + iteration``.  A
+    ``valid`` set is scored after every tree and drives early stopping;
+    ``init_booster`` warm-starts from an existing booster."""
+    dev = resolve_device(device)
+    p = params.resolve()
+    p = dataclasses.replace(
+        p, use_quantized_grad=default_quantized(dev, p.use_quantized_grad))
+    _check_ported(p, group_ptr=group_ptr, shard_rows=shard_rows,
+                  checkpoint_dir=checkpoint_dir,
+                  checkpoint_every=checkpoint_every,
+                  monitor_port=monitor_port,
+                  monitor_stall_timeout_s=monitor_stall_timeout_s)
+    objective = make_objective(p)
+    rng = np.random.default_rng(p.seed)
+    X = np.asarray(X, np.float32)
+    y = np.asarray(y, np.float32)
+    n, F = X.shape
+    K = 1
+    w = np.ones(n, np.float32) if sample_weight is None \
+        else np.asarray(sample_weight, np.float32)
+
+    t0 = time.perf_counter()
+    mapper = BinMapper(p.max_bin).fit(X)
+    binned_np = mapper.transform(X)
+    t_bin = time.perf_counter() - t0
+    B = mapper.num_bins
+
+    t0 = time.perf_counter()
+    # feature-major on the device: a warp of the histogram kernel reads
+    # consecutive rows of one feature; the grower sees the (n, F) view
+    binned = torch.from_numpy(binned_np).to(dev).t().contiguous().t()
+    edges = torch.from_numpy(mapper.edges).to(dev)
+    y_dev = torch.from_numpy(y).to(dev)
+    w_dev = torch.from_numpy(w).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_transfer = time.perf_counter() - t0
+
+    grow = make_tree_grower(p.max_depth, F, B, p)
+    D = p.depth_bound
+    L = p.num_leaves
+
+    # init score (BoostFromAverage analogue)
+    init_score = 0.0
+    if p.objective == "binary":
+        pbar = float(np.clip(np.average(y, weights=w), 1e-6, 1 - 1e-6))
+        init_score = math.log(pbar / (1 - pbar)) / p.sigmoid
+    elif p.objective == "regression":
+        init_score = float(np.average(y, weights=w))
+    scores = torch.full((n, K), init_score, dtype=torch.float32, device=dev)
+
+    trees: Dict[str, List[torch.Tensor]] = {k: [] for k in _TREE_KEYS}
+    tree_weights: List[float] = []
+    walk_bound = max(D, init_booster.max_depth if init_booster is not None
+                     else 0)
+    walker = make_binned_walker(walk_bound)
+    if init_booster is not None:
+        if init_booster.num_leaves != L or init_booster.num_features != F:
+            raise ValueError("init_booster must have the same num_leaves "
+                             f"({L}) and num_features ({F})")
+        for t in range(init_booster.num_trees):
+            for k in _TREE_KEYS:
+                trees[k].append(torch.from_numpy(
+                    np.asarray(getattr(init_booster, k)[t])).to(dev))
+            tree_weights.append(float(init_booster.tree_weight[t]))
+            leaf = walker(binned, *(trees[k][-1] for k in (
+                "split_feature", "threshold_bin", "left_child",
+                "right_child")))
+            scores[:, t % K] += trees["leaf_value"][-1][leaf] \
+                * float(init_booster.tree_weight[t])
+        # continue against the incoming booster's base score
+        scores = scores + (init_booster.init_score - init_score)
+        init_score = init_booster.init_score
+
+    metric_name = p.metric or default_metric(p.objective)
+    metric_fn, larger_better = resolve_metric(metric_name, p)
+    evals: List[Dict[str, float]] = []
+    has_valid = valid is not None
+    if has_valid:
+        Xv = np.asarray(valid[0], np.float32)
+        yv = np.asarray(valid[1], np.float32)
+        binned_v = torch.from_numpy(mapper.transform(Xv)).to(dev)
+        scores_v = torch.full((Xv.shape[0], K), init_score,
+                              dtype=torch.float32, device=dev)
+    best_metric = -np.inf if larger_better else np.inf
+    best_iter = -1
+    rounds_no_improve = 0
+
+    feat_mask_full = torch.ones((F,), dtype=torch.bool, device=dev)
+    hist_mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    gen = torch.Generator(device=dev)
+    start_iter = len(tree_weights) // K
+    t0 = time.perf_counter()
+    for it in range(start_iter, start_iter + p.num_iterations):
+        feat_mask = feat_mask_full
+        if p.feature_fraction < 1.0:
+            keep = max(1, int(round(p.feature_fraction * F)))
+            sel = rng.choice(F, size=keep, replace=False)
+            feat_mask = torch.zeros((F,), dtype=torch.bool, device=dev)
+            feat_mask[torch.from_numpy(sel).to(dev)] = True
+        g, h = objective(scores, y_dev, w_dev)
+        gen.manual_seed(p.seed * 1000003 + it)
+        tree = grow(binned, g[:, 0], h[:, 0], hist_mask, feat_mask, edges,
+                    generator=gen)
+        lv_s = tree.leaf_value * p.learning_rate
+        scores[:, 0] += lv_s[tree.leaf_of_row]
+        for k in _TREE_KEYS:
+            trees[k].append(lv_s if k == "leaf_value"
+                            else getattr(tree, k))
+        tree_weights.append(1.0)
+        if has_valid:
+            leaf_v = walker(binned_v, tree.split_feature,
+                            tree.threshold_bin, tree.left_child,
+                            tree.right_child)
+            scores_v[:, 0] += lv_s[leaf_v]
+            m = metric_fn(yv, scores_v.cpu().numpy().astype(np.float64))
+            evals.append({metric_name: m, "iteration": it})
+            improved = m > best_metric if larger_better else m < best_metric
+            if improved:
+                best_metric, best_iter, rounds_no_improve = m, it, 0
+            else:
+                rounds_no_improve += 1
+            if p.early_stopping_round > 0 and \
+                    rounds_no_improve >= p.early_stopping_round:
+                break
+        if callbacks:
+            for cb in callbacks:
+                cb(it, evals[-1] if evals else None)
+
+    trees_np = {k: np.stack([t.cpu().numpy() for t in v])
+                for k, v in trees.items()}        # one sync, after the loop
+    t_boost = time.perf_counter() - t0
+    if init_booster is not None:
+        D = max(D, init_booster.max_depth)
+    booster = GBDTBooster(
+        trees_np["split_feature"], trees_np["threshold"],
+        trees_np["threshold_bin"], trees_np["split_gain"],
+        trees_np["internal_value"], trees_np["internal_count"],
+        trees_np["leaf_value"], trees_np["leaf_count"],
+        np.asarray(tree_weights, np.float32),
+        left_child=trees_np["left_child"], right_child=trees_np["right_child"],
+        max_depth=D, num_features=F, objective=p.objective, num_class=K,
+        init_score=init_score, feature_names=feature_names,
+        best_iteration=best_iter, sigmoid=p.sigmoid)
+    return TrainResult(booster=booster, evals=evals, bin_mapper=mapper,
+                       extras={"binning_s": t_bin, "transfer_s": t_transfer,
+                               "boosting_s": t_boost})

@@ -1,0 +1,290 @@
+"""LightGBM-compatible estimators over the PyTorch GBDT core (port of
+``mmlspark_tpu/lightgbm/estimators.py``: classifier and regressor).
+
+Same param names and semantics as the JAX package.  ``max_depth`` set
+alone selects level-wise growth, the ported grower; the leaf-wise default
+(``num_leaves`` = 31) raises ``NotImplementedError`` until the leaf-wise
+grower is ported.  ``device`` picks where training and scoring run: the
+card by default, ``"cpu"`` for the plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..core import (ComplexParam, DataFrame, Estimator, HasFeaturesCol,
+                    HasLabelCol, HasPredictionCol, HasProbabilityCol,
+                    HasRawPredictionCol, HasWeightCol, Model, Param)
+from ..core.schema import ColumnType, stack_vector_column
+from ..models.gbdt import GBDTBooster
+from . import core as gbdt_core
+from .core import GBDTParams
+
+
+def _shared_params(cls):
+    """Attach the shared LightGBM param surface (TrainParams.scala names)."""
+    specs = [
+        ("num_iterations", "number of boosting iterations", "int", 100),
+        ("learning_rate", "shrinkage rate", "float", 0.1),
+        ("num_leaves", "max leaves per tree (leaf-wise best-first growth, "
+                       "LightGBM numLeaves semantics)", "int", 31),
+        ("max_depth", "max tree depth; set alone it selects level-wise "
+                      "depth growth, with num_leaves it caps leaf-wise depth",
+         "int", None),
+        ("max_bin", "max histogram bins per feature", "int", 255),
+        ("boosting_type", "gbdt|rf|dart|goss", "string", "gbdt"),
+        ("lambda_l1", "L1 regularization", "float", 0.0),
+        ("lambda_l2", "L2 regularization", "float", 0.0),
+        ("min_data_in_leaf", "min rows per leaf", "int", 20),
+        ("min_sum_hessian_in_leaf", "min hessian per leaf", "float", 1e-3),
+        ("min_gain_to_split", "min split gain", "float", 0.0),
+        ("bagging_fraction", "row subsample fraction", "float", 1.0),
+        ("bagging_freq", "bagging frequency (0=off)", "int", 0),
+        ("feature_fraction", "feature subsample fraction", "float", 1.0),
+        ("max_delta_step", "max leaf output", "float", 0.0),
+        ("early_stopping_round", "stop if no valid improvement", "int", 0),
+        ("metric", "eval metric name ('' = objective default)", "string", ""),
+        ("validation_indicator_col", "bool column marking validation rows",
+         "string", None),
+        ("model_string", "warm-start model string", "string", None),
+        ("growth", "tree growth strategy: leaf (LightGBM best-first) | "
+                   "level (depth-wise) | auto (leaf unless only max_depth "
+                   "is set)", "string", "auto"),
+        ("seed", "random seed", "int", 0),
+        ("categorical_features", "feature indices treated as categorical",
+         "list", None),
+        ("use_quantized_grad", "quantized training (LightGBM 4.x): "
+         "stochastically round per-row grad/hess to integer levels once "
+         "per iteration and build packed integer histograms; unset = auto "
+         "(on for the card, off on the CPU)", "bool", None),
+        ("num_grad_quant_bins", "quantization levels for grad/hess under "
+         "quantized training (4-128)", "int", 16),
+        ("device", "where training and scoring run: unset = the CUDA card "
+         "(an error without one), 'cpu' = the plain PyTorch versions",
+         "string", None),
+    ]
+    for name, doc, dtype, default in specs:
+        setattr(cls, name, Param(name, doc, dtype, default))
+    cls._params = {**{p.name: p for p in cls.params()},
+                   **{s[0]: getattr(cls, s[0]) for s in specs}}
+    return cls
+
+
+class _LightGBMBase(Estimator, HasFeaturesCol, HasLabelCol, HasWeightCol):
+    """Shared train plumbing (reference ``LightGBMBase.train:43``)."""
+
+    _objective: str = "regression"
+
+    def _gbdt_params(self, num_class: int = 1) -> GBDTParams:
+        max_depth = self.get("max_depth")
+        growth = self.get("growth")
+        if growth == "auto" and max_depth and not self.is_set("num_leaves"):
+            # max_depth ALONE selects level-wise growth; an explicitly set
+            # num_leaves keeps leaf-wise growth with max_depth as its cap
+            growth = "level"
+        return GBDTParams(
+            num_iterations=self.get("num_iterations"),
+            learning_rate=self.get("learning_rate"),
+            num_leaves=self.get("num_leaves"),
+            max_depth=max_depth or 0,
+            growth=growth,
+            max_bin=self.get("max_bin"),
+            objective=self._objective,
+            num_class=num_class,
+            boosting_type=self.get("boosting_type"),
+            lambda_l1=self.get("lambda_l1"), lambda_l2=self.get("lambda_l2"),
+            min_data_in_leaf=self.get("min_data_in_leaf"),
+            min_sum_hessian_in_leaf=self.get("min_sum_hessian_in_leaf"),
+            min_gain_to_split=self.get("min_gain_to_split"),
+            bagging_fraction=self.get("bagging_fraction"),
+            bagging_freq=self.get("bagging_freq"),
+            feature_fraction=self.get("feature_fraction"),
+            max_delta_step=self.get("max_delta_step"),
+            early_stopping_round=self.get("early_stopping_round"),
+            metric=self.get("metric"), seed=self.get("seed"),
+            categorical_features=tuple(self.get("categorical_features")
+                                       or ()) or None,
+            use_quantized_grad=self.get("use_quantized_grad"),
+            num_grad_quant_bins=self.get("num_grad_quant_bins"))
+
+    def _collect_xyw(self, df: DataFrame):
+        data = df.collect()
+        X = stack_vector_column(data[self.get("features_col")])
+        y = np.asarray(data[self.get("label_col")], np.float64)
+        w_col = self.get("weight_col")
+        w = np.asarray(data[w_col], np.float64) if w_col else None
+        return X, y, w, data
+
+    def _split_valid(self, X, y, w, data):
+        vcol = self.get("validation_indicator_col")
+        if not vcol:
+            return X, y, w, None
+        mask = np.asarray(data[vcol], bool)
+        keep = ~mask
+        return X[keep], y[keep], (w[keep] if w is not None else None), \
+            (X[mask], y[mask])
+
+    def _train_booster(self, X, y, w, valid, num_class=1):
+        ms = self.get("model_string")
+        init_booster = GBDTBooster.from_string(ms) if ms else None
+        return gbdt_core.train(X, y, self._gbdt_params(num_class),
+                               sample_weight=w, valid=valid,
+                               init_booster=init_booster,
+                               device=self.get("device"))
+
+
+class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol):
+    """Shared predict helpers (reference ``LightGBMModelMethods``)."""
+
+    booster_param = ComplexParam("booster", "fitted GBDTBooster")
+    device = Param("device", "where scoring runs: unset = the CUDA card, "
+                   "'cpu' = the plain PyTorch walk", "string", None)
+
+    @property
+    def booster(self) -> GBDTBooster:
+        return self.get_or_fail("booster")
+
+    def get_model_string(self) -> str:
+        return self.booster.to_string()
+
+    def save_native_model(self, path: str) -> None:
+        """Reference ``saveNativeModel`` (LightGBMBooster.scala:454)."""
+        with open(path, "w") as f:
+            f.write(self.booster.to_string())
+
+    def get_feature_importances(self, importance_type: str = "split"):
+        return self.booster.feature_importance(importance_type)
+
+    def predict_leaf(self, df: DataFrame) -> DataFrame:
+        fc = self.get("features_col")
+
+        def per_part(p):
+            X = stack_vector_column(p[fc])
+            leaves = self.booster.predict_leaf(X, device=self.get("device"))
+            col = np.empty(len(leaves), dtype=object)
+            for i in range(len(leaves)):
+                col[i] = leaves[i].astype(np.float64)
+            return {**p, "leaf_prediction": col}
+        return df.map_partitions(per_part)
+
+
+# ---------------------------------------------------------------------------
+# Classifier
+# ---------------------------------------------------------------------------
+
+@_shared_params
+class LightGBMClassifier(_LightGBMBase, HasPredictionCol, HasProbabilityCol,
+                         HasRawPredictionCol):
+    """Binary GBDT classifier (ref ``LightGBMClassifier.scala``);
+    multiclass waits for a later slice."""
+
+    objective = Param("objective", "binary (auto from labels if unset)",
+                      "string", None)
+    is_unbalance = Param("is_unbalance",
+                         "reweight classes by inverse frequency", "bool",
+                         False)
+
+    def _fit(self, df: DataFrame) -> "LightGBMClassificationModel":
+        X, y, w, data = self._collect_xyw(df)
+        classes = np.unique(y[~np.isnan(y)])
+        num_class = len(classes)
+        obj = self.get("objective") or ("binary" if num_class <= 2
+                                        else "multiclass")
+        self._objective = obj
+        y_idx = np.searchsorted(classes, y).astype(np.float64)
+        if self.get("is_unbalance"):
+            counts = np.bincount(y_idx.astype(int),
+                                 minlength=num_class).astype(np.float64)
+            cw = counts.sum() / np.maximum(counts, 1) / num_class
+            w = (w if w is not None else np.ones_like(y_idx)) \
+                * cw[y_idx.astype(int)]
+        Xt, yt, wt, valid = self._split_valid(X, y_idx, w, data)
+        result = self._train_booster(
+            Xt, yt, wt, valid,
+            num_class=num_class if obj == "multiclass" else 1)
+        model = LightGBMClassificationModel()
+        model.set("booster", result.booster)
+        model.set("classes", classes.tolist())
+        for pcol in ("features_col", "prediction_col", "probability_col",
+                     "raw_prediction_col", "device"):
+            model.set(pcol, self.get(pcol))
+        return model
+
+
+class LightGBMClassificationModel(_LightGBMModelBase, HasProbabilityCol,
+                                  HasRawPredictionCol):
+    classes = Param("classes", "label values in index order", "list")
+
+    def _transform(self, df: DataFrame) -> DataFrame:
+        fc = self.get("features_col")
+        classes = np.asarray(self.get("classes"))
+        booster = self.booster
+        device = self.get("device")
+
+        def per_part(p):
+            X = stack_vector_column(p[fc])
+            raw = booster.raw_scores(X, device=device)
+            if booster.objective == "binary":
+                p1 = 1.0 / (1.0 + np.exp(-booster.sigmoid * raw[:, 0]))
+                prob = np.stack([1 - p1, p1], axis=1)
+            else:
+                z = raw - raw.max(axis=1, keepdims=True)
+                e = np.exp(z)
+                prob = e / e.sum(axis=1, keepdims=True)
+            pred = classes[prob.argmax(axis=1)].astype(np.float64)
+            prob_col = np.empty(len(X), dtype=object)
+            raw_col = np.empty(len(X), dtype=object)
+            for i in range(len(X)):
+                prob_col[i] = prob[i]
+                raw_col[i] = raw[i]
+            return {**p, self.get("prediction_col"): pred,
+                    self.get("probability_col"): prob_col,
+                    self.get("raw_prediction_col"): raw_col}
+
+        return df.map_partitions(per_part)
+
+    def transform_schema(self, schema):
+        schema.require(self.get("features_col"))
+        s = schema.add(self.get("prediction_col"), ColumnType.DOUBLE)
+        s = s.add(self.get("probability_col"), ColumnType.VECTOR)
+        return s.add(self.get("raw_prediction_col"), ColumnType.VECTOR)
+
+
+# ---------------------------------------------------------------------------
+# Regressor
+# ---------------------------------------------------------------------------
+
+@_shared_params
+class LightGBMRegressor(_LightGBMBase, HasPredictionCol):
+    """GBDT regressor (ref ``LightGBMRegressor.scala``), L2 objective; the
+    other regression objectives wait for a later slice."""
+
+    objective = Param("objective", "regression", "string", "regression")
+
+    def _fit(self, df: DataFrame) -> "LightGBMRegressionModel":
+        self._objective = self.get("objective")
+        X, y, w, data = self._collect_xyw(df)
+        Xt, yt, wt, valid = self._split_valid(X, y, w, data)
+        result = self._train_booster(Xt, yt, wt, valid)
+        model = LightGBMRegressionModel()
+        model.set("booster", result.booster)
+        for pcol in ("features_col", "prediction_col", "device"):
+            model.set(pcol, self.get(pcol))
+        return model
+
+
+class LightGBMRegressionModel(_LightGBMModelBase):
+    def _transform(self, df: DataFrame) -> DataFrame:
+        fc = self.get("features_col")
+        booster = self.booster
+        device = self.get("device")
+
+        def per_part(p):
+            X = stack_vector_column(p[fc])
+            return {**p, self.get("prediction_col"):
+                    booster.predict(X, device=device)}
+
+        return df.map_partitions(per_part)
+
+    def transform_schema(self, schema):
+        schema.require(self.get("features_col"))
+        return schema.add(self.get("prediction_col"), ColumnType.DOUBLE)

@@ -1,0 +1,118 @@
+"""The Hopper frontier kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``: without a CUDA device every test skips (the CPU
+tier-1 run reaches the same arithmetic through the plain versions, which
+``test_torch_histogram.py`` holds against the JAX package).  On the card:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda --noconftest
+
+(``--noconftest``: the suite's conftest imports jax, which a GPU host need
+not have.)
+
+Histograms must be bit-identical, and so must the best-split records: the
+kernel's f32 scan adds bins in the plain version's order with no fused
+multiply-adds.
+"""
+import pytest
+import torch
+
+from mmlspark_tpu_torch.ops import cuda_histogram as CH
+from mmlspark_tpu_torch.ops.histogram import quantize_gradients
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(dev, n, F, B, N, seed, feature_major=True, mask=0.2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (F, n) if feature_major else (n, F)
+    binned = torch.randint(0, B, shape, generator=gen, device=dev,
+                           dtype=torch.uint8)
+    binned = binned.t() if feature_major else binned
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev)
+    qg, qh, gs, hs = quantize_gradients(g, h, 16, generator=gen)
+    ids = torch.randint(0, N, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ids[torch.rand(n, generator=gen, device=dev) < mask] = -1
+    return binned, qg, qh, gs, hs, ids, gen
+
+
+@pytest.mark.parametrize("n,F,B,N", [(1, 1, 2, 1), (1000, 3, 17, 5),
+                                     (70001, 9, 255, 40),
+                                     (20000, 33, 256, 64)])
+@pytest.mark.parametrize("feature_major", [True, False])
+def test_build_bit_identical(dev, n, F, B, N, feature_major):
+    binned, qg, qh, _, _, ids, _ = _inputs(dev, n, F, B, N, n + F,
+                                           feature_major)
+    for bound in (n, max(1, n // N // 2), 1):
+        lanes, mode, cb, hb = CH.pack(qg, qh, n, bound, 16)
+        if bound < n:     # hold the bound: keep <= bound rows per node
+            keep = torch.zeros(n, dtype=torch.bool, device=dev)
+            for k in range(N):
+                keep[torch.nonzero(ids == k)[:bound, 0]] = True
+            ids = torch.where(keep, ids, -1)
+        acc = CH.hist_accumulate(binned, lanes, ids, N, B)
+        assert torch.equal(acc, CH.hist_accumulate_plain(binned, lanes, ids,
+                                                         N, B)), mode
+        hist, _ = CH.frontier_finish(acc, mode, cb, hb)
+        assert torch.equal(hist, CH.frontier_finish_plain(acc, mode, cb,
+                                                          hb)[0]), mode
+    torch.cuda.synchronize()
+
+
+def _same_best(a, b):
+    return torch.equal(torch.nan_to_num(a, nan=7.0), torch.nan_to_num(
+        b, nan=7.0)) and torch.equal(a.isnan(), b.isnan())
+
+
+@pytest.mark.parametrize("l1,l2,min_data,min_hess", [
+    (0.0, 0.0, 20.0, 1e-3), (0.3, 2.0, 1.0, 0.5),
+    (0.0, 0.0, 0.0, 0.0)])          # ungated: 0/0 gains are NaN
+@pytest.mark.parametrize("subtract", [False, True])
+def test_frontier_finish_bit_identical(dev, l1, l2, min_data, min_hess,
+                                       subtract):
+    n, F, B, N = 50000, 11, 63, 4
+    binned, qg, qh, gs, hs, ids, gen = _inputs(dev, n, F, B, N, 3)
+    lanes, mode, cb, hb = CH.pack(qg, qh, n, n, 16)
+    fmask = torch.rand(F, generator=gen, device=dev) < 0.8
+    edge = torch.rand((F, B), generator=gen, device=dev) < 0.9
+    parent = small_left = None
+    if subtract:
+        parent = CH.frontier_finish(CH.hist_accumulate(binned, lanes, ids,
+                                                       N, B),
+                                    mode, cb, hb)[0]
+        ids = torch.where(torch.rand(n, generator=gen, device=dev) < 0.4,
+                          ids, -1)
+        small_left = torch.rand(N, generator=gen, device=dev) < 0.5
+    acc = CH.hist_accumulate(binned, lanes, ids, N, B)
+    for depth_ok in (None, torch.tensor(True, device=dev),
+                     torch.tensor(False, device=dev)):
+        gp = CH.GainParams(gs, hs, fmask, edge, depth_ok, l1=l1, l2=l2,
+                           min_data=min_data, min_hess=min_hess)
+        hist, best = CH.frontier_finish(acc, mode, cb, hb, parent,
+                                        small_left, gp)
+        hist_p, best_p = CH.frontier_finish_plain(acc, mode, cb, hb, parent,
+                                                  small_left, gp)
+        assert torch.equal(hist, hist_p)
+        assert _same_best(best, best_p), (best, best_p)
+    torch.cuda.synchronize()
+
+
+def test_launch_counts_and_argument_checks(dev):
+    n, F, B, N = 5000, 4, 31, 2
+    binned, qg, qh, _, _, ids, _ = _inputs(dev, n, F, B, N, 1)
+    CH.reset_launch_counts()
+    CH.build_histograms_cuda(binned, qg, qh, ids, N, B)
+    assert CH.launch_counts() == {"hist_accumulate": 1, "frontier_finish": 1}
+    lanes, *_ = CH.pack(qg, qh, n, n, 16)
+    with pytest.raises(TypeError, match="int32"):
+        CH.hist_accumulate(binned, lanes, ids.to(torch.int64), N, B)
+    with pytest.raises(ValueError, match="must lie on"):
+        CH.hist_accumulate(binned, lanes, ids.cpu(), N, B)
+    assert CH.launch_counts()["hist_accumulate"] == 1
