@@ -8,12 +8,17 @@ Phases; any failure exits nonzero and prints no result line:
 2. build  — compile ``mmlspark_tpu_torch/csrc`` with nvcc (timed).
 3. kernels against their plain PyTorch versions on the card, at the GBDT
    bench shapes (1M rows x 200 features, 255 bins): ``hist_accumulate`` at
-   N = 1, 8, 16 nodes in every lane layout, ``frontier_finish`` in direct,
-   subtract and depth-gated modes.  Histograms must be bit-identical; best
-   splits equal, except where the two best gains are within 1e-6 relative
-   (an f32 near-tie), with left stats within rtol 1e-5.  Then each kernel,
-   its plain version and one library call are timed with CUDA events at the
-   main path's level-4 frontier step (8 parents, smaller children only).
+   N = 1, 8, 16, 64 nodes in every lane layout and at its edges (128-bin
+   gradients at their extremes, every row in one node and one bin, an
+   all-inactive frontier, a ragged row count); ``frontier_finish`` in
+   direct, subtract and depth-gated modes.  Histograms must be
+   bit-identical; best splits equal, except where the two best gains are
+   within 1e-6 relative (an f32 near-tie), with left stats within rtol
+   1e-5.  Then each kernel is timed at the main path's level-4 frontier
+   step (8 parents, smaller children only) and at every level of a depth-5
+   tree: its device time from ``torch.profiler`` (``ms``) beside CUDA
+   events around back-to-back wrapper calls (``wrapper_ms``), with its
+   plain version and one library call timed by CUDA events.
 4. slice  — ``LightGBMClassifier(max_depth=5, num_iterations=8)`` fits on
    1M x 200 binary data (the label of ``bench.py``'s GBDT phase), then
    transforms 100k fresh rows.  The kernels' launch counts are zeroed just
@@ -104,9 +109,40 @@ def best_error(kernel_best, plain_best) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def device_ms(fn, reps: int, names) -> float:
+    """Mean device time per call of ``fn`` spent in the kernels named by
+    ``names``, from ``torch.profiler`` over ``reps`` calls after one
+    warm-up: kernel time only, without the wrapper's host work or the
+    allocations and memsets around the launch."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, calls = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and any(
+                name in evt.key for name in names):
+            total += evt.self_device_time_total
+            calls += evt.count
+    if calls < reps:
+        raise AssertionError(f"the profiler saw {calls} launches of {names} "
+                             f"in {reps} calls")
+    return total / 1e3 / reps
+
+
+KERNEL_NAMES = {"hist_accumulate": ("hist_accumulate_kernel",),
+                "frontier_finish": ("frontier_finish_kernel",
+                                    "frontier_best_kernel")}
+
+
 def kernel_phase(dev):
     from mmlspark_tpu_torch.ops import cuda_histogram as CH
-    from mmlspark_tpu_torch.ops.histogram import quantize_gradients
+    from mmlspark_tpu_torch.ops.histogram import _pack_lanes, \
+        quantize_gradients
 
     n, F, B = N_ROWS, N_FEAT, N_BINS
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -115,40 +151,75 @@ def kernel_phase(dev):
     g = torch.randn(n, generator=gen, device=dev)
     h = torch.rand(n, generator=gen, device=dev) * 0.25 + 1e-3
     qg, qh, gs, hs = quantize_gradients(g, h, QUANT_BINS, generator=gen)
+    qg, qh = CH.to_int8(qg), CH.to_int8(qh)
     errs = {"hist_accumulate": 0.0, "frontier_finish": 0.0}
     checks = []
 
-    def node_ids(N, per_node):
+    def node_ids(N, per_node, rows=n):
         if per_node is None:
-            return torch.randint(0, N, (n,), generator=gen, device=dev,
+            return torch.randint(0, N, (rows,), generator=gen, device=dev,
                                  dtype=torch.int32)
-        ids = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        rows = torch.randperm(n, generator=gen, device=dev)[:per_node * N]
-        ids[rows] = (torch.arange(per_node * N, device=dev) % N) \
+        ids = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+        sel = torch.randperm(rows, generator=gen, device=dev)[:per_node * N]
+        ids[sel] = (torch.arange(per_node * N, device=dev) % N) \
             .to(torch.int32)
         return ids
 
-    # hist_accumulate + decode, every lane layout, N = 1, 8, 16
-    for N in (1, 8, 16):
-        for per_node in (None, 4000, 128):        # wide, 2ch, all3
-            ids = node_ids(N, per_node)
-            lanes, mode, cbits, hbits = CH.pack(qg, qh, n, per_node or n,
-                                                QUANT_BINS)
-            acc = CH.hist_accumulate(binned, lanes, ids, N, B)
-            acc_p = CH.hist_accumulate_plain(binned, lanes, ids, N, B)
-            torch.cuda.synchronize()
-            if not torch.equal(acc, acc_p):
-                raise AssertionError(f"hist_accumulate differs at N={N} "
-                                     f"{mode}")
-            hist, _ = CH.frontier_finish(acc, mode, cbits, hbits)
-            hist_p, _ = CH.frontier_finish_plain(acc, mode, cbits, hbits)
+    def check_accumulate(name, bins, q_g, q_h, ids, N, bound, quant_bins,
+                         decode=False):
+        lay = CH.lane_layout(bins.shape[0], bound, quant_bins)
+        acc = CH.hist_accumulate(bins, q_g, q_h, ids, N, B, lay)
+        acc_p = CH.hist_accumulate_plain(bins, q_g, q_h, ids, N, B, lay)
+        torch.cuda.synchronize()
+        if not torch.equal(acc, acc_p):
+            raise AssertionError(f"hist_accumulate differs: {name} "
+                                 f"{lay.mode}")
+        if decode:
+            hist, _ = CH.frontier_finish(acc, *lay)
+            hist_p, _ = CH.frontier_finish_plain(acc, *lay)
             torch.cuda.synchronize()
             if not torch.equal(hist, hist_p):
-                raise AssertionError(f"decode differs at N={N} {mode}")
-            checks.append({"kernel": "hist_accumulate+decode", "nodes": N,
-                           "layout": mode, "bit_identical": True})
-            log(f"[kernels] hist_accumulate N={N:2d} {mode:4s}: "
-                f"bit-identical")
+                raise AssertionError(f"decode differs: {name} {lay.mode}")
+        checks.append({"kernel": "hist_accumulate" + "+decode" * decode,
+                       "case": name, "nodes": N, "layout": lay.mode,
+                       "bit_identical": True})
+        log(f"[kernels] hist_accumulate {name:22s} N={N:2d} {lay.mode:4s}: "
+            f"bit-identical")
+        return acc
+
+    # hist_accumulate + decode, every lane layout, N = 1, 8, 16, 64
+    for N in (1, 8, 16, 64):
+        for per_node in (None, 4000, 128):        # wide, 2ch, all3
+            check_accumulate("random", binned, qg, qh,
+                             node_ids(N, per_node), N, per_node or n,
+                             QUANT_BINS, decode=True)
+    # the edges: 128-bin gradients at their extremes, every row on one
+    # address, no active row, and a ragged row count
+    qg128 = torch.randint(-64, 65, (n,), generator=gen, device=dev) \
+        .to(torch.int8)
+    qh128 = torch.randint(0, 128, (n,), generator=gen, device=dev) \
+        .to(torch.int8)
+    qg128[: n // 3], qh128[: n // 3] = -64, 127
+    qg128[n // 3: n // 2], qh128[n // 3: n // 2] = 64, 127
+    for per_node in (None, 4000, 60):
+        check_accumulate("quant_bins=128 extremes", binned, qg128, qh128,
+                         node_ids(8, per_node), 8, per_node or n, 128)
+    one_bin = torch.full((F, n), 7, dtype=torch.uint8, device=dev).t()
+    lo, hi = torch.full_like(qg128, -64), torch.full_like(qh128, 127)
+    check_accumulate("one node, one bin", one_bin, lo, hi,
+                     torch.full((n,), 5, dtype=torch.int32, device=dev), 8,
+                     n, 128)
+    del one_bin
+    acc_none = check_accumulate(
+        "all-inactive frontier", binned, qg, qh,
+        torch.full((n,), -1, dtype=torch.int32, device=dev), 8, n // 2 + 16,
+        QUANT_BINS)
+    if acc_none.any():
+        raise AssertionError("an all-inactive frontier must sum to zero")
+    n_odd = n - 4017                               # no multiple of 4 x 1024
+    check_accumulate("ragged rows", binned.t()[:, :n_odd].contiguous().t(),
+                     qg[:n_odd].contiguous(), qh[:n_odd].contiguous(),
+                     node_ids(8, None, n_odd), 8, n_odd, QUANT_BINS)
 
     # frontier_finish: direct (root), subtract (level 4), depth-gated
     fmask = torch.ones(F, dtype=torch.bool, device=dev)
@@ -158,35 +229,31 @@ def kernel_phase(dev):
     edge_ok[3, 100:] = False
 
     def gains(depth_ok=None):
-        return CH.GainParams(gs, hs, fmask, edge_ok, depth_ok, l1=0.0,
-                             l2=0.0, min_data=20.0, min_hess=1e-3)
+        return CH.gain_params(gs, hs, fmask, edge_ok, depth_ok, l1=0.0,
+                              l2=0.0, min_data=20.0, min_hess=1e-3)
 
     P = 8
     parent_ids = node_ids(P, None)
     small_left = torch.rand(P, generator=gen, device=dev) < 0.5
     in_small = torch.rand(n, generator=gen, device=dev) < 0.5
     small_ids = torch.where(in_small, parent_ids, -1).to(torch.int32)
-    lanes_n, mode_n, cb_n, hb_n = CH.pack(qg, qh, n, n, QUANT_BINS)
+    lay_n = CH.lane_layout(n, n, QUANT_BINS)
     parent = CH.frontier_finish_plain(
-        CH.hist_accumulate_plain(binned, lanes_n, parent_ids, P, B),
-        mode_n, cb_n, hb_n)[0]
-    bound4 = n // 2 + 2 * P
-    lanes4, mode4, cb4, hb4 = CH.pack(qg, qh, n, bound4, QUANT_BINS)
-    acc4 = CH.hist_accumulate(binned, lanes4, small_ids, P, B)
+        CH.hist_accumulate_plain(binned, qg, qh, parent_ids, P, B, lay_n),
+        *lay_n)[0]
+    lay4 = CH.lane_layout(n, n // 2 + 2 * P, QUANT_BINS)
+    acc4 = CH.hist_accumulate(binned, qg, qh, small_ids, P, B, lay4)
     root_ids = torch.zeros(n, dtype=torch.int32, device=dev)
-    acc0 = CH.hist_accumulate(binned, lanes_n, root_ids, 1, B)
+    acc0 = CH.hist_accumulate(binned, qg, qh, root_ids, 1, B, lay_n)
     cases = {
-        "direct": (acc0, mode_n, cb_n, hb_n, None, None, gains()),
-        "subtract": (acc4, mode4, cb4, hb4, parent, small_left, gains()),
-        "depth_ok=True": (acc4, mode4, cb4, hb4, parent, small_left,
-                          gains(torch.tensor(True, device=dev))),
-        "depth_ok=False": (acc0, mode_n, cb_n, hb_n, None, None,
-                           gains(torch.tensor(False, device=dev))),
+        "direct": (acc0, lay_n, None, None, gains()),
+        "subtract": (acc4, lay4, parent, small_left, gains()),
+        "depth_ok=True": (acc4, lay4, parent, small_left, gains(True)),
+        "depth_ok=False": (acc0, lay_n, None, None, gains(False)),
     }
-    for name, (acc, mode, cb, hb, par, sl, gp) in cases.items():
-        hist, best = CH.frontier_finish(acc, mode, cb, hb, par, sl, gp)
-        hist_p, best_p = CH.frontier_finish_plain(acc, mode, cb, hb, par, sl,
-                                                  gp)
+    for name, (acc, lay, par, sl, gp) in cases.items():
+        hist, best = CH.frontier_finish(acc, *lay, par, sl, gp)
+        hist_p, best_p = CH.frontier_finish_plain(acc, *lay, par, sl, gp)
         torch.cuda.synchronize()
         if not torch.equal(hist, hist_p):
             raise AssertionError(f"frontier_finish {name}: histograms differ")
@@ -202,31 +269,43 @@ def kernel_phase(dev):
             f"best max|diff| {err:.3g}, "
             f"bit-identical={torch.equal(best, best_p)}")
 
-    # timing at the level-4 frontier step of a depth-5 tree
-    C = lanes4.shape[0]
+    # timing at the level-4 frontier step of a depth-5 tree: device time
+    # from the profiler, the wrapper's pace from CUDA events
+    C = acc4.shape[0]
     active = int((small_ids >= 0).sum())
-    t_acc = time_ms(lambda: CH.hist_accumulate(binned, lanes4, small_ids,
-                                               P, B), 20)
+
+    def acc_call():
+        return CH.hist_accumulate(binned, qg, qh, small_ids, P, B, lay4)
+
+    t_acc = device_ms(acc_call, 20, KERNEL_NAMES["hist_accumulate"])
+    w_acc = time_ms(acc_call, 20)
     t_acc_plain = time_ms(lambda: CH.hist_accumulate_plain(
-        binned, lanes4, small_ids, P, B), 3)
+        binned, qg, qh, small_ids, P, B, lay4), 3)
     S = P * F * B
     seg = (small_ids.to(torch.int64)[:, None] * F
            + torch.arange(F, device=dev)[None, :]) * B \
         + binned.to(torch.int64)
     seg = torch.where(small_ids[:, None] >= 0, seg, S).reshape(-1)
+    lanes4 = torch.stack(_pack_lanes(qg, qh, *lay4))
     src = lanes4.t()[:, None, :].expand(n, F, C).reshape(n * F, C) \
         .contiguous()
     dst = torch.zeros((S + 1, C), dtype=torch.int32, device=dev)
     t_acc_lib = time_ms(lambda: dst.index_add_(0, seg, src), 5)
-    del seg, src, dst
-    acc_bytes = n * 4 + active * (F + 4 * C) + C * P * F * B * 4
+    del seg, src, dst, lanes4
+    # node ids of every row; bins and int8 gradients of the active rows;
+    # the int32 output
+    acc_bytes = n * 4 + active * (F + 2) + C * P * F * B * 4
     acc_bound, acc_by = bound_ms(acc_bytes, active * F * C)
 
     gp = gains()
-    t_fin = time_ms(lambda: CH.frontier_finish(acc4, mode4, cb4, hb4,
-                                               parent, small_left, gp), 50)
+
+    def fin_call():
+        return CH.frontier_finish(acc4, *lay4, parent, small_left, gp)
+
+    t_fin = device_ms(fin_call, 50, KERNEL_NAMES["frontier_finish"])
+    w_fin = time_ms(fin_call, 50)
     t_fin_plain = time_ms(lambda: CH.frontier_finish_plain(
-        acc4, mode4, cb4, hb4, parent, small_left, gp), 3)
+        acc4, *lay4, parent, small_left, gp), 3)
     n_out = 2 * P
     fin_bytes = (C * P * F * B * 4 + P * F * B * 12 + n_out * F * B * 12
                  + F + F * B + P + 8 + n_out * 36)
@@ -243,32 +322,45 @@ def kernel_phase(dev):
             ids = torch.where(in_small, node_ids(Pd, None), -1) \
                 .to(torch.int32)
             bound = n // 2 + 2 ** d
-        lanes_d, mode_d, cb_d, hb_d = CH.pack(qg, qh, n, bound, QUANT_BINS)
-        acc_d = CH.hist_accumulate(binned, lanes_d, ids, Pd, B)
+        lay_d = CH.lane_layout(n, bound, QUANT_BINS)
+        acc_d = CH.hist_accumulate(binned, qg, qh, ids, Pd, B, lay_d)
         par_d = None if d == 0 else torch.zeros((Pd, F, B, 3),
                                                 dtype=torch.int32, device=dev)
-        sl_d = None if d == 0 else small_left[:Pd]
-        ta = time_ms(lambda: CH.hist_accumulate(binned, lanes_d, ids, Pd, B),
-                     10)
-        tf = time_ms(lambda: CH.frontier_finish(acc_d, mode_d, cb_d, hb_d,
-                                                par_d, sl_d, gp), 20)
-        levels.append({"level": d, "parents": Pd, "layout": mode_d,
-                       "hist_accumulate_ms": ta, "frontier_finish_ms": tf})
-        log(f"[kernels] level {d}: {Pd} parent(s), {mode_d}: "
-            f"hist_accumulate {ta:.4f} ms, frontier_finish {tf:.4f} ms")
+        sl_d = None if d == 0 else small_left[:Pd].contiguous()
+
+        def acc_d_call():
+            return CH.hist_accumulate(binned, qg, qh, ids, Pd, B, lay_d)
+
+        def fin_d_call():
+            return CH.frontier_finish(acc_d, *lay_d, par_d, sl_d, gp)
+
+        rec = {"level": d, "parents": Pd, "layout": lay_d.mode,
+               "active_rows": int((ids >= 0).sum()),
+               "hist_accumulate_ms": device_ms(
+                   acc_d_call, 10, KERNEL_NAMES["hist_accumulate"]),
+               "hist_accumulate_wrapper_ms": time_ms(acc_d_call, 10),
+               "frontier_finish_ms": device_ms(
+                   fin_d_call, 20, KERNEL_NAMES["frontier_finish"]),
+               "frontier_finish_wrapper_ms": time_ms(fin_d_call, 20)}
+        levels.append(rec)
+        log(f"[kernels] level {d}: {Pd} parent(s), {lay_d.mode}: "
+            f"hist_accumulate {rec['hist_accumulate_ms']:.4f} ms device "
+            f"({rec['hist_accumulate_wrapper_ms']:.4f} wrapper), "
+            f"frontier_finish {rec['frontier_finish_ms']:.4f} ms device "
+            f"({rec['frontier_finish_wrapper_ms']:.4f} wrapper)")
     torch.cuda.synchronize()
     DETAIL["checks"] = checks
     DETAIL["levels"] = levels
     DETAIL["level4_active_rows"] = active
     return {
         "hist_accumulate": dict(max_abs_err=errs["hist_accumulate"],
-                                ms=t_acc, plain_ms=t_acc_plain,
-                                bound_ms=acc_bound, bound_by=acc_by,
-                                library_ms=t_acc_lib),
+                                ms=t_acc, wrapper_ms=w_acc,
+                                plain_ms=t_acc_plain, bound_ms=acc_bound,
+                                bound_by=acc_by, library_ms=t_acc_lib),
         "frontier_finish": dict(max_abs_err=errs["frontier_finish"],
-                                ms=t_fin, plain_ms=t_fin_plain,
-                                bound_ms=fin_bound, bound_by=fin_by,
-                                library_ms=None),
+                                ms=t_fin, wrapper_ms=w_fin,
+                                plain_ms=t_fin_plain, bound_ms=fin_bound,
+                                bound_by=fin_by, library_ms=None),
     }
 
 
@@ -426,7 +518,8 @@ def main() -> int:
     log(f"[build] {path} built and loaded in {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(os.path.dirname(path), "nvcc.log")) as f:
         for line in f:
-            if "registers" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "Compiling entry",
+                                       "spill")):
                 log("[build] " + line.strip())
 
     t0 = time.perf_counter()

@@ -3,18 +3,31 @@
 // _frontier's pl.pallas_call), written as two CUDA kernels.
 //
 // hist_accumulate (replaces _make_kernel:199-238, the accumulation half)
-//   For every row with node >= 0, add its packed int32 lanes (C = 1..3,
-//   ops.histogram._pack_lanes) into the (node, feature, bin) cell.  Grid:
-//   (feature group, node group, row chunk).  Each block keeps a private
-//   C x Ng x Fg x B int32 accumulator in shared memory, adds with shared
-//   atomics, then merges non-zero cells into the zeroed (C, N, F, B) output
-//   with global atomics.  Integer addition is associative (mod 2^32), so the
-//   sums are bit-identical in any order.  Node groups span the grid, so any
-//   frontier width is covered.  Bound: bytes — every row's bins are read once
-//   per frontier step (n * F bytes, 200 MB at 1M x 200).  The binned matrix
-//   is read feature-major (s_row = 1), so a warp reads 32 consecutive rows of
-//   one feature; feature groups are the fastest grid axis, so blocks that
-//   share a row chunk run together and re-read lanes and node ids from L2.
+//   The packed int32 lanes (C = 1..3, ops.histogram._pack_lanes) of every row
+//   with node >= 0, summed per (node, feature, bin) into the zeroed
+//   (C, N, F, B) output.  What bounds it: the bytes it must read (node ids,
+//   then the active rows' bins and int8 gradients) against the issue rate of
+//   shared-memory atomics, one per (active row, feature, field).  On sm_90 a
+//   64-bit shared atomicAdd is a CAS loop (ATOMS.CAST.SPIN.64), so the block
+//   keeps three int32 planes (Σqg, Σqh, count) and adds each with one native
+//   ATOMS.ADD.  The design, part by part:
+//   - a persistent grid of one 1024-thread block per SM, each with the SM's
+//     shared memory, takes an even share of the (node group, feature group,
+//     row) work, so no SM idles in a tail wave and a feature group is as wide
+//     as the accumulator allows (fewer re-reads of node ids);
+//   - each warp loads node ids and gradients of four 32-row chunks at once,
+//     queues the rows of its node group by ballot and prefix count, and runs
+//     the feature loop only on batches of 32 queued rows: every lane is live
+//     at levels where most rows belong to no node of the step;
+//   - the feature loop issues eight bin loads before their atomics;
+//   - at the end of each segment (a block's rows of one group) the block adds
+//     its non-zero cells to the output with global atomics, re-encoded in the
+//     output lane layout: the lanes are linear in (qg, qh, 1), so wrapping
+//     int32 sums of the re-encoded block sums equal the plain sums of packed
+//     lanes mod 2^32, bit for bit, for any int8 gradients.
+//   The binned matrix is read feature-major (s_row = 1): a 32-row batch of
+//   one feature spans a sector or two.  An input whose rows all fall in one
+//   bin serialises every atomic on one address (PERF.md has its cost).
 //
 // frontier_finish (replaces the _finish epilogue, :240-300, and the cross
 //   feature-block reduction in _frontier, :424-429)
@@ -37,54 +50,156 @@
 
 namespace {
 
-constexpr int kAccThreads = 512;
+constexpr int kAccThreads = 1024;
+constexpr int kAccWarps = kAccThreads / 32;
+constexpr int kQueue = 64;     // per-warp queue of active rows (two batches)
+constexpr int kRowChunks = 4;  // 32-row chunks whose loads a warp overlaps
+constexpr int kFeatBatch = 8;  // bin loads in flight before their atomics
 constexpr int kFinishWarps = 4;
 constexpr int kMaxBins = 256;
 constexpr int kRecord = 8;  // per (node, feature): gain bin GL HL CL G H C
 
-__global__ void hist_accumulate_kernel(
-    const uint8_t* __restrict__ binned, long long s_row, long long s_feat,
-    const int32_t* __restrict__ lanes, const int32_t* __restrict__ node_ids,
-    int32_t* __restrict__ acc, int n, int F, int B, int N, int C, int Fg,
-    int Ng, int row_chunk) {
-  extern __shared__ int32_t sh[];  // (C, Ng, Fg, B)
-  const int f0 = blockIdx.x * Fg;
-  const int g0 = blockIdx.y * Ng;
-  const int fcount = min(Fg, F - f0);
-  const int gcount = min(Ng, N - g0);
-  const int plane = Ng * Fg * B;
-  const int cells = C * plane;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) sh[i] = 0;
-  __syncthreads();
+struct AccArgs {
+  const uint8_t* binned;
+  long long s_row, s_feat;
+  const int8_t* qg;
+  const int8_t* qh;
+  const int32_t* node_ids;
+  int32_t* out;  // (C, N, F, B), zeroed
+  int n, F, B, N;
+  int G, NG, Fg, Ng;       // feature / node groups and their widths
+  int mode, cbits, hbits;  // the output lane layout
+};
 
-  const long long r_begin = (long long)blockIdx.z * row_chunk;
-  const long long r_end = min((long long)n, r_begin + row_chunk);
-  for (long long r = r_begin + threadIdx.x; r < r_end; r += blockDim.x) {
-    const int g = node_ids[r] - g0;  // rows with node < 0 land below 0
-    if (g < 0 || g >= gcount) continue;
-    int32_t v[3];
-    for (int c = 0; c < C; ++c) v[c] = lanes[(long long)c * n + r];
-    const uint8_t* row = binned + r * s_row + (long long)f0 * s_feat;
-    int32_t* cell_g = sh + g * Fg * B;
-    for (int f = 0; f < fcount; ++f) {
-      const int b = row[(long long)f * s_feat];
-      if (b >= B) continue;  // out-of-contract bin: never write past a row
-      int32_t* cell = cell_g + f * B + b;
-      for (int c = 0; c < C; ++c) atomicAdd(cell + c * plane, v[c]);
+// One queued row into the block's three planes: per feature of the group,
+// one native shared atomic per field.  meta = node << 16 | qg << 8 | qh.
+__device__ __forceinline__ void add_row(const AccArgs& a, int32_t* acc,
+                                        int plane, int row, uint32_t meta,
+                                        int f0, int fcount) {
+  const int qg = (int8_t)(meta >> 8);
+  const int qh = (int8_t)meta;
+  const uint8_t* p = a.binned + (long long)row * a.s_row +
+                     (long long)f0 * a.s_feat;
+  int32_t* cell = acc + (int)(meta >> 16) * a.Fg * a.B;
+  for (int f = 0; f < fcount; f += kFeatBatch) {
+    uint32_t b[kFeatBatch];
+#pragma unroll
+    for (int u = 0; u < kFeatBatch; ++u)  // 256: past the group's features
+      b[u] = f + u < fcount ? __ldg(p + (long long)(f + u) * a.s_feat) : 256;
+#pragma unroll
+    for (int u = 0; u < kFeatBatch; ++u) {
+      if (b[u] >= (uint32_t)a.B) continue;  // or a bin out of contract
+      int32_t* c = cell + (f + u) * a.B + b[u];
+      atomicAdd(c, qg);
+      atomicAdd(c + plane, qh);
+      atomicAdd(c + 2 * plane, 1);
     }
   }
-  __syncthreads();
+}
 
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int32_t val = sh[i];
-    if (val == 0) continue;
-    const int b = i % B;
-    int t = i / B;
-    const int f = t % Fg;
-    t /= Fg;
-    const int g = t % Ng;
-    const int c = t / Ng;
-    atomicAdd(acc + (((long long)c * N + g0 + g) * F + f0 + f) * B + b, val);
+__global__ void __launch_bounds__(kAccThreads, 1)
+    hist_accumulate_kernel(const AccArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int32_t* q_row = reinterpret_cast<int32_t*>(smem);  // [warps][kQueue]
+  uint32_t* q_meta = reinterpret_cast<uint32_t*>(q_row + kAccWarps * kQueue);
+  int32_t* acc = reinterpret_cast<int32_t*>(q_meta + kAccWarps * kQueue);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int32_t* my_row = q_row + warp * kQueue;
+  uint32_t* my_meta = q_meta + warp * kQueue;
+  const unsigned lt = (1u << lane) - 1u;
+  const int plane = a.Ng * a.Fg * a.B;  // (Ng, Fg, B) int32: Σqg, Σqh, count
+  for (int i = threadIdx.x; i < 3 * plane; i += kAccThreads) acc[i] = 0;
+
+  // this block's share of the (node group, feature group, row) work units
+  const long long n = a.n;
+  const long long units = (long long)a.G * a.NG * n;
+  long long u = units * blockIdx.x / gridDim.x;
+  const long long u_end = units * (blockIdx.x + 1) / gridDim.x;
+  const long long out_plane = (long long)a.N * a.F * a.B;
+  while (u < u_end) {  // one segment: this block's rows of one group
+    const long long gi = u / n;
+    const int r0 = (int)(u - gi * n);
+    const int r1 = (int)min(n, r0 + (u_end - u));
+    const int fgi = (int)(gi % a.G), ngi = (int)(gi / a.G);
+    const int f0 = (int)((long long)fgi * a.F / a.G);
+    const int fcount = (int)((long long)(fgi + 1) * a.F / a.G) - f0;
+    const int g0 = ngi * a.Ng;
+    const int gcount = min(a.Ng, a.N - g0);
+    __syncthreads();  // the zeroed accumulator is visible to every warp
+
+    int queued = 0;
+    auto push = [&](bool live, int r, uint32_t meta) {
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        const int pos = queued + __popc(m & lt);
+        my_row[pos] = r;
+        my_meta[pos] = meta;
+      }
+      queued += __popc(m);
+      if (queued >= 32) {  // a full batch: 32 live rows through the features
+        __syncwarp();
+        add_row(a, acc, plane, my_row[lane], my_meta[lane], f0, fcount);
+        __syncwarp();
+        if (lane < queued - 32) {
+          my_row[lane] = my_row[lane + 32];
+          my_meta[lane] = my_meta[lane + 32];
+        }
+        __syncwarp();
+        queued -= 32;
+      }
+    };
+    for (int base = r0 + warp * 32; base < r1;
+         base += kRowChunks * kAccThreads) {
+      int id[kRowChunks];
+      uint32_t q[kRowChunks];
+#pragma unroll
+      for (int k = 0; k < kRowChunks; ++k) {
+        const int r = base + k * kAccThreads + lane;
+        id[k] = -1;
+        q[k] = 0;
+        if (r < r1) {
+          id[k] = __ldg(a.node_ids + r);
+          q[k] = ((uint32_t)(uint8_t)__ldg(a.qg + r) << 8) |
+                 (uint32_t)(uint8_t)__ldg(a.qh + r);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kRowChunks; ++k) {
+        const int g = id[k] - g0;  // node < 0 lands below 0
+        push((unsigned)g < (unsigned)gcount, base + k * kAccThreads + lane,
+             ((uint32_t)g << 16) | q[k]);
+      }
+    }
+    __syncwarp();
+    if (lane < queued)
+      add_row(a, acc, plane, my_row[lane], my_meta[lane], f0, fcount);
+    __syncthreads();
+
+    // merge the non-zero cells in the output layout (wrapping uint32 math)
+    // and zero them for the next segment
+    for (int i = threadIdx.x; i < plane; i += kAccThreads) {
+      const uint32_t cnt = acc[i + 2 * plane];
+      if (cnt == 0) continue;
+      const uint32_t sg = acc[i], sh = acc[i + plane];
+      acc[i] = 0;
+      acc[i + plane] = 0;
+      acc[i + 2 * plane] = 0;
+      const int b = i % a.B, t = i / a.B;
+      const int f = t % a.Fg, g = t / a.Fg;
+      int32_t* o = a.out + ((long long)(g0 + g) * a.F + f0 + f) * a.B + b;
+      if (a.mode == 0) {  // all3: ((qg * KH) + qh) * KC + 1
+        atomicAdd(o, (int32_t)((sg << (a.hbits + a.cbits)) +
+                               (sh << a.cbits) + cnt));
+      } else if (a.mode == 1) {  // 2ch: qg | qh * KC + 1
+        atomicAdd(o, (int32_t)sg);
+        atomicAdd(o + out_plane, (int32_t)((sh << a.cbits) + cnt));
+      } else {  // wide: qg | qh | 1
+        atomicAdd(o, (int32_t)sg);
+        atomicAdd(o + out_plane, (int32_t)sh);
+        atomicAdd(o + 2 * out_plane, (int32_t)cnt);
+      }
+    }
+    u += r1 - r0;
   }
 }
 
@@ -298,20 +413,22 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched).
 int hist_accumulate_launch(const void* binned, long long s_row,
-                           long long s_feat, const void* lanes,
-                           const void* node_ids, void* acc, int n, int F,
-                           int B, int N, int C, int Fg, int Ng, int row_chunk,
-                           int chunks, void* stream) {
-  const size_t smem = (size_t)C * Ng * Fg * B * sizeof(int32_t);
+                           long long s_feat, const void* qg, const void* qh,
+                           const void* node_ids, void* out, int n, int F,
+                           int B, int N, int G, int NG, int Fg, int Ng,
+                           int blocks, int mode, int cbits, int hbits,
+                           void* stream) {
+  const AccArgs a{(const uint8_t*)binned, s_row, s_feat, (const int8_t*)qg,
+                  (const int8_t*)qh, (const int32_t*)node_ids, (int32_t*)out,
+                  n, F, B, N, G, NG, Fg, Ng, mode, cbits, hbits};
+  const size_t smem = (size_t)kAccWarps * kQueue * 8 +
+                      (size_t)3 * Ng * Fg * B * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(
       hist_accumulate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((F + Fg - 1) / Fg, (N + Ng - 1) / Ng, chunks);
-  hist_accumulate_kernel<<<grid, kAccThreads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)binned, s_row, s_feat, (const int32_t*)lanes,
-      (const int32_t*)node_ids, (int32_t*)acc, n, F, B, N, C, Fg, Ng,
-      row_chunk);
+  hist_accumulate_kernel<<<blocks, kAccThreads, smem,
+                           (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

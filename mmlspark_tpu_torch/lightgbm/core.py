@@ -3,7 +3,7 @@
 
 One boosting iteration: objective gradients, per-row quantization
 (``ops.histogram.quantize_gradients``), then one tree grown level by level.
-Each level is one fused frontier step (``ops.cuda_histogram.fused_frontier``:
+Each level is one fused frontier step (``ops.cuda_histogram.frontier_step``:
 the smaller child's histogram build, the integer sibling subtraction and the
 split-gain scan, on the two Hopper kernels) while the frontier has at most
 ``FUSED_MAX_NODES`` parents — the JAX package's per-level gate — and a
@@ -269,6 +269,12 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
         edge_ok2 = torch.cat([torch.isfinite(edges),
                               torch.zeros((F, 1), dtype=torch.bool,
                                           device=dev)], dim=1)
+        if use_fused:
+            # the kernels' inputs, converted once per tree
+            qg8, qh8 = cuda_histogram.to_int8(qg), cuda_histogram.to_int8(qh)
+            gains = cuda_histogram.gain_params(
+                g_scale, h_scale, feat_mask, edge_ok2, l1=l1, l2=l2,
+                min_data=min_data, min_hess=min_hess, device=dev)
         prev_hist = small_left = best_stats = None
         for d in range(D):
             nodes_d = 2 ** d
@@ -282,17 +288,14 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
             if use_fused and max(1, nodes_d // 2) <= \
                     cuda_histogram.FUSED_MAX_NODES:
                 if d == 0:
-                    hist_d, fused_best = cuda_histogram.fused_frontier(
-                        binned, qg, qh, torch.where(hist_mask, node, -1), 1,
-                        B, g_scale, h_scale, feat_mask, edge_ok2,
-                        quant_bins=quant_bins, l1=l1, l2=l2,
-                        min_data=min_data, min_hess=min_hess)
+                    hist_d, fused_best = cuda_histogram.frontier_step(
+                        binned, qg8, qh8,
+                        torch.where(hist_mask, node, -1).to(torch.int32), 1,
+                        B, gains, quant_bins=quant_bins)
                 else:
-                    hist_d, fused_best = cuda_histogram.fused_frontier(
-                        binned, qg, qh, small_node, nodes_d // 2, B,
-                        g_scale, h_scale, feat_mask, edge_ok2,
-                        quant_bins=quant_bins, l1=l1, l2=l2,
-                        min_data=min_data, min_hess=min_hess,
+                    hist_d, fused_best = cuda_histogram.frontier_step(
+                        binned, qg8, qh8, small_node.to(torch.int32),
+                        nodes_d // 2, B, gains, quant_bins=quant_bins,
                         parent_hist=prev_hist, small_left=small_left,
                         node_rows_bound=n // 2 + nodes_d)
                 best_gain, bf, bb, bsel, tot3f = fused_best

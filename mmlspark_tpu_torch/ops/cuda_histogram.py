@@ -9,10 +9,23 @@ exist only because Mosaic has no vector scatter.  Hopper has shared-memory
 atomics, so the port is two hand-written CUDA kernels
 (``csrc/frontier.cu``), one per half:
 
-- ``hist_accumulate`` — packed int32 lanes summed per (node, feature, bin):
-  a shared-memory accumulator per block, merged into device memory with
-  atomics.  Integer addition is associative, so the sums are bit-identical
-  in any order.  Bound by bytes: the binned matrix is read once per step.
+- ``hist_accumulate`` — replaces ``_make_kernel``'s accumulation half
+  (``pallas_histogram.py:199-238``): the ``(C, N, F, B)`` int32 packed-lane
+  sums per (node, feature, bin).  Its floor is the bytes it must read (node
+  ids, then the active rows' bins and int8 gradients) against the issue
+  rate of shared-memory atomics, one per (active row, feature, field).  The
+  design answers each part of that: a persistent grid of one block per SM
+  splits the (node group, feature group, row) work evenly, with groups as
+  wide as the SM's shared memory allows (``_accumulate_plan``); each warp
+  queues the rows of its node group by ballot, so every pass of the
+  feature loop runs 32 live rows; rows read 2 bytes of int8 gradients
+  instead of 4·C bytes of packed lanes; the block sums ``(Σqg, Σqh,
+  count)`` in three int32 planes, one native shared atomic each (a 64-bit
+  shared atomic is a compare-and-swap loop on sm_90); and each block adds
+  its non-zero cells to the output once per group, re-encoded in the
+  output lane layout, with global atomics.  The lanes are linear in
+  ``(qg, qh, 1)`` and integer addition is associative, so the sums equal
+  the plain version's mod 2^32 bit for bit, in any order.
 - ``frontier_finish`` — decode, optional sibling subtraction, and (with
   gains) the dequantize -> f32 bin scan -> gain -> gates -> first-max
   argmax, one warp per (node, feature), then a per-node reduction over
@@ -30,6 +43,7 @@ the gains agree to f32 rounding.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -47,43 +61,81 @@ _MODE_CODE = {"all3": 0, "2ch": 1, "wide": 2}
 #: kernels themselves have no node cap.
 FUSED_MAX_NODES = 16
 
-#: dynamic shared memory one ``hist_accumulate`` block may take: two blocks
-#: fit on one SM's 227 KB, so one block's atomics overlap another's merge
-_SMEM_BUDGET = 96 * 1024
+#: ``hist_accumulate`` runs one block of ``_ACC_THREADS`` threads per SM
+#: with the SM's whole opt-in shared memory: a 64-row queue of 8 bytes per
+#: warp, the rest for three int32 planes per (node, feature, bin)
+_ACC_THREADS = 1024
+_SMEM_PER_BLOCK = 227 * 1024
+_QUEUE_BYTES = _ACC_THREADS // 32 * 64 * 8
+_CELL_BYTES = 12
 _RECORD = 8  # floats per (node, feature) in frontier_finish's scratch
 
 
 def supported(num_bins: int, quant_bins: int = 16) -> bool:
     """The kernels take 2 <= num_bins <= 256 (one warp scans a feature's
-    bins from shared memory) and quant_bins <= 128."""
+    bins from shared memory) and quant_bins <= 128 (gradients fit int8)."""
     return 2 <= num_bins <= 256 and 2 <= quant_bins <= 128
 
 
+class LaneLayout(NamedTuple):
+    """The packed int32 lane plan of ``ops.histogram._packed_layout``."""
+    mode: str
+    cbits: int
+    hbits: int
+
+
+def lane_layout(n: int, bound: int, quant_bins: int) -> LaneLayout:
+    """The lane plan for ``n`` rows of which at most ``bound`` reach one
+    node; raises where int32 sums could overflow."""
+    _check_overflow(n, quant_bins)
+    return LaneLayout(*_packed_layout(bound, quant_bins))
+
+
 class GainParams(NamedTuple):
-    """Inputs of the gain scan (``frontier_finish`` with gains on)."""
-    g_scale: torch.Tensor       # 0-d float32
-    h_scale: torch.Tensor       # 0-d float32
-    feat_mask: torch.Tensor     # (F,) bool
-    edge_ok: torch.Tensor       # (F, B) bool
-    depth_ok: Optional[torch.Tensor] = None   # 0-d bool or None
+    """Inputs of the gain scan (``frontier_finish`` with gains on), on the
+    accumulator's device in the kernel's types: ``gain_params`` builds them
+    once per tree."""
+    scales: torch.Tensor        # (2,) float32 [g_scale, h_scale]
+    feat_mask: torch.Tensor     # (F,) bool or uint8
+    edge_ok: torch.Tensor       # (F, B) bool or uint8
+    depth_ok: Optional[torch.Tensor] = None   # (1,) bool or None
     l1: float = 0.0
     l2: float = 0.0
     min_data: float = 0.0
     min_hess: float = 0.0
 
 
+def gain_params(g_scale, h_scale, feat_mask, edge_ok, depth_ok=None, *,
+                l1: float = 0.0, l2: float = 0.0, min_data: float = 0.0,
+                min_hess: float = 0.0, device=None) -> GainParams:
+    """``GainParams`` on ``device`` (default: ``feat_mask``'s)."""
+    dev = torch.as_tensor(feat_mask).device if device is None else device
+
+    def mask(x):
+        return torch.as_tensor(x, device=dev).to(torch.bool).contiguous()
+
+    scales = torch.stack([
+        torch.as_tensor(g_scale, dtype=torch.float32, device=dev).reshape(()),
+        torch.as_tensor(h_scale, dtype=torch.float32, device=dev).reshape(())])
+    return GainParams(scales, mask(feat_mask), mask(edge_ok),
+                      None if depth_ok is None else mask(depth_ok).reshape(1),
+                      float(l1), float(l2), float(min_data), float(min_hess))
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def hist_accumulate_plain(binned: torch.Tensor, lanes: torch.Tensor,
-                          node_ids: torch.Tensor, num_nodes: int,
-                          num_bins: int) -> torch.Tensor:
-    """``(C, n)`` int32 lanes summed per (node, feature, bin) over rows with
-    ``node >= 0`` -> ``(C, N, F, B)`` int32."""
+def hist_accumulate_plain(binned: torch.Tensor, qg: torch.Tensor,
+                          qh: torch.Tensor, node_ids: torch.Tensor,
+                          num_nodes: int, num_bins: int,
+                          layout: LaneLayout) -> torch.Tensor:
+    """The packed int32 lanes of ``(qg, qh)`` summed per (node, feature,
+    bin) over rows with ``node >= 0`` -> ``(C, N, F, B)`` int32."""
     F = binned.shape[1]
-    sums = _scatter_rows(binned, node_ids, list(lanes), num_nodes, num_bins)
-    return torch.stack(sums).reshape(lanes.shape[0], num_nodes, F, num_bins)
+    lanes = _pack_lanes(qg, qh, layout.mode, layout.cbits, layout.hbits)
+    sums = _scatter_rows(binned, node_ids, lanes, num_nodes, num_bins)
+    return torch.stack(sums).reshape(len(lanes), num_nodes, F, num_bins)
 
 
 def _leaf_score(G, H, l1, l2):
@@ -121,7 +173,7 @@ def frontier_finish_plain(acc: torch.Tensor, mode: str, cbits: int,
     if gains is None:
         return hist, None
     n_out, F, B = hist.shape[:3]
-    gsc, hsc = gains.g_scale, gains.h_scale
+    gsc, hsc = gains.scales[0], gains.scales[1]
     # dequantize, then the f32 scan over bins: the growers' op order
     f = hist.to(torch.float32)
     cum = _cumsum_bins(torch.stack([f[..., 0] * gsc, f[..., 1] * hsc,
@@ -141,7 +193,7 @@ def frontier_finish_plain(acc: torch.Tensor, mode: str, cbits: int,
           & gains.feat_mask.to(torch.bool)[None, :, None]
           & gains.edge_ok.to(torch.bool)[None])
     if gains.depth_ok is not None:
-        ok = ok & gains.depth_ok.to(torch.bool)
+        ok = ok & gains.depth_ok.to(torch.bool).reshape(())
     gain = torch.where(ok, gain, torch.full_like(gain, -math.inf))
     flat = gain.reshape(n_out, F * B)
     am = torch.argmax(flat, dim=1)            # first max, as jnp.argmax
@@ -159,13 +211,19 @@ def frontier_finish_plain(acc: torch.Tensor, mode: str, cbits: int,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, dtype, dev) -> None:
+_BYTES = (torch.bool, torch.uint8)     # masks the kernels read as bytes
+
+
+def _check(name: str, t: torch.Tensor, dtype, dev, shape=None) -> None:
     if t.device != dev:
         raise ValueError(f"{name} must lie on {dev}, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
 
 
 def _binned_strides(binned: torch.Tensor):
@@ -180,19 +238,31 @@ def _binned_strides(binned: torch.Tensor):
                      "a contiguous (F, n) matrix")
 
 
-def _accumulate_plan(n: int, F: int, N: int, C: int, B: int, num_sms: int):
-    """(feature group, node group, rows per block, row chunks): a block's
-    shared accumulator ``C x Ng x Fg x B`` int32 stays within the budget,
-    node groups cover every N, and row chunks make about 4 blocks per SM
-    (at least 2048 rows each, so a block's merge stays small beside its
-    row work)."""
-    per_cell = C * B * 4
-    Ng = max(1, min(N, _SMEM_BUDGET // per_cell))
-    Fg = max(1, min(F, _SMEM_BUDGET // (per_cell * Ng)))
-    blocks_xy = -(-F // Fg) * -(-N // Ng)
-    chunks = max(1, min(-(-n // 2048), -(-4 * num_sms // blocks_xy), 65535))
-    row_chunk = max(1, -(-n // chunks))
-    return Fg, Ng, row_chunk, -(-max(n, 1) // row_chunk)
+class AccPlan(NamedTuple):
+    """``hist_accumulate``'s launch plan, in the C launcher's order."""
+    G: int          # feature groups
+    NG: int         # node groups
+    Fg: int         # features per group (at most)
+    Ng: int         # nodes per group (at most)
+    blocks: int     # persistent grid
+
+
+def _accumulate_plan(n: int, F: int, N: int, B: int,
+                     num_sms: int) -> AccPlan:
+    """Groups as wide as one block's accumulator allows (node groups first,
+    then features split evenly), and one block per SM that takes an even
+    share of the (node group, feature group, row) work."""
+    slots = (_SMEM_PER_BLOCK - _QUEUE_BYTES) // (_CELL_BYTES * B)
+    NG = -(-N // min(N, slots))
+    Ng = -(-N // NG)
+    G = -(-F // max(1, min(F, slots // Ng)))
+    Fg = -(-F // G)
+    return AccPlan(G, NG, Fg, Ng, max(1, min(num_sms, G * NG * n)))
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _library():
@@ -206,42 +276,42 @@ def _raise_on(err: int, name: str, lib) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
-def hist_accumulate(binned: torch.Tensor, lanes: torch.Tensor,
-                    node_ids: torch.Tensor, num_nodes: int,
-                    num_bins: int) -> torch.Tensor:
+def hist_accumulate(binned: torch.Tensor, qg: torch.Tensor, qh: torch.Tensor,
+                    node_ids: torch.Tensor, num_nodes: int, num_bins: int,
+                    layout: LaneLayout) -> torch.Tensor:
     """Replaces the accumulation half of ``_make_kernel``
     (``mmlspark_tpu/ops/pallas_histogram.py:199-238``).  Returns
-    ``(C, N, F, B)`` int32 lane sums.  ``binned`` values must be below
-    ``num_bins`` (the BinMapper's contract)."""
+    ``(C, N, F, B)`` int32 lane sums, bit-identical to
+    ``hist_accumulate_plain``.  On the card ``qg``/``qh`` are int8 and
+    ``node_ids`` int32; ``binned`` values must be below ``num_bins`` (the
+    BinMapper's contract)."""
     if binned.device.type == "cpu":
-        return hist_accumulate_plain(binned, lanes, node_ids, num_nodes,
-                                     num_bins)
+        return hist_accumulate_plain(binned, qg, qh, node_ids, num_nodes,
+                                     num_bins, layout)
     if binned.device.type != "cuda":
         raise ValueError(f"no kernel for device {binned.device}")
     dev = binned.device
     n, F = binned.shape
-    C = lanes.shape[0]
     N, B = int(num_nodes), int(num_bins)
     if binned.dtype != torch.uint8:
         raise TypeError(f"binned must be uint8, got {binned.dtype}")
-    if not 2 <= B <= 256 or C not in (1, 2, 3) or N < 1:
-        raise ValueError(f"unsupported shape: bins={B} lanes={C} nodes={N}")
-    _check("lanes", lanes, torch.int32, dev)
-    _check("node_ids", node_ids, torch.int32, dev)
-    if tuple(lanes.shape) != (C, n) or tuple(node_ids.shape) != (n,):
-        raise ValueError(f"lanes {tuple(lanes.shape)} / node_ids "
-                         f"{tuple(node_ids.shape)} do not match {n} rows")
+    if not 2 <= B <= 256 or N < 1:
+        raise ValueError(f"unsupported shape: bins={B} nodes={N}")
+    _check("qg", qg, torch.int8, dev, (n,))
+    _check("qh", qh, torch.int8, dev, (n,))
+    _check("node_ids", node_ids, torch.int32, dev, (n,))
     s_row, s_feat = _binned_strides(binned)
-    acc = torch.zeros((C, N, F, B), dtype=torch.int32, device=dev)
+    acc = torch.zeros((_CHANNELS[layout.mode], N, F, B), dtype=torch.int32,
+                      device=dev)
     if n == 0:
         return acc
-    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    Fg, Ng, row_chunk, chunks = _accumulate_plan(n, F, N, C, B, num_sms)
+    plan = _accumulate_plan(n, F, N, B, _num_sms(dev.index))
     lib = _library()
     err = lib.hist_accumulate_launch(
-        binned.data_ptr(), s_row, s_feat, lanes.data_ptr(),
-        node_ids.data_ptr(), acc.data_ptr(), n, F, B, N, C, Fg, Ng,
-        row_chunk, chunks, torch.cuda.current_stream(dev).cuda_stream)
+        binned.data_ptr(), s_row, s_feat, qg.data_ptr(), qh.data_ptr(),
+        node_ids.data_ptr(), acc.data_ptr(), n, F, B, N, *plan,
+        _MODE_CODE[layout.mode], layout.cbits, layout.hbits,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hist_accumulate", lib)
     hist_accumulate.launches += 1
     return acc
@@ -253,7 +323,9 @@ def frontier_finish(acc: torch.Tensor, mode: str, cbits: int, hbits: int,
     """Replaces the ``_finish`` epilogue of ``_make_kernel`` and the
     cross-feature-block reduction of ``_frontier``
     (``mmlspark_tpu/ops/pallas_histogram.py:240-300, 424-429``).  Same
-    contract as ``frontier_finish_plain``."""
+    contract as ``frontier_finish_plain``.  On the card every input already
+    lies on the accumulator's device in the kernel's types (``gain_params``;
+    bool masks are read as bytes), so a call converts nothing."""
     if acc.device.type == "cpu":
         return frontier_finish_plain(acc, mode, cbits, hbits, parent_hist,
                                      small_left, gains)
@@ -272,35 +344,25 @@ def frontier_finish(acc: torch.Tensor, mode: str, cbits: int, hbits: int,
                          f"nodes, got {n_out}")
     parent_p = sl_p = None
     if subtract:
-        _check("parent_hist", parent_hist, torch.int32, dev)
-        if tuple(parent_hist.shape) != (N, F, B, 3):
-            raise ValueError(f"parent_hist must be {(N, F, B, 3)}, got "
-                             f"{tuple(parent_hist.shape)}")
-        if small_left is None or tuple(small_left.shape) != (N,):
+        _check("parent_hist", parent_hist, torch.int32, dev, (N, F, B, 3))
+        if small_left is None:
             raise ValueError("subtract mode needs small_left of shape (N,)")
-        small_left = small_left.to(device=dev, dtype=torch.uint8) \
-            .contiguous()
+        _check("small_left", small_left, _BYTES, dev, (N,))
         parent_p, sl_p = parent_hist.data_ptr(), small_left.data_ptr()
     hist = torch.empty((n_out, F, B, 3), dtype=torch.int32, device=dev)
     best = None
     scales_p = fmask_p = edge_p = dok_p = rec_p = best_p = None
     l1 = l2 = min_data = min_hess = 0.0
     if gains is not None:
-        scales = torch.stack([
-            torch.as_tensor(gains.g_scale, device=dev).reshape(()),
-            torch.as_tensor(gains.h_scale, device=dev).reshape(())]) \
-            .to(torch.float32)
-        fmask = gains.feat_mask.to(device=dev, dtype=torch.uint8) \
-            .contiguous()
-        edge = gains.edge_ok.to(device=dev, dtype=torch.uint8).contiguous()
-        if tuple(fmask.shape) != (F,) or tuple(edge.shape) != (F, B):
-            raise ValueError("feat_mask must be (F,) and edge_ok (F, B)")
-        scales_p, fmask_p, edge_p = (scales.data_ptr(), fmask.data_ptr(),
-                                     edge.data_ptr())
+        _check("scales", gains.scales, torch.float32, dev, (2,))
+        _check("feat_mask", gains.feat_mask, _BYTES, dev, (F,))
+        _check("edge_ok", gains.edge_ok, _BYTES, dev, (F, B))
+        scales_p, fmask_p, edge_p = (gains.scales.data_ptr(),
+                                     gains.feat_mask.data_ptr(),
+                                     gains.edge_ok.data_ptr())
         if gains.depth_ok is not None:
-            dok = torch.as_tensor(gains.depth_ok, device=dev) \
-                .to(torch.uint8).reshape(1)
-            dok_p = dok.data_ptr()
+            _check("depth_ok", gains.depth_ok, _BYTES, dev, (1,))
+            dok_p = gains.depth_ok.data_ptr()
         record = torch.empty((n_out, F, _RECORD), dtype=torch.float32,
                              device=dev)
         best = torch.empty((n_out, 9), dtype=torch.float32, device=dev)
@@ -337,19 +399,17 @@ def reset_launch_counts() -> None:
 # public entries (the JAX module's names)
 # ---------------------------------------------------------------------------
 
-def pack(qg, qh, n: int, bound: int, quant_bins: int):
-    """(lanes ``(C, n)`` int32, mode, cbits, hbits) for a node-row bound."""
-    _check_overflow(n, quant_bins)
-    mode, cbits, hbits = _packed_layout(bound, quant_bins)
-    lanes = torch.stack(_pack_lanes(qg, qh, mode, cbits, hbits))
-    return lanes, mode, cbits, hbits
-
-
 def _require_supported(num_bins: int, quant_bins: int) -> None:
     if not supported(num_bins, quant_bins):
         raise ValueError(f"cuda histogram kernels support 2 <= num_bins <= "
                          f"256 and quant_bins <= 128, got ({num_bins}, "
                          f"{quant_bins})")
+
+
+def to_int8(q) -> torch.Tensor:
+    """Quantized gradients in the kernel's type: |qg| <= 64 and
+    0 <= qh <= 127 up to 128 quant bins, so the cast is exact."""
+    return q.to(torch.int8).contiguous()
 
 
 def build_histograms_cuda(binned, qg, qh, node_ids, num_nodes: int,
@@ -364,11 +424,32 @@ def build_histograms_cuda(binned, qg, qh, node_ids, num_nodes: int,
     _require_supported(num_bins, quant_bins)
     n = binned.shape[0]
     bound = max(1, min(n, int(node_rows_bound or n), int(max_rows or n)))
-    lanes, mode, cbits, hbits = pack(qg, qh, n, bound, quant_bins)
-    acc = hist_accumulate(binned, lanes, node_ids.to(torch.int32),
-                          num_nodes, num_bins)
-    hist, _ = frontier_finish(acc, mode, cbits, hbits)
+    layout = lane_layout(n, bound, quant_bins)
+    acc = hist_accumulate(binned, to_int8(qg), to_int8(qh),
+                          node_ids.to(torch.int32), num_nodes, num_bins,
+                          layout)
+    hist, _ = frontier_finish(acc, *layout)
     return hist
+
+
+def frontier_step(binned, qg, qh, node_ids, num_nodes: int, num_bins: int,
+                  gains: GainParams, *, quant_bins: int = 16,
+                  parent_hist=None, small_left=None,
+                  node_rows_bound: Optional[int] = None):
+    """``fused_frontier`` on inputs already in the kernels' types (int8
+    ``qg``/``qh`` from ``to_int8``, int32 ``node_ids``, ``gains`` from
+    ``gain_params``): the growers' per-level call, whose conversions are
+    made once per tree."""
+    _require_supported(num_bins, quant_bins)
+    n = binned.shape[0]
+    bound = max(1, min(n, int(node_rows_bound or n)))
+    layout = lane_layout(n, bound, quant_bins)
+    acc = hist_accumulate(binned, qg, qh, node_ids, num_nodes, num_bins,
+                          layout)
+    hist, best = frontier_finish(acc, *layout, parent_hist, small_left,
+                                 gains)
+    return hist, (best[:, 0], best[:, 1].to(torch.int32),
+                  best[:, 2].to(torch.int32), best[:, 3:6], best[:, 6:9])
 
 
 def fused_frontier(binned, qg, qh, node_ids, num_nodes: int, num_bins: int,
@@ -386,24 +467,16 @@ def fused_frontier(binned, qg, qh, node_ids, num_nodes: int, num_bins: int,
     bool) reads ``node_ids`` as each parent's SMALLER child and emits both
     children interleaved.  ``depth_ok`` gates every candidate.  Returns
     ``(hist, (best_gain, best_feat, best_bin, left_stats, node_totals))``."""
-    _require_supported(num_bins, quant_bins)
-    n = binned.shape[0]
-    bound = max(1, min(n, int(node_rows_bound or n)))
-    lanes, mode, cbits, hbits = pack(qg, qh, n, bound, quant_bins)
-    acc = hist_accumulate(binned, lanes, node_ids.to(torch.int32),
-                          num_nodes, num_bins)
     dev = binned.device
-    gains = GainParams(
-        g_scale=torch.as_tensor(g_scale, dtype=torch.float32, device=dev),
-        h_scale=torch.as_tensor(h_scale, dtype=torch.float32, device=dev),
-        feat_mask=feat_mask, edge_ok=edge_ok,
-        depth_ok=None if depth_ok is None else torch.as_tensor(
-            depth_ok, dtype=torch.bool, device=dev),
-        l1=float(l1), l2=float(l2), min_data=float(min_data),
-        min_hess=float(min_hess))
+    gains = gain_params(g_scale, h_scale, feat_mask, edge_ok, depth_ok,
+                        l1=l1, l2=l2, min_data=min_data, min_hess=min_hess,
+                        device=dev)
     if parent_hist is not None:
         parent_hist = parent_hist.to(torch.int32)
-    hist, best = frontier_finish(acc, mode, cbits, hbits, parent_hist,
-                                 small_left, gains)
-    return hist, (best[:, 0], best[:, 1].to(torch.int32),
-                  best[:, 2].to(torch.int32), best[:, 3:6], best[:, 6:9])
+        small_left = torch.as_tensor(small_left, device=dev) \
+            .to(torch.bool).contiguous()
+    return frontier_step(binned, to_int8(qg), to_int8(qh),
+                         node_ids.to(torch.int32), num_nodes, num_bins,
+                         gains, quant_bins=quant_bins,
+                         parent_hist=parent_hist, small_left=small_left,
+                         node_rows_bound=node_rows_bound)

@@ -40,7 +40,7 @@ def _inputs(dev, n, F, B, N, seed, feature_major=True, mask=0.2):
     ids = torch.randint(0, N, (n,), generator=gen, device=dev,
                         dtype=torch.int32)
     ids[torch.rand(n, generator=gen, device=dev) < mask] = -1
-    return binned, qg, qh, gs, hs, ids, gen
+    return binned, CH.to_int8(qg), CH.to_int8(qh), gs, hs, ids, gen
 
 
 @pytest.mark.parametrize("n,F,B,N", [(1, 1, 2, 1), (1000, 3, 17, 5),
@@ -51,18 +51,52 @@ def test_build_bit_identical(dev, n, F, B, N, feature_major):
     binned, qg, qh, _, _, ids, _ = _inputs(dev, n, F, B, N, n + F,
                                            feature_major)
     for bound in (n, max(1, n // N // 2), 1):
-        lanes, mode, cb, hb = CH.pack(qg, qh, n, bound, 16)
+        lay = CH.lane_layout(n, bound, 16)
         if bound < n:     # hold the bound: keep <= bound rows per node
             keep = torch.zeros(n, dtype=torch.bool, device=dev)
             for k in range(N):
                 keep[torch.nonzero(ids == k)[:bound, 0]] = True
             ids = torch.where(keep, ids, -1)
-        acc = CH.hist_accumulate(binned, lanes, ids, N, B)
-        assert torch.equal(acc, CH.hist_accumulate_plain(binned, lanes, ids,
-                                                         N, B)), mode
-        hist, _ = CH.frontier_finish(acc, mode, cb, hb)
-        assert torch.equal(hist, CH.frontier_finish_plain(acc, mode, cb,
-                                                          hb)[0]), mode
+        acc = CH.hist_accumulate(binned, qg, qh, ids, N, B, lay)
+        assert torch.equal(acc, CH.hist_accumulate_plain(binned, qg, qh, ids,
+                                                         N, B, lay)), lay
+        hist, _ = CH.frontier_finish(acc, *lay)
+        assert torch.equal(hist, CH.frontier_finish_plain(acc, *lay)[0]), lay
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["quant128_extremes", "one_node_one_bin",
+                                  "all_inactive", "ragged_rows"])
+def test_accumulate_edges_bit_identical(dev, case):
+    """The kernel's edges: gradients at the 128-bin quantizer's extremes,
+    every row on one address, a frontier with no active row, and a row
+    count that is no multiple of a warp's 4 x 1024-row round."""
+    n, F, B, N = 300007, 12, 255, 8
+    binned, qg, qh, _, _, ids, gen = _inputs(dev, n, F, B, N, 9)
+    qg8 = torch.randint(-64, 65, (n,), generator=gen, device=dev) \
+        .to(torch.int8)
+    qh8 = torch.randint(0, 128, (n,), generator=gen, device=dev) \
+        .to(torch.int8)
+    if case == "quant128_extremes":
+        qg8[: n // 3], qh8[: n // 3] = -64, 127
+        qg8[n // 3: n // 2], qh8[n // 3: n // 2] = 64, 127
+    elif case == "one_node_one_bin":
+        binned = torch.full((F, n), 7, dtype=torch.uint8, device=dev).t()
+        ids = torch.full((n,), 5, dtype=torch.int32, device=dev)
+        qg8[:], qh8[:] = -64, 127
+    elif case == "all_inactive":
+        ids = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    else:
+        n = 4096 * 7 + 33
+        binned, ids = binned[:n].t().contiguous().t(), ids[:n].contiguous()
+        qg8, qh8 = qg8[:n].contiguous(), qh8[:n].contiguous()
+    for bound in (n, 4000, 60):
+        lay = CH.lane_layout(n, bound, 128)
+        acc = CH.hist_accumulate(binned, qg8, qh8, ids, N, B, lay)
+        ref = CH.hist_accumulate_plain(binned, qg8, qh8, ids, N, B, lay)
+        assert torch.equal(acc, ref), (case, lay)
+        if case == "all_inactive":
+            assert not acc.any()
     torch.cuda.synchronize()
 
 
@@ -79,25 +113,22 @@ def test_frontier_finish_bit_identical(dev, l1, l2, min_data, min_hess,
                                        subtract):
     n, F, B, N = 50000, 11, 63, 4
     binned, qg, qh, gs, hs, ids, gen = _inputs(dev, n, F, B, N, 3)
-    lanes, mode, cb, hb = CH.pack(qg, qh, n, n, 16)
+    lay = CH.lane_layout(n, n, 16)
     fmask = torch.rand(F, generator=gen, device=dev) < 0.8
     edge = torch.rand((F, B), generator=gen, device=dev) < 0.9
     parent = small_left = None
     if subtract:
-        parent = CH.frontier_finish(CH.hist_accumulate(binned, lanes, ids,
-                                                       N, B),
-                                    mode, cb, hb)[0]
+        parent = CH.frontier_finish(CH.hist_accumulate(binned, qg, qh, ids,
+                                                       N, B, lay), *lay)[0]
         ids = torch.where(torch.rand(n, generator=gen, device=dev) < 0.4,
                           ids, -1)
         small_left = torch.rand(N, generator=gen, device=dev) < 0.5
-    acc = CH.hist_accumulate(binned, lanes, ids, N, B)
-    for depth_ok in (None, torch.tensor(True, device=dev),
-                     torch.tensor(False, device=dev)):
-        gp = CH.GainParams(gs, hs, fmask, edge, depth_ok, l1=l1, l2=l2,
-                           min_data=min_data, min_hess=min_hess)
-        hist, best = CH.frontier_finish(acc, mode, cb, hb, parent,
-                                        small_left, gp)
-        hist_p, best_p = CH.frontier_finish_plain(acc, mode, cb, hb, parent,
+    acc = CH.hist_accumulate(binned, qg, qh, ids, N, B, lay)
+    for depth_ok in (None, True, False):
+        gp = CH.gain_params(gs, hs, fmask, edge, depth_ok, l1=l1, l2=l2,
+                            min_data=min_data, min_hess=min_hess)
+        hist, best = CH.frontier_finish(acc, *lay, parent, small_left, gp)
+        hist_p, best_p = CH.frontier_finish_plain(acc, *lay, parent,
                                                   small_left, gp)
         assert torch.equal(hist, hist_p)
         assert _same_best(best, best_p), (best, best_p)
@@ -110,9 +141,11 @@ def test_launch_counts_and_argument_checks(dev):
     CH.reset_launch_counts()
     CH.build_histograms_cuda(binned, qg, qh, ids, N, B)
     assert CH.launch_counts() == {"hist_accumulate": 1, "frontier_finish": 1}
-    lanes, *_ = CH.pack(qg, qh, n, n, 16)
+    lay = CH.lane_layout(n, n, 16)
     with pytest.raises(TypeError, match="int32"):
-        CH.hist_accumulate(binned, lanes, ids.to(torch.int64), N, B)
+        CH.hist_accumulate(binned, qg, qh, ids.to(torch.int64), N, B, lay)
+    with pytest.raises(TypeError, match="int8"):
+        CH.hist_accumulate(binned, qg.to(torch.int32), qh, ids, N, B, lay)
     with pytest.raises(ValueError, match="must lie on"):
-        CH.hist_accumulate(binned, lanes, ids.cpu(), N, B)
+        CH.hist_accumulate(binned, qg, qh, ids.cpu(), N, B, lay)
     assert CH.launch_counts()["hist_accumulate"] == 1

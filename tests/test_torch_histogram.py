@@ -257,9 +257,10 @@ def test_kernel_wrappers_validate_and_count():
         TP.build_histograms_cuda(_t(binned), _t(qg), _t(qh), _t(node), 2,
                                  300)
     with pytest.raises(ValueError, match="meta"):
-        TP.hist_accumulate(_t(binned).to("meta"), torch.zeros(1, 300),
-                           _t(node), 2, 15)
-    plan = TP._accumulate_plan(10 ** 6, 200, 8, 3, 255, 132)
-    Fg, Ng, row_chunk, chunks = plan
-    assert 3 * Ng * Fg * 255 * 4 <= TP._SMEM_BUDGET
-    assert Ng == 8 and row_chunk * chunks >= 10 ** 6 and chunks <= 65535
+        TP.hist_accumulate(_t(binned).to("meta"), TP.to_int8(_t(qg)),
+                           TP.to_int8(_t(qh)), _t(node), 2, 15,
+                           TP.lane_layout(300, 300, 16))
+    plan = TP._accumulate_plan(10 ** 6, 200, 8, 255, 132)
+    assert plan.Ng * plan.Fg * 255 * TP._CELL_BYTES + TP._QUEUE_BYTES \
+        <= TP._SMEM_PER_BLOCK
+    assert plan.Ng == 8 and plan.G * plan.Fg >= 200 and plan.blocks == 132
