@@ -26,10 +26,24 @@ Phases; any failure exits nonzero and prints no result line:
    run (8 trees x 5 levels = 40 launches each).  Accuracy must reach 0.9;
    the card's leaf walk must equal the CPU's; one depth-5 tree grown on the
    card must equal the same tree grown by the plain versions on the CPU.
-5. results — one ``{"kernels": [...]}`` line, the card's name and power
-   limit, and the last line ``{"ok": true, "device": {...}}``.
+5. leaf   — the leaf-wise grower and the boosting modes.  31-leaf trees
+   grown on the card (50k x 20 uncapped and at ``max_depth=4``, int32
+   carry; 2,000 rows, int16 carry) equal the CPU plain-version trees, and
+   the card's growth runs under ``torch.cuda.set_sync_debug_mode("error")``
+   (the step loop never waits for the card).  ``LightGBMClassifier()`` with
+   its defaults (leaf-wise, 31 leaves) fits 8 iterations on the bench data
+   with exactly 8 x 31 = 248 launches of each kernel, reaches accuracy 0.9
+   on 100k fresh rows, and its card and CPU leaf walks agree; ``train()``
+   phases and a profiled fit give the busy share, the top kernels and the
+   per-step kernel times of one tree beside each step's bound.  Bagging,
+   GOSS, RF and DART each fit leaf-wise at 200k x 200 for 4 iterations and
+   reach accuracy 0.85 on 50k fresh rows.
+6. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+   level-wise fit + transform and the leaf-wise fit, split in
+   ``launches_by_path``), the card's name and power limit, and the last
+   line ``{"ok": true, "device": {...}}``.
 
-Details (per-level kernel times, every comparison) go to
+Details (per-level and per-step kernel times, every comparison) go to
 ``chiprun_out/chip_smoke_detail.json``.
 """
 from __future__ import annotations
@@ -425,23 +439,25 @@ def slice_phase(dev):
     return launches
 
 
-def fit_phases(dev):
+def fit_phases(params, label: str):
     """Where the fit's time goes: the trainer's own phase clocks, then a
     second fit under ``torch.profiler`` for the device time of each kernel
-    in the boosting loop and the loop's device busy share."""
+    in the boosting loop and the loop's device busy share.  Returns the
+    profiled run's booster and its ``hist_accumulate`` /
+    ``frontier_finish`` device times per launch, in launch order."""
     from torch.profiler import ProfilerActivity, profile
-    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    from mmlspark_tpu_torch.lightgbm import train
     X, y = bench_data(N_ROWS, seed=0)
-    params = GBDTParams(num_iterations=8, max_depth=5, objective="binary")
+    iters = params.num_iterations
     ex = dict(train(X, y, params).extras)
-    ex["boosting_row_iterations_per_s"] = N_ROWS * 8 / ex["boosting_s"]
-    log("[slice] train() phases: " + ", ".join(
+    ex["boosting_row_iterations_per_s"] = N_ROWS * iters / ex["boosting_s"]
+    log(f"[{label}] train() phases: " + ", ".join(
         f"{k} {v:.4g}" for k, v in ex.items()))
-    DETAIL["train_phases"] = ex
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        prof_ex = train(X, y, params).extras
+        prof_res = train(X, y, params)
+    prof_ex = prof_res.extras
     by_kernel = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -452,13 +468,33 @@ def fit_phases(dev):
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     share = busy_ms / (prof_ex["boosting_s"] * 1e3)
-    log(f"[slice] profiled fit: boosting {prof_ex['boosting_s']:.4f} s, "
-        f"device kernels {busy_ms:.3f} ms (busy share {share:.3f})")
+    # every kernel the host enqueued, ours and PyTorch's: the host's work
+    runtime_launches = sum(e.count for e in prof.key_averages()
+                           if e.key == "cudaLaunchKernel")
+    log(f"[{label}] profiled fit: boosting {prof_ex['boosting_s']:.4f} s, "
+        f"device kernels {busy_ms:.3f} ms (busy share {share:.3f}), "
+        f"{runtime_launches} cudaLaunchKernel calls "
+        f"({runtime_launches / iters:.0f} per tree)")
     for name, ms in top:
-        log(f"[slice]   {ms:9.3f} ms  {name[:90]}")
-    DETAIL["profile"] = {"boosting_s": prof_ex["boosting_s"],
-                         "device_kernel_ms": busy_ms, "busy_share": share,
-                         "top_kernels_ms": top}
+        log(f"[{label}]   {ms:9.3f} ms  {name[:90]}")
+    per_launch = {}
+    for kernel, names in KERNEL_NAMES.items():
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and any(nm in e.name for nm in names)]
+        per_name = [sorted((e for e in events if nm in e.name),
+                           key=lambda e: e.time_range.start)
+                    for nm in names]
+        # frontier_finish is two kernels per launch: sum them in order
+        per_launch[kernel] = [sum(e.time_range.elapsed_us() for e in evs)
+                              / 1e3 for evs in zip(*per_name)]
+    DETAIL[label + "_train_phases"] = ex
+    DETAIL[label + "_profile"] = {
+        "boosting_s": prof_ex["boosting_s"], "device_kernel_ms": busy_ms,
+        "busy_share": share, "top_kernels_ms": top,
+        "cuda_launch_kernel_calls": runtime_launches,
+        "launches_profiled": {k: len(v) for k, v in per_launch.items()}}
+    return prof_res.booster, per_launch
 
 
 def grower_check(dev):
@@ -487,17 +523,247 @@ def grower_check(dev):
                           torch.ones(n, dtype=torch.bool, device=d),
                           torch.ones(F, dtype=torch.bool, device=d),
                           t(mapper.edges), noise=t(u)))
-    gpu, cpu = ([x.cpu() for x in tr] for tr in trees)
-    identical = []
-    for name, a, b in zip(trees[0]._fields, gpu, cpu):
-        if a.is_floating_point():   # f32 math on both: within rtol 1e-6
-            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
-                                       atol=0, err_msg=name)
-        elif not torch.equal(a, b):
-            raise AssertionError(f"grower on the card differs in {name}")
-        identical.append(bool(torch.equal(a, b)))
+    identical = card_equals_cpu(*trees, "depth-5 tree")
     log(f"[slice] depth-5 tree on the card equals the CPU plain-version "
-        f"tree (bit-identical in {sum(identical)}/{len(identical)} arrays)")
+        f"tree (bit-identical in {identical} arrays)")
+
+
+def card_equals_cpu(card, cpu, what: str) -> str:
+    """Raise unless a tree grown on the card equals the CPU's: integer
+    arrays bit-identical, float arrays (f32 math on both) within rtol 1e-6.
+    Returns how many arrays are bit-identical, as "k/n"."""
+    identical = []
+    for name, a, b in zip(card._fields, card, cpu):
+        a, b = a.cpu(), b.cpu()
+        if a.is_floating_point():
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                       atol=0, err_msg=f"{what}: {name}")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{what} on the card differs in {name}")
+        identical.append(bool(torch.equal(a, b)))
+    return f"{sum(identical)}/{len(identical)}"
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the leaf-wise grower and the boosting modes
+# ---------------------------------------------------------------------------
+
+def leafwise_grower_check(dev):
+    """31-leaf trees grown on the card equal the same trees grown by the
+    plain versions on the CPU: uncapped and capped at ``max_depth=4`` at
+    50k x 20 (an int32 histogram carry), and uncapped at 2,000 rows (the
+    int16 carry).  The card's growth runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for the
+    card raises, so the step loop is shown never to sync."""
+    from mmlspark_tpu_torch.lightgbm import BinMapper, GBDTParams
+    from mmlspark_tpu_torch.lightgbm.core import (leafwise_store_dtype,
+                                                  make_leafwise_grower)
+    from mmlspark_tpu_torch.models.gbdt import children_depth_bound
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    rng = np.random.default_rng(6)
+    n_all, F = 50_000, 20
+    X = rng.normal(size=(n_all, F)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] * X[:, 2] + 0.5 * X[:, 3] > 0).astype(np.float32)
+    p = 1 / (1 + np.exp(-rng.normal(scale=0.5, size=n_all)))
+    g_all = (p - y).astype(np.float32)
+    h_all = (p * (1 - p)).astype(np.float32)
+    u_all = rng.random((2, n_all), dtype=np.float32)
+    results = []
+    for n, max_depth in ((n_all, 0), (n_all, 4), (2_000, 0)):
+        mapper = BinMapper(255).fit(X[:n])
+        binned = mapper.transform(X[:n])
+        params = GBDTParams(num_leaves=31, max_depth=max_depth,
+                            use_quantized_grad=True, lambda_l2=1.0).resolve()
+        grow = make_leafwise_grower(31, max_depth, F, 255, params)
+        trees = []
+        for d in (dev, torch.device("cpu")):
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+            args = (t(binned).t().contiguous().t(), t(g_all[:n]),
+                    t(h_all[:n]), torch.ones(n, dtype=torch.bool, device=d),
+                    torch.ones(F, dtype=torch.bool, device=d),
+                    t(mapper.edges))
+            u = t(u_all[:, :n])
+            torch.cuda.synchronize()
+            CH.reset_launch_counts()
+            if d.type == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                tree = grow(*args, noise=u)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                launches = CH.launch_counts()
+                if set(launches.values()) != {31}:
+                    raise AssertionError(f"leaf-wise tree launched "
+                                         f"{launches}, not 31 each")
+            trees.append(tree)
+        identical = card_equals_cpu(
+            *trees, f"leaf-wise tree (n={n}, max_depth={max_depth})")
+        card = trees[0]
+        rec = {"rows": n, "max_depth": max_depth,
+               "carry": str(leafwise_store_dtype(n, True, QUANT_BINS)),
+               "splits": int((card.split_feature >= 0).sum()),
+               "depth": children_depth_bound(card.left_child.cpu().numpy(),
+                                             card.right_child.cpu().numpy()),
+               "bit_identical_arrays": identical,
+               "sync_debug_mode": "error"}
+        results.append(rec)
+        log(f"[leafwise] {n} x {F}, max_depth={max_depth}, {rec['carry']} "
+            f"carry: {rec['splits']} splits, depth {rec['depth']}; the card "
+            f"tree equals the CPU tree ({rec['bit_identical_arrays']} arrays "
+            f"bit-identical), grown under sync debug mode 'error', 31 "
+            f"launches of each kernel")
+    DETAIL["leafwise_grower_check"] = results
+
+
+def leaf_slice_phase(dev):
+    """``LightGBMClassifier()`` with its defaults (leaf-wise, 31 leaves) for
+    8 iterations on the bench data, then transform of 100k fresh rows."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+
+    X, y = bench_data(N_ROWS, seed=0)
+    Xt, yt = bench_data(100_000, seed=1)
+    df = DataFrame.from_dict({"features": X, "label": y})
+    df_t = DataFrame.from_dict({"features": Xt, "label": yt})
+    clf = LightGBMClassifier().set_params(num_iterations=8)
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = clf.fit(df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = CH.launch_counts()
+    log(f"[leaf] launches during the fit: {launches}")
+    if launches != {"hist_accumulate": 248, "frontier_finish": 248}:
+        raise AssertionError(f"the leaf-wise fit must launch each kernel "
+                             f"8 x 31 = 248 times, got {launches}")
+    t0 = time.perf_counter()
+    out = model.transform(df_t).collect()
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    prob = np.stack(out["probability"])
+    if prob.shape != (100_000, 2) or not np.isfinite(prob).all():
+        raise AssertionError(f"bad probabilities {prob.shape}")
+    acc = float((out["prediction"] == yt).mean())
+    booster = model.booster
+    log(f"[leaf] accuracy on 100k fresh rows: {acc:.4f}; {booster.num_trees}"
+        f" trees of {booster.num_leaves} leaves, walk depth "
+        f"{booster.max_depth}")
+    if acc < 0.9:
+        raise AssertionError(f"accuracy {acc} < 0.9")
+    leaves_gpu = booster.predict_leaf(Xt[:20000])
+    leaves_cpu = booster.predict_leaf(Xt[:20000], device="cpu")
+    if not np.array_equal(leaves_gpu, leaves_cpu):
+        raise AssertionError("card and CPU leaf walks differ")
+    fit_rps = N_ROWS / fit_s
+    transform_rps = 100_000 / transform_s
+    log(f"[leaf] fit {fit_s:.3f} s = {fit_rps:.0f} rows/s; transform "
+        f"{transform_s:.3f} s = {transform_rps:.0f} rows/s; card and CPU "
+        f"leaf walks equal")
+    DETAIL["leaf_slice"] = {"fit_s": fit_s, "fit_rows_per_s": fit_rps,
+                            "transform_s": transform_s,
+                            "transform_rows_per_s": transform_rps,
+                            "accuracy": acc, "launches": launches,
+                            "walk_depth": booster.max_depth}
+    return launches
+
+
+def leaf_step_times(booster, per_launch):
+    """Per-step device times of the first tree of the profiled leaf-wise
+    fit, each beside the bound for that step's active rows: the root reads
+    every row, step s >= 1 the rows of internal node s - 1's left child
+    (the child each step rebuilds)."""
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    n, F, B = N_ROWS, N_FEAT, N_BINS
+    for kernel, times in per_launch.items():
+        if len(times) != booster.num_trees * booster.num_leaves:
+            raise AssertionError(f"the profiler saw {len(times)} launches "
+                                 f"of {kernel} in the leaf-wise fit")
+    lc, ic, lcnt = (booster.left_child[0], booster.internal_count[0],
+                    booster.leaf_count[0])
+    M = lc.shape[0]
+    C = CH._CHANNELS[CH.lane_layout(n, n, QUANT_BINS).mode]
+    steps = []
+    for s in range(M + 1):
+        if s == 0:
+            active = n
+        else:
+            child = int(lc[s - 1])
+            active = int(ic[child] if child >= 0 else lcnt[~child])
+        n_out = 1 if s == 0 else 2
+        acc_bound, acc_by = bound_ms(n * 4 + active * (F + 2)
+                                     + C * F * B * 4, active * F * C)
+        fin_bytes = (C * F * B * 4 + (F * B * 12 if s else 0)
+                     + n_out * F * B * 12 + F + F * B + 1 + 8 + n_out * 36)
+        fin_bound, fin_by = bound_ms(fin_bytes, n_out * F * B * 24)
+        steps.append({
+            "step": s, "active_rows": active,
+            "hist_accumulate_ms": per_launch["hist_accumulate"][s],
+            "hist_accumulate_bound_ms": acc_bound,
+            "hist_accumulate_bound_by": acc_by,
+            "frontier_finish_ms": per_launch["frontier_finish"][s],
+            "frontier_finish_bound_ms": fin_bound,
+            "frontier_finish_bound_by": fin_by})
+        log(f"[leaf] step {s:2d}: {active:7d} rows, hist_accumulate "
+            f"{steps[-1]['hist_accumulate_ms']:.4f} ms (bound "
+            f"{acc_bound:.4f}, {acc_by}), frontier_finish "
+            f"{steps[-1]['frontier_finish_ms']:.4f} ms (bound "
+            f"{fin_bound:.4f})")
+    tot = {k: sum(per_launch[k]) for k in per_launch}
+    log(f"[leaf] profiled fit: hist_accumulate {tot['hist_accumulate']:.3f} "
+        f"ms over {len(per_launch['hist_accumulate'])} launches, "
+        f"frontier_finish {tot['frontier_finish']:.3f} ms over "
+        f"{len(per_launch['frontier_finish'])}")
+    DETAIL["leaf_steps_tree0"] = steps
+    DETAIL["leaf_kernel_ms_per_fit"] = tot
+
+
+MODES = {"bagging": dict(bagging_fraction=0.8, bagging_freq=1),
+         "goss": dict(boosting_type="goss"),
+         "rf": dict(boosting_type="rf"),
+         "dart": dict(boosting_type="dart")}
+
+
+def modes_phase(dev):
+    """Bagging, GOSS, RF and DART, each leaf-wise through the estimator at
+    200k x 200 for 4 iterations, scored on 50k fresh rows."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    X, y = bench_data(200_000, seed=2)
+    Xt, yt = bench_data(50_000, seed=3)
+    df = DataFrame.from_dict({"features": X, "label": y})
+    df_t = DataFrame.from_dict({"features": Xt, "label": yt})
+    results = {}
+    for name, kw in MODES.items():
+        torch.cuda.synchronize()
+        CH.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = LightGBMClassifier().set_params(num_iterations=4,
+                                                **kw).fit(df)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = CH.launch_counts()
+        out = model.transform(df_t).collect()
+        acc = float((out["prediction"] == yt).mean())
+        b = model.booster
+        results[name] = {"accuracy": acc, "fit_s": fit_s,
+                         "launches": launches,
+                         "tree_weight": b.tree_weight.tolist(),
+                         "root_rows": b.internal_count[:, 0].tolist(),
+                         "average_output": b.average_output}
+        log(f"[modes] {name:7s}: accuracy {acc:.4f}, fit {fit_s:.2f} s, "
+            f"launches {launches}, root rows "
+            f"{b.internal_count[:, 0].astype(int).tolist()}, tree weights "
+            f"{[round(float(w), 4) for w in b.tree_weight]}")
+        if acc < 0.85 or set(launches.values()) != {4 * 31}:
+            raise AssertionError(f"{name}: accuracy {acc} < 0.85 or "
+                                 f"launches {launches} != 124")
+    DETAIL["modes"] = results
 
 
 def main() -> int:
@@ -505,6 +771,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -512,6 +779,7 @@ def main() -> int:
         f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
 
     from mmlspark_tpu_torch.kernels import _build
+    from mmlspark_tpu_torch.lightgbm import GBDTParams
     t0 = time.perf_counter()
     path = _build.build()
     _build.load_library()
@@ -528,14 +796,27 @@ def main() -> int:
     log(f"[kernels] phase done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    launches = slice_phase(dev)
+    level_launches = slice_phase(dev)
     grower_check(dev)
-    fit_phases(dev)
+    fit_phases(GBDTParams(num_iterations=8, max_depth=5,
+                          objective="binary"), "slice")
     torch.cuda.synchronize()
     log(f"[slice] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    leafwise_grower_check(dev)
+    leaf_launches = leaf_slice_phase(dev)
+    leaf_step_times(*fit_phases(GBDTParams(num_iterations=8, num_leaves=31,
+                                           objective="binary"), "leaf"))
+    modes_phase(dev)
+    torch.cuda.synchronize()
+    log(f"[leaf] phase done in {time.perf_counter() - t0:.1f} s")
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[name], "launches": launches[name],
+                "replaces": REPLACES[name],
+                "launches": level_launches[name] + leaf_launches[name],
+                "launches_by_path": {"level": level_launches[name],
+                                     "leaf": leaf_launches[name]},
                 **stats[name]} for name in ("hist_accumulate",
                                             "frontier_finish")]
     for k in kernels:
@@ -547,6 +828,7 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_detail.json"),
               "w") as f:
         json.dump(DETAIL, f, indent=1, default=str)
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

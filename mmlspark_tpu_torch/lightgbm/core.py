@@ -1,21 +1,27 @@
-"""GBDT training core — level-wise tree growth in PyTorch (port of
-``mmlspark_tpu/lightgbm/core.py``, the single-shard numerical subset).
+"""GBDT training core in PyTorch (port of ``mmlspark_tpu/lightgbm/core.py``,
+the single-shard numerical subset).
 
-One boosting iteration: objective gradients, per-row quantization
-(``ops.histogram.quantize_gradients``), then one tree grown level by level.
-Each level is one fused frontier step (``ops.cuda_histogram.frontier_step``:
-the smaller child's histogram build, the integer sibling subtraction and the
-split-gain scan, on the two Hopper kernels) while the frontier has at most
-``FUSED_MAX_NODES`` parents — the JAX package's per-level gate — and a
-histogram build plus a torch gain scan past it.  The host drives a plain
-per-iteration loop; tree arrays stay on the device until the end.
+One boosting iteration: objective gradients (with the GOSS, RF or DART
+adjustments and the bagging mask), per-row quantization
+(``ops.histogram.quantize_gradients``), then one tree.  Two growers share
+the fused frontier step (``ops.cuda_histogram.frontier_step``: a histogram
+build, the integer sibling subtraction and the split-gain scan, on the two
+Hopper kernels):
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md entry: the leaf-wise grower, dart/goss/rf, bagging, categorical
-features, multiclass/ranking and the other objectives, row sharding and
-voting, checkpoints and the live monitor.  The JAX package's scan-chunked
-multi-iteration path exists to amortize a device relay's per-dispatch
-latency; the port launches per iteration and has no counterpart.
+- level-wise (``make_tree_grower``): one step per level while the frontier
+  has at most ``FUSED_MAX_NODES`` parents — the JAX package's per-level
+  gate — and a histogram build plus a torch gain scan past it;
+- leaf-wise (``make_leafwise_grower``, the estimators' default): one step
+  at the root and one per split, ``num_leaves`` in all, with the stored
+  per-leaf histograms in an int16 carry where the row bound allows.
+
+The host drives a plain per-iteration loop; tree arrays stay on the device
+until the end.  Not ported yet, each raising ``NotImplementedError`` that
+names its ROADMAP.md entry: categorical features, multiclass/ranking and
+the other objectives, row sharding and voting, checkpoints and the live
+monitor.  The JAX package's scan-chunked multi-iteration path exists to
+amortize a device relay's per-dispatch latency; the port launches per
+iteration and has no counterpart.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, default_quantized, resolve_device
-from ..models.gbdt import GBDTBooster, perfect_tree_children
+from ..models.gbdt import GBDTBooster, children_depth_bound, \
+    perfect_tree_children
 from ..ops import cuda_histogram
 from ..ops import histogram as hist_ops
 from .binning import BinMapper
@@ -165,7 +172,9 @@ def _use_fused_frontier(use_quant: bool, has_cat: bool, num_bins: int,
 
 
 class Tree(NamedTuple):
-    """One grown tree (BFS perfect layout) plus each row's leaf."""
+    """One grown tree as array-of-nodes children (leaves encoded ``~leaf``;
+    the level-wise grower's is the perfect BFS layout) plus each row's
+    leaf."""
     left_child: torch.Tensor       # (I,) int32
     right_child: torch.Tensor
     split_feature: torch.Tensor    # (I,) int32, -1 = no split
@@ -177,6 +186,58 @@ class Tree(NamedTuple):
     leaf_value: torch.Tensor       # (L,) float32
     leaf_count: torch.Tensor       # (L,) float32
     leaf_of_row: torch.Tensor      # (n,) int64
+
+
+def _split_math(params: GBDTParams):
+    """The split arithmetic both growers share: ``(leaf_output,
+    split_gains)``."""
+    l1, l2 = params.lambda_l1, params.lambda_l2
+    min_data = float(params.min_data_in_leaf)
+    min_hess = params.min_sum_hessian_in_leaf
+    max_delta = params.max_delta_step
+
+    def thresh(G):
+        return torch.sign(G) * torch.clamp(G.abs() - l1, min=0.0)
+
+    def leaf_score(G, H):
+        return thresh(G) ** 2 / (H + l2)
+
+    def leaf_output(G, H):
+        v = -thresh(G) / (H + l2)
+        if max_delta > 0:
+            v = torch.clamp(v, -max_delta, max_delta)
+        return v
+
+    def split_gains(hist_d, feat_mask, edge_ok, depth_ok=None):
+        """(nodes, F, B, 3) float histograms -> (gain, left-stat pick, node
+        totals): numerical split at bin t takes bins <= t left; a
+        ``depth_ok`` of False gates every candidate."""
+        cum = torch.cumsum(hist_d, dim=2)
+        tot = cum[:, :1, -1, :]                    # (nodes, 1, 3)
+        GL, HL, CL = cum[..., 0], cum[..., 1], cum[..., 2]
+        Gp, Hp, Cp = tot[..., 0], tot[..., 1], tot[..., 2]
+        GR, HR, CR = (Gp[:, :, None] - GL, Hp[:, :, None] - HL,
+                      Cp[:, :, None] - CL)
+        gain = (leaf_score(GL, HL) + leaf_score(GR, HR)
+                - leaf_score(Gp, Hp)[:, :, None])
+        valid = ((CL >= min_data) & (CR >= min_data)
+                 & (HL >= min_hess) & (HR >= min_hess)
+                 & feat_mask[None, :, None] & edge_ok[None])
+        if depth_ok is not None:
+            valid = valid & depth_ok
+        gain = torch.where(valid, gain, torch.full_like(gain, -math.inf))
+        return gain, cum, (Gp[:, 0], Hp[:, 0], Cp[:, 0])
+
+    return leaf_output, split_gains
+
+
+def _kernel_gains(params: GBDTParams, g_scale, h_scale, feat_mask,
+                  edge_ok) -> cuda_histogram.GainParams:
+    """The gain scan's inputs in the kernels' types, built once per tree."""
+    return cuda_histogram.gain_params(
+        g_scale, h_scale, feat_mask, edge_ok, l1=params.lambda_l1,
+        l2=params.lambda_l2, min_data=float(params.min_data_in_leaf),
+        min_hess=params.min_sum_hessian_in_leaf)
 
 
 def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
@@ -196,41 +257,9 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
     I, L = 2 ** D - 1, 2 ** D
     has_cat = bool(params.categorical_features)
     use_fused = _use_fused_frontier(use_quant, has_cat, B, quant_bins)
-    l1, l2 = params.lambda_l1, params.lambda_l2
-    min_data = float(params.min_data_in_leaf)
-    min_hess = params.min_sum_hessian_in_leaf
     min_gain = params.min_gain_to_split
-    max_delta = params.max_delta_step
+    leaf_output, split_gains = _split_math(params)
     lc_np, rc_np = perfect_tree_children(D)
-
-    def thresh(G):
-        return torch.sign(G) * torch.clamp(G.abs() - l1, min=0.0)
-
-    def leaf_score(G, H):
-        return thresh(G) ** 2 / (H + l2)
-
-    def leaf_output(G, H):
-        v = -thresh(G) / (H + l2)
-        if max_delta > 0:
-            v = torch.clamp(v, -max_delta, max_delta)
-        return v
-
-    def split_gains(hist_d, feat_mask, edge_ok):
-        """(nodes, F, B, 3) float histograms -> (gain, left-stat pick, node
-        totals): numerical split at bin t takes bins <= t left."""
-        cum = torch.cumsum(hist_d, dim=2)
-        tot = cum[:, :1, -1, :]                    # (nodes, 1, 3)
-        GL, HL, CL = cum[..., 0], cum[..., 1], cum[..., 2]
-        Gp, Hp, Cp = tot[..., 0], tot[..., 1], tot[..., 2]
-        GR, HR, CR = (Gp[:, :, None] - GL, Hp[:, :, None] - HL,
-                      Cp[:, :, None] - CL)
-        gain = (leaf_score(GL, HL) + leaf_score(GR, HR)
-                - leaf_score(Gp, Hp)[:, :, None])
-        valid = ((CL >= min_data) & (CR >= min_data)
-                 & (HL >= min_hess) & (HR >= min_hess)
-                 & feat_mask[None, :, None] & edge_ok[None])
-        gain = torch.where(valid, gain, torch.full_like(gain, -math.inf))
-        return gain, cum, (Gp[:, 0], Hp[:, 0], Cp[:, 0])
 
     def grow(binned, grad, hess, hist_mask, feat_mask, edges, *,
              generator: Optional[torch.Generator] = None,
@@ -272,9 +301,8 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
         if use_fused:
             # the kernels' inputs, converted once per tree
             qg8, qh8 = cuda_histogram.to_int8(qg), cuda_histogram.to_int8(qh)
-            gains = cuda_histogram.gain_params(
-                g_scale, h_scale, feat_mask, edge_ok2, l1=l1, l2=l2,
-                min_data=min_data, min_hess=min_hess, device=dev)
+            gains = _kernel_gains(params, g_scale, h_scale, feat_mask,
+                                  edge_ok2)
         prev_hist = small_left = best_stats = None
         for d in range(D):
             nodes_d = 2 ** d
@@ -361,6 +389,230 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
                     internal_count, leaf_value, lc, node)
 
     return grow
+
+
+def leafwise_store_dtype(n_bound, use_quant: bool, quant_bins: int,
+                         enabled: bool = True) -> torch.dtype:
+    """Storage dtype of the leaf-wise grower's per-leaf histogram carry (the
+    ``(L, F, B, 3)`` buffer that sibling subtraction reads).  A quantized
+    cell holds at most ``n_bound * (quant_bins - 1)`` (the hess field, the
+    widest), so when that fits int16 the carry halves with no loss; the
+    arithmetic stays int32 and only the carry narrows.  Float histograms
+    and an unknown bound keep the wide dtypes."""
+    if not use_quant:
+        return torch.float32
+    qh_cap = max(1, quant_bins - 1)
+    if enabled and n_bound is not None and int(n_bound) * qh_cap < (1 << 15):
+        return torch.int16
+    return torch.int32
+
+
+def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
+                         num_bins: int, params: GBDTParams, *,
+                         store16: bool = True):
+    """Leaf-wise (best-first) grower, LightGBM's default growth: one tree is
+    ``num_leaves - 1`` split steps.  Each step splits the live leaf with the
+    global best stored gain (the left child keeps the leaf's slot, the right
+    child takes slot ``step + 1``), rebuilds the left child's histogram and
+    takes its sibling by subtraction from the stored parent, then scores
+    both children's best splits for the later steps.  A step whose best
+    gain fails ``min_gain_to_split`` still runs and writes nothing, as the
+    JAX package's ``lax.scan`` does, so a tree always launches each kernel
+    ``num_leaves`` times on the fused path.
+
+    The step loop never waits for the card: the chosen leaf, the gate and
+    every index stay device tensors, and a gated write goes to a trash slot
+    one past the end of its array.  ``depth_cap`` > 0 forbids splits at
+    that depth; ``store16`` allows the int16 histogram carry.  Returns
+    ``grow(...)`` with the level-wise grower's signature; the ``Tree`` holds
+    array-of-nodes children with leaves encoded ``~leaf``."""
+    if params.categorical_features:
+        raise _not_ported("categorical features",
+                          "categorical splits")
+    use_quant = bool(params.use_quantized_grad)
+    quant_bins = params.num_grad_quant_bins
+    L, M, F, B = num_leaves, num_leaves - 1, num_features, num_bins
+    use_fused = _use_fused_frontier(use_quant, False, B, quant_bins)
+    min_gain = params.min_gain_to_split
+    leaf_output, split_gains = _split_math(params)
+
+    def grow(binned, grad, hess, hist_mask, feat_mask, edges, *,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None) -> Tree:
+        dev = binned.device
+        n = binned.shape[0]
+        edge_ok = torch.cat([torch.isfinite(edges),
+                             torch.zeros((F, 1), dtype=torch.bool,
+                                         device=dev)], dim=1)
+        # depth_ok of every depth a child can reach, looked up per step
+        depth_ok = torch.arange(L + 1, device=dev) < depth_cap \
+            if depth_cap > 0 else torch.ones(L + 1, dtype=torch.bool,
+                                              device=dev)
+        if use_quant:
+            qg, qh, g_scale, h_scale = hist_ops.quantize_gradients(
+                grad, hess, quant_bins, generator=generator, noise=noise)
+        if use_fused:
+            # the kernels' inputs, converted once per tree
+            qg8, qh8 = cuda_histogram.to_int8(qg), cuda_histogram.to_int8(qh)
+            gains = _kernel_gains(params, g_scale, h_scale, feat_mask,
+                                  edge_ok)
+            left = torch.ones((1,), dtype=torch.bool, device=dev)
+
+        def fused(node_ids, dok, parent=None):
+            # subtract mode with the left child as the one rebuilt
+            return cuda_histogram.frontier_step(
+                binned, qg8, qh8, node_ids, 1, B,
+                gains._replace(depth_ok=dok), quant_bins=quant_bins,
+                parent_hist=parent, small_left=None if parent is None
+                else left)
+
+        def local_hist(mask):
+            ids = torch.where(mask, 0, -1)
+            if use_quant:
+                return hist_ops.build_quantized(binned, qg, qh, ids, 1, B,
+                                                quant_bins=quant_bins)
+            return hist_ops.build_histograms(binned, grad, hess, ids, 1, B)
+
+        def leaf_best(hist_1f3, dok):
+            """Best split of one leaf from its ``(1, F, B, 3)`` histogram:
+            ``(gain, feat, bin, left (G, H, C), totals)``, each with a
+            leading axis of 1."""
+            h = hist_1f3
+            if use_quant:
+                h = hist_ops.dequantize_histogram(h, g_scale, h_scale)
+            gain, cum, tot = split_gains(h, feat_mask, edge_ok, dok)
+            flat = gain.reshape(-1)
+            best = torch.argmax(flat).reshape(1)
+            return (flat.index_select(0, best),
+                    (best // B).to(torch.int32), (best % B).to(torch.int32),
+                    cum.reshape(F * B, 3).index_select(0, best),
+                    torch.stack(tot, dim=-1))
+
+        # ---- root
+        if use_fused:
+            h_root, best0 = fused(torch.where(hist_mask, 0, -1)
+                                  .to(torch.int32), depth_ok[:1])
+        else:
+            h_root = local_hist(hist_mask)
+            best0 = leaf_best(h_root, depth_ok[:1])
+
+        # ---- carry: each array padded by a trash slot (M or L) that takes
+        # the writes of a step whose gate is off
+        st_dtype = leafwise_store_dtype(n, use_quant, quant_bins, store16)
+        i32, f32 = torch.int32, torch.float32
+
+        def full(size, value, dtype):
+            return torch.full((size,), value, dtype=dtype, device=dev)
+
+        leaf_of_row = torch.zeros((n,), dtype=torch.int64, device=dev)
+        lc_arr, rc_arr, sf = full(M + 1, -1, i32), full(M + 1, -1, i32), \
+            full(M + 1, -1, i32)
+        th, sg, iv, ic = (full(M + 1, 0, f32) for _ in range(4))
+        tb = full(M + 1, 0, i32)
+        hists = torch.zeros((L + 1, F, B, 3), dtype=st_dtype, device=dev)
+        hists[:1] = h_root.to(st_dtype)
+        best_gain = full(L + 1, -math.inf, f32)
+        best_feat, best_bin = full(L + 1, 0, i32), full(L + 1, 0, i32)
+        best_left = torch.zeros((L + 1, 3), dtype=f32, device=dev)
+        leaf_tot = torch.zeros((L + 1, 3), dtype=f32, device=dev)
+        g0, f0, b0, lp0, tot0 = best0
+        best_gain[:1], best_feat[:1], best_bin[:1] = g0, f0, b0
+        best_left[:1], leaf_tot[:1] = lp0, tot0
+        leaf_depth, leaf_side = full(L + 1, 0, i32), full(L + 1, 0, i32)
+        leaf_parent = full(L + 1, -1, i32)
+        created = torch.arange(L + 1, device=dev) == 0
+        binned_fm = binned.t()          # (F, n): one feature's row is a view
+        e_stride = edges.shape[1]
+        edges_flat = edges.reshape(-1)
+        steps = torch.arange(M + 1, dtype=i32, device=dev)
+
+        def put(arr, idx, val):
+            arr.index_copy_(0, idx.to(torch.int64), val.to(arr.dtype))
+
+        for s in range(M):
+            new_leaf = s + 1
+            j = torch.argmax(best_gain[:L]).reshape(1)
+            gmax = best_gain.index_select(0, j)
+            do = gmax > min_gain
+            at_s = torch.where(do, s, M)
+            at_j = torch.where(do, j, L)
+            at_new = torch.where(do, new_leaf, L)
+            f = best_feat.index_select(0, j).to(torch.int64)
+            b = best_bin.index_select(0, j).to(torch.int64)
+            tot = leaf_tot.index_select(0, j)                    # (1, 3)
+            s_val = steps[s:s + 1]
+
+            put(sf, at_s, f)
+            put(tb, at_s, b)
+            put(th, at_s, edges_flat.index_select(
+                0, f * e_stride + torch.clamp(b, 0, B - 2)))
+            put(sg, at_s, gmax)
+            put(iv, at_s, leaf_output(tot[:, 0], tot[:, 1]))
+            put(ic, at_s, tot[:, 2])
+            # re-point the edge that led to leaf j at internal node s
+            pn = leaf_parent.index_select(0, j)
+            side = leaf_side.index_select(0, j)
+            put(lc_arr, torch.where(do & (pn >= 0) & (side == 0), pn, M),
+                s_val)
+            put(rc_arr, torch.where(do & (pn >= 0) & (side == 1), pn, M),
+                s_val)
+            # node s's own children: left keeps slot j, right takes new_leaf
+            put(lc_arr, at_s, ~j)
+            put(rc_arr, at_s, torch.full_like(j, ~new_leaf))
+            put(leaf_parent, at_j, s_val)
+            put(leaf_side, at_j, torch.zeros_like(s_val))
+            put(leaf_parent, at_new, s_val)
+            put(leaf_side, at_new, torch.ones_like(s_val))
+            put(created, at_new, torch.ones_like(do))
+
+            # route the rows of leaf j: bins above b go right
+            row_bin = binned_fm.index_select(0, torch.clamp(f, min=0))[0]
+            go_right = do & (leaf_of_row == j) & (row_bin.to(torch.int64) > b)
+            leaf_of_row = torch.where(go_right, new_leaf, leaf_of_row)
+
+            left_stats = best_left.index_select(0, j)
+            put(leaf_tot, at_j, left_stats)
+            put(leaf_tot, at_new, tot - left_stats)
+            d_new = leaf_depth.index_select(0, j) + 1
+            put(leaf_depth, at_j, d_new)
+            put(leaf_depth, at_new, d_new)
+            dok = depth_ok.index_select(0, d_new)
+
+            # the left child's rows, rebuilt; the right child by subtraction
+            in_left = hist_mask & (leaf_of_row == j)
+            if use_fused:
+                pair, fb = fused(torch.where(in_left, 0, -1).to(torch.int32),
+                                 dok, hists.index_select(0, j).to(i32))
+                hl, hr = pair[:1], pair[1:]
+                bests = [tuple(x[k:k + 1] for x in fb) for k in (0, 1)]
+            else:
+                hl = local_hist(in_left)
+                hr = hists.index_select(0, j).to(hl.dtype) - hl
+                bests = [leaf_best(hl, dok), leaf_best(hr, dok)]
+            for at, h_child, (g_c, f_c, b_c, lp_c, _) in (
+                    (at_j, hl, bests[0]), (at_new, hr, bests[1])):
+                put(hists, at, h_child)
+                put(best_gain, at, g_c)
+                put(best_feat, at, f_c)
+                put(best_bin, at, b_c)
+                put(best_left, at, lp_c)
+
+        created, leaf_tot = created[:L], leaf_tot[:L]
+        zero = torch.zeros((L,), dtype=f32, device=dev)
+        leaf_value = torch.where(
+            created, leaf_output(leaf_tot[:, 0], leaf_tot[:, 1]), zero)
+        leaf_count = torch.where(created, leaf_tot[:, 2], zero)
+        return Tree(lc_arr[:M], rc_arr[:M], sf[:M], th[:M], tb[:M], sg[:M],
+                    iv[:M], ic[:M], leaf_value, leaf_count, leaf_of_row)
+
+    return grow
+
+
+def _make_grower(p: GBDTParams, F: int, B: int):
+    """Growth-mode dispatch (call with resolved params)."""
+    if p.growth == "leaf":
+        return make_leafwise_grower(p.num_leaves, p.max_depth, F, B, p)
+    return make_tree_grower(p.max_depth, F, B, p)
 
 
 # ---------------------------------------------------------------------------
@@ -471,17 +723,9 @@ _TREE_KEYS = ("left_child", "right_child", "split_feature", "threshold",
 def _check_ported(p: GBDTParams, *, group_ptr, shard_rows, checkpoint_dir,
                   checkpoint_every, monitor_port,
                   monitor_stall_timeout_s) -> None:
-    if p.growth == "leaf":
-        raise _not_ported("leaf-wise growth (num_leaves)",
-                          "the leaf-wise grower")
-    if p.boosting_type != "gbdt":
-        raise _not_ported(f"boosting_type {p.boosting_type!r}",
-                          "dart/goss/rf/bagging/categorical")
-    if p.bagging_freq > 0 and p.bagging_fraction < 1.0:
-        raise _not_ported("bagging", "dart/goss/rf/bagging/categorical")
     if p.categorical_features:
         raise _not_ported("categorical features",
-                          "dart/goss/rf/bagging/categorical")
+                          "categorical splits")
     if p.objective == "multiclass" or group_ptr is not None:
         raise _not_ported("multiclass and ranking",
                           "multiclass, ranker and the other objectives")
@@ -508,13 +752,17 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
           monitor_port: Optional[int] = None,
           monitor_stall_timeout_s: Optional[float] = None,
           device: DeviceLike = None) -> TrainResult:
-    """Boosting loop (the JAX package's ``train`` for the level-wise,
-    single-shard, gbdt subset).  Runs on the card unless ``device="cpu"``;
+    """Boosting loop (the JAX package's ``train`` for the single-shard,
+    numerical subset: both growers, boosting types gbdt/rf/dart/goss and
+    bagging).  Runs on the card unless ``device="cpu"``;
     ``use_quantized_grad=None`` turns quantized histograms on for the card
-    and off on the CPU.  Per iteration the quantizer's noise comes from a
-    ``torch.Generator`` seeded with ``seed * 1000003 + iteration``.  A
-    ``valid`` set is scored after every tree and drives early stopping;
-    ``init_booster`` warm-starts from an existing booster."""
+    and off on the CPU.  Per iteration the GOSS draw and the quantizer's
+    noise come from a ``torch.Generator`` seeded with ``seed * 1000003 +
+    iteration``; the feature-fraction, bagging and DART draws come from the
+    host ``np.random.default_rng(seed)`` in the JAX package's order, so a
+    seed gives both packages the same masks.  A ``valid`` set is scored
+    after every tree and drives early stopping; ``init_booster``
+    warm-starts from an existing booster."""
     dev = resolve_device(device)
     p = params.resolve()
     p = dataclasses.replace(
@@ -550,7 +798,7 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         torch.cuda.synchronize(dev)
     t_transfer = time.perf_counter() - t0
 
-    grow = make_tree_grower(p.max_depth, F, B, p)
+    grow = _make_grower(p, F, B)
     D = p.depth_bound
     L = p.num_leaves
 
@@ -568,6 +816,11 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     walk_bound = max(D, init_booster.max_depth if init_booster is not None
                      else 0)
     walker = make_binned_walker(walk_bound)
+
+    def walk_tree(binned_x, t):
+        return walker(binned_x, *(trees[k][t] for k in (
+            "split_feature", "threshold_bin", "left_child", "right_child")))
+
     if init_booster is not None:
         if init_booster.num_leaves != L or init_booster.num_features != F:
             raise ValueError("init_booster must have the same num_leaves "
@@ -577,11 +830,8 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                 trees[k].append(torch.from_numpy(
                     np.asarray(getattr(init_booster, k)[t])).to(dev))
             tree_weights.append(float(init_booster.tree_weight[t]))
-            leaf = walker(binned, *(trees[k][-1] for k in (
-                "split_feature", "threshold_bin", "left_child",
-                "right_child")))
-            scores[:, t % K] += trees["leaf_value"][-1][leaf] \
-                * float(init_booster.tree_weight[t])
+            scores[:, t % K] += trees["leaf_value"][t][
+                walk_tree(binned, t)] * tree_weights[t]
         # continue against the incoming booster's base score
         scores = scores + (init_booster.init_score - init_score)
         init_score = init_booster.init_score
@@ -601,32 +851,95 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     rounds_no_improve = 0
 
     feat_mask_full = torch.ones((F,), dtype=torch.bool, device=dev)
-    hist_mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    hist_mask_full = torch.ones((n,), dtype=torch.bool, device=dev)
+    bag_mask = None
     gen = torch.Generator(device=dev)
+    shrink = 1.0 if p.boosting_type == "rf" else p.learning_rate
+    is_goss = p.boosting_type == "goss"
+    a_n = int(p.top_rate * n) if is_goss else 0
+    b_n = int(p.other_rate * n) if is_goss else 0
+    goss_amp = (1.0 - p.top_rate) / max(p.other_rate, 1e-12)
+
     start_iter = len(tree_weights) // K
     t0 = time.perf_counter()
     for it in range(start_iter, start_iter + p.num_iterations):
+        # host-side draws, in the JAX package's order: features, bag, DART
         feat_mask = feat_mask_full
         if p.feature_fraction < 1.0:
             keep = max(1, int(round(p.feature_fraction * F)))
             sel = rng.choice(F, size=keep, replace=False)
             feat_mask = torch.zeros((F,), dtype=torch.bool, device=dev)
             feat_mask[torch.from_numpy(sel).to(dev)] = True
-        g, h = objective(scores, y_dev, w_dev)
+        hist_mask = hist_mask_full
+        if not is_goss and p.bagging_freq > 0 and p.bagging_fraction < 1.0:
+            # resample on schedule, and on the first iteration of a warm
+            # start that begins off schedule
+            if it % p.bagging_freq == 0 or bag_mask is None:
+                bag_mask = torch.from_numpy(
+                    rng.random(n) < p.bagging_fraction).to(dev)
+            hist_mask = bag_mask
+        dropped: List[int] = []
+        if p.boosting_type == "dart" and tree_weights and \
+                rng.random() >= p.skip_drop:
+            k_drop = min(p.max_drop, max(1, int(round(
+                p.drop_rate * len(tree_weights)))))
+            dropped = sorted(rng.choice(
+                len(tree_weights), size=min(k_drop, len(tree_weights)),
+                replace=False).tolist())
         gen.manual_seed(p.seed * 1000003 + it)
+        if dropped:
+            # DART: gradients against the scores without the dropped trees
+            drop_delta = torch.zeros_like(scores)
+            for t in dropped:
+                drop_delta[:, t % K] += trees["leaf_value"][t][
+                    walk_tree(binned, t)] * tree_weights[t]
+            g, h = objective(scores - drop_delta, y_dev, w_dev)
+        else:
+            grad_scale = float(max(1, len(tree_weights) // K)) \
+                if p.boosting_type == "rf" and tree_weights else 1.0
+            g, h = objective(scores / grad_scale, y_dev, w_dev)
+            if is_goss:
+                # the top a_n rows by |g|, b_n of the rest at random,
+                # amplified by (1 - top_rate) / other_rate
+                order = torch.argsort(-g.abs().sum(dim=1), stable=True)
+                rest = order[a_n:]
+                perm = torch.randperm(rest.shape[0], generator=gen,
+                                      device=dev)
+                small_idx = rest[perm[:b_n]]
+                keep_rows = torch.zeros((n,), dtype=torch.bool, device=dev)
+                keep_rows.index_fill_(0, order[:a_n], True)
+                keep_rows.index_fill_(0, small_idx, True)
+                amp = torch.ones((n,), dtype=torch.float32, device=dev)
+                amp.index_fill_(0, small_idx, goss_amp)
+                hist_mask = hist_mask & keep_rows
+                g, h = g * amp[:, None], h * amp[:, None]
+        new_w = 1.0 / (1.0 + len(dropped)) if dropped else 1.0
         tree = grow(binned, g[:, 0], h[:, 0], hist_mask, feat_mask, edges,
                     generator=gen)
-        lv_s = tree.leaf_value * p.learning_rate
-        scores[:, 0] += lv_s[tree.leaf_of_row]
+        lv_s = tree.leaf_value * shrink
+        scores[:, 0] += lv_s[tree.leaf_of_row] * new_w
         for k in _TREE_KEYS:
             trees[k].append(lv_s if k == "leaf_value"
                             else getattr(tree, k))
-        tree_weights.append(1.0)
+        tree_weights.append(new_w)
         if has_valid:
             leaf_v = walker(binned_v, tree.split_feature,
                             tree.threshold_bin, tree.left_child,
                             tree.right_child)
-            scores_v[:, 0] += lv_s[leaf_v]
+            scores_v[:, 0] += lv_s[leaf_v] * new_w
+        if dropped:
+            # DART: shrink each dropped tree by k / (1 + k), on the train
+            # and valid scores alike
+            factor = len(dropped) / (1.0 + len(dropped))
+            for t in dropped:
+                scale = tree_weights[t] * (factor - 1.0)
+                scores[:, t % K] += trees["leaf_value"][t][
+                    walk_tree(binned, t)] * scale
+                if has_valid:
+                    scores_v[:, t % K] += trees["leaf_value"][t][
+                        walk_tree(binned_v, t)] * scale
+                tree_weights[t] *= factor
+        if has_valid:
             m = metric_fn(yv, scores_v.cpu().numpy().astype(np.float64))
             evals.append({metric_name: m, "iteration": it})
             improved = m > best_metric if larger_better else m < best_metric
@@ -644,7 +957,12 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     trees_np = {k: np.stack([t.cpu().numpy() for t in v])
                 for k, v in trees.items()}        # one sync, after the loop
     t_boost = time.perf_counter() - t0
-    if init_booster is not None:
+    if p.growth == "leaf":
+        # the tight walk bound: leaf-wise trees are usually far shallower
+        # than the num_leaves - 1 chain (warm-start trees included)
+        D = children_depth_bound(trees_np["left_child"],
+                                 trees_np["right_child"])
+    elif init_booster is not None:
         D = max(D, init_booster.max_depth)
     booster = GBDTBooster(
         trees_np["split_feature"], trees_np["threshold"],
@@ -654,8 +972,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         np.asarray(tree_weights, np.float32),
         left_child=trees_np["left_child"], right_child=trees_np["right_child"],
         max_depth=D, num_features=F, objective=p.objective, num_class=K,
-        init_score=init_score, feature_names=feature_names,
-        best_iteration=best_iter, sigmoid=p.sigmoid)
+        init_score=init_score, average_output=(p.boosting_type == "rf"),
+        feature_names=feature_names, best_iteration=best_iter,
+        sigmoid=p.sigmoid)
     return TrainResult(booster=booster, evals=evals, bin_mapper=mapper,
                        extras={"binning_s": t_bin, "transfer_s": t_transfer,
                                "boosting_s": t_boost})

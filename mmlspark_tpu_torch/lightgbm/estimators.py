@@ -1,11 +1,14 @@
 """LightGBM-compatible estimators over the PyTorch GBDT core (port of
 ``mmlspark_tpu/lightgbm/estimators.py``: classifier and regressor).
 
-Same param names and semantics as the JAX package.  ``max_depth`` set
-alone selects level-wise growth, the ported grower; the leaf-wise default
-(``num_leaves`` = 31) raises ``NotImplementedError`` until the leaf-wise
-grower is ported.  ``device`` picks where training and scoring run: the
-card by default, ``"cpu"`` for the plain PyTorch versions.
+Same param names and semantics as the JAX package.  The defaults grow
+leaf-wise (``num_leaves`` = 31, LightGBM's best-first growth); ``max_depth``
+set alone selects level-wise growth, and with ``num_leaves`` it caps the
+leaf-wise depth.  ``boosting_type`` gbdt, rf, dart and goss and bagging
+pass through to ``train()``; categorical features raise
+``NotImplementedError`` until they are ported.  ``device`` picks where
+training and scoring run: the card by default, ``"cpu"`` for the plain
+PyTorch versions.
 """
 from __future__ import annotations
 

@@ -174,7 +174,7 @@ class GBDTBooster(Saveable):
         if self.categorical_features:
             raise NotImplementedError(
                 "categorical splits are not ported yet (ROADMAP, port "
-                "queue: dart/goss/rf/bagging/categorical)")
+                "queue: categorical splits)")
         dev = resolve_device(device)
         use_trees = use_trees or slice(None)
         sf, th, lca, rca = self._tree_tensors(dev, use_trees)

@@ -104,8 +104,14 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     if (g_scale is None) != (h_scale is None):
         raise ValueError("pass both g_scale and h_scale or neither")
     if g_scale is None:
-        g_scale = torch.clamp(g.abs().max(), min=1e-12) / qg_cap
-        h_scale = torch.clamp(h.max(), min=1e-12) / qh_cap
+        # divide by device tensors: CUDA divides by a host scalar through
+        # its reciprocal, one ulp away from the true division of the CPU
+        # and of the JAX package
+        def cap(c):
+            return torch.full((), float(c), dtype=torch.float32,
+                              device=g.device)
+        g_scale = torch.clamp(g.abs().max(), min=1e-12) / cap(qg_cap)
+        h_scale = torch.clamp(h.max(), min=1e-12) / cap(qh_cap)
     else:
         g_scale = torch.clamp(torch.as_tensor(g_scale, dtype=torch.float32,
                                               device=g.device), min=1e-30)

@@ -12,6 +12,7 @@ Histograms must be bit-identical, and so must the best-split records: the
 kernel's f32 scan adds bins in the plain version's order with no fused
 multiply-adds.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -149,3 +150,67 @@ def test_launch_counts_and_argument_checks(dev):
     with pytest.raises(ValueError, match="must lie on"):
         CH.hist_accumulate(binned, qg, qh, ids.cpu(), N, B, lay)
     assert CH.launch_counts()["hist_accumulate"] == 1
+
+
+@pytest.mark.parametrize("n,num_leaves,max_depth,store16", [
+    (2000, 31, 0, True), (2000, 31, 0, False), (20000, 31, 0, True),
+    (20000, 15, 4, True)])
+def test_leafwise_grower_card_equals_cpu(dev, n, num_leaves, max_depth,
+                                         store16):
+    """A leaf-wise tree grown on the card (the two kernels, no host sync in
+    the step loop) equals the same tree grown by the plain versions on the
+    CPU: integer arrays and every row's leaf bit-identical.  At 2,000 rows
+    the histogram carry is int16 unless ``store16`` is off."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams
+    from mmlspark_tpu_torch.lightgbm.core import make_leafwise_grower
+    F, B = 12, 63
+    gen = torch.Generator().manual_seed(n + num_leaves + max_depth)
+    binned = torch.randint(0, B, (n, F), generator=gen, dtype=torch.uint8)
+    g = torch.randn(n, generator=gen) + binned[:, 0].float() / B - 0.5
+    h = torch.rand(n, generator=gen) * 0.25 + 1e-3
+    noise = torch.rand((2, n), generator=gen)
+    edges = torch.arange(B - 1, dtype=torch.float32).repeat(F, 1)
+    params = GBDTParams(num_leaves=num_leaves, max_depth=max_depth,
+                        use_quantized_grad=True, lambda_l2=1.0).resolve()
+    grow = make_leafwise_grower(num_leaves, max_depth, F, B, params,
+                                store16=store16)
+    trees = []
+    for d in (dev, torch.device("cpu")):
+        bd = binned.to(d).t().contiguous().t()
+        mask = torch.ones(n, dtype=torch.bool, device=d)
+        fmask = torch.ones(F, dtype=torch.bool, device=d)
+        args = (bd, g.to(d), h.to(d), mask, fmask, edges.to(d))
+        u = noise.to(d)
+        torch.cuda.synchronize()
+        CH.reset_launch_counts()
+        if d.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            tree = grow(*args, noise=u)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if d.type == "cuda":
+            assert CH.launch_counts() == {"hist_accumulate": num_leaves,
+                                          "frontier_finish": num_leaves}
+        trees.append([x.cpu() for x in tree])
+    for name, a, b in zip(tree._fields, *trees):
+        if a.is_floating_point():
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                       atol=0, err_msg=name)
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("quant_bins", [6, 16, 128])
+def test_quantize_on_the_card_equals_cpu(dev, quant_bins):
+    """The quantizer's ints and scales on the card equal the CPU's (and so
+    the JAX package's) bit for bit: the scales are true divisions."""
+    gen = torch.Generator().manual_seed(quant_bins)
+    g = torch.randn(50000, generator=gen)
+    h = torch.rand(50000, generator=gen) * 0.3 + 1e-3
+    u = torch.rand((2, 50000), generator=gen)
+    cpu = quantize_gradients(g, h, quant_bins, noise=u)
+    card = quantize_gradients(g.to(dev), h.to(dev), quant_bins,
+                              noise=u.to(dev))
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu(), b)

@@ -188,15 +188,16 @@ def test_estimator_fit_transform_on_the_ports_dataframe():
 def test_not_ported_paths_raise_with_their_roadmap_entry():
     X, y = _data(n=300)
     for params, entry in (
-            (GBDTParams(num_leaves=31), "leaf-wise grower"),
-            (GBDTParams(max_depth=2, boosting_type="goss"), "dart/goss"),
-            (GBDTParams(max_depth=2, bagging_freq=1, bagging_fraction=0.5),
-             "bagging"),
-            (GBDTParams(max_depth=2, objective="huber"), "multiclass")):
+            (GBDTParams(num_leaves=31, categorical_features=(0,)),
+             "categorical"),
+            (GBDTParams(num_leaves=31, objective="multiclass", num_class=3),
+             "multiclass"),
+            (GBDTParams(num_leaves=31, objective="huber"), "multiclass")):
         with pytest.raises(NotImplementedError, match=entry):
             train(X, y, params, device="cpu")
     with pytest.raises(NotImplementedError, match="NCCL"):
         train(X, y, GBDTParams(max_depth=2), shard_rows=True, device="cpu")
     df = DataFrame.from_dict({"features": X, "label": y})
-    with pytest.raises(NotImplementedError, match="leaf-wise"):
-        LightGBMClassifier().set_params(device="cpu").fit(df)
+    with pytest.raises(NotImplementedError, match="categorical"):
+        LightGBMClassifier().set_params(categorical_features=[0],
+                                        device="cpu").fit(df)
