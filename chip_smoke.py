@@ -11,14 +11,22 @@ Phases; any failure exits nonzero and prints no result line:
    N = 1, 8, 16, 64 nodes in every lane layout and at its edges (128-bin
    gradients at their extremes, every row in one node and one bin, an
    all-inactive frontier, a ragged row count); ``frontier_finish`` in
-   direct, subtract and depth-gated modes.  Histograms must be
-   bit-identical; best splits equal, except where the two best gains are
-   within 1e-6 relative (an f32 near-tie), with left stats within rtol
-   1e-5.  Then each kernel is timed at the main path's level-4 frontier
-   step (8 parents, smaller children only) and at every level of a depth-5
-   tree: its device time from ``torch.profiler`` (``ms``) beside CUDA
-   events around back-to-back wrapper calls (``wrapper_ms``), with its
-   plain version and one library call timed by CUDA events.
+   direct, subtract and depth-gated modes, in the leaf-wise slot form (the
+   parent read from the carry and both children written into it; int32
+   and int16 carries, the step's gate on and off) and at its edges (2 and
+   256 bins, one feature, 203 features, ungated 0/0 gains), each dense
+   with 8 parents and in the slot form.  Histograms must be bit-identical;
+   best splits equal, except where the two best gains are within 1e-6
+   relative (an f32 near-tie), with left stats within rtol 1e-5; the slot
+   form and the edges bit-identical in every array.  Then each kernel is
+   timed at the main path's level-4 frontier step (8 parents, smaller
+   children only; ``frontier_finish`` into dense arrays, the form
+   ``frontier_step`` gives the level-wise grower), ``frontier_finish``
+   also at the leaf-wise N = 1 step in the slot form, and both at every
+   level of a depth-5 tree: device
+   time from ``torch.profiler`` (``ms``) beside CUDA events around
+   back-to-back wrapper calls (``wrapper_ms``), with the plain version
+   and one library call timed by CUDA events.
 4. slice  — ``LightGBMClassifier(max_depth=5, num_iterations=8)`` fits on
    1M x 200 binary data (the label of ``bench.py``'s GBDT phase), then
    transforms 100k fresh rows.  The kernels' launch counts are zeroed just
@@ -34,8 +42,9 @@ Phases; any failure exits nonzero and prints no result line:
    its defaults (leaf-wise, 31 leaves) fits 8 iterations on the bench data
    with exactly 8 x 31 = 248 launches of each kernel, reaches accuracy 0.9
    on 100k fresh rows, and its card and CPU leaf walks agree; ``train()``
-   phases and a profiled fit give the busy share, the top kernels and the
-   per-step kernel times of one tree beside each step's bound.  Bagging,
+   phases and a profiled fit give the busy share, the top kernels, the
+   ``cudaLaunchKernel`` calls per tree and the per-step kernel times of one
+   tree beside each step's bound.  Bagging,
    GOSS, RF and DART each fit leaf-wise at 200k x 200 for 4 iterations and
    reach accuracy 0.85 on 50k fresh rows.
 6. results — one ``{"kernels": [...]}`` line (``launches`` sums the
@@ -100,6 +109,20 @@ def bound_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def leaf_finish_bytes(C: int, F: int, B: int, width: int,
+                      root: bool = False) -> int:
+    """Bytes a leaf-wise ``frontier_finish`` call must move: the lane sums,
+    the parent read from the carry and the children written into it (both
+    at the carry's dtype ``width``), the masks, scales and slots, and each
+    child's best split (gain, feature, bin, left sums; the root also its
+    totals)."""
+    if root:
+        return (C * F * B * 4 + F * B * 3 * width + F + F * B + 1 + 8 + 8
+                + 36)
+    return (C * F * B * 4 + 3 * F * B * 3 * width + F + F * B + 1 + 8
+            + 1 + 24 + 2 * 24)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -149,8 +172,34 @@ def device_ms(fn, reps: int, names) -> float:
 
 
 KERNEL_NAMES = {"hist_accumulate": ("hist_accumulate_kernel",),
-                "frontier_finish": ("frontier_finish_kernel",
-                                    "frontier_best_kernel")}
+                "frontier_finish": ("frontier_finish_kernel",)}
+
+
+def same_record(a, b) -> bool:
+    """Bit-identical, with NaN equal to NaN (ungated 0/0 gains)."""
+    if a.is_floating_point():
+        return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+            a.nan_to_num(nan=7.0), b.nan_to_num(nan=7.0))
+    return torch.equal(a, b)
+
+
+def slot_step(CH, acc, lay, carry, gp, j, at_j, at_new):
+    """The leaf-wise N = 1 step in the slot form, on the kernel and on the
+    plain version, each from its own copy of ``carry``; raises unless every
+    array of the two copies is bit-identical.  Returns the kernel's copy."""
+    left = torch.ones((1,), dtype=torch.bool, device=acc.device)
+    got = CH.FinishOut(*(x.clone() for x in carry[:5]))
+    ref = CH.FinishOut(*(x.clone() for x in carry[:5]))
+    CH.frontier_finish(acc, *lay, None, left, gp, out=got,
+                       out_slots=(at_j, at_new), parent_slot=j)
+    CH.frontier_finish_plain(acc, *lay, None, left, gp, out=ref,
+                             out_slots=(at_j, at_new), parent_slot=j)
+    torch.cuda.synchronize()
+    for name, x, y in zip(got._fields[:5], got, ref):
+        if not same_record(x, y):
+            raise AssertionError(f"frontier_finish slot form: {name} "
+                                 f"differs")
+    return got
 
 
 def kernel_phase(dev):
@@ -283,6 +332,95 @@ def kernel_phase(dev):
             f"best max|diff| {err:.3g}, "
             f"bit-identical={torch.equal(best, best_p)}")
 
+    # the leaf-wise N = 1 step in the slot form: the parent read from the
+    # carry and both children written into it, int32 and int16 carries,
+    # the step's gate on (slots 2 and 5) and off (both to the trash slot 7)
+    L = 7
+    in_left = torch.rand(n, generator=gen, device=dev) < 0.5
+    left_ids = torch.where(in_left, 0, -1).to(torch.int32)
+    acc1 = CH.hist_accumulate(binned, qg, qh, left_ids, 1, B, lay_n)
+    root_hist = CH.frontier_finish_plain(acc0, *lay_n)[0]
+    slot = {s: torch.tensor([s], device=dev) for s in (2, 5, L)}
+    for dtype in (torch.int32, torch.int16):
+        hists = torch.randint(-999, 999, (L + 1, F, B, 3), generator=gen,
+                              device=dev).to(dtype)
+        hists[2] = root_hist[0].to(dtype)
+        carry = CH.FinishOut(
+            hists, torch.randn(L + 1, generator=gen, device=dev),
+            torch.zeros(L + 1, dtype=torch.int32, device=dev),
+            torch.zeros(L + 1, dtype=torch.int32, device=dev),
+            torch.randn((L + 1, 3), generator=gen, device=dev))
+        for do in (True, False):
+            at_j, at_new = (slot[2], slot[5]) if do else (slot[L], slot[L])
+            got = slot_step(CH, acc1, lay_n, carry, gains(True), slot[2],
+                            at_j, at_new)
+            if not do and not all(torch.equal(x[:L], y[:L])
+                                  for x, y in zip(got[:5], carry)):
+                raise AssertionError("a gated step wrote a real slot")
+            name = f"slot N=1 {str(dtype)[6:]} gate {'on' if do else 'off'}"
+            checks.append({"kernel": "frontier_finish", "mode": name,
+                           "bit_identical": True})
+            log(f"[kernels] frontier_finish {name}: carry bit-identical")
+        if dtype == torch.int32:
+            carry32 = carry
+
+    # the edges: 2 and 256 bins, one feature, a feature count that is no
+    # multiple of a block's five, and ungated 0/0 gains (NaN), each dense
+    # (8 parents) and in the slot form (one parent)
+    n_e = 200_000
+    for name, B_e, F_e, ungated in (("B=2", 2, 24, False),
+                                    ("B=256", 256, 24, False),
+                                    ("F=1", 255, 1, False),
+                                    ("F=203", 255, 203, False),
+                                    ("ungated NaN", 255, 24, True)):
+        b_e = torch.randint(0, B_e, (F_e, n_e), generator=gen, device=dev,
+                            dtype=torch.int16).to(torch.uint8).t()
+        qg_e, qh_e = qg[:n_e].contiguous(), qh[:n_e].contiguous()
+        lay_e = CH.lane_layout(n_e, n_e, QUANT_BINS)
+        fm_e = torch.ones(F_e, dtype=torch.bool, device=dev)
+        ed_e = torch.ones((F_e, B_e), dtype=torch.bool, device=dev)
+        gp_e = CH.gain_params(gs, hs, fm_e, ed_e, None, l2=0.0,
+                              min_data=0.0, min_hess=0.0) if ungated else \
+            CH.gain_params(gs, hs, fm_e, ed_e, True, l2=1.0, min_data=20.0,
+                           min_hess=1e-3)
+        pid = node_ids(8, None, n_e)
+        par_e = CH.frontier_finish_plain(CH.hist_accumulate(
+            b_e, qg_e, qh_e, pid, 8, B_e, lay_e), *lay_e)[0]
+        sid = torch.where(in_small[:n_e], pid, -1).to(torch.int32)
+        acc_e = CH.hist_accumulate(b_e, qg_e, qh_e, sid, 8, B_e, lay_e)
+        sl_e = small_left.contiguous()
+        hist, best = CH.frontier_finish(acc_e, *lay_e, par_e, sl_e, gp_e)
+        hist_p, best_p = CH.frontier_finish_plain(acc_e, *lay_e, par_e,
+                                                  sl_e, gp_e)
+        torch.cuda.synchronize()
+        if not (torch.equal(hist, hist_p) and same_record(best, best_p)):
+            raise AssertionError(f"frontier_finish {name} (8 parents) "
+                                 f"differs")
+        if ungated and not bool(best.isnan().any()):
+            raise AssertionError("the ungated case must have NaN gains")
+        ids1 = torch.where(in_left[:n_e], 0, -1).to(torch.int32)
+        acc_e1 = CH.hist_accumulate(b_e, qg_e, qh_e, ids1, 1, B_e, lay_e)
+        hists_e = torch.zeros((L + 1, F_e, B_e, 3), dtype=torch.int32,
+                              device=dev)
+        hists_e[2] = CH.frontier_finish_plain(CH.hist_accumulate(
+            b_e, qg_e, qh_e, torch.zeros(n_e, dtype=torch.int32, device=dev),
+            1, B_e, lay_e), *lay_e)[0][0]
+        carry_e = CH.FinishOut(
+            hists_e, torch.zeros(L + 1, device=dev),
+            torch.zeros(L + 1, dtype=torch.int32, device=dev),
+            torch.zeros(L + 1, dtype=torch.int32, device=dev),
+            torch.zeros((L + 1, 3), device=dev))
+        slot_step(CH, acc_e1, lay_e, carry_e, gp_e, slot[2], slot[2],
+                  slot[5])
+        fb = CH._finish_plan(8, F_e, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        checks.append({"kernel": "frontier_finish", "mode": name,
+                       "features_per_block_8_parents": fb,
+                       "bit_identical": True})
+        log(f"[kernels] frontier_finish {name:11s}: dense (8 parents, {fb} "
+            f"features a block) and slot form bit-identical")
+        del b_e
+
     # timing at the level-4 frontier step of a depth-5 tree: device time
     # from the profiler, the wrapper's pace from CUDA events
     C = acc4.shape[0]
@@ -313,8 +451,10 @@ def kernel_phase(dev):
 
     gp = gains()
 
+    # the level-wise grower's form (``frontier_step``): dense arrays
     def fin_call():
-        return CH.frontier_finish(acc4, *lay4, parent, small_left, gp)
+        CH.frontier_finish(acc4, *lay4, parent, small_left, gp,
+                           out=CH.dense_out(2 * P, F, B, dev))
 
     t_fin = device_ms(fin_call, 50, KERNEL_NAMES["frontier_finish"])
     w_fin = time_ms(fin_call, 50)
@@ -324,6 +464,23 @@ def kernel_phase(dev):
     fin_bytes = (C * P * F * B * 4 + P * F * B * 12 + n_out * F * B * 12
                  + F + F * B + P + 8 + n_out * 36)
     fin_bound, fin_by = bound_ms(fin_bytes, n_out * F * B * 24)
+
+    # the leaf-wise N = 1 step in the slot form (int32 carry; the children
+    # go to slots 5 and 7 so that the parent in slot 2 stays as it is)
+    left1, gp1 = torch.ones((1,), dtype=torch.bool, device=dev), gains(True)
+
+    def fin1_call():
+        CH.frontier_finish(acc1, *lay_n, None, left1, gp1, out=carry32,
+                           out_slots=(slot[5], slot[L]), parent_slot=slot[2])
+
+    t_fin1 = device_ms(fin1_call, 50, KERNEL_NAMES["frontier_finish"])
+    w_fin1 = time_ms(fin1_call, 50)
+    C1 = acc1.shape[0]
+    fin1_bound, fin1_by = bound_ms(leaf_finish_bytes(C1, F, B, 4),
+                                   2 * F * B * 24)
+    log(f"[kernels] frontier_finish leaf-wise N=1 slot step: {t_fin1:.4f} "
+        f"ms device ({w_fin1:.4f} wrapper), bound {fin1_bound:.4f} ms "
+        f"({fin1_by})")
 
     # per-level kernel times of one depth-5 tree (direct root, then the
     # smaller children of 1, 2, 4, 8 parents)
@@ -346,7 +503,9 @@ def kernel_phase(dev):
             return CH.hist_accumulate(binned, qg, qh, ids, Pd, B, lay_d)
 
         def fin_d_call():
-            return CH.frontier_finish(acc_d, *lay_d, par_d, sl_d, gp)
+            CH.frontier_finish(acc_d, *lay_d, par_d, sl_d, gp,
+                               out=CH.dense_out(2 * Pd if d else 1, F, B,
+                                                dev))
 
         rec = {"level": d, "parents": Pd, "layout": lay_d.mode,
                "active_rows": int((ids >= 0).sum()),
@@ -374,7 +533,10 @@ def kernel_phase(dev):
         "frontier_finish": dict(max_abs_err=errs["frontier_finish"],
                                 ms=t_fin, wrapper_ms=w_fin,
                                 plain_ms=t_fin_plain, bound_ms=fin_bound,
-                                bound_by=fin_by, library_ms=None),
+                                bound_by=fin_by, library_ms=None,
+                                leaf_step_ms=t_fin1,
+                                leaf_step_wrapper_ms=w_fin1,
+                                leaf_step_bound_ms=fin1_bound),
     }
 
 
@@ -474,7 +636,8 @@ def fit_phases(params, label: str):
     log(f"[{label}] profiled fit: boosting {prof_ex['boosting_s']:.4f} s, "
         f"device kernels {busy_ms:.3f} ms (busy share {share:.3f}), "
         f"{runtime_launches} cudaLaunchKernel calls "
-        f"({runtime_launches / iters:.0f} per tree)")
+        f"({runtime_launches / iters:.0f} per tree; the two-kernel finish "
+        f"with the grower's copies: 3,362 leaf-wise, 354 level-wise)")
     for name, ms in top:
         log(f"[{label}]   {ms:9.3f} ms  {name[:90]}")
     per_launch = {}
@@ -485,7 +648,6 @@ def fit_phases(params, label: str):
         per_name = [sorted((e for e in events if nm in e.name),
                            key=lambda e: e.time_range.start)
                     for nm in names]
-        # frontier_finish is two kernels per launch: sum them in order
         per_launch[kernel] = [sum(e.time_range.elapsed_us() for e in evs)
                               / 1e3 for evs in zip(*per_name)]
     DETAIL[label + "_train_phases"] = ex
@@ -677,6 +839,7 @@ def leaf_step_times(booster, per_launch):
     fit, each beside the bound for that step's active rows: the root reads
     every row, step s >= 1 the rows of internal node s - 1's left child
     (the child each step rebuilds)."""
+    from mmlspark_tpu_torch.lightgbm.core import leafwise_store_dtype
     from mmlspark_tpu_torch.ops import cuda_histogram as CH
     n, F, B = N_ROWS, N_FEAT, N_BINS
     for kernel, times in per_launch.items():
@@ -687,6 +850,7 @@ def leaf_step_times(booster, per_launch):
                     booster.leaf_count[0])
     M = lc.shape[0]
     C = CH._CHANNELS[CH.lane_layout(n, n, QUANT_BINS).mode]
+    width = leafwise_store_dtype(n, True, QUANT_BINS).itemsize  # the carry
     steps = []
     for s in range(M + 1):
         if s == 0:
@@ -697,9 +861,9 @@ def leaf_step_times(booster, per_launch):
         n_out = 1 if s == 0 else 2
         acc_bound, acc_by = bound_ms(n * 4 + active * (F + 2)
                                      + C * F * B * 4, active * F * C)
-        fin_bytes = (C * F * B * 4 + (F * B * 12 if s else 0)
-                     + n_out * F * B * 12 + F + F * B + 1 + 8 + n_out * 36)
-        fin_bound, fin_by = bound_ms(fin_bytes, n_out * F * B * 24)
+        fin_bound, fin_by = bound_ms(
+            leaf_finish_bytes(C, F, B, width, root=s == 0),
+            n_out * F * B * 24)
         steps.append({
             "step": s, "active_rows": active,
             "hist_accumulate_ms": per_launch["hist_accumulate"][s],

@@ -36,8 +36,10 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "hist_accumulate_launch": [_P, _L, _L, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "frontier_finish_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                               _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P],
+    "frontier_finish_launch": [_P, _I, _I, _I, _I, _I, _I,
+                               _P, _I, _P, _P, _P, _I, _P, _P,
+                               _P, _P, _P, _P, _F, _F, _F, _F,
+                               _P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 _lock = threading.Lock()

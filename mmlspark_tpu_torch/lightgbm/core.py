@@ -458,13 +458,14 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
                                   edge_ok)
             left = torch.ones((1,), dtype=torch.bool, device=dev)
 
-        def fused(node_ids, dok, parent=None):
-            # subtract mode with the left child as the one rebuilt
-            return cuda_histogram.frontier_step(
+        def fused(node_ids, dok, out, out_slots, parent_slot=None):
+            # one call writes the children (and their best splits) into the
+            # carry; subtract mode rebuilds the left child
+            cuda_histogram.frontier_step(
                 binned, qg8, qh8, node_ids, 1, B,
                 gains._replace(depth_ok=dok), quant_bins=quant_bins,
-                parent_hist=parent, small_left=None if parent is None
-                else left)
+                small_left=None if parent_slot is None else left, out=out,
+                out_slots=out_slots, parent_slot=parent_slot)
 
         def local_hist(mask):
             ids = torch.where(mask, 0, -1)
@@ -488,14 +489,6 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
                     cum.reshape(F * B, 3).index_select(0, best),
                     torch.stack(tot, dim=-1))
 
-        # ---- root
-        if use_fused:
-            h_root, best0 = fused(torch.where(hist_mask, 0, -1)
-                                  .to(torch.int32), depth_ok[:1])
-        else:
-            h_root = local_hist(hist_mask)
-            best0 = leaf_best(h_root, depth_ok[:1])
-
         # ---- carry: each array padded by a trash slot (M or L) that takes
         # the writes of a step whose gate is off
         st_dtype = leafwise_store_dtype(n, use_quant, quant_bins, store16)
@@ -510,14 +503,24 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
         th, sg, iv, ic = (full(M + 1, 0, f32) for _ in range(4))
         tb = full(M + 1, 0, i32)
         hists = torch.zeros((L + 1, F, B, 3), dtype=st_dtype, device=dev)
-        hists[:1] = h_root.to(st_dtype)
         best_gain = full(L + 1, -math.inf, f32)
         best_feat, best_bin = full(L + 1, 0, i32), full(L + 1, 0, i32)
         best_left = torch.zeros((L + 1, 3), dtype=f32, device=dev)
         leaf_tot = torch.zeros((L + 1, 3), dtype=f32, device=dev)
-        g0, f0, b0, lp0, tot0 = best0
-        best_gain[:1], best_feat[:1], best_bin[:1] = g0, f0, b0
-        best_left[:1], leaf_tot[:1] = lp0, tot0
+
+        # ---- root, into slot 0
+        if use_fused:
+            carry = cuda_histogram.FinishOut(hists, best_gain, best_feat,
+                                             best_bin, best_left)
+            fused(torch.where(hist_mask, 0, -1).to(torch.int32),
+                  depth_ok[:1], carry._replace(tot=leaf_tot),
+                  (torch.zeros((1,), dtype=torch.int64, device=dev),))
+        else:
+            h_root = local_hist(hist_mask)
+            g0, f0, b0, lp0, tot0 = leaf_best(h_root, depth_ok[:1])
+            hists[:1] = h_root.to(st_dtype)
+            best_gain[:1], best_feat[:1], best_bin[:1] = g0, f0, b0
+            best_left[:1], leaf_tot[:1] = lp0, tot0
         leaf_depth, leaf_side = full(L + 1, 0, i32), full(L + 1, 0, i32)
         leaf_parent = full(L + 1, -1, i32)
         created = torch.arange(L + 1, device=dev) == 0
@@ -579,18 +582,17 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
             dok = depth_ok.index_select(0, d_new)
 
             # the left child's rows, rebuilt; the right child by subtraction
+            # from the parent read in the carry at slot j
             in_left = hist_mask & (leaf_of_row == j)
             if use_fused:
-                pair, fb = fused(torch.where(in_left, 0, -1).to(torch.int32),
-                                 dok, hists.index_select(0, j).to(i32))
-                hl, hr = pair[:1], pair[1:]
-                bests = [tuple(x[k:k + 1] for x in fb) for k in (0, 1)]
-            else:
-                hl = local_hist(in_left)
-                hr = hists.index_select(0, j).to(hl.dtype) - hl
-                bests = [leaf_best(hl, dok), leaf_best(hr, dok)]
+                fused(torch.where(in_left, 0, -1).to(torch.int32), dok,
+                      carry, (at_j, at_new), parent_slot=j)
+                continue
+            hl = local_hist(in_left)
+            hr = hists.index_select(0, j).to(hl.dtype) - hl
             for at, h_child, (g_c, f_c, b_c, lp_c, _) in (
-                    (at_j, hl, bests[0]), (at_new, hr, bests[1])):
+                    (at_j, hl, leaf_best(hl, dok)),
+                    (at_new, hr, leaf_best(hr, dok))):
                 put(hists, at, h_child)
                 put(best_gain, at, g_c)
                 put(best_feat, at, f_c)

@@ -26,10 +26,16 @@ atomics, so the port is two hand-written CUDA kernels
   output lane layout, with global atomics.  The lanes are linear in
   ``(qg, qh, 1)`` and integer addition is associative, so the sums equal
   the plain version's mod 2^32 bit for bit, in any order.
-- ``frontier_finish`` — decode, optional sibling subtraction, and (with
-  gains) the dequantize -> f32 bin scan -> gain -> gates -> first-max
-  argmax, one warp per (node, feature), then a per-node reduction over
-  features.  Bound by bytes: the lane sums and histograms.
+- ``frontier_finish`` — one launch: decode, sibling subtraction and
+  (with gains) the dequantize -> f32 bin scan -> gain -> gates -> first
+  max.  A block takes one parent and a group of at most five features and
+  emits both children; one lane per (child, channel, feature) scans the
+  bins in the plain version's sequential f32 order; the last block of each
+  parent reduces the groups' partial bests through an atomic counter that
+  it leaves at zero.  Its inputs and outputs may be the leaf-wise grower's
+  carry itself (``FinishOut`` with device slot indices), so a split step
+  makes one call and no copies.  Bound by bytes: the lane sums and
+  histograms.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs, launches on PyTorch's current stream, raises on a launch error and
@@ -68,7 +74,10 @@ _ACC_THREADS = 1024
 _SMEM_PER_BLOCK = 227 * 1024
 _QUEUE_BYTES = _ACC_THREADS // 32 * 64 * 8
 _CELL_BYTES = 12
-_RECORD = 8  # floats per (node, feature) in frontier_finish's scratch
+#: ``frontier_finish`` blocks take at most this many features each, and
+#: leave a partial best of ``_PART`` floats per (parent, group, child)
+_FINISH_MAX_FEAT = 5
+_PART = 8
 
 
 def supported(num_bins: int, quant_bins: int = 16) -> bool:
@@ -122,6 +131,37 @@ def gain_params(g_scale, h_scale, feat_mask, edge_ok, depth_ok=None, *,
                       float(l1), float(l2), float(min_data), float(min_hess))
 
 
+class FinishOut(NamedTuple):
+    """Arrays that ``frontier_finish`` writes its outputs into, each indexed
+    by output row: the leaf-wise grower's carry (with device slot indices),
+    or dense arrays of one row per output node."""
+    hist: torch.Tensor            # (rows, F, B, 3) int32 or int16
+    gain: torch.Tensor            # (rows,) float32
+    feat: torch.Tensor            # (rows,) int32
+    bin: torch.Tensor             # (rows,) int32
+    left: torch.Tensor            # (rows, 3) float32 [GL, HL, CL]
+    tot: Optional[torch.Tensor] = None    # (rows, 3) float32 [G, H, C]
+
+
+def dense_out(n_out: int, F: int, B: int, device) -> FinishOut:
+    """A ``FinishOut`` of one row per output node (``tot`` included): the
+    form ``frontier_step`` gives the level-wise grower."""
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+    return FinishOut(empty(n_out, F, B, 3, dtype=torch.int32), empty(n_out),
+                     empty(n_out, dtype=torch.int32),
+                     empty(n_out, dtype=torch.int32), empty(n_out, 3),
+                     empty(n_out, 3))
+
+
+def _record(out: FinishOut) -> torch.Tensor:
+    """The ``(rows, 9)`` float32 record ``[gain, feature, bin, GL, HL, CL,
+    G, H, C]`` of dense arrays (features and bins convert exactly)."""
+    return torch.cat([out.gain[:, None], out.feat[:, None].to(torch.float32),
+                      out.bin[:, None].to(torch.float32), out.left, out.tot],
+                     dim=1)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -154,12 +194,47 @@ def _cumsum_bins(x: torch.Tensor) -> torch.Tensor:
 
 def frontier_finish_plain(acc: torch.Tensor, mode: str, cbits: int,
                           hbits: int, parent_hist=None, small_left=None,
-                          gains: Optional[GainParams] = None):
+                          gains: Optional[GainParams] = None, *,
+                          out: Optional[FinishOut] = None, out_slots=None,
+                          parent_slot=None):
     """Decode ``(C, N, F, B)`` lane sums; in subtract mode emit both
     children of each parent interleaved ``(2N, F, B, 3)`` (child ``2k`` is
     the small one iff ``small_left[k]``); with ``gains`` also return the
     per-node best split ``(N_out, 9)`` float32 record
-    ``[gain, feature, bin, GL, HL, CL, G, H, C]``."""
+    ``[gain, feature, bin, GL, HL, CL, G, H, C]``.
+
+    With ``out`` (gains required) the outputs go into its arrays instead
+    and nothing is returned: output ``o`` into row ``out_slots[o]`` (a
+    ``(1,)`` int64 device tensor) or, without ``out_slots``, into row
+    ``o``; the histograms narrowed to ``out.hist``'s dtype as ``.to()``
+    wraps; ``tot`` only where ``out.tot`` is given.  Outputs that share a
+    row leave the last one.  ``parent_slot`` (a ``(1,)`` int64 device
+    tensor, N = 1) reads the parent as ``out.hist[parent_slot]`` widened to
+    int32, in place of ``parent_hist``."""
+    if parent_slot is not None:
+        parent_hist = out.hist.index_select(0, parent_slot).to(torch.int32)
+    hist, best = _finish_plain(acc, mode, cbits, hbits, parent_hist,
+                               small_left, gains)
+    if out is None:
+        return hist, best
+    if out_slots is None:
+        rows = [(torch.arange(hist.shape[0], device=hist.device),
+                 slice(None))]
+    else:       # one output at a time: a later one wins a shared row
+        rows = [(at, slice(o, o + 1)) for o, at in enumerate(out_slots)]
+    for at, o in rows:
+        b = best[o]
+        out.hist.index_copy_(0, at, hist[o].to(out.hist.dtype))
+        out.gain.index_copy_(0, at, b[:, 0])
+        out.feat.index_copy_(0, at, b[:, 1].to(torch.int32))
+        out.bin.index_copy_(0, at, b[:, 2].to(torch.int32))
+        out.left.index_copy_(0, at, b[:, 3:6])
+        if out.tot is not None:
+            out.tot.index_copy_(0, at, b[:, 6:9])
+    return None
+
+
+def _finish_plain(acc, mode, cbits, hbits, parent_hist, small_left, gains):
     small = torch.stack(_unpack_lanes(acc, mode, cbits, hbits), dim=-1)
     if parent_hist is not None:
         N, F, B = small.shape[:3]
@@ -317,18 +392,88 @@ def hist_accumulate(binned: torch.Tensor, qg: torch.Tensor, qh: torch.Tensor,
     return acc
 
 
+def _finish_plan(rows: int, F: int, num_sms: int) -> int:
+    """Features per ``frontier_finish`` block: one while the grid of
+    (feature groups x parents) would not cover two blocks per SM, up to
+    ``_FINISH_MAX_FEAT`` (30 scan chains in one warp) as parents grow."""
+    return max(1, min(_FINISH_MAX_FEAT, rows * F // (2 * num_sms)))
+
+
+#: per (device, stream): the per-parent counters the last block of each
+#: parent resets (zeroed once here) and the partial-best scratch rows.  The
+#: kernel needs the counters at zero when it starts; a launch that reports
+#: an error drops its stream's entry, so the next call starts from zeros.
+_finish_state: dict = {}
+
+
+def _finish_buffers(dev: torch.device, stream: int, parts: int):
+    key = (dev.index, stream)
+    counter, scratch = _finish_state.get(key, (None, None))
+    if counter is None:
+        counter = torch.zeros(65535, dtype=torch.int32, device=dev)
+    if scratch is None or scratch.numel() < parts * _PART:
+        scratch = torch.empty(max(parts, 4096) * _PART, dtype=torch.float32,
+                              device=dev)
+    _finish_state[key] = (counter, scratch)
+    return counter, scratch
+
+
+def _slot(name: str, t, dev) -> int:
+    _check(name, t, torch.int64, dev, (1,))
+    return t.data_ptr()
+
+
+def _out_pointers(out: FinishOut, F: int, B: int, n_out: int, out_slots,
+                  dev):
+    """Check ``out`` and its slots; returns (int16 histograms?, the two
+    slot pointers, the five array pointers) in the C launcher's order."""
+    hist = out.hist
+    if hist.dtype not in (torch.int32, torch.int16) or hist.dim() != 4 \
+            or tuple(hist.shape[1:]) != (F, B, 3):
+        raise ValueError(f"out.hist must be (rows, {F}, {B}, 3) int32 or "
+                         f"int16, got {tuple(hist.shape)} {hist.dtype}")
+    _check("out.hist", hist, hist.dtype, dev)
+    rows = hist.shape[0]
+    _check("out.gain", out.gain, torch.float32, dev, (rows,))
+    _check("out.feat", out.feat, torch.int32, dev, (rows,))
+    _check("out.bin", out.bin, torch.int32, dev, (rows,))
+    _check("out.left", out.left, torch.float32, dev, (rows, 3))
+    if out.tot is not None:
+        _check("out.tot", out.tot, torch.float32, dev, (rows, 3))
+    if out_slots is None:
+        if rows < n_out:
+            raise ValueError(f"out has {rows} rows for {n_out} outputs")
+        slots = (None, None)
+    else:
+        if len(out_slots) != n_out or n_out > 2:
+            raise ValueError(f"out_slots must hold one (1,) slot per output "
+                             f"({n_out}), at most two")
+        slots = tuple(_slot("out_slots", s, dev) for s in out_slots) \
+            + (None,) * (2 - n_out)
+    arrays = tuple(None if x is None else x.data_ptr() for x in
+                   (out.gain, out.feat, out.bin, out.left, out.tot))
+    return int(hist.dtype == torch.int16), slots, arrays
+
+
 def frontier_finish(acc: torch.Tensor, mode: str, cbits: int, hbits: int,
                     parent_hist=None, small_left=None,
-                    gains: Optional[GainParams] = None):
+                    gains: Optional[GainParams] = None, *,
+                    out: Optional[FinishOut] = None, out_slots=None,
+                    parent_slot=None):
     """Replaces the ``_finish`` epilogue of ``_make_kernel`` and the
     cross-feature-block reduction of ``_frontier``
     (``mmlspark_tpu/ops/pallas_histogram.py:240-300, 424-429``).  Same
-    contract as ``frontier_finish_plain``.  On the card every input already
-    lies on the accumulator's device in the kernel's types (``gain_params``;
-    bool masks are read as bytes), so a call converts nothing."""
+    contract as ``frontier_finish_plain``, in one kernel launch.  On the
+    card every input already lies on the accumulator's device in the
+    kernel's types (``gain_params``; bool masks are read as bytes; slots
+    int64), so a call converts nothing and never waits for the card.  The
+    kernel writes the best splits into ``FinishOut`` arrays only: without
+    ``out`` the dense record is assembled from ``dense_out`` arrays."""
     if acc.device.type == "cpu":
         return frontier_finish_plain(acc, mode, cbits, hbits, parent_hist,
-                                     small_left, gains)
+                                     small_left, gains, out=out,
+                                     out_slots=out_slots,
+                                     parent_slot=parent_slot)
     if acc.device.type != "cuda":
         raise ValueError(f"no kernel for device {acc.device}")
     dev = acc.device
@@ -337,21 +482,43 @@ def frontier_finish(acc: torch.Tensor, mode: str, cbits: int, hbits: int,
     if C != _CHANNELS[mode] or not 2 <= B <= 256:
         raise ValueError(f"acc {tuple(acc.shape)} does not fit layout "
                          f"{mode!r} / 2 <= bins <= 256")
-    subtract = parent_hist is not None
+    if N > 65535:    # one grid row per parent
+        raise ValueError(f"frontier_finish takes at most 65535 parents, "
+                         f"got {N}")
+    if parent_slot is not None and (out is None or parent_hist is not None
+                                    or N != 1):
+        raise ValueError("parent_slot reads the parent from out.hist: it "
+                         "needs out, no parent_hist, and one parent")
+    if out is not None and gains is None:
+        raise ValueError("out needs gains")
+    subtract = parent_hist is not None or parent_slot is not None
     n_out = 2 * N if subtract else N
-    if n_out > 65535:    # one grid row per output node
-        raise ValueError(f"frontier_finish takes at most 65535 output "
-                         f"nodes, got {n_out}")
-    parent_p = sl_p = None
+    parent_p = sl_p = pslot_p = None
     if subtract:
-        _check("parent_hist", parent_hist, torch.int32, dev, (N, F, B, 3))
+        if parent_hist is not None:
+            _check("parent_hist", parent_hist, torch.int32, dev,
+                   (N, F, B, 3))
+            parent_p = parent_hist.data_ptr()
         if small_left is None:
             raise ValueError("subtract mode needs small_left of shape (N,)")
         _check("small_left", small_left, _BYTES, dev, (N,))
-        parent_p, sl_p = parent_hist.data_ptr(), small_left.data_ptr()
-    hist = torch.empty((n_out, F, B, 3), dtype=torch.int32, device=dev)
-    best = None
-    scales_p = fmask_p = edge_p = dok_p = rec_p = best_p = None
+        sl_p = small_left.data_ptr()
+    record = out is None and gains is not None
+    if record:
+        out = dense_out(n_out, F, B, dev)
+    if out is None:     # histograms only
+        hist = torch.empty((n_out, F, B, 3), dtype=torch.int32, device=dev)
+        hist_i16, slots, arrays = 0, (None, None), (None,) * 5
+    else:
+        hist = out.hist
+        hist_i16, slots, arrays = _out_pointers(out, F, B, n_out, out_slots,
+                                                dev)
+        if parent_slot is not None:
+            pslot_p = _slot("parent_slot", parent_slot, dev)
+            parent_p = hist.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    Fb = _finish_plan(N, F, _num_sms(dev.index))
+    scales_p = fmask_p = edge_p = dok_p = counter_p = scratch_p = None
     l1 = l2 = min_data = min_hess = 0.0
     if gains is not None:
         _check("scales", gains.scales, torch.float32, dev, (2,))
@@ -363,21 +530,24 @@ def frontier_finish(acc: torch.Tensor, mode: str, cbits: int, hbits: int,
         if gains.depth_ok is not None:
             _check("depth_ok", gains.depth_ok, _BYTES, dev, (1,))
             dok_p = gains.depth_ok.data_ptr()
-        record = torch.empty((n_out, F, _RECORD), dtype=torch.float32,
-                             device=dev)
-        best = torch.empty((n_out, 9), dtype=torch.float32, device=dev)
-        rec_p, best_p = record.data_ptr(), best.data_ptr()
         l1, l2 = float(gains.l1), float(gains.l2)
         min_data, min_hess = float(gains.min_data), float(gains.min_hess)
+        counter, scratch = _finish_buffers(dev, stream,
+                                           n_out * -(-F // Fb))
+        counter_p, scratch_p = counter.data_ptr(), scratch.data_ptr()
     lib = _library()
     err = lib.frontier_finish_launch(
         acc.data_ptr(), N, F, B, _MODE_CODE[mode], cbits, hbits, parent_p,
-        sl_p, hist.data_ptr(), n_out, scales_p, fmask_p, edge_p, dok_p, l1,
-        l2, min_data, min_hess, rec_p, best_p,
-        torch.cuda.current_stream(dev).cuda_stream)
+        hist_i16 if parent_slot is not None else 0, pslot_p, sl_p,
+        hist.data_ptr(), hist_i16, *slots, scales_p, fmask_p, edge_p, dok_p,
+        l1, l2, min_data, min_hess, *arrays, scratch_p, counter_p, Fb, stream)
+    if err != 0:
+        _finish_state.pop((dev.index, stream), None)
     _raise_on(err, "frontier_finish", lib)
     frontier_finish.launches += 1
-    return hist, best
+    if record:
+        return hist, _record(out)
+    return (hist, None) if out is None else None
 
 
 hist_accumulate.launches = 0
@@ -435,21 +605,30 @@ def build_histograms_cuda(binned, qg, qh, node_ids, num_nodes: int,
 def frontier_step(binned, qg, qh, node_ids, num_nodes: int, num_bins: int,
                   gains: GainParams, *, quant_bins: int = 16,
                   parent_hist=None, small_left=None,
-                  node_rows_bound: Optional[int] = None):
+                  node_rows_bound: Optional[int] = None,
+                  out: Optional[FinishOut] = None, out_slots=None,
+                  parent_slot=None):
     """``fused_frontier`` on inputs already in the kernels' types (int8
     ``qg``/``qh`` from ``to_int8``, int32 ``node_ids``, ``gains`` from
-    ``gain_params``): the growers' per-level call, whose conversions are
-    made once per tree."""
+    ``gain_params``): the growers' per-level or per-step call, whose
+    conversions are made once per tree.  Returns ``(hist, (best_gain,
+    best_feat, best_bin, left_stats, node_totals))`` with int32 features
+    and bins; with ``out`` (and ``out_slots`` / ``parent_slot``, see
+    ``frontier_finish_plain``) it writes into those arrays and returns
+    None."""
     _require_supported(num_bins, quant_bins)
     n = binned.shape[0]
     bound = max(1, min(n, int(node_rows_bound or n)))
     layout = lane_layout(n, bound, quant_bins)
     acc = hist_accumulate(binned, qg, qh, node_ids, num_nodes, num_bins,
                           layout)
-    hist, best = frontier_finish(acc, *layout, parent_hist, small_left,
-                                 gains)
-    return hist, (best[:, 0], best[:, 1].to(torch.int32),
-                  best[:, 2].to(torch.int32), best[:, 3:6], best[:, 6:9])
+    dense = out is None
+    if dense:
+        out = dense_out(num_nodes * (1 if parent_hist is None else 2),
+                        binned.shape[1], num_bins, binned.device)
+    frontier_finish(acc, *layout, parent_hist, small_left, gains, out=out,
+                    out_slots=out_slots, parent_slot=parent_slot)
+    return (out.hist, tuple(out[1:])) if dense else None
 
 
 def fused_frontier(binned, qg, qh, node_ids, num_nodes: int, num_bins: int,

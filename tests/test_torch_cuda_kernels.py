@@ -136,6 +136,130 @@ def test_frontier_finish_bit_identical(dev, l1, l2, min_data, min_hess,
     torch.cuda.synchronize()
 
 
+def _slot_case(dev, n, F, B, dtype, do, seed, ungated=False):
+    """A leaf-wise split step on the card: lane sums of the left child and
+    an 8-slot carry whose slot 2 holds the parent, in ``dtype``."""
+    binned, qg, qh, gs, hs, _, gen = _inputs(dev, n, F, B, 1, seed)
+    lay = CH.lane_layout(n, n, 16)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    parent = CH.frontier_finish(CH.hist_accumulate(binned, qg, qh, zeros, 1,
+                                                   B, lay), *lay)[0]
+    in_left = torch.rand(n, generator=gen, device=dev) < 0.4
+    acc = CH.hist_accumulate(binned, qg, qh, torch.where(
+        in_left, 0, -1).to(torch.int32), 1, B, lay)
+    L = 7
+    hists = torch.randint(-99, 99, (L + 1, F, B, 3), generator=gen,
+                          device=dev).to(dtype)
+    hists[2] = parent[0].to(dtype)
+    carry = CH.FinishOut(hists, torch.randn(L + 1, generator=gen, device=dev),
+                         torch.zeros(L + 1, dtype=torch.int32, device=dev),
+                         torch.zeros(L + 1, dtype=torch.int32, device=dev),
+                         torch.randn((L + 1, 3), generator=gen, device=dev))
+    lim = (0.0, 0.0) if ungated else (20.0, 1e-3)
+    gp = CH.gain_params(gs, hs, torch.ones(F, dtype=torch.bool, device=dev),
+                        torch.ones((F, B), dtype=torch.bool, device=dev),
+                        None if ungated else True, l2=0.0 if ungated else 1.0,
+                        min_data=lim[0], min_hess=lim[1])
+    slots = [torch.tensor([s], device=dev) for s in
+             ((2, 2, 5) if do else (2, L, L))]
+    return acc, lay, carry, gp, slots
+
+
+def _same_carry(a, b):
+    return all(_same_best(x, y) if x.is_floating_point() else torch.equal(x, y)
+               for x, y in zip(a[:5], b[:5]))
+
+
+@pytest.mark.parametrize("do", [True, False])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32])
+def test_finish_slot_form_bit_identical(dev, dtype, do):
+    """The leaf-wise N = 1 step in the slot form: the parent read from the
+    carry, the children and best splits written into it (to the trash slot
+    when the gate is off, the real slots untouched)."""
+    acc, lay, carry, gp, (j, at_j, at_new) = _slot_case(
+        dev, 30000, 13, 255, dtype, do, 5)
+    left = torch.ones((1,), dtype=torch.bool, device=dev)
+    got = CH.FinishOut(*(x.clone() for x in carry[:5]))
+    ref = CH.FinishOut(*(x.clone() for x in carry[:5]))
+    CH.frontier_finish(acc, *lay, None, left, gp, out=got,
+                       out_slots=(at_j, at_new), parent_slot=j)
+    CH.frontier_finish_plain(acc, *lay, None, left, gp, out=ref,
+                             out_slots=(at_j, at_new), parent_slot=j)
+    torch.cuda.synchronize()
+    assert _same_carry(got, ref)
+    if not do:
+        assert all(torch.equal(x[:7], y[:7])
+                   for x, y in zip(got[:5], carry))
+
+
+@pytest.mark.parametrize("case", ["B=2", "B=256", "F=1", "F ragged",
+                                  "ungated NaN"])
+def test_finish_edges_bit_identical(dev, case):
+    """Edges of the one-launch finish, dense (8 parents: five features a
+    block) and in the slot form (N = 1: one feature a block)."""
+    n, F, B = 20000, 24, 63
+    if case == "B=2":
+        B = 2
+    elif case == "B=256":
+        B = 256
+    elif case == "F=1":
+        F = 1
+    elif case == "F ragged":
+        F = 203
+    ungated = case == "ungated NaN"
+    acc, lay, carry, gp, (j, at_j, at_new) = _slot_case(
+        dev, n, F, B, torch.int32, True, 7, ungated)
+    left = torch.ones((1,), dtype=torch.bool, device=dev)
+    got = CH.FinishOut(*(x.clone() for x in carry[:5]))
+    ref = CH.FinishOut(*(x.clone() for x in carry[:5]))
+    CH.frontier_finish(acc, *lay, None, left, gp, out=got,
+                       out_slots=(at_j, at_new), parent_slot=j)
+    CH.frontier_finish_plain(acc, *lay, None, left, gp, out=ref,
+                             out_slots=(at_j, at_new), parent_slot=j)
+    assert _same_carry(got, ref)
+    binned, qg, qh, _, _, ids, gen = _inputs(dev, n, F, B, 8, 11)
+    parent = CH.frontier_finish(CH.hist_accumulate(
+        binned, qg, qh, ids, 8, B, lay), *lay)[0]
+    ids = torch.where(torch.rand(n, generator=gen, device=dev) < 0.4, ids,
+                      -1)
+    acc8 = CH.hist_accumulate(binned, qg, qh, ids, 8, B, lay)
+    sl = torch.rand(8, generator=gen, device=dev) < 0.5
+    if case == "F ragged":
+        assert CH._finish_plan(8, F, CH._num_sms(dev.index)) == 5
+    hist, best = CH.frontier_finish(acc8, *lay, parent, sl, gp)
+    hist_p, best_p = CH.frontier_finish_plain(acc8, *lay, parent, sl, gp)
+    torch.cuda.synchronize()
+    assert torch.equal(hist, hist_p)
+    assert _same_best(best, best_p), (best, best_p)
+    if ungated:
+        assert best.isnan().any()
+
+
+def test_finish_is_one_launch(dev):
+    """One kernel per call, dense and in the slot form: the profiler sees
+    only frontier_finish_kernel, once per call."""
+    from torch.profiler import ProfilerActivity, profile
+    acc, lay, carry, gp, (j, at_j, at_new) = _slot_case(
+        dev, 20000, 17, 255, torch.int32, True, 9)
+    left = torch.ones((1,), dtype=torch.bool, device=dev)
+    parent = carry.hist[2:3].to(torch.int32)
+    CH.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            CH.frontier_finish(acc, *lay, parent, left, gp,
+                               out=CH.dense_out(2, *acc.shape[2:], dev))
+            CH.frontier_finish(acc, *lay, None, left, gp, out=carry,
+                               out_slots=(at_j, at_new), parent_slot=j)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "frontier" in e.key}
+    assert list(kernels.values()) == [6], kernels
+    assert "frontier_finish_kernel" in next(iter(kernels))
+    assert CH.launch_counts()["frontier_finish"] == 6
+
+
 def test_launch_counts_and_argument_checks(dev):
     n, F, B, N = 5000, 4, 31, 2
     binned, qg, qh, _, _, ids, _ = _inputs(dev, n, F, B, N, 1)
