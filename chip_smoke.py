@@ -5,7 +5,8 @@
 Phases; any failure exits nonzero and prints no result line:
 
 1. card   — ``nvidia-smi`` name and power limit, the torch device name.
-2. build  — compile ``mmlspark_tpu_torch/csrc`` with nvcc (timed).
+2. build  — compile ``mmlspark_tpu_torch/csrc``: the kernels with nvcc,
+   the host binning plane ``binning.cpp`` with g++ (each timed).
 3. kernels against their plain PyTorch versions on the card, at the GBDT
    bench shapes (1M rows x 200 features, 255 bins): ``hist_accumulate`` at
    N = 1, 8, 16, 64 nodes in every lane layout and at its edges (128-bin
@@ -47,16 +48,36 @@ Phases; any failure exits nonzero and prints no result line:
    tree beside each step's bound.  Bagging,
    GOSS, RF and DART each fit leaf-wise at 200k x 200 for 4 iterations and
    reach accuracy 0.85 on 50k fresh rows.
-6. results — one ``{"kernels": [...]}`` line (``launches`` sums the
-   level-wise fit + transform and the leaf-wise fit, split in
-   ``launches_by_path``), the card's name and power limit, and the last
-   line ``{"ok": true, "device": {...}}``.
+6. data   — edges on the host and bins on the card at 1M x 208 (the bench
+   features plus NaN, +inf, -inf, integer codes, the leading -inf edge,
+   a mix, ±inf alone and a constant): the card's train-route bins
+   bit-identical to the port's host route, the numpy route's semantics on
+   the card bit-identical to numpy's, ``bin_matrix`` on the card
+   bit-identical to its CPU run; the edges, the transfer, the card apply
+   and the C++ and numpy host applies timed.  (Every fit above already
+   bins this way; ``fit_phases`` prints ``binning_s`` and its parts.)
+7. cat    — categorical splits and the regression objectives.  50k x 20
+   categorical trees (one-vs-rest and sorted-subset columns) grown on the
+   card equal the CPU trees in every array, the leaf-wise one under sync
+   debug mode "error";  ``LightGBMClassifier(categorical_features=...)``
+   on the bench data with 10 columns of codes (5 of 3, 5 of 64) and a
+   planted category subset in the label, leaf-wise defaults and then
+   ``max_depth=5``, 8 iterations each: 248 and 40 launches of each kernel
+   (one histogram build per step or level), accuracy 0.9 on 100k fresh
+   rows, card walk = CPU walk, then each fit's ``train()`` phases and
+   profile as in the leaf phase; one fit per new regression objective at
+   200k x 200 for 4 iterations, its default metric finite and falling.
+8. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+   level-wise fit + transform, the leaf-wise fit and the two categorical
+   fits, split in ``launches_by_path``), the card's name and power limit,
+   and the last line ``{"ok": true, "device": {...}}``.
 
 Details (per-level and per-step kernel times, every comparison) go to
 ``chiprun_out/chip_smoke_detail.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -601,39 +622,55 @@ def slice_phase(dev):
     return launches
 
 
-def fit_phases(params, label: str):
+def fit_phases(params, label: str, data=None):
     """Where the fit's time goes: the trainer's own phase clocks, then a
-    second fit under ``torch.profiler`` for the device time of each kernel
-    in the boosting loop and the loop's device busy share.  Returns the
-    profiled run's booster and its ``hist_accumulate`` /
-    ``frontier_finish`` device times per launch, in launch order."""
+    second fit under ``torch.profiler`` for the device time of the binning
+    kernels and of each kernel in the boosting loop, and the loop's device
+    busy share.  ``data`` defaults to the bench data.  Returns the profiled
+    run's booster and its ``hist_accumulate`` / ``frontier_finish`` device
+    times per launch, in launch order."""
     from torch.profiler import ProfilerActivity, profile
     from mmlspark_tpu_torch.lightgbm import train
-    X, y = bench_data(N_ROWS, seed=0)
+    X, y = data or bench_data(N_ROWS, seed=0)
     iters = params.num_iterations
     ex = dict(train(X, y, params).extras)
     ex["boosting_row_iterations_per_s"] = N_ROWS * iters / ex["boosting_s"]
     log(f"[{label}] train() phases: " + ", ".join(
-        f"{k} {v:.4g}" for k, v in ex.items()))
+        f"{k} {v:.4g}" for k, v in ex.items())
+        + " (binning_s = edges_s + bin_apply_s; host numpy binning of this "
+        "fit before the card applied the bins: 19.1-29.9 s, PERF.md)")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         prof_res = train(X, y, params)
     prof_ex = prof_res.extras
-    by_kernel = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+    events = prof.events()
+    # train()'s profiler ranges: the card's binning kernels run (and are
+    # waited for) inside "train.bin_apply", before "train.boosting" starts
+    spans = {e.name: e.time_range for e in events
+             if e.name in ("train.bin_apply", "train.boosting")}
+    loop_start = spans["train.boosting"].start
+    by_kernel, bin_ms = {}, 0.0
+    for e in events:
+        # skipped: the host-to-card copies, and the ranges themselves,
+        # which the profiler also books on the card's timeline
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                "memcpy" in e.name.lower() or e.name in spans:
             continue
-        if "memcpy" in evt.key.lower():      # the host-to-card transfer
-            continue
-        by_kernel[evt.key] = evt.self_device_time_total / 1e3   # ms
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.time_range.start >= loop_start:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + ms
+        elif e.time_range.start >= spans["train.bin_apply"].start:
+            bin_ms += ms
     busy_ms = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     share = busy_ms / (prof_ex["boosting_s"] * 1e3)
-    # every kernel the host enqueued, ours and PyTorch's: the host's work
-    runtime_launches = sum(e.count for e in prof.key_averages()
-                           if e.key == "cudaLaunchKernel")
-    log(f"[{label}] profiled fit: boosting {prof_ex['boosting_s']:.4f} s, "
+    # every kernel the host enqueued in the loop, ours and PyTorch's: the
+    # host's work
+    runtime_launches = sum(1 for e in events if e.name == "cudaLaunchKernel"
+                           and e.time_range.start >= loop_start)
+    log(f"[{label}] profiled fit: binning kernels on the card "
+        f"{bin_ms:.3f} ms; boosting {prof_ex['boosting_s']:.4f} s, "
         f"device kernels {busy_ms:.3f} ms (busy share {share:.3f}), "
         f"{runtime_launches} cudaLaunchKernel calls "
         f"({runtime_launches / iters:.0f} per tree; the two-kernel finish "
@@ -653,6 +690,7 @@ def fit_phases(params, label: str):
     DETAIL[label + "_train_phases"] = ex
     DETAIL[label + "_profile"] = {
         "boosting_s": prof_ex["boosting_s"], "device_kernel_ms": busy_ms,
+        "binning_kernel_ms": bin_ms, "train_phases": prof_ex,
         "busy_share": share, "top_kernels_ms": top,
         "cuda_launch_kernel_calls": runtime_launches,
         "launches_profiled": {k: len(v) for k, v in per_launch.items()}}
@@ -696,6 +734,8 @@ def card_equals_cpu(card, cpu, what: str) -> str:
     Returns how many arrays are bit-identical, as "k/n"."""
     identical = []
     for name, a, b in zip(card._fields, card, cpu):
+        if a is None and b is None:
+            continue
         a, b = a.cpu(), b.cpu()
         if a.is_floating_point():
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
@@ -930,6 +970,311 @@ def modes_phase(dev):
     DETAIL["modes"] = results
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the data plane
+# ---------------------------------------------------------------------------
+
+def data_matrix(n: int, seed: int) -> np.ndarray:
+    """The bench features plus 8 columns of the awkward values binning must
+    keep: NaN, +inf, -inf, integer codes, the column whose first fitted
+    edge is -inf (codes with -inf in every 7th row), all three mixed, ±inf
+    alone and a constant."""
+    X, _ = bench_data(n, seed)
+    rng = np.random.default_rng(seed + 50)
+    extra = np.empty((n, 8), np.float32)
+    extra[:, 0] = np.where(rng.random(n) < 0.1, np.nan, rng.normal(size=n))
+    extra[:, 1] = rng.exponential(size=n)
+    extra[::13, 1] = np.inf
+    extra[:, 2] = rng.normal(size=n)
+    extra[::17, 2] = -np.inf
+    extra[:, 3] = rng.integers(0, 10, n)
+    extra[:, 4] = rng.integers(0, 5, n)
+    extra[::7, 4] = -np.inf
+    extra[:, 5] = rng.choice(np.array([np.nan, np.inf, -np.inf, 1.0, 2.0],
+                                      np.float32), size=n)
+    extra[:, 6] = np.where(rng.random(n) < 0.5, -np.inf, np.inf)
+    extra[:, 7] = 3.0
+    return np.concatenate([X, extra], axis=1)
+
+
+def data_phase(dev):
+    """Edges on the host, bins on the card, at the bench size plus the 8
+    awkward columns: the card's train-route bins bit-identical to the
+    port's host route (which the CPU tests hold equal to the JAX package's),
+    the numpy route's semantics on the card bit-identical to numpy,
+    ``bin_matrix`` on the card bit-identical to its CPU run; each part
+    timed."""
+    from mmlspark_tpu_torch.lightgbm.binning import BinMapper, host_route
+    from mmlspark_tpu_torch.ops import histogram as H
+    X = data_matrix(N_ROWS, seed=0)
+    n, F = X.shape
+    route = host_route(X.size)
+    t0 = time.perf_counter()
+    mapper = BinMapper(N_BINS).fit(X)
+    edges_s = time.perf_counter() - t0
+    if mapper.edges[N_FEAT + 4, 0] != -np.inf:
+        raise AssertionError("the -inf column must fit a leading -inf edge")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = torch.from_numpy(X).to(dev)
+    torch.cuda.synchronize()
+    transfer_s = time.perf_counter() - t0
+    tables = {}
+    for r in ("cxx", "numpy"):
+        table, ascending = mapper.route_table(r)
+        if not ascending.all():
+            raise AssertionError(f"{r} route table not ascending")
+        tables[r] = torch.from_numpy(table).to(dev)
+    t_apply = {r: time_ms(lambda r=r: H.apply_bins(
+        x, tables[r], nan_to_num=r == "numpy"), 5) for r in tables}
+    del x
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = mapper.bin_on_device(X, dev)
+    torch.cuda.synchronize()
+    bin_on_device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = mapper.transform(X)
+    host_s = time.perf_counter() - t0
+    if not torch.equal(card.t().cpu(), torch.from_numpy(host)):
+        raise AssertionError("card bins differ from the host route's")
+    t0 = time.perf_counter()
+    numpy_bins = mapper._host_bins(X, "numpy", mapper.edges)
+    numpy_s = time.perf_counter() - t0
+    card_np = H.apply_bins(torch.from_numpy(X).to(dev), tables["numpy"],
+                           nan_to_num=True)
+    if not torch.equal(card_np.t().cpu(), torch.from_numpy(numpy_bins)):
+        raise AssertionError("the numpy route on the card differs")
+    differ = int((numpy_bins != host).any(axis=0).sum())
+    del card_np, numpy_bins
+    e_dev = torch.from_numpy(mapper.edges).to(dev)
+    bm_card = H.bin_matrix(torch.from_numpy(X).to(dev), e_dev, N_BINS)
+    t_bm = time_ms(lambda: H.bin_matrix(torch.from_numpy(X).to(dev), e_dev,
+                                        N_BINS), 3)
+    if not torch.equal(bm_card.cpu(), H.bin_matrix(
+            torch.from_numpy(X), torch.from_numpy(mapper.edges), N_BINS)):
+        raise AssertionError("bin_matrix on the card differs from the CPU")
+    del bm_card, card
+    rec = {"rows": n, "features": F, "host_route": route,
+           "edges_s": edges_s, "transfer_s": transfer_s,
+           "card_apply_ms": t_apply[route],
+           "card_apply_ms_by_route": t_apply,
+           "bin_on_device_s": bin_on_device_s,
+           "train_route_binning_s": edges_s + bin_on_device_s,
+           "host_apply_s": {route: host_s, "numpy": numpy_s},
+           "bin_matrix_ms_with_transfer": t_bm,
+           "features_where_the_routes_differ": differ}
+    log(f"[data] {n} x {F} ({route} route): edges {edges_s:.3f} s, X to "
+        f"the card {transfer_s:.3f} s, card apply {t_apply[route]:.2f} ms "
+        f"(numpy route {t_apply['numpy']:.2f} ms), bin_on_device "
+        f"{bin_on_device_s:.3f} s; host apply {route} {host_s:.3f} s, "
+        f"numpy {numpy_s:.3f} s; bin_matrix with transfer {t_bm:.2f} ms")
+    log(f"[data] train-route binning {edges_s + bin_on_device_s:.3f} s "
+        f"(host numpy binning of a 1M x 200 fit before the card applied "
+        f"the bins: 19.1-29.9 s, PERF.md); card bins "
+        f"bit-identical to the host route, numpy route and bin_matrix "
+        f"bit-identical on the card; the routes differ on {differ} "
+        f"features")
+    DETAIL["data"] = rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7: categorical splits and the regression objectives
+# ---------------------------------------------------------------------------
+
+CAT_COLS = list(range(N_FEAT - 10, N_FEAT))       # 5 x 3 codes, 5 x 64
+PLANTED = np.random.default_rng(7).permutation(64)[:32]
+
+
+def cat_data(n: int, seed: int, F: int = N_FEAT):
+    """The bench data with its last 10 columns replaced by codes (5 of 3
+    codes, 5 of 64), the label the bench label plus a planted half of one
+    64-code column's codes and one 3-code column's code 1."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    cols = list(range(F - 10, F))
+    X[:, cols[:5]] = rng.integers(0, 3, (n, 5))
+    X[:, cols[5:]] = rng.integers(0, 64, (n, 5))
+    in_set = np.isin(X[:, cols[5]], PLANTED)
+    y = (X[:, 0] + 0.5 * X[:, 1] + 1.5 * (in_set - 0.5)
+         + 0.8 * (X[:, cols[0]] == 1) + rng.normal(scale=0.3, size=n)
+         > 0).astype(np.float32)
+    return X, y, cols
+
+
+def cat_grower_check(dev):
+    """50k x 20 categorical trees (one-vs-rest and sorted-subset columns)
+    grown on the card equal the CPU trees in every array, category sets
+    included; the leaf-wise one under sync debug mode "error"."""
+    from mmlspark_tpu_torch.lightgbm import BinMapper, GBDTParams
+    from mmlspark_tpu_torch.lightgbm.core import (_cat_subset,
+                                                  make_leafwise_grower,
+                                                  make_tree_grower)
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    n, F = 50_000, 20
+    X, y, cols = cat_data(n, seed=8, F=F)
+    rng = np.random.default_rng(9)
+    p = 1 / (1 + np.exp(-rng.normal(scale=0.5, size=n)))
+    g = (p - y).astype(np.float32)
+    h = (p * (1 - p)).astype(np.float32)
+    u = rng.random((2, n), dtype=np.float32)
+    mapper = BinMapper(N_BINS, categorical_features=cols).fit(X)
+    binned = torch.from_numpy(mapper.transform(X))
+    base = GBDTParams(categorical_features=tuple(cols),
+                      use_quantized_grad=True, lambda_l2=1.0)
+    subset = _cat_subset(base, binned, N_BINS)
+    if subset != tuple(cols[5:]):
+        raise AssertionError(f"cardinality split {subset}")
+    results = []
+    for growth in ("leaf", "level"):
+        if growth == "leaf":
+            params = dataclasses.replace(base, num_leaves=31,
+                                         cat_subset=subset).resolve()
+            grow = make_leafwise_grower(31, 0, F, N_BINS, params)
+            launches = 31
+        else:
+            params = dataclasses.replace(base, max_depth=5,
+                                         cat_subset=subset).resolve()
+            grow = make_tree_grower(5, F, N_BINS, params)
+            launches = 5
+        trees = []
+        for d in (dev, torch.device("cpu")):
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+            args = (binned.to(d).t().contiguous().t(), t(g), t(h),
+                    torch.ones(n, dtype=torch.bool, device=d),
+                    torch.ones(F, dtype=torch.bool, device=d),
+                    t(mapper.edges))
+            noise = t(u)
+            torch.cuda.synchronize()
+            CH.reset_launch_counts()
+            if d.type == "cuda" and growth == "leaf":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                tree = grow(*args, noise=noise)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                got = CH.launch_counts()
+                if set(got.values()) != {launches}:
+                    raise AssertionError(f"{growth}-wise categorical tree "
+                                         f"launched {got}")
+            trees.append(tree)
+        identical = card_equals_cpu(*trees, f"{growth}-wise categorical "
+                                            f"tree")
+        sf = trees[0].split_feature.cpu().numpy()
+        cat_splits = int(np.isin(sf, cols).sum())
+        if not cat_splits:
+            raise AssertionError(f"{growth}-wise tree made no categorical "
+                                 f"split")
+        results.append({"growth": growth, "bit_identical_arrays": identical,
+                        "categorical_splits": cat_splits,
+                        "splits": int((sf >= 0).sum())})
+        log(f"[cat] {growth}-wise 50k x 20 tree on the card equals the CPU "
+            f"tree ({identical} arrays bit-identical, {cat_splits} "
+            f"categorical of {int((sf >= 0).sum())} splits"
+            + (", sync debug mode 'error')" if growth == "leaf" else ")"))
+    DETAIL["cat_grower_check"] = results
+
+
+def cat_phase(dev):
+    """``LightGBMClassifier(categorical_features=...)`` at 1M x 200, leaf-wise
+    defaults and then ``max_depth=5``, 8 iterations each: accuracy on 100k
+    fresh rows, the kernels' launches (the categorical path builds its
+    histograms on both kernels and searches splits in torch: one build per
+    leaf-wise step, one per level), card walk = CPU walk."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, LightGBMClassifier
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    X, y, cols = cat_data(N_ROWS, seed=10)
+    Xt, yt, _ = cat_data(100_000, seed=11)
+    df = DataFrame.from_dict({"features": X, "label": y})
+    df_t = DataFrame.from_dict({"features": Xt, "label": yt})
+    out_launches, results = {}, {}
+    for label, kw, per_tree in (("leaf", {}, 31),
+                                ("level", dict(max_depth=5), 5)):
+        clf = LightGBMClassifier().set_params(
+            num_iterations=8, categorical_features=cols, **kw)
+        torch.cuda.synchronize()
+        CH.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = clf.fit(df)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = CH.launch_counts()
+        want = {"hist_accumulate": 8 * per_tree,
+                "frontier_finish": 8 * per_tree}
+        if launches != want:
+            raise AssertionError(f"categorical {label}-wise fit launched "
+                                 f"{launches}, not {want}")
+        out = model.transform(df_t).collect()
+        acc = float((out["prediction"] == yt).mean())
+        b = model.booster
+        leaves_gpu = b.predict_leaf(Xt[:20000])
+        leaves_cpu = b.predict_leaf(Xt[:20000], device="cpu")
+        if not np.array_equal(leaves_gpu, leaves_cpu):
+            raise AssertionError("card and CPU categorical walks differ")
+        cat_nodes = int(np.isin(b.split_feature, cols).sum())
+        log(f"[cat] {label}-wise fit {fit_s:.3f} s, launches {launches}, "
+            f"accuracy {acc:.4f} on 100k fresh rows, {cat_nodes} "
+            f"categorical splits, category sets "
+            f"{'stored' if b.cat_bitset is not None else 'none'}; card "
+            f"and CPU walks equal")
+        if acc < 0.9 or b.cat_bitset is None or not cat_nodes:
+            raise AssertionError(f"categorical {label}-wise: accuracy {acc}"
+                                 f", {cat_nodes} categorical splits")
+        out_launches[label] = launches
+        results[label] = {"fit_s": fit_s, "accuracy": acc,
+                          "launches": launches,
+                          "categorical_splits": cat_nodes}
+    DETAIL["cat"] = results
+    for label, kw in (("cat_leaf", dict(num_leaves=31)),
+                      ("cat_level", dict(max_depth=5))):
+        fit_phases(GBDTParams(num_iterations=8, objective="binary",
+                              categorical_features=tuple(cols), **kw),
+                   label, (X, y))
+    return out_launches
+
+
+REG_OBJECTIVES = ("regression_l1", "huber", "quantile", "poisson", "tweedie",
+                  "gamma")
+
+
+def objectives_phase(dev):
+    """One fit per new regression objective at 200k x 200, 4 iterations,
+    leaf-wise, with a 50k-row valid set: the default metric finite and
+    falling."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    from mmlspark_tpu_torch.lightgbm.core import default_metric
+    n, nv = 200_000, 50_000
+    X, _ = bench_data(n + nv, seed=12)
+    rng = np.random.default_rng(13)
+    counts = rng.poisson(np.exp(0.5 * X[:, 0] - 0.3 * X[:, 1] + 0.2)) \
+        .astype(np.float32)
+    cont = (X[:, 0] + 0.5 * X[:, 1] + rng.normal(scale=0.3, size=n + nv)) \
+        .astype(np.float32)
+    results = {}
+    for obj in REG_OBJECTIVES:
+        y = {"poisson": counts, "tweedie": counts + 0.5,
+             "gamma": counts + 0.5}.get(obj, cont)
+        t0 = time.perf_counter()
+        r = train(X[:n], y[:n], GBDTParams(objective=obj, num_iterations=4,
+                                           num_leaves=31),
+                  valid=(X[n:], y[n:]))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        name = default_metric(obj)
+        vals = [e[name] for e in r.evals]
+        log(f"[objectives] {obj:13s} {name:12s} "
+            f"{' '.join(f'{v:.5f}' for v in vals)} (fit {fit_s:.2f} s)")
+        if not (np.isfinite(vals).all() and vals[-1] < vals[0]):
+            raise AssertionError(f"{obj}: {name} {vals} not finite and "
+                                 f"falling")
+        results[obj] = {"metric": name, "evals": vals, "fit_s": fit_s}
+    DETAIL["objectives"] = results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -953,6 +1298,11 @@ def main() -> int:
             if any(k in line for k in ("registers", "Compiling entry",
                                        "spill")):
                 log("[build] " + line.strip())
+    t0 = time.perf_counter()
+    host_path = _build.build_host()
+    _build.load_host_library()
+    log(f"[build] {host_path} (g++) built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     stats = kernel_phase(dev)
@@ -976,11 +1326,25 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[leaf] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    data_phase(dev)
+    torch.cuda.synchronize()
+    log(f"[data] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cat_grower_check(dev)
+    cat_launches = cat_phase(dev)
+    objectives_phase(dev)
+    torch.cuda.synchronize()
+    log(f"[cat] phase done in {time.perf_counter() - t0:.1f} s")
+
+    paths = {"level": level_launches, "leaf": leaf_launches,
+             "cat_leaf": cat_launches["leaf"],
+             "cat_level": cat_launches["level"]}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
-                "launches": level_launches[name] + leaf_launches[name],
-                "launches_by_path": {"level": level_launches[name],
-                                     "leaf": leaf_launches[name]},
+                "launches": sum(c[name] for c in paths.values()),
+                "launches_by_path": {k: c[name] for k, c in paths.items()},
                 **stats[name]} for name in ("hist_accumulate",
                                             "frontier_finish")]
     for k in kernels:

@@ -6,14 +6,17 @@ reader can find each twin.  This package imports ``torch`` and numpy and
 never ``jax`` or ``mmlspark_tpu``; what it needs from the JAX package's
 jax-free modules (``core/``, ``utils/pickling.py``) it keeps as its own copy.
 
-Ported so far (the GBDT main path, level-wise):
+Ported so far (the GBDT main path):
 
 - ``core``      — DataFrame, Params, Pipeline, persistence (copies)
-- ``ops``       — quantized histogram ops; ``ops.cuda_histogram`` holds the
-  two hand-written Hopper kernels (``csrc/frontier.cu``) that replace the
-  fused Pallas frontier kernel, each beside its plain PyTorch version
-- ``lightgbm``  — BinMapper, ``train()`` with the level-wise grower,
-  LightGBMClassifier/Regressor
+- ``ops``       — quantized histogram ops and the card's binning
+  (``bin_matrix``); ``ops.cuda_histogram`` holds the two hand-written
+  Hopper kernels (``csrc/frontier.cu``) that replace the fused Pallas
+  frontier kernel, each beside its plain PyTorch version
+- ``lightgbm``  — BinMapper (edges on the host by the JAX package's C++
+  plane, copied as ``csrc/binning.cpp``, or numpy; bins on the card),
+  ``train()`` with both growers, categorical splits and the binary and
+  regression objectives, LightGBMClassifier/Regressor
 - ``models``    — the GBDT booster artifact and its scoring walk
 - ``convert``   — state carried across from the JAX package
 

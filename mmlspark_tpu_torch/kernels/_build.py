@@ -1,16 +1,22 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native code.
 
-Every ``.cu`` file under ``mmlspark_tpu_torch/csrc`` is compiled by ``nvcc``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
-which ``ctypes`` loads.  The build runs at first use, into
-``mmlspark_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``), where the
-hash covers the sources and the flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.  Each C entry point launches on the
-stream it is given and returns ``cudaGetLastError()``; the wrappers in
-``ops.cuda_histogram`` raise when it is not 0.
+- Every ``.cu`` file under ``mmlspark_tpu_torch/csrc`` is compiled by
+  ``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+  interface (``load_library``).  Each C entry point launches on the stream
+  it is given and returns ``cudaGetLastError()``; the wrappers in
+  ``ops.cuda_histogram`` raise when it is not 0.
+- ``csrc/binning.cpp``, the host binning data plane, is compiled by the
+  system ``g++`` with the JAX package's own Makefile flags
+  (``native/Makefile``), so its float arithmetic is the reference's
+  (``load_host_library``).
 
-Nothing here runs at import: the CPU tests import every module, and this
-machine has no ``nvcc``.
+Each build runs at first use, into ``mmlspark_tpu_torch/_build/<hash>/``
+(listed in ``.gitignore``), where the hash covers the sources and the
+flags, so an edited source rebuilds and an unchanged one is loaded as it
+is.  A compiler that is missing or fails raises with its message.
+
+Nothing here runs at import: the CPU tests import every module, and a
+machine without a card has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -31,6 +37,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v"]
 
+#: the JAX package's native/Makefile flags: no -march, so no FMA
+#: contraction, and the edges' double arithmetic rounds as the reference's
+GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
+HOST_SOURCE = os.path.join(CSRC, "binning.cpp")
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
@@ -42,8 +53,14 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
+_HOST_SIGNATURES = {
+    "mm_bin_edges": [_P, ctypes.c_int64, ctypes.c_int64, _I, _P, _I],
+    "mm_bin_apply": [_P, ctypes.c_int64, ctypes.c_int64, _P, _I, _P, _I],
+}
+
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_host_lib: Optional[ctypes.CDLL] = None
 
 
 def _sources() -> list:
@@ -61,8 +78,17 @@ def _nvcc() -> str:
                        "to build the port's CUDA kernels")
 
 
-def _digest(sources: list) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _gxx() -> str:
+    cxx = shutil.which(os.environ.get("CXX") or "g++")
+    if not cxx:
+        raise RuntimeError("g++ not found: set CXX or put g++ on PATH to "
+                           "build the port's host binning plane "
+                           "(csrc/binning.cpp)")
+    return cxx
+
+
+def _digest(sources: list, flags: list = NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in sources:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -70,27 +96,45 @@ def _digest(sources: list) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile the sources unless a library for their hash exists; returns
-    the library path (its ``nvcc.log`` sits beside it).  The ``.so``
+def _compile(compiler: str, flags: list, sources: list, out_dir: str,
+             name: str) -> str:
+    """Compile ``sources`` into ``out_dir/name`` unless it exists (the
+    compiler's output in ``<compiler>.log`` beside it).  The ``.so``
     appears by an atomic rename, so a concurrent or interrupted build never
     leaves a half-written library."""
-    sources = [s for s in _sources() if s.endswith(".cu")]
-    out_dir = os.path.join(BUILD_ROOT, _digest(_sources()))
-    lib = os.path.join(out_dir, "libmmlspark_kernels.so")
+    lib = os.path.join(out_dir, name)
     if os.path.isfile(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    cmd = [compiler, *flags, "-o", tmp, *sources]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(out_dir, "nvcc.log"), "w") as f:
+    tool = os.path.basename(compiler)
+    with open(os.path.join(out_dir, f"{tool}.log"), "w") as f:
         f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"{tool} failed ({proc.returncode}):\n"
                            f"{proc.stderr[-4000:]}")
     os.replace(tmp, lib)
     return lib
+
+
+def build() -> str:
+    """Compile the CUDA sources unless a library for their hash exists;
+    returns the library path (its ``nvcc.log`` sits beside it)."""
+    sources = [s for s in _sources() if s.endswith(".cu")]
+    return _compile(_nvcc(), NVCC_FLAGS, sources,
+                    os.path.join(BUILD_ROOT, _digest(_sources())),
+                    "libmmlspark_kernels.so")
+
+
+def build_host() -> str:
+    """Compile ``csrc/binning.cpp`` with g++ unless a library for its hash
+    exists; returns the library path."""
+    return _compile(_gxx(), GXX_FLAGS, [HOST_SOURCE],
+                    os.path.join(BUILD_ROOT, "host-" + _digest(
+                        [HOST_SOURCE], GXX_FLAGS)),
+                    "libmmlspark_binning.so")
 
 
 def load_library() -> ctypes.CDLL:
@@ -107,3 +151,17 @@ def load_library() -> ctypes.CDLL:
             lib.frontier_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def load_host_library() -> ctypes.CDLL:
+    """The host binning library, built at first use and loaded once."""
+    global _host_lib
+    with _lock:
+        if _host_lib is None:
+            lib = ctypes.CDLL(build_host())
+            for name, argtypes in _HOST_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = None
+            _host_lib = lib
+        return _host_lib

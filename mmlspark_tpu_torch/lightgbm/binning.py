@@ -1,21 +1,48 @@
 """Quantile feature binning — LightGBM's BinMapper equivalent (port of
-``mmlspark_tpu/lightgbm/binning.py``, the numpy path).
+``mmlspark_tpu/lightgbm/binning.py``).
 
-Edge finding and bin application both run on the host in numpy, exactly as
-the JAX package does whenever ``n * F < 65536`` (its threaded C++ data
-plane takes over above that; that plane is a later slice of the port), so
-the two packages produce identical edges and bins on the same input.  The
-uint8 bins are 4x smaller than the float32 input, so binning before the
-host-to-device copy quarters the transfer.
+Edges are found on the host, over a row sample, by the route the JAX
+package itself picks: its threaded C++ loop (``csrc/binning.cpp``, a copy
+of the reference's) when ``sample rows * F >= 65536`` and the host has at
+least 4 cores, numpy otherwise.  ``transform`` applies the bins on the host
+by the same predicate over ``X.size``; ``transform(X, device=...)`` is the
+reference's ``transform(device=True)`` (``ops.histogram.bin_matrix``).  So
+edges and host bins equal the reference's on every input, ±inf included.
 
-NaN handling: NaN sorts to bin 0 (routes left), matching the booster's
-missing-goes-left convention.
+The two host routes differ on non-finite edges, and ``bin_on_device``
+keeps that difference: it applies on the card exactly the bins that the
+host route for ``X`` would give, which is what ``train()`` uses.
+
+- C++: only a feature's LEADING finite edges count, NaN -> bin 0.  A
+  column holding ``-inf`` fits a first edge of ``-inf`` and bins every row
+  to 0.
+- numpy: the finite edges count, NaN -> ``-inf``, and ``±inf`` become
+  ``±FLT_MAX`` (``np.nan_to_num``).
+
+Categorical features bin by code on every route (``_overwrite_cat_bins``).
 """
 from __future__ import annotations
 
+import multiprocessing
 from typing import Optional
 
 import numpy as np
+import torch
+
+from .._device import DeviceLike
+from ..ops import histogram as hist_ops
+
+#: the JAX package's threshold for its C++ plane, in cells
+NATIVE_MIN_CELLS = 1 << 16
+
+
+def host_route(cells: int) -> str:
+    """The reference's route predicate (``binning.py:95-101``,
+    ``:167-171``): ``"cxx"`` for ``cells >= 65536`` on a host of at least
+    4 cores, else ``"numpy"``."""
+    if cells >= NATIVE_MIN_CELLS and multiprocessing.cpu_count() >= 4:
+        return "cxx"
+    return "numpy"
 
 
 class BinMapper:
@@ -45,6 +72,13 @@ class BinMapper:
                                                      replace=False)
             X = X[idx]
         B = self.max_bin
+        if host_route(X.shape[0] * F) == "cxx":
+            from ..utils.native_loader import bin_edges_native
+            edges = bin_edges_native(X, B)
+            if self.categorical_features:  # code-binned: no edges
+                edges[self.categorical_features] = np.inf
+            self.edges = edges
+            return self
         edges = np.full((F, B - 1), np.inf, np.float32)
         qs = np.linspace(0, 1, B + 1)[1:-1]  # B-1 interior quantiles
         cats = set(self.categorical_features)
@@ -69,21 +103,105 @@ class BinMapper:
         self.edges = edges
         return self
 
-    def transform(self, X: np.ndarray) -> np.ndarray:
-        """(n, F) raw -> (n, F) uint8 bins.  bin = #edges < x; NaN -> 0."""
+    def _fitted(self) -> np.ndarray:
         if self.edges is None:
             raise RuntimeError("BinMapper not fitted")
-        X = np.asarray(X, np.float32)
+        return self.edges
+
+    def _host_bins(self, X: np.ndarray, route: str, edges: np.ndarray,
+                   skip=()) -> np.ndarray:
+        """Numerical bins of ``X`` by one host route (columns in ``skip``
+        left unset on the numpy route)."""
+        if route == "cxx":
+            from ..utils.native_loader import bin_apply_native
+            return bin_apply_native(X, edges, self.max_bin)
         out = np.empty(X.shape, np.uint8)
-        cats = set(self.categorical_features)
         for f in range(X.shape[1]):
-            if f in cats:
+            if f in skip:
                 continue  # filled by _overwrite_cat_bins (single code path)
-            finite_edges = self.edges[f][np.isfinite(self.edges[f])]
+            finite_edges = edges[f][np.isfinite(edges[f])]
             out[:, f] = np.searchsorted(finite_edges,
                                         np.nan_to_num(X[:, f], nan=-np.inf),
                                         side="left")
+        return out
+
+    def transform(self, X: np.ndarray, device: DeviceLike = None
+                  ) -> np.ndarray:
+        """(n, F) raw -> (n, F) uint8 bins.  bin = #edges < x; NaN -> 0.
+
+        Host binning by default, by the reference's route for ``X.size``;
+        with ``device`` (the reference's ``device=True``) the bins are
+        digitized there by ``ops.histogram.bin_matrix`` and returned."""
+        edges = self._fitted()
+        X = np.asarray(X, np.float32)
+        if device is not None:
+            x = torch.from_numpy(X).to(device)
+            out = hist_ops.bin_matrix(x, torch.from_numpy(edges).to(device),
+                                      self.max_bin).cpu().numpy()
+            return self._overwrite_cat_bins(X, out)
+        out = self._host_bins(X, host_route(X.size), edges,
+                              set(self.categorical_features))
         return self._overwrite_cat_bins(X, out)
+
+    def route_table(self, route: str):
+        """The edges a host route searches, per feature, compacted to the
+        front of a ``(F, max_bin - 1)`` float32 table padded with +inf
+        (C++: the leading finite edges; numpy: every finite edge), and
+        whether each feature's table is ascending (the fitted edges always
+        are; a searchsorted needs it)."""
+        edges = self._fitted()
+        table = np.full_like(edges, np.inf)
+        for f, e in enumerate(edges):
+            fin = np.isfinite(e)
+            if route == "cxx":
+                keep = e if fin.all() else e[:int(np.argmin(fin))]
+            else:
+                keep = e[fin]
+            table[f, :keep.size] = keep
+        ascending = np.all(table[:, 1:] >= table[:, :-1], axis=1)
+        return table, ascending
+
+    def bin_on_device(self, X: np.ndarray,
+                      device: DeviceLike) -> torch.Tensor:
+        """The bins the host ``transform`` gives ``X``, applied on
+        ``device``: ``X`` crosses once as float32 and the result is the
+        feature-major ``(F, n)`` uint8 matrix the histogram kernel reads
+        (``.t()`` is the ``(n, F)`` view the growers take).  The route is
+        the one ``transform`` would take for ``X``; a feature whose table is
+        not ascending (never from ``fit``) is binned on the host instead.
+        Categorical codes follow ``_overwrite_cat_bins``, negative codes
+        raising."""
+        X = np.asarray(X, np.float32)
+        route = host_route(X.size)
+        table, ascending = self.route_table(route)
+        dev = torch.device(device)
+        x = torch.from_numpy(X).to(dev)
+        bins = hist_ops.apply_bins(x, torch.from_numpy(table).to(dev),
+                                   nan_to_num=route == "numpy")
+        cats = self.categorical_features
+        ascending[cats] = True
+        host = np.nonzero(~ascending)[0]
+        if host.size:
+            cols = self._host_bins(np.ascontiguousarray(X[:, host]), route,
+                                   self.edges[host])
+            bins[torch.from_numpy(host).to(dev)] = torch.from_numpy(
+                np.ascontiguousarray(cols.T)).to(dev)
+        if cats:
+            idx = torch.tensor(cats, device=dev)
+            codes, low = hist_ops.category_bins(x.index_select(1, idx),
+                                                self.max_bin)
+            low = low.cpu().numpy()
+            for f, m in zip(cats, low):
+                if m < 0:
+                    raise ValueError(self._negative_codes(f, np.float32(m)))
+            bins[idx] = codes
+        return bins
+
+    @staticmethod
+    def _negative_codes(f: int, low) -> str:
+        return (f"categorical feature {f} holds negative codes (min {low}); "
+                f"encode categories as non-negative integers (e.g. via "
+                f"ValueIndexer)")
 
     def _overwrite_cat_bins(self, X: np.ndarray,
                             out: np.ndarray) -> np.ndarray:
@@ -93,10 +211,7 @@ class BinMapper:
             col = X[:, f]
             finite = col[~np.isnan(col)]
             if finite.size and finite.min() < 0:
-                raise ValueError(
-                    f"categorical feature {f} holds negative codes "
-                    f"(min {finite.min()}); encode categories as "
-                    f"non-negative integers (e.g. via ValueIndexer)")
+                raise ValueError(self._negative_codes(f, finite.min()))
             codes = np.nan_to_num(col, nan=float(self.max_bin - 1))
             out[:, f] = np.clip(np.round(codes), 0, self.max_bin - 1) \
                 .astype(np.uint8)

@@ -1,8 +1,9 @@
 """GBDT training core in PyTorch (port of ``mmlspark_tpu/lightgbm/core.py``,
-the single-shard numerical subset).
+the single-shard subset).
 
-One boosting iteration: objective gradients (with the GOSS, RF or DART
-adjustments and the bagging mask), per-row quantization
+One boosting iteration: objective gradients (binary, the L2 regression and
+the six other regression objectives, with the GOSS, RF or DART adjustments
+and the bagging mask), per-row quantization
 (``ops.histogram.quantize_gradients``), then one tree.  Two growers share
 the fused frontier step (``ops.cuda_histogram.frontier_step``: a histogram
 build, the integer sibling subtraction and the split-gain scan, on the two
@@ -15,13 +16,17 @@ Hopper kernels):
   at the root and one per split, ``num_leaves`` in all, with the stored
   per-leaf histograms in an int16 carry where the row bound allows.
 
-The host drives a plain per-iteration loop; tree arrays stay on the device
-until the end.  Not ported yet, each raising ``NotImplementedError`` that
-names its ROADMAP.md entry: categorical features, multiclass/ranking and
-the other objectives, row sharding and voting, checkpoints and the live
-monitor.  The JAX package's scan-chunked multi-iteration path exists to
-amortize a device relay's per-dispatch latency; the port launches per
-iteration and has no counterpart.
+Categorical features leave the fused step, as in the JAX package: their
+histograms come from ``build_quantized`` (the same kernels, gains off) and
+the one-vs-rest and sorted-subset split search runs in torch
+(``_CatTools``).  Edges are found on the host; ``train()`` applies the
+bins on the card.  The host drives a plain per-iteration loop; tree
+arrays stay on the device until the end.  Not ported yet, each raising
+``NotImplementedError`` that names its ROADMAP.md entry: multiclass and
+the ranker, row sharding and voting, checkpoints and the live monitor.
+The JAX package's scan-chunked multi-iteration path exists to amortize a
+device relay's per-dispatch latency; the port launches per iteration and
+has no counterpart.
 """
 from __future__ import annotations
 
@@ -138,7 +143,14 @@ def _not_ported(what: str, entry: str):
 # ---------------------------------------------------------------------------
 
 def make_objective(params: GBDTParams) -> Callable:
-    sig = params.sigmoid
+    """The objective's ``(scores, y, w) -> (grad, hess)``, each ``(n, 1)``,
+    with the JAX package's clips and hessian floors."""
+    obj = params.objective
+    sig, alpha = params.sigmoid, params.alpha
+    rho = params.tweedie_variance_power
+
+    def ones(g, w):
+        return (w * torch.ones_like(g))[:, None]
 
     def binary(scores, y, w):
         p = 1.0 / (1.0 + torch.exp(-sig * scores[:, 0]))
@@ -148,13 +160,91 @@ def make_objective(params: GBDTParams) -> Callable:
 
     def l2(scores, y, w):
         g = scores[:, 0] - y
-        return (g * w)[:, None], (w * torch.ones_like(g))[:, None]
+        return (g * w)[:, None], ones(g, w)
 
-    table = {"binary": binary, "regression": l2}
-    if params.objective not in table:
-        raise _not_ported(f"objective {params.objective!r}",
-                          "multiclass, ranker and the other objectives")
-    return table[params.objective]
+    def l1(scores, y, w):
+        g = torch.sign(scores[:, 0] - y)
+        return (g * w)[:, None], ones(g, w)
+
+    def huber(scores, y, w):
+        g = torch.clamp(scores[:, 0] - y, -alpha, alpha)
+        return (g * w)[:, None], ones(g, w)
+
+    def quantile(scores, y, w):
+        d = scores[:, 0] - y
+        g = torch.where(d >= 0, 1.0 - alpha, -alpha)
+        return (g * w)[:, None], ones(g, w)
+
+    def poisson(scores, y, w):
+        # log link: the raw score models log(mean); nll grad = exp(s) - y
+        mu = torch.exp(torch.clamp(scores[:, 0], -30.0, 30.0))
+        g = mu - y
+        h = torch.clamp(mu, min=1e-16)
+        return (g * w)[:, None], (h * w)[:, None]
+
+    def tweedie(scores, y, w):
+        # compound-Poisson deviance with log link, variance power rho in
+        # (1, 2): grad = -y*e^{(1-rho)s} + e^{(2-rho)s}
+        s_ = torch.clamp(scores[:, 0], -30.0, 30.0)
+        a = torch.exp((1.0 - rho) * s_)
+        b = torch.exp((2.0 - rho) * s_)
+        g = -y * a + b
+        h = torch.clamp(-(1.0 - rho) * y * a + (2.0 - rho) * b, min=1e-16)
+        return (g * w)[:, None], (h * w)[:, None]
+
+    def gamma(scores, y, w):
+        # gamma nll with log link: grad = 1 - y*e^{-s}, hess = y*e^{-s}
+        e = torch.exp(-torch.clamp(scores[:, 0], -30.0, 30.0))
+        g = 1.0 - y * e
+        h = torch.clamp(y * e, min=1e-16)
+        return (g * w)[:, None], (h * w)[:, None]
+
+    table = {"binary": binary, "regression": l2, "regression_l1": l1,
+             "huber": huber, "quantile": quantile, "poisson": poisson,
+             "tweedie": tweedie, "gamma": gamma}
+    if obj in ("multiclass", "lambdarank"):
+        raise _not_ported(f"objective {obj!r}", "multiclass and the ranker")
+    if obj not in table:
+        raise ValueError(f"unknown objective {obj!r}")
+    return table[obj]
+
+
+def init_score_of(objective: str, y: np.ndarray, w: np.ndarray,
+                  sigmoid: float = 1.0) -> float:
+    """The starting score (BoostFromAverage analogue), as the JAX package's
+    ``train()`` computes it on the host."""
+    if objective == "binary":
+        pbar = float(np.clip(np.average(y, weights=w), 1e-6, 1 - 1e-6))
+        return math.log(pbar / (1 - pbar)) / sigmoid
+    if objective in ("regression", "huber"):
+        return float(np.average(y, weights=w))
+    if objective in ("poisson", "tweedie", "gamma"):       # log link
+        return float(np.log(max(np.average(y, weights=w), 1e-9)))
+    if objective == "regression_l1":
+        return float(np.median(y))
+    return 0.0
+
+
+def check_labels(p: GBDTParams, y: np.ndarray, F: int) -> None:
+    """The JAX package's ``ValueError``s for the categorical index range,
+    the labels of the log-link objectives and the tweedie power."""
+    if p.categorical_features:
+        bad = [i for i in p.categorical_features if not 0 <= int(i) < F]
+        if bad:
+            raise ValueError(f"categorical_features indices {bad} out of "
+                             f"range [0, {F}) — negative indices are not "
+                             f"interpreted pythonically")
+    if p.objective in ("poisson", "tweedie") and (y < 0).any():
+        raise ValueError(f"objective {p.objective!r} requires non-negative "
+                         f"labels (min label {float(y.min())})")
+    if p.objective == "gamma" and (y <= 0).any():
+        raise ValueError("objective 'gamma' requires strictly positive "
+                         f"labels (min label {float(y.min())})")
+    if p.objective == "tweedie" and not 1.0 < p.tweedie_variance_power < 2.0:
+        raise ValueError(
+            f"tweedie_variance_power must be in (1, 2), got "
+            f"{p.tweedie_variance_power}; use objective='poisson' for the "
+            f"rho=1 limit")
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +268,7 @@ class Tree(NamedTuple):
     left_child: torch.Tensor       # (I,) int32
     right_child: torch.Tensor
     split_feature: torch.Tensor    # (I,) int32, -1 = no split
-    threshold: torch.Tensor        # (I,) float32
+    threshold: torch.Tensor        # (I,) float32 (a category's code)
     threshold_bin: torch.Tensor    # (I,) int32
     split_gain: torch.Tensor       # (I,) float32
     internal_value: torch.Tensor   # (I,) float32
@@ -186,9 +276,128 @@ class Tree(NamedTuple):
     leaf_value: torch.Tensor       # (L,) float32
     leaf_count: torch.Tensor       # (L,) float32
     leaf_of_row: torch.Tensor      # (n,) int64
+    # (I, B) bool LEFT category set of each categorical split; None
+    # without categorical features
+    cat_bitset: Optional[torch.Tensor] = None
 
 
-def _split_math(params: GBDTParams):
+def _device_mask(F: int, idx, dev: torch.device) -> torch.Tensor:
+    """(F,) bool with the indices ``idx`` set, built on ``dev`` from
+    scalars, one range of consecutive indices at a time: no host-to-card
+    copy, which would wait for the card inside the leaf-wise loop."""
+    ar = torch.arange(F, device=dev)
+    mask = torch.zeros((F,), dtype=torch.bool, device=dev)
+    idx = sorted(int(i) for i in idx)
+    start = 0
+    for k in range(1, len(idx) + 1):
+        if k == len(idx) or idx[k] != idx[k - 1] + 1:
+            mask |= (ar >= idx[start]) & (ar <= idx[k - 1])
+            start = k
+    return mask
+
+
+class _CatTools:
+    """Categorical split machinery both growers share (the JAX package's
+    ``_CatTools``, ``mmlspark_tpu/lightgbm/core.py:382-454``): the masks,
+    the cat_l2-regularised score, the ratio sort of a node's categories
+    (the many-vs-many candidate scan) and the winner's membership.
+
+    The sort is stable (as ``jnp.argsort``): unseen bins and the NaN
+    catch-all all sort last at +inf and equal ratios tie, so an unstable
+    sort would order them differently on the card than on the CPU."""
+
+    def __init__(self, params: GBDTParams, F: int, B: int):
+        self.B = B
+        self.cat_np = np.zeros((F,), bool)
+        if params.categorical_features:
+            self.cat_np[list(params.categorical_features)] = True
+        self.sub_np = np.zeros((F,), bool)
+        if params.cat_subset:
+            self.sub_np[list(params.cat_subset)] = True
+        self.has_cat = bool(self.cat_np.any())
+        self.has_subset = bool(self.sub_np.any())
+        self.cat_smooth = params.cat_smooth
+        self.cat_l2 = params.cat_l2
+        self.maxcat = float(params.max_cat_threshold)
+        self.l1, self.l2 = params.lambda_l1, params.lambda_l2
+        self._masks: Dict[torch.device, tuple] = {}
+
+    def masks(self, dev: torch.device):
+        """``(cat_b, sub_b)`` (F,) bool on ``dev``."""
+        if dev not in self._masks:
+            F = self.cat_np.shape[0]
+            self._masks[dev] = tuple(
+                _device_mask(F, np.nonzero(m)[0], dev)
+                for m in (self.cat_np, self.sub_np))
+        return self._masks[dev]
+
+    def edge_ok(self, edges: torch.Tensor) -> torch.Tensor:
+        """(F, B) split candidates: a numerical split needs a finite edge;
+        every code of a categorical feature is a candidate except the last
+        bin, the NaN/overflow catch-all (a split on it would route missing
+        rows left at train but right at predict)."""
+        F, dev = edges.shape[0], edges.device
+        ok = torch.cat([torch.isfinite(edges),
+                        torch.zeros((F, 1), dtype=torch.bool, device=dev)],
+                       dim=1)
+        if self.has_cat:
+            cat_b, _ = self.masks(dev)
+            codes = (torch.arange(self.B, device=dev) != self.B - 1)[None]
+            ok = torch.where(cat_b[:, None], codes, ok)
+        return ok
+
+    def leaf_score_cat(self, G, H):
+        # subset splits score under extra regularisation (LightGBM cat_l2)
+        t = torch.sign(G) * torch.clamp(G.abs() - self.l1, min=0.0)
+        return t ** 2 / (H + self.l2 + self.cat_l2)
+
+    def sort_order(self, hist_d: torch.Tensor):
+        """Bins of ``(..., B, 3)`` float histograms sorted ascending by
+        grad/hess ratio (cat_smooth in the denominator); unseen bins and
+        the NaN catch-all sort last (+inf).  Returns ``(order, seen)``."""
+        B = self.B
+        seenable = torch.arange(B, device=hist_d.device) != B - 1
+        seen = (hist_d[..., 2] > 0) & seenable
+        G, H = hist_d[..., 0], hist_d[..., 1]
+        ratio = torch.where(seen, G / (H + self.cat_smooth),
+                            torch.full_like(G, math.inf))
+        return torch.argsort(ratio, dim=-1, stable=True), seen
+
+    def sorted_prefix(self, hist_raw, hist_d, prefix):
+        """Sorted-subset candidate stats: the prefix sums (``prefix`` of the
+        ratio-sorted raw histograms) at position k are the stats of the best
+        k+1 seen categories.  Returns ``(prefix sums, valid)``."""
+        order, seen = self.sort_order(hist_d)
+        subcum = prefix(torch.take_along_dim(hist_raw, order[..., None],
+                                             dim=-2))
+        nseen = seen.sum(dim=-1, keepdim=True).to(torch.float32)
+        k1 = torch.arange(1, self.B + 1, device=hist_d.device,
+                          dtype=torch.float32)
+        # a prefix must leave >= 1 seen category right, and the smaller side
+        # stays under max_cat_threshold (LightGBM's subset-size cap)
+        sub_ok = (k1 < nseen) & ((k1 <= self.maxcat)
+                                 | (nseen - k1 <= self.maxcat))
+        return subcum, sub_ok
+
+    def winner_member(self, win_hist_d, bf, bb):
+        """(nodes, B) membership of each node's winning split, from its
+        ``(nodes, B, 3)`` float histogram: a subset winner takes the first
+        bb+1 bins of the ratio sort, a one-vs-rest winner the code bb.  Only
+        read where the winning feature is categorical."""
+        B, dev = self.B, win_hist_d.device
+        ar = torch.arange(B, device=dev)[None, :]
+        onehot_m = ar == bb[:, None]
+        if not self.has_subset:
+            return onehot_m
+        order, _ = self.sort_order(win_hist_d)
+        member_sub = torch.zeros_like(onehot_m).scatter(
+            1, order, ar <= bb[:, None])
+        _, sub_b = self.masks(dev)
+        return torch.where(sub_b.index_select(0, bf)[:, None], member_sub,
+                           onehot_m)
+
+
+def _split_math(params: GBDTParams, ct: _CatTools):
     """The split arithmetic both growers share: ``(leaf_output,
     split_gains)``."""
     l1, l2 = params.lambda_l1, params.lambda_l2
@@ -208,25 +417,56 @@ def _split_math(params: GBDTParams):
             v = torch.clamp(v, -max_delta, max_delta)
         return v
 
-    def split_gains(hist_d, feat_mask, edge_ok, depth_ok=None):
-        """(nodes, F, B, 3) float histograms -> (gain, left-stat pick, node
-        totals): numerical split at bin t takes bins <= t left; a
-        ``depth_ok`` of False gates every candidate."""
-        cum = torch.cumsum(hist_d, dim=2)
+    def split_gains(hist, feat_mask, edge_ok, depth_ok=None, scales=None):
+        """(nodes, F, B, 3) histograms -> (gain, left stats, node totals).
+        ``hist`` holds float sums, or with ``scales = (g_scale, h_scale)``
+        the quantized int32 sums: those are summed over bins in int32,
+        which is exact in any order, and only then rescaled, so the card
+        and the CPU get the same floats.  LEFT stats: a numerical split at
+        bin t takes bins <= t; a categorical one-vs-rest at code c takes
+        bin c alone; a sorted-subset candidate k takes the best k+1
+        ratio-sorted categories.  A ``depth_ok`` of False gates every
+        candidate."""
+        if scales is None:
+            def deq(h):
+                return h
+
+            def prefix(h):
+                return torch.cumsum(h, dim=-2)
+        else:
+            def deq(h):
+                return hist_ops.dequantize_histogram(h, *scales)
+
+            def prefix(h):
+                return deq(torch.cumsum(h, dim=-2, dtype=torch.int32))
+        cum = prefix(hist)
         tot = cum[:, :1, -1, :]                    # (nodes, 1, 3)
-        GL, HL, CL = cum[..., 0], cum[..., 1], cum[..., 2]
+        left3, edge3 = cum, edge_ok[None]
+        if ct.has_cat:
+            cat_b, sub_b = ct.masks(hist.device)
+            hist_d = deq(hist)
+            left3 = torch.where(cat_b[:, None, None], hist_d, cum)
+            if ct.has_subset:
+                subcum, sub_ok = ct.sorted_prefix(hist, hist_d, prefix)
+                left3 = torch.where(sub_b[:, None, None], subcum, left3)
+                edge3 = torch.where(sub_b[:, None], sub_ok & edge3, edge3)
+        GL, HL, CL = left3[..., 0], left3[..., 1], left3[..., 2]
         Gp, Hp, Cp = tot[..., 0], tot[..., 1], tot[..., 2]
         GR, HR, CR = (Gp[:, :, None] - GL, Hp[:, :, None] - HL,
                       Cp[:, :, None] - CL)
         gain = (leaf_score(GL, HL) + leaf_score(GR, HR)
                 - leaf_score(Gp, Hp)[:, :, None])
+        if ct.has_subset:
+            gain_cat = (ct.leaf_score_cat(GL, HL) + ct.leaf_score_cat(GR, HR)
+                        - ct.leaf_score_cat(Gp, Hp)[:, :, None])
+            gain = torch.where(sub_b[:, None], gain_cat, gain)
         valid = ((CL >= min_data) & (CR >= min_data)
                  & (HL >= min_hess) & (HR >= min_hess)
-                 & feat_mask[None, :, None] & edge_ok[None])
+                 & feat_mask[None, :, None] & edge3)
         if depth_ok is not None:
             valid = valid & depth_ok
         gain = torch.where(valid, gain, torch.full_like(gain, -math.inf))
-        return gain, cum, (Gp[:, 0], Hp[:, 0], Cp[:, 0])
+        return gain, left3, (Gp[:, 0], Hp[:, 0], Cp[:, 0])
 
     return leaf_output, split_gains
 
@@ -250,15 +490,17 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
     ``generator`` feeds the quantizer's stochastic rounding.  Levels whose
     frontier has at most ``cuda_histogram.FUSED_MAX_NODES`` parents take
     the fused frontier step (read per call, so a test can lower it); deeper
-    levels build the smaller child's histogram and scan gains in torch."""
+    levels, and every level of a tree with categorical features, build the
+    smaller child's histogram and scan gains in torch."""
     use_quant = bool(params.use_quantized_grad)
     quant_bins = params.num_grad_quant_bins
     D, F, B = max_depth, num_features, num_bins
     I, L = 2 ** D - 1, 2 ** D
-    has_cat = bool(params.categorical_features)
+    ct = _CatTools(params, F, B)
+    has_cat = ct.has_cat
     use_fused = _use_fused_frontier(use_quant, has_cat, B, quant_bins)
     min_gain = params.min_gain_to_split
-    leaf_output, split_gains = _split_math(params)
+    leaf_output, split_gains = _split_math(params, ct)
     lc_np, rc_np = perfect_tree_children(D)
 
     def grow(binned, grad, hess, hist_mask, feat_mask, edges, *,
@@ -267,12 +509,14 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
         dev = binned.device
         n = binned.shape[0]
         rows = torch.arange(n, device=dev)
+        scales = None
         if use_quant:
             # quantize once per tree: every level's histogram is an exact
             # integer function of the same per-row ints, so the sibling
             # subtraction never leaves integer space
             qg, qh, g_scale, h_scale = hist_ops.quantize_gradients(
                 grad, hess, quant_bins, generator=generator, noise=noise)
+            scales = (g_scale, h_scale)
 
         def hist(node_a, num_nodes, max_rows=None):
             if use_quant:
@@ -295,9 +539,11 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
         split_gain = torch.zeros((I,), dtype=torch.float32, device=dev)
         internal_value = torch.zeros((I,), dtype=torch.float32, device=dev)
         internal_count = torch.zeros((I,), dtype=torch.float32, device=dev)
-        edge_ok2 = torch.cat([torch.isfinite(edges),
-                              torch.zeros((F, 1), dtype=torch.bool,
-                                          device=dev)], dim=1)
+        edge_ok2 = ct.edge_ok(edges)
+        if has_cat:
+            cat_b, _ = ct.masks(dev)
+            # per internal node, the LEFT category set of a categorical split
+            cat_member = torch.zeros((I, B), dtype=torch.bool, device=dev)
         if use_fused:
             # the kernels' inputs, converted once per tree
             qg8, qh8 = cuda_histogram.to_int8(qg), cuda_histogram.to_int8(qh)
@@ -307,6 +553,7 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
         for d in range(D):
             nodes_d = 2 ** d
             off = nodes_d - 1                       # BFS offset of the level
+            nd = torch.arange(nodes_d, device=dev)
             if d > 0:
                 # LightGBM's smaller-child rule: rebuild only each parent's
                 # smaller child, sibling = parent - small
@@ -343,20 +590,27 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
                          torch.where(sl4, hist_sib, hist_small)],
                         dim=1).reshape(nodes_d, F, B, 3)
                 gain, pick, (Gp0, Hp0, Cp0) = split_gains(
-                    dehist(hist_d), feat_mask, edge_ok2)
+                    hist_d, feat_mask, edge_ok2, scales=scales)
                 flat = gain.reshape(nodes_d, F * B)
                 best = torch.argmax(flat, dim=1)
                 best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
                 bf, bb = best // B, best % B
-                bsel = pick[torch.arange(nodes_d, device=dev), bf, bb, :]
+                bsel = pick[nd, bf, bb, :]
             prev_hist = hist_d
             do_split = best_gain > min_gain
 
-            idx = off + torch.arange(nodes_d, device=dev)
+            idx = off + nd
+            thr = edges[bf, torch.clamp(bb, 0, B - 2)]
+            if has_cat:
+                member = ct.winner_member(dehist(hist_d[nd, bf]), bf, bb)
+                is_cat = cat_b[bf]
+                cat_member[idx] = member & (do_split & is_cat)[:, None]
+                # the raw threshold of a categorical split is the code
+                thr = torch.where(is_cat, bb.to(torch.float32), thr)
             split_feature[idx] = torch.where(do_split, bf, -1) \
                 .to(torch.int32)
             threshold_bin[idx] = bb.to(torch.int32)
-            threshold[idx] = edges[bf, torch.clamp(bb, 0, B - 2)]
+            threshold[idx] = thr
             split_gain[idx] = torch.where(do_split, best_gain,
                                           torch.zeros_like(best_gain))
             internal_value[idx] = leaf_output(Gp0, Hp0)
@@ -371,10 +625,15 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
             # the next level rebuilds only each parent's smaller child
             small_left = left_stats[:, 2] <= right_stats[:, 2]
 
-            # route every row (masked rows too: they need leaf ids)
-            row_bin = binned[rows, bf[node]].to(torch.int64)
-            go_right = do_split[node] & (row_bin > bb[node])
-            node = 2 * node + go_right.to(torch.int64)
+            # route every row (masked rows too: they need leaf ids); a
+            # categorical split sends the members of its set left
+            f_row = bf[node]
+            row_bin = binned[rows, f_row].to(torch.int64)
+            right = row_bin > bb[node]
+            if has_cat:
+                right = torch.where(cat_b[f_row], ~member[node, row_bin],
+                                    right)
+            node = 2 * node + (do_split[node] & right).to(torch.int64)
 
         left_stats, right_stats = best_stats
         lv = torch.stack([leaf_output(left_stats[:, 0], left_stats[:, 1]),
@@ -386,7 +645,8 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
         return Tree(torch.from_numpy(lc_np).to(dev),
                     torch.from_numpy(rc_np).to(dev), split_feature,
                     threshold, threshold_bin, split_gain, internal_value,
-                    internal_count, leaf_value, lc, node)
+                    internal_count, leaf_value, lc, node,
+                    cat_member if has_cat else None)
 
     return grow
 
@@ -418,7 +678,9 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
     both children's best splits for the later steps.  A step whose best
     gain fails ``min_gain_to_split`` still runs and writes nothing, as the
     JAX package's ``lax.scan`` does, so a tree always launches each kernel
-    ``num_leaves`` times on the fused path.
+    ``num_leaves`` times (on the fused path one ``frontier_step`` per step;
+    with categorical features one histogram build per step, whose split
+    search runs in torch).
 
     The step loop never waits for the card: the chosen leaf, the gate and
     every index stay device tensors, and a gated write goes to a trash slot
@@ -426,31 +688,30 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
     that depth; ``store16`` allows the int16 histogram carry.  Returns
     ``grow(...)`` with the level-wise grower's signature; the ``Tree`` holds
     array-of-nodes children with leaves encoded ``~leaf``."""
-    if params.categorical_features:
-        raise _not_ported("categorical features",
-                          "categorical splits")
     use_quant = bool(params.use_quantized_grad)
     quant_bins = params.num_grad_quant_bins
     L, M, F, B = num_leaves, num_leaves - 1, num_features, num_bins
-    use_fused = _use_fused_frontier(use_quant, False, B, quant_bins)
+    ct = _CatTools(params, F, B)
+    has_cat = ct.has_cat
+    use_fused = _use_fused_frontier(use_quant, has_cat, B, quant_bins)
     min_gain = params.min_gain_to_split
-    leaf_output, split_gains = _split_math(params)
+    leaf_output, split_gains = _split_math(params, ct)
 
     def grow(binned, grad, hess, hist_mask, feat_mask, edges, *,
              generator: Optional[torch.Generator] = None,
              noise: Optional[torch.Tensor] = None) -> Tree:
         dev = binned.device
         n = binned.shape[0]
-        edge_ok = torch.cat([torch.isfinite(edges),
-                             torch.zeros((F, 1), dtype=torch.bool,
-                                         device=dev)], dim=1)
+        edge_ok = ct.edge_ok(edges)
         # depth_ok of every depth a child can reach, looked up per step
         depth_ok = torch.arange(L + 1, device=dev) < depth_cap \
             if depth_cap > 0 else torch.ones(L + 1, dtype=torch.bool,
                                               device=dev)
+        scales = None
         if use_quant:
             qg, qh, g_scale, h_scale = hist_ops.quantize_gradients(
                 grad, hess, quant_bins, generator=generator, noise=noise)
+            scales = (g_scale, h_scale)
         if use_fused:
             # the kernels' inputs, converted once per tree
             qg8, qh8 = cuda_histogram.to_int8(qg), cuda_histogram.to_int8(qh)
@@ -476,18 +737,25 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
 
         def leaf_best(hist_1f3, dok):
             """Best split of one leaf from its ``(1, F, B, 3)`` histogram:
-            ``(gain, feat, bin, left (G, H, C), totals)``, each with a
-            leading axis of 1."""
-            h = hist_1f3
-            if use_quant:
-                h = hist_ops.dequantize_histogram(h, g_scale, h_scale)
-            gain, cum, tot = split_gains(h, feat_mask, edge_ok, dok)
+            ``(gain, feat, bin, left (G, H, C), totals, member)``, each with
+            a leading axis of 1 (``member``, the winner's ``(1, B)``
+            category set, only with categorical features)."""
+            gain, left3, tot = split_gains(hist_1f3, feat_mask, edge_ok, dok,
+                                           scales=scales)
             flat = gain.reshape(-1)
             best = torch.argmax(flat).reshape(1)
-            return (flat.index_select(0, best),
-                    (best // B).to(torch.int32), (best % B).to(torch.int32),
-                    cum.reshape(F * B, 3).index_select(0, best),
-                    torch.stack(tot, dim=-1))
+            bf, bb = best // B, best % B
+            member = None
+            if has_cat:
+                win = hist_1f3[0].index_select(0, bf)         # (1, B, 3)
+                if use_quant:
+                    win = hist_ops.dequantize_histogram(win, g_scale,
+                                                        h_scale)
+                member = ct.winner_member(win, bf, bb)
+            return (flat.index_select(0, best), bf.to(torch.int32),
+                    bb.to(torch.int32),
+                    left3.reshape(F * B, 3).index_select(0, best),
+                    torch.stack(tot, dim=-1), member)
 
         # ---- carry: each array padded by a trash slot (M or L) that takes
         # the writes of a step whose gate is off
@@ -507,6 +775,13 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
         best_feat, best_bin = full(L + 1, 0, i32), full(L + 1, 0, i32)
         best_left = torch.zeros((L + 1, 3), dtype=f32, device=dev)
         leaf_tot = torch.zeros((L + 1, 3), dtype=f32, device=dev)
+        if has_cat:
+            cat_b, _ = ct.masks(dev)
+            # per internal node its LEFT category set; per live leaf the
+            # category set of its best candidate
+            cbs = torch.zeros((M + 1, B), dtype=torch.bool, device=dev)
+            best_member = torch.zeros((L + 1, B), dtype=torch.bool,
+                                      device=dev)
 
         # ---- root, into slot 0
         if use_fused:
@@ -517,10 +792,12 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
                   (torch.zeros((1,), dtype=torch.int64, device=dev),))
         else:
             h_root = local_hist(hist_mask)
-            g0, f0, b0, lp0, tot0 = leaf_best(h_root, depth_ok[:1])
+            g0, f0, b0, lp0, tot0, m0 = leaf_best(h_root, depth_ok[:1])
             hists[:1] = h_root.to(st_dtype)
             best_gain[:1], best_feat[:1], best_bin[:1] = g0, f0, b0
             best_left[:1], leaf_tot[:1] = lp0, tot0
+            if has_cat:
+                best_member[:1] = m0
         leaf_depth, leaf_side = full(L + 1, 0, i32), full(L + 1, 0, i32)
         leaf_parent = full(L + 1, -1, i32)
         created = torch.arange(L + 1, device=dev) == 0
@@ -544,11 +821,18 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
             b = best_bin.index_select(0, j).to(torch.int64)
             tot = leaf_tot.index_select(0, j)                    # (1, 3)
             s_val = steps[s:s + 1]
+            thr = edges_flat.index_select(
+                0, f * e_stride + torch.clamp(b, 0, B - 2))
+            if has_cat:
+                is_cat = cat_b.index_select(0, f)                # (1,)
+                member_j = best_member.index_select(0, j)        # (1, B)
+                put(cbs, at_s, member_j & is_cat[:, None])
+                # the raw threshold of a categorical split is the code
+                thr = torch.where(is_cat, b.to(f32), thr)
 
             put(sf, at_s, f)
             put(tb, at_s, b)
-            put(th, at_s, edges_flat.index_select(
-                0, f * e_stride + torch.clamp(b, 0, B - 2)))
+            put(th, at_s, thr)
             put(sg, at_s, gmax)
             put(iv, at_s, leaf_output(tot[:, 0], tot[:, 1]))
             put(ic, at_s, tot[:, 2])
@@ -568,9 +852,14 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
             put(leaf_side, at_new, torch.ones_like(s_val))
             put(created, at_new, torch.ones_like(do))
 
-            # route the rows of leaf j: bins above b go right
-            row_bin = binned_fm.index_select(0, torch.clamp(f, min=0))[0]
-            go_right = do & (leaf_of_row == j) & (row_bin.to(torch.int64) > b)
+            # route the rows of leaf j: bins above b go right, or for a
+            # categorical split the codes outside its set
+            row_bin = binned_fm.index_select(0, torch.clamp(f, min=0))[0] \
+                .to(torch.int64)
+            right = row_bin > b
+            if has_cat:
+                right = torch.where(is_cat, ~member_j[0][row_bin], right)
+            go_right = do & (leaf_of_row == j) & right
             leaf_of_row = torch.where(go_right, new_leaf, leaf_of_row)
 
             left_stats = best_left.index_select(0, j)
@@ -590,14 +879,15 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
                 continue
             hl = local_hist(in_left)
             hr = hists.index_select(0, j).to(hl.dtype) - hl
-            for at, h_child, (g_c, f_c, b_c, lp_c, _) in (
-                    (at_j, hl, leaf_best(hl, dok)),
-                    (at_new, hr, leaf_best(hr, dok))):
+            for at, h_child in ((at_j, hl), (at_new, hr)):
+                g_c, f_c, b_c, lp_c, _, m_c = leaf_best(h_child, dok)
                 put(hists, at, h_child)
                 put(best_gain, at, g_c)
                 put(best_feat, at, f_c)
                 put(best_bin, at, b_c)
                 put(best_left, at, lp_c)
+                if has_cat:
+                    put(best_member, at, m_c)
 
         created, leaf_tot = created[:L], leaf_tot[:L]
         zero = torch.zeros((L,), dtype=f32, device=dev)
@@ -605,7 +895,8 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
             created, leaf_output(leaf_tot[:, 0], leaf_tot[:, 1]), zero)
         leaf_count = torch.where(created, leaf_tot[:, 2], zero)
         return Tree(lc_arr[:M], rc_arr[:M], sf[:M], th[:M], tb[:M], sg[:M],
-                    iv[:M], ic[:M], leaf_value, leaf_count, leaf_of_row)
+                    iv[:M], ic[:M], leaf_value, leaf_count, leaf_of_row,
+                    cbs[:M] if has_cat else None)
 
     return grow
 
@@ -621,27 +912,40 @@ def _make_grower(p: GBDTParams, F: int, B: int):
 # binned tree walk (valid-set scoring and warm-start replay)
 # ---------------------------------------------------------------------------
 
-def make_binned_walker(depth_bound: int):
+def make_binned_walker(depth_bound: int,
+                       categorical_features: Optional[Tuple[int, ...]] = None):
     """Binned-space pointer chase over one array-of-nodes tree (leaf slots
     encoded ``~leaf_id``; leaves self-loop, so ``depth_bound`` rounds
     resolve every shape).  Returns ``walk(binned, split_feature,
-    threshold_bin, left_child, right_child) -> (n,) leaf ids``."""
+    threshold_bin, left_child, right_child, bitset=None) -> (n,) leaf
+    ids``.  At a categorical node a code in the node's ``bitset`` row
+    (``(M, B)``) goes left; without a bitset, the code ``threshold_bin``
+    alone goes left (one-vs-rest)."""
     D = max(1, depth_bound)
+    cats = sorted(int(i) for i in (categorical_features or ()))
 
-    def walk(binned, split_feature, threshold_bin, left_child, right_child):
-        n = binned.shape[0]
-        rows = torch.arange(n, device=binned.device)
+    def walk(binned, split_feature, threshold_bin, left_child, right_child,
+             bitset=None):
+        n, F = binned.shape
+        dev = binned.device
+        rows = torch.arange(n, device=dev)
         sf = split_feature.to(torch.int64)
         tb = threshold_bin.to(torch.int64)
         lc = left_child.to(torch.int64)
         rc = right_child.to(torch.int64)
-        node = torch.zeros((n,), dtype=torch.int64, device=binned.device)
+        if cats:
+            cat_b = _device_mask(F, cats, dev)
+        node = torch.zeros((n,), dtype=torch.int64, device=dev)
         for _ in range(D):
             j = node.clamp(min=0)
             f = sf[j]
             row_bin = binned[rows, f.clamp(min=0)].to(torch.int64)
-            go_right = (f >= 0) & (row_bin > tb[j])
-            child = torch.where(go_right, rc[j], lc[j])
+            right = row_bin > tb[j]
+            if cats:
+                left_set = bitset[j, row_bin] if bitset is not None \
+                    else row_bin == tb[j]
+                right = torch.where(cat_b[f.clamp(min=0)], ~left_set, right)
+            child = torch.where((f >= 0) & right, rc[j], lc[j])
             node = torch.where(node >= 0, child, node)
         return ~node
 
@@ -672,6 +976,14 @@ def _metric_auc(y, raw, w=None):
                  max(1e-12, np.sum(pos) * np.sum(neg)))
 
 
+def _metric_multi_logloss(y, raw, w=None):
+    z = raw - raw.max(axis=1, keepdims=True)
+    p = np.exp(z)
+    p /= p.sum(axis=1, keepdims=True)
+    p = np.clip(p[np.arange(len(y)), y.astype(int)], 1e-15, None)
+    return float(np.average(-np.log(p), weights=w))
+
+
 def _metric_l2(y, raw, w=None):
     return float(np.average((raw[:, 0] - y) ** 2, weights=w))
 
@@ -684,24 +996,75 @@ def _metric_l1(y, raw, w=None):
     return float(np.average(np.abs(raw[:, 0] - y), weights=w))
 
 
+def _metric_poisson_nll(y, raw, w=None):
+    mu = np.exp(np.clip(raw[:, 0], -30, 30))
+    return float(np.average(mu - y * np.log(np.maximum(mu, 1e-12)),
+                            weights=w))
+
+
+def _metric_gamma_nll(y, raw, w=None):
+    s_ = np.clip(raw[:, 0], -30, 30)
+    return float(np.average(s_ + y * np.exp(-s_), weights=w))
+
+
+def _metric_pinball(y, raw, alpha, w=None):
+    e = y - raw[:, 0]
+    return float(np.average(np.maximum(alpha * e, (alpha - 1.0) * e),
+                            weights=w))
+
+
+def _metric_tweedie_nll(y, raw, rho, w=None):
+    """Tweedie deviance NLL with log link (raw = log mean), 1 < rho < 2."""
+    s_ = np.clip(raw[:, 0], -30, 30)
+    nll = (-y * np.exp((1.0 - rho) * s_) / (1.0 - rho)
+           + np.exp((2.0 - rho) * s_) / (2.0 - rho))
+    return float(np.average(nll, weights=w))
+
+
 METRICS = {"binary_logloss": (_metric_binary_logloss, False),
+           "poisson_nll": (_metric_poisson_nll, False),
+           "gamma_nll": (_metric_gamma_nll, False),
            "auc": (_metric_auc, True),
+           "multi_logloss": (_metric_multi_logloss, False),
            "l2": (_metric_l2, False), "mse": (_metric_l2, False),
            "rmse": (_metric_rmse, False), "l1": (_metric_l1, False),
            "mae": (_metric_l1, False)}
 
 
-def default_metric(objective: str) -> str:
-    return {"binary": "binary_logloss", "regression": "l2"}.get(objective,
-                                                                 "l2")
-
-
 def resolve_metric(metric_name: str, p: GBDTParams):
-    """(metric_fn, larger_better) for a requested or default metric name;
-    unknown names fall back to the objective's default."""
+    """(metric_fn, larger_better) for a requested or default metric name.
+    tweedie_nll and pinball take the variance power and alpha, so they
+    resolve to closures here instead of living in METRICS; unknown names
+    fall back to the objective's default (closures included)."""
+    def closures(name):
+        if name == "tweedie_nll":
+            rho_m = p.tweedie_variance_power
+            return (lambda y_, raw_, w_=None:
+                    _metric_tweedie_nll(y_, raw_, rho_m, w_), False)
+        if name == "pinball":
+            a_m = p.alpha
+            return (lambda y_, raw_, w_=None:
+                    _metric_pinball(y_, raw_, a_m, w_), False)
+        return None
+
+    got = closures(metric_name)
+    if got is not None:
+        return got
     if metric_name in METRICS:
         return METRICS[metric_name]
-    return METRICS.get(default_metric(p.objective), METRICS["l2"])
+    fallback = default_metric(p.objective)
+    got = closures(fallback)
+    if got is not None:
+        return got
+    return METRICS.get(fallback, METRICS["l2"])
+
+
+def default_metric(objective: str) -> str:
+    return {"binary": "binary_logloss", "multiclass": "multi_logloss",
+            "regression": "l2", "regression_l1": "l1", "huber": "l2",
+            "quantile": "pinball", "lambdarank": "l2",
+            "poisson": "poisson_nll", "tweedie": "tweedie_nll",
+            "gamma": "gamma_nll"}.get(objective, "l2")
 
 
 # ---------------------------------------------------------------------------
@@ -713,7 +1076,8 @@ class TrainResult:
     booster: GBDTBooster
     evals: List[Dict[str, float]]
     bin_mapper: BinMapper
-    # host wall seconds per phase: binning, transfer, boosting
+    # host wall seconds per phase: binning (= edges + bin_apply), transfer,
+    # boosting
     extras: Optional[Dict[str, float]] = None
 
 
@@ -725,12 +1089,9 @@ _TREE_KEYS = ("left_child", "right_child", "split_feature", "threshold",
 def _check_ported(p: GBDTParams, *, group_ptr, shard_rows, checkpoint_dir,
                   checkpoint_every, monitor_port,
                   monitor_stall_timeout_s) -> None:
-    if p.categorical_features:
-        raise _not_ported("categorical features",
-                          "categorical splits")
-    if p.objective == "multiclass" or group_ptr is not None:
+    if p.objective in ("multiclass", "lambdarank") or group_ptr is not None:
         raise _not_ported("multiclass and ranking",
-                          "multiclass, ranker and the other objectives")
+                          "multiclass and the ranker")
     if shard_rows or p.voting_k:
         raise _not_ported("row sharding and voting",
                           "the sharded GBDT over NCCL")
@@ -739,6 +1100,30 @@ def _check_ported(p: GBDTParams, *, group_ptr, shard_rows, checkpoint_dir,
                           "resume")
     if monitor_port is not None or monitor_stall_timeout_s is not None:
         raise _not_ported("the training monitor", "compute-plane telemetry")
+
+
+def _bin(mapper: BinMapper, X: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The ``(n, F)`` bins of ``X`` on ``dev``, as the transposed view of a
+    feature-major matrix (a warp of the histogram kernel reads consecutive
+    rows of one feature).  On the card ``X`` crosses once as float32 and
+    the bins are applied there, with the semantics of the host route the
+    JAX package's ``transform`` takes for ``X``; on the CPU the host route
+    itself runs."""
+    if dev.type == "cuda":
+        return mapper.bin_on_device(X, dev).t()
+    return torch.from_numpy(mapper.transform(X)).t().contiguous().t()
+
+
+def _cat_subset(p: GBDTParams, binned: torch.Tensor, B: int) -> Tuple:
+    """The categorical features with more than ``max_cat_to_onehot``
+    observed codes (the NaN bin aside): they take the sorted-subset search,
+    the rest one-vs-rest (LightGBM ``max_cat_to_onehot``)."""
+    sub = []
+    for f in p.categorical_features:
+        seen = torch.bincount(binned[:, f].to(torch.int64), minlength=B)
+        if int((seen[:B - 1] > 0).sum()) > p.max_cat_to_onehot:
+            sub.append(int(f))
+    return tuple(sub)
 
 
 def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
@@ -754,16 +1139,18 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
           monitor_port: Optional[int] = None,
           monitor_stall_timeout_s: Optional[float] = None,
           device: DeviceLike = None) -> TrainResult:
-    """Boosting loop (the JAX package's ``train`` for the single-shard,
-    numerical subset: both growers, boosting types gbdt/rf/dart/goss and
-    bagging).  Runs on the card unless ``device="cpu"``;
-    ``use_quantized_grad=None`` turns quantized histograms on for the card
-    and off on the CPU.  Per iteration the GOSS draw and the quantizer's
-    noise come from a ``torch.Generator`` seeded with ``seed * 1000003 +
-    iteration``; the feature-fraction, bagging and DART draws come from the
-    host ``np.random.default_rng(seed)`` in the JAX package's order, so a
-    seed gives both packages the same masks.  A ``valid`` set is scored
-    after every tree and drives early stopping; ``init_booster``
+    """Boosting loop (the JAX package's ``train`` for the single-shard
+    subset: both growers, numerical and categorical splits, the binary and
+    regression objectives, boosting types gbdt/rf/dart/goss and bagging).
+    Runs on the card unless ``device="cpu"``; ``use_quantized_grad=None``
+    turns quantized histograms on for the card and off on the CPU.  Edges
+    are found on the host; on the card the bins are applied there
+    (``BinMapper.bin_on_device``).  Per iteration the GOSS draw and the
+    quantizer's noise come from a ``torch.Generator`` seeded with ``seed *
+    1000003 + iteration``; the feature-fraction, bagging and DART draws
+    come from the host ``np.random.default_rng(seed)`` in the JAX package's
+    order, so a seed gives both packages the same masks.  A ``valid`` set
+    is scored after every tree and drives early stopping; ``init_booster``
     warm-starts from an existing booster."""
     dev = resolve_device(device)
     p = params.resolve()
@@ -782,17 +1169,23 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     K = 1
     w = np.ones(n, np.float32) if sample_weight is None \
         else np.asarray(sample_weight, np.float32)
+    check_labels(p, y, F)
 
     t0 = time.perf_counter()
-    mapper = BinMapper(p.max_bin).fit(X)
-    binned_np = mapper.transform(X)
-    t_bin = time.perf_counter() - t0
+    mapper = BinMapper(p.max_bin,
+                       categorical_features=p.categorical_features).fit(X)
+    t_edges = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.profiler.record_function("train.bin_apply"):
+        binned = _bin(mapper, X, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    t_apply = time.perf_counter() - t0
     B = mapper.num_bins
+    if p.categorical_features and p.cat_subset is None:
+        p = dataclasses.replace(p, cat_subset=_cat_subset(p, binned, B))
 
     t0 = time.perf_counter()
-    # feature-major on the device: a warp of the histogram kernel reads
-    # consecutive rows of one feature; the grower sees the (n, F) view
-    binned = torch.from_numpy(binned_np).to(dev).t().contiguous().t()
     edges = torch.from_numpy(mapper.edges).to(dev)
     y_dev = torch.from_numpy(y).to(dev)
     w_dev = torch.from_numpy(w).to(dev)
@@ -804,33 +1197,41 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     D = p.depth_bound
     L = p.num_leaves
 
-    # init score (BoostFromAverage analogue)
-    init_score = 0.0
-    if p.objective == "binary":
-        pbar = float(np.clip(np.average(y, weights=w), 1e-6, 1 - 1e-6))
-        init_score = math.log(pbar / (1 - pbar)) / p.sigmoid
-    elif p.objective == "regression":
-        init_score = float(np.average(y, weights=w))
+    init_score = init_score_of(p.objective, y, w, p.sigmoid)
     scores = torch.full((n, K), init_score, dtype=torch.float32, device=dev)
 
-    trees: Dict[str, List[torch.Tensor]] = {k: [] for k in _TREE_KEYS}
+    # subset splits need each node's category set; a warm-start booster
+    # that carries sets keeps them through the continuation
+    store_bitset = bool(p.categorical_features) and (
+        bool(p.cat_subset) or (init_booster is not None
+                               and init_booster.cat_bitset is not None))
+    tree_keys = _TREE_KEYS + (("cat_bitset",) if store_bitset else ())
+    trees: Dict[str, List[torch.Tensor]] = {k: [] for k in tree_keys}
     tree_weights: List[float] = []
     walk_bound = max(D, init_booster.max_depth if init_booster is not None
                      else 0)
-    walker = make_binned_walker(walk_bound)
+    walker = make_binned_walker(walk_bound, p.categorical_features)
 
     def walk_tree(binned_x, t):
         return walker(binned_x, *(trees[k][t] for k in (
-            "split_feature", "threshold_bin", "left_child", "right_child")))
+            "split_feature", "threshold_bin", "left_child", "right_child")),
+            bitset=trees["cat_bitset"][t] if store_bitset else None)
 
     if init_booster is not None:
         if init_booster.num_leaves != L or init_booster.num_features != F:
             raise ValueError("init_booster must have the same num_leaves "
                              f"({L}) and num_features ({F})")
+        # one-vs-rest warm-start trees get one-bit sets, so the continued
+        # booster's trees are uniform
+        init_cbs = init_booster.resolve_cat_bitset(B) if store_bitset \
+            else None
         for t in range(init_booster.num_trees):
             for k in _TREE_KEYS:
                 trees[k].append(torch.from_numpy(
                     np.asarray(getattr(init_booster, k)[t])).to(dev))
+            if store_bitset:
+                trees["cat_bitset"].append(
+                    torch.from_numpy(init_cbs[t]).to(dev))
             tree_weights.append(float(init_booster.tree_weight[t]))
             scores[:, t % K] += trees["leaf_value"][t][
                 walk_tree(binned, t)] * tree_weights[t]
@@ -845,7 +1246,7 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     if has_valid:
         Xv = np.asarray(valid[0], np.float32)
         yv = np.asarray(valid[1], np.float32)
-        binned_v = torch.from_numpy(mapper.transform(Xv)).to(dev)
+        binned_v = _bin(mapper, Xv, dev)
         scores_v = torch.full((Xv.shape[0], K), init_score,
                               dtype=torch.float32, device=dev)
     best_metric = -np.inf if larger_better else np.inf
@@ -864,100 +1265,106 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
 
     start_iter = len(tree_weights) // K
     t0 = time.perf_counter()
-    for it in range(start_iter, start_iter + p.num_iterations):
-        # host-side draws, in the JAX package's order: features, bag, DART
-        feat_mask = feat_mask_full
-        if p.feature_fraction < 1.0:
-            keep = max(1, int(round(p.feature_fraction * F)))
-            sel = rng.choice(F, size=keep, replace=False)
-            feat_mask = torch.zeros((F,), dtype=torch.bool, device=dev)
-            feat_mask[torch.from_numpy(sel).to(dev)] = True
-        hist_mask = hist_mask_full
-        if not is_goss and p.bagging_freq > 0 and p.bagging_fraction < 1.0:
-            # resample on schedule, and on the first iteration of a warm
-            # start that begins off schedule
-            if it % p.bagging_freq == 0 or bag_mask is None:
-                bag_mask = torch.from_numpy(
-                    rng.random(n) < p.bagging_fraction).to(dev)
-            hist_mask = bag_mask
-        dropped: List[int] = []
-        if p.boosting_type == "dart" and tree_weights and \
-                rng.random() >= p.skip_drop:
-            k_drop = min(p.max_drop, max(1, int(round(
-                p.drop_rate * len(tree_weights)))))
-            dropped = sorted(rng.choice(
-                len(tree_weights), size=min(k_drop, len(tree_weights)),
-                replace=False).tolist())
-        gen.manual_seed(p.seed * 1000003 + it)
-        if dropped:
-            # DART: gradients against the scores without the dropped trees
-            drop_delta = torch.zeros_like(scores)
-            for t in dropped:
-                drop_delta[:, t % K] += trees["leaf_value"][t][
-                    walk_tree(binned, t)] * tree_weights[t]
-            g, h = objective(scores - drop_delta, y_dev, w_dev)
-        else:
-            grad_scale = float(max(1, len(tree_weights) // K)) \
-                if p.boosting_type == "rf" and tree_weights else 1.0
-            g, h = objective(scores / grad_scale, y_dev, w_dev)
-            if is_goss:
-                # the top a_n rows by |g|, b_n of the rest at random,
-                # amplified by (1 - top_rate) / other_rate
-                order = torch.argsort(-g.abs().sum(dim=1), stable=True)
-                rest = order[a_n:]
-                perm = torch.randperm(rest.shape[0], generator=gen,
-                                      device=dev)
-                small_idx = rest[perm[:b_n]]
-                keep_rows = torch.zeros((n,), dtype=torch.bool, device=dev)
-                keep_rows.index_fill_(0, order[:a_n], True)
-                keep_rows.index_fill_(0, small_idx, True)
-                amp = torch.ones((n,), dtype=torch.float32, device=dev)
-                amp.index_fill_(0, small_idx, goss_amp)
-                hist_mask = hist_mask & keep_rows
-                g, h = g * amp[:, None], h * amp[:, None]
-        new_w = 1.0 / (1.0 + len(dropped)) if dropped else 1.0
-        tree = grow(binned, g[:, 0], h[:, 0], hist_mask, feat_mask, edges,
-                    generator=gen)
-        lv_s = tree.leaf_value * shrink
-        scores[:, 0] += lv_s[tree.leaf_of_row] * new_w
-        for k in _TREE_KEYS:
-            trees[k].append(lv_s if k == "leaf_value"
-                            else getattr(tree, k))
-        tree_weights.append(new_w)
-        if has_valid:
-            leaf_v = walker(binned_v, tree.split_feature,
-                            tree.threshold_bin, tree.left_child,
-                            tree.right_child)
-            scores_v[:, 0] += lv_s[leaf_v] * new_w
-        if dropped:
-            # DART: shrink each dropped tree by k / (1 + k), on the train
-            # and valid scores alike
-            factor = len(dropped) / (1.0 + len(dropped))
-            for t in dropped:
-                scale = tree_weights[t] * (factor - 1.0)
-                scores[:, t % K] += trees["leaf_value"][t][
-                    walk_tree(binned, t)] * scale
-                if has_valid:
-                    scores_v[:, t % K] += trees["leaf_value"][t][
-                        walk_tree(binned_v, t)] * scale
-                tree_weights[t] *= factor
-        if has_valid:
-            m = metric_fn(yv, scores_v.cpu().numpy().astype(np.float64))
-            evals.append({metric_name: m, "iteration": it})
-            improved = m > best_metric if larger_better else m < best_metric
-            if improved:
-                best_metric, best_iter, rounds_no_improve = m, it, 0
+    # a profiler range (a no-op unless a profiler runs) that lets a trace
+    # tell the loop's device work from the binning kernels before it
+    with torch.profiler.record_function("train.boosting"):
+        for it in range(start_iter, start_iter + p.num_iterations):
+            # host-side draws, in the JAX package's order: features, bag, DART
+            feat_mask = feat_mask_full
+            if p.feature_fraction < 1.0:
+                keep = max(1, int(round(p.feature_fraction * F)))
+                sel = rng.choice(F, size=keep, replace=False)
+                feat_mask = torch.zeros((F,), dtype=torch.bool, device=dev)
+                feat_mask[torch.from_numpy(sel).to(dev)] = True
+            hist_mask = hist_mask_full
+            if not is_goss and p.bagging_freq > 0 and p.bagging_fraction < 1.0:
+                # resample on schedule, and on the first iteration of a warm
+                # start that begins off schedule
+                if it % p.bagging_freq == 0 or bag_mask is None:
+                    bag_mask = torch.from_numpy(
+                        rng.random(n) < p.bagging_fraction).to(dev)
+                hist_mask = bag_mask
+            dropped: List[int] = []
+            if p.boosting_type == "dart" and tree_weights and \
+                    rng.random() >= p.skip_drop:
+                k_drop = min(p.max_drop, max(1, int(round(
+                    p.drop_rate * len(tree_weights)))))
+                dropped = sorted(rng.choice(
+                    len(tree_weights), size=min(k_drop, len(tree_weights)),
+                    replace=False).tolist())
+            gen.manual_seed(p.seed * 1000003 + it)
+            if dropped:
+                # DART: gradients against the scores without the dropped trees
+                drop_delta = torch.zeros_like(scores)
+                for t in dropped:
+                    drop_delta[:, t % K] += trees["leaf_value"][t][
+                        walk_tree(binned, t)] * tree_weights[t]
+                g, h = objective(scores - drop_delta, y_dev, w_dev)
             else:
-                rounds_no_improve += 1
-            if p.early_stopping_round > 0 and \
-                    rounds_no_improve >= p.early_stopping_round:
-                break
-        if callbacks:
-            for cb in callbacks:
-                cb(it, evals[-1] if evals else None)
+                grad_scale = float(max(1, len(tree_weights) // K)) \
+                    if p.boosting_type == "rf" and tree_weights else 1.0
+                g, h = objective(scores / grad_scale, y_dev, w_dev)
+                if is_goss:
+                    # the top a_n rows by |g|, b_n of the rest at random,
+                    # amplified by (1 - top_rate) / other_rate
+                    order = torch.argsort(-g.abs().sum(dim=1), stable=True)
+                    rest = order[a_n:]
+                    perm = torch.randperm(rest.shape[0], generator=gen,
+                                          device=dev)
+                    small_idx = rest[perm[:b_n]]
+                    keep_rows = torch.zeros((n,), dtype=torch.bool, device=dev)
+                    keep_rows.index_fill_(0, order[:a_n], True)
+                    keep_rows.index_fill_(0, small_idx, True)
+                    amp = torch.ones((n,), dtype=torch.float32, device=dev)
+                    amp.index_fill_(0, small_idx, goss_amp)
+                    hist_mask = hist_mask & keep_rows
+                    g, h = g * amp[:, None], h * amp[:, None]
+            new_w = 1.0 / (1.0 + len(dropped)) if dropped else 1.0
+            tree = grow(binned, g[:, 0], h[:, 0], hist_mask, feat_mask, edges,
+                        generator=gen)
+            lv_s = tree.leaf_value * shrink
+            scores[:, 0] += lv_s[tree.leaf_of_row] * new_w
+            for k in tree_keys:
+                trees[k].append(lv_s if k == "leaf_value"
+                                else getattr(tree, k))
+            tree_weights.append(new_w)
+            if has_valid:
+                leaf_v = walker(
+                    binned_v, tree.split_feature, tree.threshold_bin,
+                    tree.left_child, tree.right_child,
+                    bitset=tree.cat_bitset if store_bitset else None)
+                scores_v[:, 0] += lv_s[leaf_v] * new_w
+            if dropped:
+                # DART: shrink each dropped tree by k / (1 + k), on the train
+                # and valid scores alike
+                factor = len(dropped) / (1.0 + len(dropped))
+                for t in dropped:
+                    scale = tree_weights[t] * (factor - 1.0)
+                    scores[:, t % K] += trees["leaf_value"][t][
+                        walk_tree(binned, t)] * scale
+                    if has_valid:
+                        scores_v[:, t % K] += trees["leaf_value"][t][
+                            walk_tree(binned_v, t)] * scale
+                    tree_weights[t] *= factor
+            if has_valid:
+                m = metric_fn(yv, scores_v.cpu().numpy().astype(np.float64))
+                evals.append({metric_name: m, "iteration": it})
+                improved = m > best_metric if larger_better \
+                    else m < best_metric
+                if improved:
+                    best_metric, best_iter, rounds_no_improve = m, it, 0
+                else:
+                    rounds_no_improve += 1
+                if p.early_stopping_round > 0 and \
+                        rounds_no_improve >= p.early_stopping_round:
+                    break
+            if callbacks:
+                for cb in callbacks:
+                    cb(it, evals[-1] if evals else None)
 
-    trees_np = {k: np.stack([t.cpu().numpy() for t in v])
-                for k, v in trees.items()}        # one sync, after the loop
+        # one sync, after the loop
+        trees_np = {k: np.stack([t.cpu().numpy() for t in v])
+                    for k, v in trees.items()}
     t_boost = time.perf_counter() - t0
     if p.growth == "leaf":
         # the tight walk bound: leaf-wise trees are usually far shallower
@@ -976,7 +1383,11 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         max_depth=D, num_features=F, objective=p.objective, num_class=K,
         init_score=init_score, average_output=(p.boosting_type == "rf"),
         feature_names=feature_names, best_iteration=best_iter,
-        sigmoid=p.sigmoid)
+        sigmoid=p.sigmoid,
+        categorical_features=list(p.categorical_features or []),
+        cat_bitset=trees_np.get("cat_bitset"))
     return TrainResult(booster=booster, evals=evals, bin_mapper=mapper,
-                       extras={"binning_s": t_bin, "transfer_s": t_transfer,
+                       extras={"binning_s": t_edges + t_apply,
+                               "edges_s": t_edges, "bin_apply_s": t_apply,
+                               "transfer_s": t_transfer,
                                "boosting_s": t_boost})

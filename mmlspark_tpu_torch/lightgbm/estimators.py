@@ -4,13 +4,15 @@
 Same param names and semantics as the JAX package.  The defaults grow
 leaf-wise (``num_leaves`` = 31, LightGBM's best-first growth); ``max_depth``
 set alone selects level-wise growth, and with ``num_leaves`` it caps the
-leaf-wise depth.  ``boosting_type`` gbdt, rf, dart and goss and bagging
-pass through to ``train()``; categorical features raise
-``NotImplementedError`` until they are ported.  ``device`` picks where
-training and scoring run: the card by default, ``"cpu"`` for the plain
-PyTorch versions.
+leaf-wise depth.  ``boosting_type`` gbdt, rf, dart and goss, bagging,
+categorical features (one-vs-rest up to ``max_cat_to_onehot`` observed
+codes, sorted-subset above) and the regressor's objectives pass through to
+``train()``.  ``device`` picks where training and scoring run: the card by
+default, ``"cpu"`` for the plain PyTorch versions.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -53,8 +55,17 @@ def _shared_params(cls):
                    "level (depth-wise) | auto (leaf unless only max_depth "
                    "is set)", "string", "auto"),
         ("seed", "random seed", "int", 0),
-        ("categorical_features", "feature indices treated as categorical",
-         "list", None),
+        ("categorical_features", "feature indices treated as categorical "
+         "(one-vs-rest below max_cat_to_onehot cardinality, sorted-subset "
+         "many-vs-many above)", "list", None),
+        ("max_cat_to_onehot", "cardinality threshold below which categorical "
+         "features split one-vs-rest instead of sorted-subset", "int", 4),
+        ("cat_smooth", "grad/hess ratio smoothing when ordering categories "
+         "for subset splits", "double", 10.0),
+        ("cat_l2", "extra L2 regularization applied when scoring "
+         "sorted-subset categorical splits", "double", 10.0),
+        ("max_cat_threshold", "max categories on the smaller side of a "
+         "sorted-subset split", "int", 32),
         ("use_quantized_grad", "quantized training (LightGBM 4.x): "
          "stochastically round per-row grad/hess to integer levels once "
          "per iteration and build packed integer histograms; unset = auto "
@@ -106,6 +117,9 @@ class _LightGBMBase(Estimator, HasFeaturesCol, HasLabelCol, HasWeightCol):
             metric=self.get("metric"), seed=self.get("seed"),
             categorical_features=tuple(self.get("categorical_features")
                                        or ()) or None,
+            max_cat_to_onehot=self.get("max_cat_to_onehot"),
+            cat_smooth=self.get("cat_smooth"), cat_l2=self.get("cat_l2"),
+            max_cat_threshold=self.get("max_cat_threshold"),
             use_quantized_grad=self.get("use_quantized_grad"),
             num_grad_quant_bins=self.get("num_grad_quant_bins"))
 
@@ -126,10 +140,10 @@ class _LightGBMBase(Estimator, HasFeaturesCol, HasLabelCol, HasWeightCol):
         return X[keep], y[keep], (w[keep] if w is not None else None), \
             (X[mask], y[mask])
 
-    def _train_booster(self, X, y, w, valid, num_class=1):
+    def _train_booster(self, X, y, w, valid, num_class=1, params=None):
         ms = self.get("model_string")
         init_booster = GBDTBooster.from_string(ms) if ms else None
-        return gbdt_core.train(X, y, self._gbdt_params(num_class),
+        return gbdt_core.train(X, y, params or self._gbdt_params(num_class),
                                sample_weight=w, valid=valid,
                                init_booster=init_booster,
                                device=self.get("device"))
@@ -258,16 +272,25 @@ class LightGBMClassificationModel(_LightGBMModelBase, HasProbabilityCol,
 
 @_shared_params
 class LightGBMRegressor(_LightGBMBase, HasPredictionCol):
-    """GBDT regressor (ref ``LightGBMRegressor.scala``), L2 objective; the
-    other regression objectives wait for a later slice."""
+    """GBDT regressor (ref ``LightGBMRegressor.scala``); objectives:
+    regression (L2), regression_l1, huber, quantile, poisson, tweedie and
+    gamma (log-link count, compound-Poisson and positive targets)."""
 
-    objective = Param("objective", "regression", "string", "regression")
+    objective = Param("objective", "regression|regression_l1|huber|quantile"
+                      "|poisson|tweedie|gamma", "string", "regression")
+    alpha = Param("alpha", "huber delta / quantile level", "float", 0.9)
+    tweedie_variance_power = Param("tweedie_variance_power",
+                                   "tweedie variance power in (1, 2)",
+                                   "float", 1.5)
 
     def _fit(self, df: DataFrame) -> "LightGBMRegressionModel":
         self._objective = self.get("objective")
         X, y, w, data = self._collect_xyw(df)
         Xt, yt, wt, valid = self._split_valid(X, y, w, data)
-        result = self._train_booster(Xt, yt, wt, valid)
+        params = dataclasses.replace(
+            self._gbdt_params(1), alpha=self.get("alpha"),
+            tweedie_variance_power=self.get("tweedie_variance_power"))
+        result = self._train_booster(Xt, yt, wt, valid, params=params)
         model = LightGBMRegressionModel()
         model.set("booster", result.booster)
         for pcol in ("features_col", "prediction_col", "device"):

@@ -10,8 +10,12 @@ internal node, negative values encode leaves as ``~leaf_id``.
 resolves every tree shape.  Scoring moves the rows to ``device`` (the card
 unless the caller passes ``device="cpu"``) and walks all trees at once.
 
-Not ported yet: categorical splits in the walk, ``predict_contrib`` and
-TreeSHAP (ROADMAP, port queue).
+Categorical nodes route as the JAX package's walk does: with a
+``cat_bitset`` a code in the node's set goes left, without one the code
+``threshold`` alone goes left; NaN and codes outside the set go right.
+
+Not ported yet: ``predict_contrib``, TreeSHAP and ``merge`` (ROADMAP, port
+queue).
 """
 from __future__ import annotations
 
@@ -69,10 +73,15 @@ def children_depth_bound(left_child: np.ndarray,
 
 def walk_trees(X: torch.Tensor, split_feature: torch.Tensor,
                threshold: torch.Tensor, left_child: torch.Tensor,
-               right_child: torch.Tensor, depth: int) -> torch.Tensor:
+               right_child: torch.Tensor, depth: int,
+               is_cat: Optional[torch.Tensor] = None,
+               bitset: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(n, T) leaf index of every row in every tree: ``depth`` rounds of
     gathers over raw float32 features.  NaN goes left (it compares as
-    -inf), and ``x > threshold`` goes right."""
+    -inf), and ``x > threshold`` goes right.  Where ``is_cat`` ((F,) bool)
+    marks the split feature categorical, the code ``round(x)`` goes left if
+    it is in the node's ``bitset`` row (``(T, M, W)`` bool), or without a
+    bitset if it equals ``threshold``; NaN and unseen codes go right."""
     n = X.shape[0]
     T = split_feature.shape[0]
     Xn = torch.nan_to_num(X, nan=-torch.inf)
@@ -82,8 +91,19 @@ def walk_trees(X: torch.Tensor, split_feature: torch.Tensor,
         j = node.clamp(min=0)
         f = split_feature[t_idx, j]
         xv = torch.gather(Xn, 1, f.clamp(min=0))
-        go_right = (f >= 0) & (xv > threshold[t_idx, j])
-        child = torch.where(go_right, right_child[t_idx, j],
+        thr = threshold[t_idx, j]
+        right = xv > thr
+        if is_cat is not None:
+            if bitset is not None:
+                W = bitset.shape[-1]
+                code = torch.where(torch.isfinite(xv), torch.round(xv), -1.0)
+                member = (code >= 0) & (code < W) & bitset[
+                    t_idx, j, code.clamp(0, W - 1).to(torch.int64)]
+                cat_right = ~member
+            else:
+                cat_right = torch.round(xv) != thr
+            right = torch.where(is_cat[f.clamp(min=0)], cat_right, right)
+        child = torch.where((f >= 0) & right, right_child[t_idx, j],
                             left_child[t_idx, j])
         node = torch.where(node >= 0, child, node)
     return ~node
@@ -141,8 +161,15 @@ class GBDTBooster(Saveable):
                                                range(num_features)]
         self.best_iteration = int(best_iteration)
         self.sigmoid = float(sigmoid)
+        # categorical splits: without ``cat_bitset`` one-vs-rest, the
+        # threshold holding the category code; with it ``cat_bitset[t, m]``
+        # is node m's (B,) LEFT category set (sorted-subset splits; one-vs-
+        # rest nodes carry a single-bit set)
         self.categorical_features = sorted(int(i) for i in
                                            (categorical_features or []))
+        self._is_cat = np.zeros(self.num_features, bool)
+        if self.categorical_features:
+            self._is_cat[self.categorical_features] = True
         self.cat_bitset = None if cat_bitset is None \
             else np.asarray(cat_bitset, bool)
 
@@ -160,6 +187,24 @@ class GBDTBooster(Saveable):
     def num_leaves(self) -> int:
         return self.leaf_value.shape[1]
 
+    def resolve_cat_bitset(self, B: int) -> np.ndarray:
+        """(T, M, B) LEFT category sets, width-normalized to B bins; for
+        one-vs-rest boosters the stored codes become one-bit sets (the two
+        decision rules are equivalent, so this is lossless).  Codes >= B
+        stay unset: they can never match a bin of width B."""
+        T, M = self.split_feature.shape
+        out = np.zeros((T, M, B), bool)
+        if self.cat_bitset is not None:
+            W = min(B, self.cat_bitset.shape[-1])
+            out[:, :, :W] = self.cat_bitset[:, :, :W]
+            return out
+        is_cat_node = (self.split_feature >= 0) & \
+            self._is_cat[np.maximum(self.split_feature, 0)] & \
+            (self.threshold_bin < B)
+        t_i, m_i = np.nonzero(is_cat_node)
+        out[t_i, m_i, self.threshold_bin[t_i, m_i]] = True
+        return out
+
     # ------------------------------------------------------------------ predict
     def _tree_tensors(self, dev: torch.device, use_trees: slice):
         def t(a):
@@ -171,15 +216,18 @@ class GBDTBooster(Saveable):
     def _walk_leaves(self, X: np.ndarray, use_trees: Optional[slice] = None,
                      device: DeviceLike = None) -> torch.Tensor:
         """(n, T') leaf index per tree, as an int64 tensor on ``device``."""
-        if self.categorical_features:
-            raise NotImplementedError(
-                "categorical splits are not ported yet (ROADMAP, port "
-                "queue: categorical splits)")
         dev = resolve_device(device)
         use_trees = use_trees or slice(None)
         sf, th, lca, rca = self._tree_tensors(dev, use_trees)
         Xt = torch.as_tensor(np.asarray(X, np.float32), device=dev)
-        return walk_trees(Xt, sf, th, lca, rca, self.max_depth)
+        is_cat = bitset = None
+        if self._is_cat.any():
+            is_cat = torch.from_numpy(self._is_cat).to(dev)
+            if self.cat_bitset is not None:
+                bitset = torch.from_numpy(np.ascontiguousarray(
+                    self.cat_bitset[use_trees])).to(dev)
+        return walk_trees(Xt, sf, th, lca, rca, self.max_depth, is_cat,
+                          bitset)
 
     def predict_leaf(self, X: np.ndarray,
                      device: DeviceLike = None) -> np.ndarray:

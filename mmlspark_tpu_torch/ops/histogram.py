@@ -17,13 +17,72 @@ What is here:
   the JAX package and with the CUDA kernels rides on them;
 - ``build_histograms_quantized`` — the plain packed-lane scatter build;
 - ``build_quantized`` — the dispatcher: a CUDA tensor goes to the Hopper
-  kernels (``ops.cuda_histogram``), a CPU tensor to the plain build.
+  kernels (``ops.cuda_histogram``), a CPU tensor to the plain build;
+- ``bin_matrix`` — the twin of the JAX ``bin_matrix`` (XLA, not Pallas):
+  digitize raw features on the tensor's device; ``apply_bins`` and
+  ``category_bins`` — the host routes' bins on the device, feature-major,
+  for ``BinMapper.bin_on_device``.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+
+_FLT_MAX = torch.finfo(torch.float32).max
+
+
+def _search_fm(table: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
+    """Per feature, the count of ``table[f]`` entries below each value of
+    ``xt[f]``: ``(F, n)`` int32.  ``table`` rows must be ascending."""
+    return torch.searchsorted(table.contiguous(), xt, side="left",
+                              out_int32=True)
+
+
+def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
+               num_bins: int) -> torch.Tensor:
+    """Digitize raw features on ``x``'s device: bin = #edges < x, NaN -> 0,
+    ``(n, F)`` uint8 — the twin of the JAX ``bin_matrix``
+    (``mmlspark_tpu/ops/histogram.py:96-111``, a vmapped
+    ``jnp.searchsorted(side="left")``).  ``edges`` is ``(F, num_bins - 1)``
+    ascending with +inf padding.  jnp's search orders NaN above +inf, so a
+    NaN edge is below no value: it searches here as +inf."""
+    table = torch.where(torch.isnan(edges), torch.inf, edges)
+    xt = x.t().contiguous()
+    bins = torch.where(torch.isnan(xt), 0, _search_fm(table, xt))
+    return bins.to(torch.uint8).t().contiguous()
+
+
+def apply_bins(x: torch.Tensor, table: torch.Tensor,
+               nan_to_num: bool) -> torch.Tensor:
+    """The numerical bins of a host transform route, on ``x``'s device, as
+    the feature-major ``(F, n)`` uint8 matrix: ``table`` is the route's
+    ascending edge table (``BinMapper.route_table``).  The C++ route maps
+    NaN to bin 0; the numpy route (``nan_to_num``) first maps NaN to
+    ``-inf`` and ``±inf`` to ``±FLT_MAX``, as ``np.nan_to_num`` does."""
+    xt = x.t().contiguous()
+    if nan_to_num:
+        xt = torch.nan_to_num(xt, nan=-_FLT_MAX, posinf=_FLT_MAX,
+                              neginf=-_FLT_MAX)
+        bins = _search_fm(table, xt)
+    else:
+        bins = torch.where(torch.isnan(xt), 0, _search_fm(table, xt))
+    return bins.to(torch.uint8)
+
+
+def category_bins(x: torch.Tensor, num_bins: int):
+    """Code bins of categorical columns ``x`` (``(n, k)``), feature-major
+    ``(k, n)`` uint8: NaN -> ``num_bins - 1``, then ``round`` and ``clip``
+    to ``[0, num_bins - 1]`` (``BinMapper._overwrite_cat_bins``).  Also
+    returns each column's smallest non-NaN value, which the caller checks
+    for negative codes."""
+    xt = x.t()
+    nan = torch.isnan(xt)
+    low = torch.where(nan, torch.inf, xt).amin(dim=1)
+    codes = torch.where(nan, float(num_bins - 1), xt)
+    return torch.clamp(torch.round(codes), 0, num_bins - 1) \
+        .to(torch.uint8), low
 
 
 def _row_chunk(n: int, F: int) -> int:

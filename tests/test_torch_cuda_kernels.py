@@ -316,9 +316,11 @@ def test_leafwise_grower_card_equals_cpu(dev, n, num_leaves, max_depth,
         if d.type == "cuda":
             assert CH.launch_counts() == {"hist_accumulate": num_leaves,
                                           "frontier_finish": num_leaves}
-        trees.append([x.cpu() for x in tree])
+        trees.append([None if x is None else x.cpu() for x in tree])
     for name, a, b in zip(tree._fields, *trees):
-        if a.is_floating_point():
+        if a is None:
+            assert b is None, name
+        elif a.is_floating_point():
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
                                        atol=0, err_msg=name)
         else:
@@ -338,3 +340,117 @@ def test_quantize_on_the_card_equals_cpu(dev, quant_bins):
                               noise=u.to(dev))
     for a, b in zip(card, cpu):
         assert torch.equal(a.cpu(), b)
+
+
+def _cat_inputs(n, F, B, seed):
+    """Bins whose features 0 and 1 are categorical codes (40 and 3 of
+    them, the NaN bin B - 1 on some rows) and gradients that follow a
+    planted half of feature 0's codes."""
+    gen = torch.Generator().manual_seed(seed)
+    binned = torch.randint(0, B - 1, (n, F), generator=gen,
+                           dtype=torch.uint8)
+    binned[:, 0] = torch.randint(0, 40, (n,), generator=gen)
+    binned[:, 1] = torch.randint(0, 3, (n,), generator=gen)
+    binned[torch.rand(n, generator=gen) < 0.05, 0] = B - 1
+    planted = torch.randperm(40, generator=gen)[:20]
+    member = torch.isin(binned[:, 0].long(), planted).float()
+    g = torch.randn(n, generator=gen) * 0.5 + member - 0.5 \
+        + 0.3 * (binned[:, 1] == 1).float()
+    h = torch.rand(n, generator=gen) * 0.25 + 1e-3
+    noise = torch.rand((2, n), generator=gen)
+    edges = torch.arange(B - 1, dtype=torch.float32).repeat(F, 1)
+    edges[:2] = torch.inf
+    return binned, g, h, noise, edges
+
+
+@pytest.mark.parametrize("growth", ["leaf", "level"])
+@pytest.mark.parametrize("cat_subset", [(0,), ()],
+                         ids=["subset", "onehot"])
+def test_categorical_grower_card_equals_cpu(dev, growth, cat_subset):
+    """A tree with categorical features grown on the card (histograms from
+    the two kernels, the split search in torch, int32 prefix sums) equals
+    the CPU tree in every array; the leaf-wise loop never syncs, and each
+    grower launches ``hist_accumulate`` once per step or level."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams
+    from mmlspark_tpu_torch.lightgbm.core import (make_leafwise_grower,
+                                                  make_tree_grower)
+    n, F, B = 20000, 8, 63
+    binned, g, h, noise, edges = _cat_inputs(n, F, B, seed=len(cat_subset))
+    kw = dict(use_quantized_grad=True, lambda_l2=1.0,
+              categorical_features=(0, 1), cat_subset=cat_subset)
+    if growth == "leaf":
+        params = GBDTParams(num_leaves=15, **kw).resolve()
+        grow, launches = make_leafwise_grower(15, 0, F, B, params), 15
+    else:
+        params = GBDTParams(max_depth=5, **kw).resolve()
+        grow, launches = make_tree_grower(5, F, B, params), 5
+    trees = []
+    for d in (dev, torch.device("cpu")):
+        args = (binned.to(d).t().contiguous().t(), g.to(d), h.to(d),
+                torch.ones(n, dtype=torch.bool, device=d),
+                torch.ones(F, dtype=torch.bool, device=d), edges.to(d))
+        u = noise.to(d)
+        torch.cuda.synchronize()
+        CH.reset_launch_counts()
+        if d.type == "cuda" and growth == "leaf":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            tree = grow(*args, noise=u)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if d.type == "cuda":
+            assert CH.launch_counts()["hist_accumulate"] == launches
+        trees.append([x.cpu() for x in tree])
+    sf = trees[1][tree._fields.index("split_feature")]
+    assert bool(((sf == 0) | (sf == 1)).any())      # categorical splits
+    for name, a, b in zip(tree._fields, *trees):
+        assert torch.equal(a, b), name
+
+
+def test_categorical_walk_card_equals_cpu(dev):
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    gen = np.random.default_rng(4)
+    n = 30000
+    X = np.column_stack([gen.integers(0, 40, n), gen.integers(0, 3, n),
+                         gen.normal(size=(n, 4))]).astype(np.float32)
+    y = ((X[:, 0] % 3 == 0) ^ (X[:, 1] == 1)).astype(np.float32)
+    X[::17, 0] = np.nan
+    b = train(X, y, GBDTParams(num_iterations=4, num_leaves=15,
+                               categorical_features=(0, 1)),
+              device=dev).booster
+    assert b.cat_bitset is not None
+    probe = np.concatenate([X[:5000], [[np.nan, 9, 0, 0, 0, 0],
+                                       [200, -3, 0, 0, 0, 0]]]) \
+        .astype(np.float32)
+    np.testing.assert_array_equal(b.predict_leaf(probe),
+                                  b.predict_leaf(probe, device="cpu"))
+
+
+@pytest.mark.parametrize("route", ["cxx", "numpy"])
+def test_bin_on_device_card_equals_cpu(dev, route, monkeypatch):
+    """The train route's bins applied on the card equal the CPU's (which
+    the CPU tests hold equal to the JAX package's host bins), NaN, ±inf,
+    the leading -inf edge and categorical codes included."""
+    import multiprocessing
+    from mmlspark_tpu_torch.lightgbm import BinMapper
+    from mmlspark_tpu_torch.ops.histogram import bin_matrix
+    monkeypatch.setattr(multiprocessing, "cpu_count",
+                        lambda: 8 if route == "cxx" else 1)
+    rng = np.random.default_rng(5)
+    n = 20000 if route == "cxx" else 4000
+    X = rng.normal(size=(n, 6)).astype(np.float32)
+    X[::7, 1] = -np.inf
+    X[:, 1] = np.where(np.isfinite(X[:, 1]), np.round(X[:, 1]), X[:, 1])
+    X[::11, 2] = np.nan
+    X[::13, 3] = np.inf
+    X[:, 5] = rng.integers(0, 30, n)
+    X[::9, 5] = np.nan
+    m = BinMapper(255, categorical_features=(5,)).fit(X)
+    card = m.bin_on_device(X, dev)
+    cpu = m.bin_on_device(X, "cpu")
+    assert torch.equal(card.cpu(), cpu)
+    np.testing.assert_array_equal(cpu.t().numpy(), m.transform(X))
+    e = torch.from_numpy(m.edges)
+    assert torch.equal(bin_matrix(torch.from_numpy(X).to(dev), e.to(dev),
+                                  255).cpu(),
+                       bin_matrix(torch.from_numpy(X), e, 255))

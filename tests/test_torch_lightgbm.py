@@ -187,17 +187,206 @@ def test_estimator_fit_transform_on_the_ports_dataframe():
 
 def test_not_ported_paths_raise_with_their_roadmap_entry():
     X, y = _data(n=300)
-    for params, entry in (
-            (GBDTParams(num_leaves=31, categorical_features=(0,)),
-             "categorical"),
+    for params, kw, entry in (
             (GBDTParams(num_leaves=31, objective="multiclass", num_class=3),
+             {}, "multiclass"),
+            (GBDTParams(num_leaves=31, objective="lambdarank"), {},
              "multiclass"),
-            (GBDTParams(num_leaves=31, objective="huber"), "multiclass")):
+            (GBDTParams(num_leaves=31, objective="regression"),
+             dict(group_ptr=np.array([0, 150, 300])), "ranker"),
+            (GBDTParams(max_depth=2), dict(shard_rows=True), "NCCL")):
         with pytest.raises(NotImplementedError, match=entry):
-            train(X, y, params, device="cpu")
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        train(X, y, GBDTParams(max_depth=2), shard_rows=True, device="cpu")
-    df = DataFrame.from_dict({"features": X, "label": y})
-    with pytest.raises(NotImplementedError, match="categorical"):
-        LightGBMClassifier().set_params(categorical_features=[0],
-                                        device="cpu").fit(df)
+            train(X, y, params, device="cpu", **kw)
+    y3 = np.arange(300) % 3
+    df = DataFrame.from_dict({"features": X, "label": y3.astype(float)})
+    with pytest.raises(NotImplementedError, match="multiclass"):
+        LightGBMClassifier().set_params(device="cpu").fit(df)
+
+
+# ---------------------------------------------------------------------------
+# metrics and the regression objectives
+# ---------------------------------------------------------------------------
+
+METRIC_NAMES = sorted(jax_core.METRICS) + ["pinball", "tweedie_nll"]
+REG_OBJECTIVES = ("regression_l1", "huber", "quantile", "poisson",
+                  "tweedie", "gamma")
+
+
+def _counts(n=2000, f=5, seed=0):
+    """Poisson counts with a log-linear mean: a label every objective and
+    metric accepts (gamma and tweedie take them shifted by 0.5)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f)).astype(np.float32)
+    y = rng.poisson(np.exp(0.6 * X[:, 0] - 0.4 * X[:, 1] + 0.3)) \
+        .astype(np.float32)
+    return X, y
+
+
+@pytest.mark.parametrize("name", METRIC_NAMES)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_metric_functions_equal_the_reference(name, weighted):
+    rng = np.random.default_rng(1)
+    n = 300
+    K = 3 if name == "multi_logloss" else 1
+    raw = rng.normal(size=(n, K))
+    y = rng.integers(0, K, n).astype(np.float32) if K > 1 else \
+        rng.poisson(1.5, n).astype(np.float32)
+    w = rng.random(n) if weighted else None
+    for alpha, rho in ((0.9, 1.5), (0.3, 1.2)):
+        kw = dict(alpha=alpha, tweedie_variance_power=rho)
+        jfn, jlb = jax_core.resolve_metric(name, JaxParams(**kw))
+        tfn, tlb = port_core.resolve_metric(name, GBDTParams(**kw))
+        assert tlb == jlb
+        assert tfn(y, raw, w) == jfn(y, raw, w)
+
+
+@pytest.mark.parametrize("objective", list(REG_OBJECTIVES) + [
+    "binary", "regression", "multiclass", "lambdarank", "no_such"])
+def test_default_metric_and_fallback_equal_the_reference(objective):
+    assert port_core.default_metric(objective) == \
+        jax_core.default_metric(objective)
+    X, y = _counts(n=200)
+    raw = np.log(y.mean() + 0.5) + np.zeros((200, 1))
+    if objective == "multiclass":
+        raw, y = np.random.default_rng(0).normal(size=(200, 3)), y % 3
+    for name in ("", "no_such_metric"):      # unknown -> the default
+        jfn, jlb = jax_core.resolve_metric(name, JaxParams(
+            objective=objective, alpha=0.4))
+        tfn, tlb = port_core.resolve_metric(name, GBDTParams(
+            objective=objective, alpha=0.4))
+        assert (tlb, tfn(y, raw)) == (jlb, jfn(y, raw))
+
+
+@pytest.mark.parametrize("name", [m for m in METRIC_NAMES
+                                  if m != "multi_logloss"])
+def test_train_evals_equal_the_reference(name):
+    """``TrainResult.evals`` for every single-output metric name, on a
+    regression fit with a valid set (float histograms, the CPU default of
+    both packages): the same name booked, values within rtol 1e-6."""
+    X, y = _counts(seed=2)
+    kw = dict(objective="regression", metric=name, num_leaves=7,
+              num_iterations=3)
+    jr = jax_train(X[:1500], y[:1500], JaxParams(**kw),
+                   valid=(X[1500:], y[1500:]))
+    tr = train(X[:1500], y[:1500], GBDTParams(**kw),
+               valid=(X[1500:], y[1500:]), device="cpu")
+    assert [set(e) for e in tr.evals] == [set(e) for e in jr.evals]
+    np.testing.assert_allclose([e[name] for e in tr.evals],
+                               [e[name] for e in jr.evals], rtol=1e-6)
+
+
+def test_poisson_nll_on_a_regression_fit_is_scored_as_poisson_nll():
+    """ROADMAP fault 3.1: ``metric="poisson_nll"`` on a regression fit was
+    scored with l2 (0.0555 against the reference's 1.7320 on a 2,000 x 5
+    input the repo does not hold).  The same call on a seeded 2,000 x 5
+    input: the reference's value within rtol 1e-6, far from the l2 value
+    the port used to book."""
+    X, y = _data(n=2500, f=5, seed=0)
+    kw = dict(objective="regression", metric="poisson_nll", num_leaves=7,
+              num_iterations=3)
+    jr = jax_train(X[:2000], y[:2000], JaxParams(**kw),
+                   valid=(X[2000:], y[2000:]))
+    tr = train(X[:2000], y[:2000], GBDTParams(**kw),
+               valid=(X[2000:], y[2000:]), device="cpu")
+    want = jr.evals[-1]["poisson_nll"]
+    np.testing.assert_allclose(tr.evals[-1]["poisson_nll"], want, rtol=1e-6)
+    raw = tr.booster.raw_scores(X[2000:], device="cpu")
+    l2 = port_core._metric_l2(y[2000:], raw)
+    assert abs(want - l2) > 0.5
+
+
+def _objective_labels(objective, y):
+    return y + 0.5 if objective in ("gamma", "tweedie") else y
+
+
+@pytest.mark.parametrize("objective", REG_OBJECTIVES)
+def test_objective_gradients_equal_the_reference(objective):
+    """Gradients within 1e-6 of ``|grad| + |hess|``: a log-link gradient is
+    a difference of exponentials (each within an ulp or two of the
+    reference's), which the hessian's magnitude bounds; hessians within
+    rtol 1e-6.  Scores run past the clips at ±30."""
+    X, y = _counts(n=500, seed=3)
+    y = _objective_labels(objective, y)
+    rng = np.random.default_rng(4)
+    s = np.concatenate([rng.normal(size=480) * 2, [-40, 40, -30, 30, 0] * 4])
+    w = rng.random(500).astype(np.float32) + 0.5
+    kw = dict(objective=objective, alpha=0.7, tweedie_variance_power=1.3)
+    jg, jh = jax_core.make_objective(JaxParams(**kw))(
+        jnp.asarray(s[:, None], jnp.float32), jnp.asarray(y),
+        jnp.asarray(w))
+    tg, th = port_core.make_objective(GBDTParams(**kw))(
+        torch.from_numpy(s[:, None].astype(np.float32)), torch.from_numpy(y),
+        torch.from_numpy(w))
+    jg, jh = np.asarray(jg, np.float64), np.asarray(jh, np.float64)
+    assert (np.abs(tg.numpy() - jg) <= 1e-6 * (np.abs(jg) + jh)).all()
+    np.testing.assert_allclose(th.numpy(), jh, rtol=1e-6)
+
+
+@pytest.mark.parametrize("growth", [dict(num_leaves=7), dict(max_depth=3)],
+                         ids=["leaf", "level"])
+@pytest.mark.parametrize("objective", REG_OBJECTIVES)
+def test_objective_trains_as_the_reference(objective, growth):
+    """Each objective's starting score, trees and scores against the
+    reference's ``train()`` (float histograms on both sides): integer
+    arrays identical unless an f32 near-tie parts the boosters, raw scores
+    within rtol 1e-5 when none does, and the default metric booked and
+    falling."""
+    from tests.test_torch_categorical import _assert_same_booster
+    X, y = _counts(seed=5)
+    y = _objective_labels(objective, y)
+    kw = dict(objective=objective, num_iterations=5, learning_rate=0.3,
+              alpha=0.7, tweedie_variance_power=1.3, **growth)
+    valid = (X[1600:], y[1600:])
+    jr = jax_train(X[:1600], y[:1600], JaxParams(**kw), valid=valid)
+    tr = train(X[:1600], y[:1600], GBDTParams(**kw), valid=valid,
+               device="cpu")
+    jb, tb = jr.booster, tr.booster
+    np.testing.assert_allclose(tb.init_score, jb.init_score, rtol=1e-7)
+    assert tb.objective == objective
+    assert _assert_same_booster(jb, tb, X) == 5
+    np.testing.assert_allclose(tb.predict(X, device="cpu"), jb.predict(X),
+                               rtol=1e-5, atol=1e-6)
+    name = jax_core.default_metric(objective)
+    got = [e[name] for e in tr.evals]
+    np.testing.assert_allclose(got, [e[name] for e in jr.evals], rtol=1e-6)
+    assert np.isfinite(got).all() and got[-1] < got[0]
+
+
+def test_objective_label_and_power_errors_equal_the_reference():
+    X, y = _counts(n=300)
+    for objective, labels, kw, msg in (
+            ("poisson", y - 1, {}, "non-negative"),
+            ("tweedie", y - 1, {}, "non-negative"),
+            ("gamma", y, {}, "strictly positive"),
+            ("tweedie", y + 1, dict(tweedie_variance_power=2.0),
+             "tweedie_variance_power"),
+            ("tweedie", y + 1, dict(tweedie_variance_power=1.0),
+             "tweedie_variance_power")):
+        for fn, P, extra in ((train, GBDTParams, dict(device="cpu")),
+                             (jax_train, JaxParams, {})):
+            with pytest.raises(ValueError, match=msg):
+                fn(X, labels, P(objective=objective, num_leaves=4, **kw),
+                   **extra)
+    with pytest.raises(ValueError, match="unknown objective"):
+        train(X, y, GBDTParams(objective="no_such", num_leaves=4),
+              device="cpu")
+
+
+def test_regressor_carries_objective_alpha_and_power():
+    X, y = _counts(n=1200, seed=6)
+    df = DataFrame.from_dict({"features": X, "label": y + 0.5})
+    for obj, kw in (("quantile", dict(alpha=0.2)),
+                    ("tweedie", dict(tweedie_variance_power=1.7)),
+                    ("gamma", {})):
+        est = LightGBMRegressor().set_params(objective=obj, num_iterations=3,
+                                             device="cpu", **kw)
+        model = est.fit(df)
+        assert model.booster.objective == obj
+        pred = model.transform(df).collect()["prediction"]
+        assert pred.shape == (1200,) and np.isfinite(pred).all()
+    # alpha reaches train(): a low quantile predicts below a high one
+    lo, hi = (LightGBMRegressor().set_params(
+        objective="quantile", alpha=a, num_iterations=20, learning_rate=0.3,
+        device="cpu").fit(df).transform(df).collect()["prediction"]
+        for a in (0.1, 0.9))
+    assert (lo < hi).mean() > 0.9
