@@ -67,16 +67,39 @@ Phases; any failure exits nonzero and prints no result line:
    rows, card walk = CPU walk, then each fit's ``train()`` phases and
    profile as in the leaf phase; one fit per new regression objective at
    200k x 200 for 4 iterations, its default metric finite and falling.
-8. results — one ``{"kernels": [...]}`` line (``launches`` sums the
-   level-wise fit + transform, the leaf-wise fit and the two categorical
-   fits, split in ``launches_by_path``), the card's name and power limit,
-   and the last line ``{"ok": true, "device": {...}}``.
+8. multiclass — K = 3 trees per iteration at 50k x 20 grown from the
+   columns of the (n, 3) gradients equal the CPU trees in every array
+   (leaf-wise under sync debug mode "error", and level-wise);
+   ``LightGBMClassifier()`` on 7-class labels (UCI Covertype's class count;
+   the argmax of 7 fixed linear projections of the first 4 bench features
+   plus noise) at 1M x 200, leaf-wise defaults and then ``max_depth=5``, 8
+   iterations each: 8 x 7 x 31 = 1,736 and 8 x 7 x 5 = 280 launches of
+   each kernel, accuracy 0.8 on 100k fresh rows, ``multi_logloss`` on them
+   falling at every iteration, card walk = CPU walk; both fits profiled.
+9. ranker — LambdaRank at 1M x 136 (MSLR-WEB30K's width) in ragged queries
+   of 16-256 rows (~7,400), relevance 0-4 planted from two features: the
+   lambdas on the card equal the CPU's within rtol 1e-5, atol 1e-6 at
+   all-tied scores, after one tree and with rows outside every query (the
+   card's pass under sync debug mode "error"); the pass timed (CUDA events)
+   with its peak memory; one tree from the card's tied lambdas at the full
+   1M x 136 x 255 with each of its 31 + 31 kernel calls bit-identical to
+   the plain version on the same inputs, and one from the first ~50k rows'
+   queries at 136 features on the card (sync debug mode "error") equal to
+   the CPU tree in every array; ``LightGBMRanker()`` defaults for 8 iterations:
+   248 launches of each kernel, NDCG@10 0.9 on 200 held-out queries, above
+   a random ranking's; the fit profiled.
+10. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+   level-wise fit + transform, the leaf-wise fit, the two categorical
+   fits, the two multiclass fits and the ranker fit, split in
+   ``launches_by_path``), the card's name and power limit, and the last
+   line ``{"ok": true, "device": {...}}``.
 
 Details (per-level and per-step kernel times, every comparison) go to
 ``chiprun_out/chip_smoke_detail.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -171,25 +194,38 @@ def device_ms(fn, reps: int, names) -> float:
     """Mean device time per call of ``fn`` spent in the kernels named by
     ``names``, from ``torch.profiler`` over ``reps`` calls after one
     warm-up: kernel time only, without the wrapper's host work or the
-    allocations and memsets around the launch."""
+    allocations and memsets around the launch.  The profiler has been seen
+    to drop a kernel record of a window (49 of 50 on an H100); such a
+    window is profiled once more, and a second short one raises.  Each
+    short window and the one after it go to ``DETAIL["short_profiler_
+    windows"]`` with their launch counts."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, calls = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and any(
-                name in evt.key for name in names):
-            total += evt.self_device_time_total
-            calls += evt.count
-    if calls < reps:
-        raise AssertionError(f"the profiler saw {calls} launches of {names} "
-                             f"in {reps} calls")
-    return total / 1e3 / reps
+    seen = []
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, calls = 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA and any(
+                    name in evt.key for name in names):
+                total += evt.self_device_time_total
+                calls += evt.count
+        seen.append(calls)
+        if attempt:
+            DETAIL.setdefault("short_profiler_windows", []).append(
+                {"kernels": list(names), "calls": reps,
+                 "launches_seen": seen})
+        if calls >= reps:
+            return total / 1e3 / reps
+        log(f"[profiler] saw {calls} launches of {names} in {reps} calls"
+            + ("; profiling the window again" if attempt == 0 else ""))
+    raise AssertionError(f"the profiler saw {calls} launches of {names} in "
+                         f"{reps} calls, twice")
 
 
 KERNEL_NAMES = {"hist_accumulate": ("hist_accumulate_kernel",),
@@ -622,27 +658,33 @@ def slice_phase(dev):
     return launches
 
 
-def fit_phases(params, label: str, data=None):
+def fit_phases(params, label: str, data=None, profile_iterations=None,
+               **train_kw):
     """Where the fit's time goes: the trainer's own phase clocks, then a
     second fit under ``torch.profiler`` for the device time of the binning
     kernels and of each kernel in the boosting loop, and the loop's device
-    busy share.  ``data`` defaults to the bench data.  Returns the profiled
-    run's booster and its ``hist_accumulate`` / ``frontier_finish`` device
-    times per launch, in launch order."""
+    busy share.  ``data`` defaults to the bench data; the profiled fit runs
+    ``profile_iterations`` (default: all of them; the profiler's cost grows
+    with the launches); ``train_kw`` goes to ``train()`` (a ranker's
+    ``group_ptr``).  Returns the profiled run's booster and its
+    ``hist_accumulate`` / ``frontier_finish`` device times per launch, in
+    launch order."""
     from torch.profiler import ProfilerActivity, profile
     from mmlspark_tpu_torch.lightgbm import train
     X, y = data or bench_data(N_ROWS, seed=0)
     iters = params.num_iterations
-    ex = dict(train(X, y, params).extras)
+    ex = dict(train(X, y, params, **train_kw).extras)
     ex["boosting_row_iterations_per_s"] = N_ROWS * iters / ex["boosting_s"]
     log(f"[{label}] train() phases: " + ", ".join(
         f"{k} {v:.4g}" for k, v in ex.items())
         + " (binning_s = edges_s + bin_apply_s; host numpy binning of this "
         "fit before the card applied the bins: 19.1-29.9 s, PERF.md)")
 
+    t_prof = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
-        prof_res = train(X, y, params)
+        prof_res = train(X, y, dataclasses.replace(
+            params, num_iterations=profile_iterations or iters), **train_kw)
     prof_ex = prof_res.extras
     events = prof.events()
     # train()'s profiler ranges: the card's binning kernels run (and are
@@ -669,12 +711,16 @@ def fit_phases(params, label: str, data=None):
     # host's work
     runtime_launches = sum(1 for e in events if e.name == "cudaLaunchKernel"
                            and e.time_range.start >= loop_start)
+    trees = prof_res.booster.num_trees
+    log(f"[{label}] profiled fit of {trees} trees and its parse: "
+        f"{time.perf_counter() - t_prof:.1f} s")
     log(f"[{label}] profiled fit: binning kernels on the card "
         f"{bin_ms:.3f} ms; boosting {prof_ex['boosting_s']:.4f} s, "
         f"device kernels {busy_ms:.3f} ms (busy share {share:.3f}), "
         f"{runtime_launches} cudaLaunchKernel calls "
-        f"({runtime_launches / iters:.0f} per tree; the two-kernel finish "
-        f"with the grower's copies: 3,362 leaf-wise, 354 level-wise)")
+        f"({runtime_launches / trees:.0f} per tree over {trees} trees; the "
+        f"two-kernel finish with the grower's copies: 3,362 leaf-wise, 354 "
+        f"level-wise)")
     for name, ms in top:
         log(f"[{label}]   {ms:9.3f} ms  {name[:90]}")
     per_launch = {}
@@ -691,9 +737,10 @@ def fit_phases(params, label: str, data=None):
     DETAIL[label + "_profile"] = {
         "boosting_s": prof_ex["boosting_s"], "device_kernel_ms": busy_ms,
         "binning_kernel_ms": bin_ms, "train_phases": prof_ex,
-        "busy_share": share, "top_kernels_ms": top,
+        "busy_share": share, "top_kernels_ms": top, "trees": trees,
         "cuda_launch_kernel_calls": runtime_launches,
-        "launches_profiled": {k: len(v) for k, v in per_launch.items()}}
+        "launches_profiled": {k: len(v) for k, v in per_launch.items()},
+        "profiled_fit_and_parse_s": time.perf_counter() - t_prof}
     return prof_res.booster, per_launch
 
 
@@ -1275,6 +1322,450 @@ def objectives_phase(dev):
     DETAIL["objectives"] = results
 
 
+# ---------------------------------------------------------------------------
+# phase 8: multiclass
+# ---------------------------------------------------------------------------
+
+N_CLASSES = 7                                     # UCI Covertype's classes
+W_CLASSES = np.random.default_rng(70).normal(size=(N_CLASSES, 4))
+
+
+def mc_data(n: int, seed: int, F: int = N_FEAT, K: int = N_CLASSES):
+    """The bench features; the label the argmax of K fixed linear
+    projections of the first 4 features plus N(0, 0.1²) noise."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    z = X[:, :4] @ W_CLASSES[:K].T + rng.normal(scale=0.1, size=(n, K))
+    return X, np.argmax(z, axis=1).astype(np.float32)
+
+
+def multiclass_grower_check(dev):
+    """K = 3 trees per iteration at 50k x 20, grown from the columns of the
+    (n, 3) multiclass gradients (views with stride 3, as ``train()`` hands
+    them over), on the card and on the CPU: every array equal, leaf-wise
+    (under sync debug mode "error", the three trees back to back) and
+    level-wise."""
+    from mmlspark_tpu_torch.lightgbm import BinMapper, GBDTParams
+    from mmlspark_tpu_torch.lightgbm.core import _make_grower, make_objective
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    n, F, K = 50_000, 20, 3
+    X, y = mc_data(n, seed=22, F=F, K=K)
+    rng = np.random.default_rng(23)
+    mapper = BinMapper(N_BINS).fit(X)
+    binned = torch.from_numpy(mapper.transform(X))
+    scores = torch.from_numpy(rng.normal(scale=0.5, size=(n, K))
+                              .astype(np.float32))
+    u = torch.from_numpy(rng.random((K, 2, n), dtype=np.float32))
+    results = []
+    for growth, kw, per_tree in (("leaf", dict(num_leaves=31), 31),
+                                 ("level", dict(max_depth=5), 5)):
+        params = GBDTParams(objective="multiclass", num_class=K,
+                            use_quantized_grad=True, lambda_l2=1.0,
+                            **kw).resolve()
+        # made once on the host, so both devices quantize the same floats
+        g_all, h_all = make_objective(params)(scores, torch.from_numpy(y),
+                                              torch.ones(n))
+        grow = _make_grower(params, F, N_BINS)
+        out = []
+        for d in (dev, torch.device("cpu")):
+            g, h = g_all.to(d), h_all.to(d)
+            if g.stride() != (K, 1):
+                raise AssertionError(f"gradients not (n, K) row-major: "
+                                     f"{g.stride()}")
+            args = (binned.to(d).t().contiguous().t(),)
+            rest = (torch.ones(n, dtype=torch.bool, device=d),
+                    torch.ones(F, dtype=torch.bool, device=d),
+                    torch.from_numpy(mapper.edges).to(d))
+            ud = u.to(d)
+            torch.cuda.synchronize()
+            CH.reset_launch_counts()
+            if d.type == "cuda" and growth == "leaf":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                trees = [grow(*args, g[:, c], h[:, c], *rest, noise=ud[c])
+                         for c in range(K)]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                got = CH.launch_counts()
+                if set(got.values()) != {K * per_tree}:
+                    raise AssertionError(f"{growth}-wise K={K} trees "
+                                         f"launched {got}")
+            out.append(trees)
+        identical = [card_equals_cpu(a, b, f"{growth}-wise class {c} tree")
+                     for c, (a, b) in enumerate(zip(*out))]
+        splits = [tuple(t.split_feature.cpu().tolist()) for t in out[0]]
+        if len(set(splits)) != K:
+            raise AssertionError("the classes grew the same tree")
+        results.append({"growth": growth, "classes": K,
+                        "bit_identical_arrays": identical,
+                        "launches_per_class": per_tree})
+        log(f"[multiclass] {growth}-wise K={K} trees at {n} x {F} on the "
+            f"card equal the CPU trees (arrays bit-identical per class: "
+            f"{', '.join(identical)})"
+            + (", grown under sync debug mode 'error'" if growth == "leaf"
+               else ""))
+    DETAIL["multiclass_grower_check"] = results
+
+
+def multiclass_phase(dev):
+    """``LightGBMClassifier()`` on 7-class labels at 1M x 200, leaf-wise
+    defaults and then ``max_depth=5``, 8 iterations each (7 trees an
+    iteration): the kernels' launches, accuracy on 100k fresh rows,
+    ``multi_logloss`` on them after each iteration, card walk = CPU walk."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, LightGBMClassifier
+    from mmlspark_tpu_torch.lightgbm.core import _metric_multi_logloss
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    t0 = time.perf_counter()
+    X, y = mc_data(N_ROWS, seed=20)
+    Xt, yt = mc_data(100_000, seed=21)
+    df = DataFrame.from_dict({"features": X, "label": y})
+    df_t = DataFrame.from_dict({"features": Xt, "label": yt})
+    out_launches, results = {}, {"data_s": time.perf_counter() - t0}
+    for label, kw, per_tree in (("leaf", {}, 31),
+                                ("level", dict(max_depth=5), 5)):
+        clf = LightGBMClassifier().set_params(num_iterations=8, **kw)
+        torch.cuda.synchronize()
+        CH.reset_launch_counts()
+        t0 = time.perf_counter()
+        model = clf.fit(df)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = CH.launch_counts()
+        n_launch = 8 * N_CLASSES * per_tree
+        if launches != {"hist_accumulate": n_launch,
+                        "frontier_finish": n_launch}:
+            raise AssertionError(f"multiclass {label}-wise fit launched "
+                                 f"{launches}, not {n_launch} of each")
+        t0 = time.perf_counter()
+        out = model.transform(df_t).collect()
+        torch.cuda.synchronize()
+        transform_s = time.perf_counter() - t0
+        prob = np.stack(out["probability"])
+        if prob.shape != (100_000, N_CLASSES) or \
+                not np.isfinite(prob).all():
+            raise AssertionError(f"bad probabilities {prob.shape}")
+        acc = float((out["prediction"] == yt).mean())
+        b = model.booster
+        ll = [_metric_multi_logloss(yt, b.raw_scores(Xt, num_iteration=i))
+              for i in range(1, 9)]
+        leaves_gpu = b.predict_leaf(Xt[:20000])
+        leaves_cpu = b.predict_leaf(Xt[:20000], device="cpu")
+        if not np.array_equal(leaves_gpu, leaves_cpu):
+            raise AssertionError("card and CPU multiclass walks differ")
+        log(f"[multiclass] {label}-wise fit {fit_s:.3f} s, launches "
+            f"{launches}, {b.num_trees} trees; accuracy {acc:.4f} on 100k "
+            f"fresh rows; transform {transform_s:.3f} s; multi_logloss by "
+            f"iteration {' '.join(f'{v:.4f}' for v in ll)}; card and CPU "
+            f"walks equal")
+        if acc < 0.8 or b.num_trees != 8 * N_CLASSES or \
+                not all(b2 < a2 for a2, b2 in zip(ll, ll[1:])):
+            raise AssertionError(f"multiclass {label}-wise: accuracy {acc}, "
+                                 f"{b.num_trees} trees, logloss {ll}")
+        out_launches[label] = launches
+        results[label] = {"fit_s": fit_s, "fit_rows_per_s": N_ROWS / fit_s,
+                          "transform_s": transform_s, "accuracy": acc,
+                          "launches": launches, "multi_logloss": ll}
+    DETAIL["multiclass"] = results
+    # the leaf-wise profile holds 2 of the 8 iterations (14 trees, ~41k
+    # launches): a profile's cost grows with its launches
+    for label, kw, prof_it in (("multiclass_leaf", dict(num_leaves=31), 2),
+                               ("multiclass_level", dict(max_depth=5), 8)):
+        t0 = time.perf_counter()
+        fit_phases(GBDTParams(num_iterations=8, objective="multiclass",
+                              num_class=N_CLASSES, **kw), label, (X, y),
+                   profile_iterations=prof_it)
+        results[label + "_fit_phases_s"] = time.perf_counter() - t0
+    return out_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the LambdaRank ranker
+# ---------------------------------------------------------------------------
+
+RANK_FEAT = 136                                   # MSLR-WEB30K's width
+
+
+def rank_data(n: int, seed: int):
+    """``n`` rows x 136 features in ragged queries of 16-256 rows (the last
+    one cut to fit); relevance 0-4 planted from two features plus noise.
+    Returns ``(X, rel, group_ptr)``."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(16, 257, n // 16 + 1)
+    gp = np.concatenate([[0], np.cumsum(sizes)])
+    gp = np.concatenate([gp[gp < n], [n]])
+    X = rng.normal(size=(n, RANK_FEAT)).astype(np.float32)
+    raw = 1.2 * X[:, 0] - 0.8 * X[:, 1] + 0.3 * rng.normal(size=n)
+    rel = np.digitize(raw, [-0.5, 0.5, 1.3, 2.1]).astype(np.float32)
+    return X, rel, gp
+
+
+def ndcg_at_k(scores, rel, group_ptr, k=10):
+    """Independent NDCG@k (a copy of ``_ndcg_at_k`` in
+    ``tests/test_ranker_ndcg_gate.py``): gain 2^rel - 1, log2 discount,
+    ideal DCG by brute-force descending-relevance sort per query."""
+    vals = []
+    for i in range(len(group_ptr) - 1):
+        a, b = group_ptr[i], group_ptr[i + 1]
+        order = np.argsort(-scores[a:b], kind="stable")
+        g = (2.0 ** rel[a:b] - 1.0)
+        disc = 1.0 / np.log2(np.arange(b - a) + 2.0)
+        dcg = float((g[order][:k] * disc[:k]).sum())
+        ideal = float((np.sort(g)[::-1][:k] * disc[:k]).sum())
+        if ideal > 0:
+            vals.append(dcg / ideal)
+    return float(np.mean(vals))
+
+
+@contextlib.contextmanager
+def kernels_held_to_plain(CH, checked):
+    """Within the block every ``hist_accumulate`` and ``frontier_finish``
+    call also runs the kernel's plain version on the same inputs, on the
+    card (the finish into a copy of the arrays it writes), and raises unless
+    every output is bit-identical (NaN equal to NaN).  ``checked`` counts
+    the calls held, by kernel.  The wrappers count their launches on the
+    module's names, so the stand-ins carry the counts while they stand."""
+    acc_kernel, fin_kernel = CH.hist_accumulate, CH.frontier_finish
+
+    def acc(binned, qg, qh, ids, N, B, lay):
+        got = acc_kernel(binned, qg, qh, ids, N, B, lay)
+        if not torch.equal(got, CH.hist_accumulate_plain(binned, qg, qh, ids,
+                                                         N, B, lay)):
+            raise AssertionError(f"hist_accumulate differs at "
+                                 f"{tuple(binned.shape)}, N={N}, {lay.mode}")
+        checked["hist_accumulate"] += 1
+        return got
+
+    def fin(acc_, *args, out=None, **kw):
+        ref = None if out is None else out._replace(
+            **{k: v.clone() for k, v in out._asdict().items()
+               if v is not None})
+        got = fin_kernel(acc_, *args, out=out, **kw)
+        want = CH.frontier_finish_plain(acc_, *args, out=ref, **kw)
+        pairs = zip(out, ref) if out is not None else zip(got, want)
+        for x, y in pairs:
+            if x is not None and not same_record(x, y):
+                raise AssertionError(f"frontier_finish differs at "
+                                     f"{tuple(acc_.shape)}")
+        checked["frontier_finish"] += 1
+        return got
+
+    acc.launches, fin.launches = acc_kernel.launches, fin_kernel.launches
+    CH.hist_accumulate, CH.frontier_finish = acc, fin
+    try:
+        yield
+    finally:
+        CH.hist_accumulate, CH.frontier_finish = acc_kernel, fin_kernel
+        acc_kernel.launches, fin_kernel.launches = acc.launches, fin.launches
+
+
+def ranker_grower_check(dev, X, rel, gp):
+    """One ranker tree from the card's lambdas at the all-tied first
+    iteration, the first tree the fit grows: (1) at the phase's full
+    1M x 136 x 255 on the card, every kernel call held against its plain
+    version on the same inputs (``kernels_held_to_plain``); (2) from the
+    queries of the first ~50k rows at the same 136 features, grown on the
+    card (under sync debug mode "error") and on the CPU, every array of
+    the two trees equal."""
+    from mmlspark_tpu_torch.lightgbm import BinMapper, GBDTParams
+    from mmlspark_tpu_torch.lightgbm.core import (_make_grower,
+                                                  make_lambdarank_grad_fn)
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    n, F = X.shape
+    params = GBDTParams(objective="lambdarank", num_leaves=31,
+                        use_quantized_grad=True).resolve()
+    grow = _make_grower(params, F, N_BINS)
+    mapper = BinMapper(N_BINS).fit(X)
+    binned = mapper.bin_on_device(X, dev).t()          # (n, F) feature-major
+    edges = torch.from_numpy(mapper.edges)
+    u = torch.from_numpy(np.random.default_rng(32).random((2, n),
+                                                          dtype=np.float32))
+    g, h = make_lambdarank_grad_fn(rel, gp, 1.0, device=dev)(
+        torch.zeros((n, 1), device=dev))
+    checked = {"hist_accumulate": 0, "frontier_finish": 0}
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    with kernels_held_to_plain(CH, checked):
+        tree = grow(binned, g[:, 0], h[:, 0],
+                    torch.ones(n, dtype=torch.bool, device=dev),
+                    torch.ones(F, dtype=torch.bool, device=dev),
+                    edges.to(dev), noise=u.to(dev))
+    torch.cuda.synchronize()
+    launches = CH.launch_counts()
+    if checked != {"hist_accumulate": 31, "frontier_finish": 31} or \
+            launches != checked:
+        raise AssertionError(f"the held ranker tree checked {checked}, "
+                             f"launched {launches}")
+    splits = int((tree.split_feature >= 0).sum())
+    held_s = time.perf_counter() - t0
+    log(f"[ranker] tree at {n} x {F} x {N_BINS} from the card's lambdas: "
+        f"{splits} splits, each of its 31 hist_accumulate and 31 "
+        f"frontier_finish calls bit-identical to the plain version on the "
+        f"same inputs ({held_s:.1f} s)")
+
+    q = int(np.searchsorted(gp, 50_000, side="right")) - 1
+    m = int(gp[q])
+    g_s, h_s = make_lambdarank_grad_fn(rel[:m], gp[:q + 1], 1.0, device=dev)(
+        torch.zeros((m, 1), device=dev))
+    b_s = binned.t()[:, :m].contiguous()                # (F, m)
+    trees = []
+    for d in (dev, torch.device("cpu")):
+        args = (b_s.to(d).t(), g_s[:, 0].to(d), h_s[:, 0].to(d),
+                torch.ones(m, dtype=torch.bool, device=d),
+                torch.ones(F, dtype=torch.bool, device=d), edges.to(d))
+        ud = u[:, :m].contiguous().to(d)
+        torch.cuda.synchronize()
+        if d.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            trees.append(grow(*args, noise=ud))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    identical = card_equals_cpu(*trees, f"ranker tree ({m} x {F})")
+    log(f"[ranker] tree from the card's lambdas at {m} x {F} ({q} queries) "
+        f"on the card equals the CPU tree ({identical} arrays "
+        f"bit-identical), grown under sync debug mode 'error'")
+    return {"held_rows": n, "features": F, "held_splits": splits,
+            "held_calls": checked, "held_s": held_s, "cpu_rows": m,
+            "cpu_queries": q, "bit_identical_arrays": identical}
+
+
+def ranker_phase(dev):
+    """LambdaRank at 1M x 136 in ~7,400 ragged queries: the lambdas on the
+    card against the CPU's (all-tied scores, after one tree, with rows
+    outside every query), the pass's time and peak memory, then
+    ``LightGBMRanker()`` with its defaults for 8 iterations (248 launches of
+    each kernel) and NDCG@10 on 200 held-out queries."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.lightgbm import (GBDTParams, LightGBMRanker,
+                                             train)
+    from mmlspark_tpu_torch.lightgbm.core import make_lambdarank_grad_fn
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    X, rel, gp = rank_data(N_ROWS, seed=30)
+    sizes = np.diff(gp)
+    log(f"[ranker] {N_ROWS} x {RANK_FEAT}, {len(sizes)} queries of "
+        f"{sizes.min()}-{sizes.max()} rows (mean {sizes.mean():.1f}), "
+        f"relevance counts {np.bincount(rel.astype(int)).tolist()}")
+    one = train(X, rel, GBDTParams(objective="lambdarank", num_iterations=1,
+                                   num_leaves=31), group_ptr=gp).booster
+    checks = {}
+    for case, ptr, scores in (
+            ("tied", gp, np.zeros((N_ROWS, 1), np.float32)),
+            ("after one tree", gp,
+             one.raw_scores(X).astype(np.float32)),
+            # up to 1,000 queries from a quarter in: the rows before and
+            # after them lie outside every query
+            ("uncovered rows", gp[len(gp) // 4:len(gp) // 4 + 1001],
+             one.raw_scores(X).astype(np.float32))):
+        got = []
+        for d in (dev, torch.device("cpu")):
+            fn = make_lambdarank_grad_fn(rel, ptr, 1.0, device=d)
+            s = torch.from_numpy(scores).to(d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if d.type == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                g, h = fn(s)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            g, h = g.cpu().numpy(), h.cpu().numpy()
+            got.append((g, h, time.perf_counter() - t0))
+        (gc, hc, _), (gp_, hp, cpu_s) = got
+        np.testing.assert_allclose(gc, gp_, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"lambdas, {case}")
+        np.testing.assert_allclose(hc, hp, rtol=1e-5, atol=1e-6,
+                                   err_msg=f"lambda hessians, {case}")
+        err = float(max(np.abs(gc - gp_).max(), np.abs(hc - hp).max()))
+        if case == "uncovered rows":
+            outside = np.ones(N_ROWS, bool)
+            outside[ptr[0]:ptr[-1]] = False
+            if not ((gc[outside] == 0).all() and (hc[outside] == 1e-16)
+                    .all()):
+                raise AssertionError("rows outside the queries not inert")
+        checks[case] = {"max_abs_err": err, "cpu_s": cpu_s}
+        log(f"[ranker] lambdas card = CPU ({case}): max |diff| {err:.3g} "
+            f"(rtol 1e-5, atol 1e-6; CPU pass {cpu_s:.2f} s), under sync "
+            f"debug mode 'error'")
+
+    fn = make_lambdarank_grad_fn(rel, gp, 1.0, device=dev)
+    s = torch.zeros((N_ROWS, 1), device=dev)
+    fn(s)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(s)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    pass_ms = time_ms(lambda: fn(s), 5)
+    gmax = int(sizes.max())
+    chunk = fn.chunks[0][1] - fn.chunks[0][0]
+    # the least time for the same work: the scores and labels read, g and
+    # h written; ~27 f32 operations for each ordered pair of a query (the
+    # score difference, exp and reciprocal, the pair mask, |ΔNDCG|, the two
+    # weighted terms and their row and column sums)
+    pairs = int((sizes.astype(np.int64) ** 2).sum())
+    lam_bound, lam_by = bound_ms(N_ROWS * 4 * 4, pairs * 27)
+    log(f"[ranker] lambda pass {pass_ms:.2f} ms (CUDA events, 5 calls), "
+        f"peak {peak_gb:.3f} GB above its inputs; {len(sizes)} queries "
+        f"padded to {gmax} in {len(fn.chunks)} chunks of up to {chunk} "
+        f"queries; {pairs} pairs, "
+        f"bound {lam_bound:.4f} ms ({lam_by})")
+    n_chunks = len(fn.chunks)
+    del fn, s
+    tree_check = ranker_grower_check(dev, X, rel, gp)
+
+    Xv, relv, gpv = rank_data(60_000, seed=31)       # ~440 queries
+    gpv = gpv[:201]                                  # the first 200
+    Xv, relv = Xv[:gpv[-1]], relv[:gpv[-1]]
+    groups = np.repeat(np.arange(len(sizes)), sizes)
+    df = DataFrame.from_dict({"features": X, "label": rel, "group": groups})
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = LightGBMRanker().set_params(num_iterations=8).fit(df)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = CH.launch_counts()
+    if launches != {"hist_accumulate": 248, "frontier_finish": 248}:
+        raise AssertionError(f"the ranker fit must launch each kernel 8 x 31 "
+                             f"= 248 times, got {launches}")
+    pred = model.transform(DataFrame.from_dict(
+        {"features": Xv})).collect()["prediction"]
+    if pred.shape != (len(relv),) or not np.isfinite(pred).all():
+        raise AssertionError(f"bad ranker scores {pred.shape}")
+    ndcg = ndcg_at_k(pred, relv, gpv)
+    ndcg_rand = ndcg_at_k(np.random.default_rng(0).normal(size=len(relv)),
+                          relv, gpv)
+    b = model.booster
+    leaves_gpu = b.predict_leaf(Xv)
+    if not np.array_equal(leaves_gpu, b.predict_leaf(Xv, device="cpu")):
+        raise AssertionError("card and CPU ranker walks differ")
+    log(f"[ranker] LightGBMRanker() fit {fit_s:.3f} s, launches {launches}; "
+        f"NDCG@10 on 200 held-out queries {ndcg:.4f} (random ranking "
+        f"{ndcg_rand:.4f}); card and CPU walks equal")
+    if ndcg < 0.9 or not ndcg_rand < ndcg:
+        raise AssertionError(f"NDCG@10 {ndcg} < 0.9 or random {ndcg_rand} "
+                             f"not below it")
+    DETAIL["ranker"] = {"queries": len(sizes), "gmax": gmax,
+                        "lambda_checks": checks, "lambda_pass_ms": pass_ms,
+                        "lambda_pairs": pairs, "lambda_bound_ms": lam_bound,
+                        "lambda_peak_gb": peak_gb, "chunk_queries": chunk,
+                        "chunks": n_chunks, "tree_check": tree_check,
+                        "fit_s": fit_s, "fit_rows_per_s": N_ROWS / fit_s,
+                        "launches": launches, "ndcg_at_10": ndcg,
+                        "ndcg_at_10_random": ndcg_rand}
+    t0 = time.perf_counter()
+    fit_phases(GBDTParams(num_iterations=8, num_leaves=31,
+                          objective="lambdarank"), "ranker", (X, rel),
+               group_ptr=gp)
+    DETAIL["ranker"]["fit_phases_s"] = time.perf_counter() - t0
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1338,9 +1829,24 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[cat] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    multiclass_grower_check(dev)
+    log(f"[multiclass] grower check done in {time.perf_counter() - t0:.1f} s")
+    mc_launches = multiclass_phase(dev)
+    torch.cuda.synchronize()
+    log(f"[multiclass] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rank_launches = ranker_phase(dev)
+    torch.cuda.synchronize()
+    log(f"[ranker] phase done in {time.perf_counter() - t0:.1f} s")
+
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
-             "cat_level": cat_launches["level"]}
+             "cat_level": cat_launches["level"],
+             "multiclass_leaf": mc_launches["leaf"],
+             "multiclass_level": mc_launches["level"],
+             "ranker": rank_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in paths.values()),

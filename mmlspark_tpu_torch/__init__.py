@@ -15,8 +15,9 @@ Ported so far (the GBDT main path):
   frontier kernel, each beside its plain PyTorch version
 - ``lightgbm``  — BinMapper (edges on the host by the JAX package's C++
   plane, copied as ``csrc/binning.cpp``, or numpy; bins on the card),
-  ``train()`` with both growers, categorical splits and the binary and
-  regression objectives, LightGBMClassifier/Regressor
+  ``train()`` with both growers, categorical splits and the binary,
+  multiclass, regression and LambdaRank objectives,
+  LightGBMClassifier/Regressor/Ranker (the estimators also exported here)
 - ``models``    — the GBDT booster artifact and its scoring walk
 - ``convert``   — state carried across from the JAX package
 
@@ -27,5 +28,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 __version__ = "0.2.0"
 
 from ._device import resolve_device  # noqa: E402
+from .lightgbm import (LightGBMClassifier, LightGBMRanker,  # noqa: E402
+                       LightGBMRegressor)
 
-__all__ = ["resolve_device", "__version__"]
+__all__ = ["resolve_device", "__version__", "LightGBMClassifier",
+           "LightGBMRegressor", "LightGBMRanker"]

@@ -1,10 +1,13 @@
 """GBDT training core in PyTorch (port of ``mmlspark_tpu/lightgbm/core.py``,
 the single-shard subset).
 
-One boosting iteration: objective gradients (binary, the L2 regression and
-the six other regression objectives, with the GOSS, RF or DART adjustments
-and the bagging mask), per-row quantization
-(``ops.histogram.quantize_gradients``), then one tree.  Two growers share
+One boosting iteration: objective gradients (binary, multiclass, the L2
+regression and the six other regression objectives, with the GOSS, RF or
+DART adjustments and the bagging mask; or LambdaRank's pairwise lambdas,
+``make_lambdarank_grad_fn``), per-row quantization
+(``ops.histogram.quantize_gradients``), then one tree per class (``K =
+num_class`` for multiclass, stored round-robin: tree ``t`` scores class
+``t % K``).  Two growers share
 the fused frontier step (``ops.cuda_histogram.frontier_step``: a histogram
 build, the integer sibling subtraction and the split-gain scan, on the two
 Hopper kernels):
@@ -22,8 +25,8 @@ the one-vs-rest and sorted-subset split search runs in torch
 (``_CatTools``).  Edges are found on the host; ``train()`` applies the
 bins on the card.  The host drives a plain per-iteration loop; tree
 arrays stay on the device until the end.  Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP.md entry: multiclass and
-the ranker, row sharding and voting, checkpoints and the live monitor.
+``NotImplementedError`` that names its ROADMAP.md entry: row sharding and
+voting, checkpoints and the live monitor.
 The JAX package's scan-chunked multi-iteration path exists to amortize a
 device relay's per-dispatch latency; the port launches per iteration and
 has no counterpart.
@@ -142,10 +145,12 @@ def _not_ported(what: str, entry: str):
 # objectives: (scores (n, K), y, w) -> grad, hess (n, K)
 # ---------------------------------------------------------------------------
 
-def make_objective(params: GBDTParams) -> Callable:
-    """The objective's ``(scores, y, w) -> (grad, hess)``, each ``(n, 1)``,
-    with the JAX package's clips and hessian floors."""
-    obj = params.objective
+def make_objective(params: GBDTParams) -> Optional[Callable]:
+    """The objective's ``(scores, y, w) -> (grad, hess)``, each ``(n, K)``
+    (``K = num_class`` for multiclass, else 1), with the JAX package's clips
+    and hessian floors.  ``lambdarank`` has no pointwise objective (None):
+    its gradients come from ``make_lambdarank_grad_fn``."""
+    obj, K = params.objective, params.num_class
     sig, alpha = params.sigmoid, params.alpha
     rho = params.tweedie_variance_power
 
@@ -157,6 +162,16 @@ def make_objective(params: GBDTParams) -> Callable:
         g = sig * (p - y)
         h = torch.clamp(sig * sig * p * (1.0 - p), min=1e-16)
         return (g * w)[:, None], (h * w)[:, None]
+
+    def multiclass(scores, y, w):
+        z = scores - scores.max(dim=1, keepdim=True).values
+        e = torch.exp(z)
+        p = e / e.sum(dim=1, keepdim=True)
+        onehot = (y[:, None] == torch.arange(K, device=y.device)[None, :]) \
+            .to(p.dtype)
+        g = p - onehot
+        h = torch.clamp(2.0 * p * (1.0 - p), min=1e-16)
+        return g * w[:, None], h * w[:, None]
 
     def l2(scores, y, w):
         g = scores[:, 0] - y
@@ -199,14 +214,123 @@ def make_objective(params: GBDTParams) -> Callable:
         h = torch.clamp(y * e, min=1e-16)
         return (g * w)[:, None], (h * w)[:, None]
 
-    table = {"binary": binary, "regression": l2, "regression_l1": l1,
-             "huber": huber, "quantile": quantile, "poisson": poisson,
-             "tweedie": tweedie, "gamma": gamma}
-    if obj in ("multiclass", "lambdarank"):
-        raise _not_ported(f"objective {obj!r}", "multiclass and the ranker")
-    if obj not in table:
+    table = {"binary": binary, "multiclass": multiclass, "regression": l2,
+             "regression_l1": l1, "huber": huber, "quantile": quantile,
+             "poisson": poisson, "tweedie": tweedie, "gamma": gamma}
+    if obj not in table and obj != "lambdarank":
         raise ValueError(f"unknown objective {obj!r}")
-    return table[obj]
+    return table.get(obj)
+
+
+# The pairwise pass holds a few (queries, Gmax, Gmax) float32 temporaries at
+# once; queries go through it in chunks of whole queries so that those
+# temporaries together stay under this many bytes.  A query's lambdas do not
+# depend on the chunking: every chunk is padded to the same Gmax.
+_LAMBDA_PAIR_BYTES = 2 << 30
+# the float32-sized (q, Gmax, Gmax) temporaries live at the pass's peak
+# (the bool pair mask counted as a quarter of one)
+_LAMBDA_PAIR_TEMPS = 6
+
+
+def _lambda_chunk(S, Y, M, sigmoid: float):
+    """LambdaRank's ``(G, H)`` for a chunk of padded queries, ``(q, Gmax)``
+    each: the JAX package's |ΔNDCG|-weighted pairwise lambdas
+    (``mmlspark_tpu/lightgbm/core.py:273-301``), term for term.  The rank
+    sort is stable, as ``jnp.argsort``: at an all-tied first iteration the
+    ranks come from the tie order alone."""
+    q, gmax = S.shape
+    dev = S.device
+    gain = (torch.pow(2.0, Y) - 1.0) * M
+    key = -torch.where(M > 0, S, torch.full_like(S, -math.inf))
+    order = torch.argsort(key, dim=1, stable=True)
+    slots = torch.arange(gmax, device=dev)
+    ranks = torch.empty_like(order).scatter_(
+        1, order, slots.expand(q, gmax)).to(torch.float32)   # 0-based rank
+    disc = 1.0 / torch.log2(ranks + 2.0)
+    ideal_gain = -torch.sort(-gain, dim=1).values
+    ideal_disc = 1.0 / torch.log2(slots.to(torch.float32) + 2.0)
+    idcg = torch.clamp((ideal_gain * ideal_disc).sum(dim=1, keepdim=True),
+                       min=1e-9)
+    on = M > 0
+    better = (Y[:, :, None] > Y[:, None, :]) & on[:, :, None] & on[:, None, :]
+    # P(j beats i), in place: 1 / (1 + exp(sigmoid * (S_i - S_j)))
+    rho = (S[:, :, None] - S[:, None, :]).mul_(sigmoid).exp_().add_(1.0) \
+        .reciprocal_()
+    delta = (gain[:, :, None] - gain[:, None, :]).mul_(
+        disc[:, :, None] - disc[:, None, :]).abs_().div_(idcg[:, :, None])
+    lam = torch.where(better, -sigmoid * rho * delta, 0.0)
+    G = lam.sum(dim=2) - lam.sum(dim=1)
+    del lam
+    hess = torch.where(better, sigmoid * sigmoid * rho * (1 - rho) * delta,
+                       0.0)
+    H = torch.clamp(hess.sum(dim=2) + hess.sum(dim=1), min=1e-16)
+    return G, H
+
+
+def make_lambdarank_grad_fn(y: np.ndarray, group_ptr: np.ndarray,
+                            sigmoid: float = 1.0, device: DeviceLike = None):
+    """LambdaRank gradients with |ΔNDCG| weighting, resident on the device
+    (the JAX package's ``make_lambdarank_grad_fn``).
+
+    Queries are packed to ``(Q, Gmax)`` by index gathers built once on the
+    host; the returned ``fn(scores) -> (g, h)``, each ``(n, 1)``, stays on
+    the device: no host round trip and no wait for the card per iteration.
+    Rows outside ``group_ptr`` are inert (g = 0, h = 1e-16).  The pairwise
+    pass runs in chunks of whole queries (``_LAMBDA_PAIR_BYTES``): the
+    ``(first, end)`` query bounds of each are ``fn.chunks``."""
+    dev = resolve_device(device)
+    gp = np.asarray(group_ptr, np.int64)
+    n = len(y)
+    sizes = np.diff(gp)
+    gmax = int(sizes.max())
+    slots = np.arange(gmax)
+    M_np = slots[None, :] < sizes[:, None]
+    pack_np = np.where(M_np, gp[:-1, None] + slots[None, :], 0)
+    row_q = np.zeros(n, np.int64)              # row -> (query, slot)
+    row_slot = np.zeros(n, np.int64)
+    covered_np = np.zeros(n, bool)
+    qq, ss = np.nonzero(M_np)
+    rows = pack_np[qq, ss]
+    row_q[rows], row_slot[rows], covered_np[rows] = qq, ss, True
+    M_f = M_np.astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    Y = t(np.asarray(y, np.float32)[pack_np] * M_f)
+    M, pack = t(M_f), t(pack_np)
+    rq, rs, covered = t(row_q), t(row_slot), t(covered_np)
+    Q = M.shape[0]
+    step = max(1, _LAMBDA_PAIR_BYTES // (_LAMBDA_PAIR_TEMPS * gmax * gmax
+                                         * 4))
+    bounds = [(a, min(Q, a + step)) for a in range(0, Q, step)]
+
+    def fn(scores: torch.Tensor):
+        S = scores[:, 0][pack] * M
+        G = torch.empty((Q, gmax), dtype=torch.float32, device=dev)
+        H = torch.empty_like(G)
+        for a, b in bounds:
+            G[a:b], H[a:b] = _lambda_chunk(S[a:b], Y[a:b], M[a:b], sigmoid)
+        g_row = torch.where(covered, G[rq, rs], 0.0)
+        h_row = torch.where(covered, H[rq, rs], 1e-16)
+        return g_row[:, None], h_row[:, None]
+
+    fn.chunks = bounds
+    return fn
+
+
+def lambdarank_grads(scores: np.ndarray, y: np.ndarray, group_ptr: np.ndarray,
+                     sigmoid: float = 1.0, trunc: int = 30,
+                     device: DeviceLike = None) -> Tuple[np.ndarray,
+                                                         np.ndarray]:
+    """One-shot host-facing wrapper over ``make_lambdarank_grad_fn``.
+    ``trunc`` is accepted and not used, as in the JAX package."""
+    dev = resolve_device(device)
+    fn = make_lambdarank_grad_fn(y, group_ptr, sigmoid, dev)
+    s = torch.from_numpy(np.asarray(scores, np.float32)
+                         .reshape(len(y), -1)).to(dev)
+    g, h = fn(s)
+    return g.cpu().numpy(), h.cpu().numpy()
 
 
 def init_score_of(objective: str, y: np.ndarray, w: np.ndarray,
@@ -1086,12 +1210,9 @@ _TREE_KEYS = ("left_child", "right_child", "split_feature", "threshold",
               "internal_count", "leaf_value", "leaf_count")
 
 
-def _check_ported(p: GBDTParams, *, group_ptr, shard_rows, checkpoint_dir,
+def _check_ported(p: GBDTParams, *, shard_rows, checkpoint_dir,
                   checkpoint_every, monitor_port,
                   monitor_stall_timeout_s) -> None:
-    if p.objective in ("multiclass", "lambdarank") or group_ptr is not None:
-        raise _not_ported("multiclass and ranking",
-                          "multiclass and the ranker")
     if shard_rows or p.voting_k:
         raise _not_ported("row sharding and voting",
                           "the sharded GBDT over NCCL")
@@ -1140,8 +1261,15 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
           monitor_stall_timeout_s: Optional[float] = None,
           device: DeviceLike = None) -> TrainResult:
     """Boosting loop (the JAX package's ``train`` for the single-shard
-    subset: both growers, numerical and categorical splits, the binary and
-    regression objectives, boosting types gbdt/rf/dart/goss and bagging).
+    subset: both growers, numerical and categorical splits, the binary,
+    multiclass, regression and lambdarank objectives, boosting types
+    gbdt/rf/dart/goss and bagging).  Multiclass grows ``num_class`` trees
+    per iteration, one per class from that class's gradient column, with
+    the iteration's feature, bag and DART draws shared by the classes.
+    ``lambdarank`` needs ``group_ptr`` (ignored for other objectives, as in
+    the JAX package) and keeps the reference's rules: its lambdas take no
+    GOSS sample, no DART drop (nor its ``skip_drop`` draw), no RF gradient
+    scale and no sample weights.
     Runs on the card unless ``device="cpu"``; ``use_quantized_grad=None``
     turns quantized histograms on for the card and off on the CPU.  Edges
     are found on the host; on the card the bins are applied there
@@ -1156,17 +1284,20 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     p = params.resolve()
     p = dataclasses.replace(
         p, use_quantized_grad=default_quantized(dev, p.use_quantized_grad))
-    _check_ported(p, group_ptr=group_ptr, shard_rows=shard_rows,
+    _check_ported(p, shard_rows=shard_rows,
                   checkpoint_dir=checkpoint_dir,
                   checkpoint_every=checkpoint_every,
                   monitor_port=monitor_port,
                   monitor_stall_timeout_s=monitor_stall_timeout_s)
+    is_rank = p.objective == "lambdarank"
+    if is_rank and group_ptr is None:
+        raise ValueError("lambdarank requires group_ptr")
     objective = make_objective(p)
     rng = np.random.default_rng(p.seed)
     X = np.asarray(X, np.float32)
     y = np.asarray(y, np.float32)
     n, F = X.shape
-    K = 1
+    K = p.num_class if p.objective == "multiclass" else 1
     w = np.ones(n, np.float32) if sample_weight is None \
         else np.asarray(sample_weight, np.float32)
     check_labels(p, y, F)
@@ -1262,6 +1393,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     a_n = int(p.top_rate * n) if is_goss else 0
     b_n = int(p.other_rate * n) if is_goss else 0
     goss_amp = (1.0 - p.top_rate) / max(p.other_rate, 1e-12)
+    # the packing gathers, built once; the lambdas stay on the device
+    lambda_fn = make_lambdarank_grad_fn(y, group_ptr, p.sigmoid, dev) \
+        if is_rank else None
 
     start_iter = len(tree_weights) // K
     t0 = time.perf_counter()
@@ -1285,15 +1419,19 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                         rng.random(n) < p.bagging_fraction).to(dev)
                 hist_mask = bag_mask
             dropped: List[int] = []
-            if p.boosting_type == "dart" and tree_weights and \
-                    rng.random() >= p.skip_drop:
+            # ranking draws no drop (the reference's elif): rng unchanged
+            if p.boosting_type == "dart" and not is_rank and tree_weights \
+                    and rng.random() >= p.skip_drop:
                 k_drop = min(p.max_drop, max(1, int(round(
                     p.drop_rate * len(tree_weights)))))
                 dropped = sorted(rng.choice(
                     len(tree_weights), size=min(k_drop, len(tree_weights)),
                     replace=False).tolist())
             gen.manual_seed(p.seed * 1000003 + it)
-            if dropped:
+            if is_rank:
+                # precomputed lambdas: no GOSS, no RF scale, no weights
+                g, h = lambda_fn(scores)
+            elif dropped:
                 # DART: gradients against the scores without the dropped trees
                 drop_delta = torch.zeros_like(scores)
                 for t in dropped:
@@ -1320,20 +1458,22 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                     hist_mask = hist_mask & keep_rows
                     g, h = g * amp[:, None], h * amp[:, None]
             new_w = 1.0 / (1.0 + len(dropped)) if dropped else 1.0
-            tree = grow(binned, g[:, 0], h[:, 0], hist_mask, feat_mask, edges,
-                        generator=gen)
-            lv_s = tree.leaf_value * shrink
-            scores[:, 0] += lv_s[tree.leaf_of_row] * new_w
-            for k in tree_keys:
-                trees[k].append(lv_s if k == "leaf_value"
-                                else getattr(tree, k))
-            tree_weights.append(new_w)
-            if has_valid:
-                leaf_v = walker(
-                    binned_v, tree.split_feature, tree.threshold_bin,
-                    tree.left_child, tree.right_child,
-                    bitset=tree.cat_bitset if store_bitset else None)
-                scores_v[:, 0] += lv_s[leaf_v] * new_w
+            # one tree per class, from the class's (strided) gradient column
+            for c in range(K):
+                tree = grow(binned, g[:, c], h[:, c], hist_mask, feat_mask,
+                            edges, generator=gen)
+                lv_s = tree.leaf_value * shrink
+                scores[:, c] += lv_s[tree.leaf_of_row] * new_w
+                for k in tree_keys:
+                    trees[k].append(lv_s if k == "leaf_value"
+                                    else getattr(tree, k))
+                tree_weights.append(new_w)
+                if has_valid:
+                    leaf_v = walker(
+                        binned_v, tree.split_feature, tree.threshold_bin,
+                        tree.left_child, tree.right_child,
+                        bitset=tree.cat_bitset if store_bitset else None)
+                    scores_v[:, c] += lv_s[leaf_v] * new_w
             if dropped:
                 # DART: shrink each dropped tree by k / (1 + k), on the train
                 # and valid scores alike

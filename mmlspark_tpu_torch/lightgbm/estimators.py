@@ -1,14 +1,23 @@
 """LightGBM-compatible estimators over the PyTorch GBDT core (port of
-``mmlspark_tpu/lightgbm/estimators.py``: classifier and regressor).
+``mmlspark_tpu/lightgbm/estimators.py``: classifier, regressor, ranker).
 
-Same param names and semantics as the JAX package.  The defaults grow
-leaf-wise (``num_leaves`` = 31, LightGBM's best-first growth); ``max_depth``
-set alone selects level-wise growth, and with ``num_leaves`` it caps the
-leaf-wise depth.  ``boosting_type`` gbdt, rf, dart and goss, bagging,
-categorical features (one-vs-rest up to ``max_cat_to_onehot`` observed
-codes, sorted-subset above) and the regressor's objectives pass through to
-``train()``.  ``device`` picks where training and scoring run: the card by
-default, ``"cpu"`` for the plain PyTorch versions.
+Same param names, defaults and semantics as the JAX package.  The defaults
+grow leaf-wise (``num_leaves`` = 31, LightGBM's best-first growth);
+``max_depth`` set alone selects level-wise growth, and with ``num_leaves``
+it caps the leaf-wise depth.  ``boosting_type`` gbdt, rf, dart and goss
+with their rates, bagging, categorical features (one-vs-rest up to
+``max_cat_to_onehot`` observed codes, sorted-subset above), binary and
+multiclass labels, the regressor's objectives and the ranker's LambdaRank
+pass through to ``train()``; the classifier's ``num_batches`` trains in
+sequential batches with warm start between them (the reference's
+``LightGBMBase.scala:46-61``), and the regressor, as the JAX package's,
+trains in one batch whatever it says.  The distributed, checkpoint and monitor params
+(``parallelism="voting_parallel"``, ``shard_rows``, ``checkpoint_dir``,
+``checkpoint_every``, ``monitor_port``, ``monitor_stall_timeout_s``) reach
+``train()``, which raises ``NotImplementedError`` naming their ROADMAP.md
+entry for any value other than the default.  ``device`` picks where
+training and scoring run: the card by default, ``"cpu"`` for the plain
+PyTorch versions.
 """
 from __future__ import annotations
 
@@ -45,16 +54,31 @@ def _shared_params(cls):
         ("bagging_fraction", "row subsample fraction", "float", 1.0),
         ("bagging_freq", "bagging frequency (0=off)", "int", 0),
         ("feature_fraction", "feature subsample fraction", "float", 1.0),
+        ("top_rate", "GOSS large-gradient keep rate", "float", 0.2),
+        ("other_rate", "GOSS small-gradient sample rate", "float", 0.1),
+        ("drop_rate", "DART tree drop rate", "float", 0.1),
+        ("max_drop", "DART max dropped trees", "int", 50),
+        ("skip_drop", "DART skip probability", "float", 0.5),
         ("max_delta_step", "max leaf output", "float", 0.0),
         ("early_stopping_round", "stop if no valid improvement", "int", 0),
         ("metric", "eval metric name ('' = objective default)", "string", ""),
         ("validation_indicator_col", "bool column marking validation rows",
          "string", None),
         ("model_string", "warm-start model string", "string", None),
+        ("num_batches", "split training into sequential batches "
+                        "(LightGBMBase.scala:46-61)", "int", 0),
         ("growth", "tree growth strategy: leaf (LightGBM best-first) | "
                    "level (depth-wise) | auto (leaf unless only max_depth "
                    "is set)", "string", "auto"),
         ("seed", "random seed", "int", 0),
+        ("parallelism", "data_parallel (full histogram psum) | "
+                        "voting_parallel (top-k feature voting) | serial; "
+                        "voting is not ported (raises)", "string",
+         "data_parallel"),
+        ("top_k", "voting_parallel: local top-k features voted per node",
+         "int", 20),
+        ("shard_rows", "shard rows over the devices (not ported: raises)",
+         "bool", False),
         ("categorical_features", "feature indices treated as categorical "
          "(one-vs-rest below max_cat_to_onehot cardinality, sorted-subset "
          "many-vs-many above)", "list", None),
@@ -72,6 +96,14 @@ def _shared_params(cls):
          "(on for the card, off on the CPU)", "bool", None),
         ("num_grad_quant_bins", "quantization levels for grad/hess under "
          "quantized training (4-128)", "int", 16),
+        ("checkpoint_dir", "directory for periodic booster checkpoints "
+         "(not ported: raises)", "string", None),
+        ("checkpoint_every", "checkpoint cadence in boosting iterations "
+         "(0 = off; not ported: raises)", "int", 0),
+        ("monitor_port", "serve live training telemetry over HTTP while "
+         "fit() runs (not ported: raises)", "int", None),
+        ("monitor_stall_timeout_s", "arm the training stall watchdog "
+         "(not ported: raises)", "double", None),
         ("device", "where training and scoring run: unset = the CUDA card "
          "(an error without one), 'cpu' = the plain PyTorch versions",
          "string", None),
@@ -112,6 +144,9 @@ class _LightGBMBase(Estimator, HasFeaturesCol, HasLabelCol, HasWeightCol):
             bagging_fraction=self.get("bagging_fraction"),
             bagging_freq=self.get("bagging_freq"),
             feature_fraction=self.get("feature_fraction"),
+            top_rate=self.get("top_rate"), other_rate=self.get("other_rate"),
+            drop_rate=self.get("drop_rate"), max_drop=self.get("max_drop"),
+            skip_drop=self.get("skip_drop"),
             max_delta_step=self.get("max_delta_step"),
             early_stopping_round=self.get("early_stopping_round"),
             metric=self.get("metric"), seed=self.get("seed"),
@@ -120,6 +155,8 @@ class _LightGBMBase(Estimator, HasFeaturesCol, HasLabelCol, HasWeightCol):
             max_cat_to_onehot=self.get("max_cat_to_onehot"),
             cat_smooth=self.get("cat_smooth"), cat_l2=self.get("cat_l2"),
             max_cat_threshold=self.get("max_cat_threshold"),
+            voting_k=self.get("top_k")
+            if self.get("parallelism") == "voting_parallel" else 0,
             use_quantized_grad=self.get("use_quantized_grad"),
             num_grad_quant_bins=self.get("num_grad_quant_bins"))
 
@@ -140,13 +177,40 @@ class _LightGBMBase(Estimator, HasFeaturesCol, HasLabelCol, HasWeightCol):
         return X[keep], y[keep], (w[keep] if w is not None else None), \
             (X[mask], y[mask])
 
-    def _train_booster(self, X, y, w, valid, num_class=1, params=None):
+    def _train_booster(self, X, y, w, valid, num_class=1, params=None,
+                       group_ptr=None, batched=True):
+        params = params or self._gbdt_params(num_class)
         ms = self.get("model_string")
         init_booster = GBDTBooster.from_string(ms) if ms else None
-        return gbdt_core.train(X, y, params or self._gbdt_params(num_class),
-                               sample_weight=w, valid=valid,
-                               init_booster=init_booster,
-                               device=self.get("device"))
+        kw = dict(valid=valid, shard_rows=self.get("shard_rows"),
+                  checkpoint_dir=self.get("checkpoint_dir"),
+                  checkpoint_every=self.get("checkpoint_every"),
+                  monitor_port=self.get("monitor_port"),
+                  monitor_stall_timeout_s=self.get("monitor_stall_timeout_s"),
+                  device=self.get("device"))
+        num_batches = (self.get("num_batches") or 0) if batched else 0
+        if num_batches <= 1:
+            return gbdt_core.train(X, y, params, sample_weight=w,
+                                   group_ptr=group_ptr,
+                                   init_booster=init_booster, **kw)
+        if group_ptr is not None:
+            raise ValueError("num_batches does not split query groups: "
+                             "the ranker trains in one batch")
+        # sequential batch training with warm start between batches, the
+        # reference's bounds and per-batch iteration count
+        bounds = np.linspace(0, len(y), num_batches + 1).astype(int)
+        batch_params = dataclasses.replace(
+            params,
+            num_iterations=max(1, params.num_iterations // num_batches))
+        result = None
+        for i in range(num_batches):
+            sl = slice(bounds[i], bounds[i + 1])
+            result = gbdt_core.train(
+                X[sl], y[sl], batch_params,
+                sample_weight=None if w is None else w[sl],
+                init_booster=init_booster, **kw)
+            init_booster = result.booster
+        return result
 
 
 class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol):
@@ -191,11 +255,12 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol):
 @_shared_params
 class LightGBMClassifier(_LightGBMBase, HasPredictionCol, HasProbabilityCol,
                          HasRawPredictionCol):
-    """Binary GBDT classifier (ref ``LightGBMClassifier.scala``);
-    multiclass waits for a later slice."""
+    """Binary/multiclass GBDT classifier (ref ``LightGBMClassifier.scala``):
+    more than two labels train ``multiclass``, one tree per class per
+    iteration."""
 
-    objective = Param("objective", "binary (auto from labels if unset)",
-                      "string", None)
+    objective = Param("objective", "binary|multiclass (auto from labels if "
+                      "unset)", "string", None)
     is_unbalance = Param("is_unbalance",
                          "reweight classes by inverse frequency", "bool",
                          False)
@@ -290,7 +355,10 @@ class LightGBMRegressor(_LightGBMBase, HasPredictionCol):
         params = dataclasses.replace(
             self._gbdt_params(1), alpha=self.get("alpha"),
             tweedie_variance_power=self.get("tweedie_variance_power"))
-        result = self._train_booster(Xt, yt, wt, valid, params=params)
+        # the JAX package's regressor calls train() once: num_batches is
+        # accepted and not used
+        result = self._train_booster(Xt, yt, wt, valid, params=params,
+                                     batched=False)
         model = LightGBMRegressionModel()
         model.set("booster", result.booster)
         for pcol in ("features_col", "prediction_col", "device"):
@@ -308,6 +376,63 @@ class LightGBMRegressionModel(_LightGBMModelBase):
             X = stack_vector_column(p[fc])
             return {**p, self.get("prediction_col"):
                     booster.predict(X, device=device)}
+
+        return df.map_partitions(per_part)
+
+    def transform_schema(self, schema):
+        schema.require(self.get("features_col"))
+        return schema.add(self.get("prediction_col"), ColumnType.DOUBLE)
+
+
+# ---------------------------------------------------------------------------
+# Ranker
+# ---------------------------------------------------------------------------
+
+@_shared_params
+class LightGBMRanker(_LightGBMBase, HasPredictionCol):
+    """LambdaRank ranker (ref ``LightGBMRanker.scala``); requires
+    ``group_col``.  Rows are sorted stably by group and each group is one
+    query.  ``max_position`` is accepted and not used, as in the JAX
+    package: the lambdas weight every pair of a query by its full
+    |ΔNDCG|."""
+
+    group_col = Param("group_col", "query-group id column", "string",
+                      "group")
+    max_position = Param("max_position", "NDCG truncation (accepted, not "
+                         "used)", "int", 30)
+
+    def _fit(self, df: DataFrame) -> "LightGBMRankerModel":
+        self._objective = "lambdarank"
+        fc, lc = self.get("features_col"), self.get("label_col")
+        data = df.collect()
+        groups = np.asarray(data[self.get("group_col")])
+        order = np.argsort(groups, kind="stable")
+        X = stack_vector_column(data[fc])[order]
+        y = np.asarray(data[lc], np.float64)[order]
+        w_col = self.get("weight_col")
+        w = np.asarray(data[w_col], np.float64)[order] if w_col else None
+        sorted_groups = groups[order]
+        change = np.nonzero(np.concatenate(
+            [[True], sorted_groups[1:] != sorted_groups[:-1]]))[0]
+        group_ptr = np.concatenate([change, [len(sorted_groups)]])
+        result = self._train_booster(X, y, w, None, group_ptr=group_ptr)
+        model = LightGBMRankerModel()
+        model.set("booster", result.booster)
+        for pcol in ("features_col", "prediction_col", "device"):
+            model.set(pcol, self.get(pcol))
+        return model
+
+
+class LightGBMRankerModel(_LightGBMModelBase):
+    def _transform(self, df: DataFrame) -> DataFrame:
+        fc = self.get("features_col")
+        booster = self.booster
+        device = self.get("device")
+
+        def per_part(p):
+            X = stack_vector_column(p[fc])
+            return {**p, self.get("prediction_col"):
+                    booster.raw_scores(X, device=device)[:, 0]}
 
         return df.map_partitions(per_part)
 

@@ -164,13 +164,13 @@ def _both_train(X, y, valid=None, **kw):
     return jr, tr
 
 
-def _assert_same_booster(jb, tb, X):
+def _assert_same_booster(jb, tb, X, score_atol=1e-6):
     """Returns how many leading trees are identical: every tree, unless the
     float histograms' summation order flips a split at an f32 near-tie
     (asserted to be one), after which the boosters part.  The identical
     trees must agree in every integer array, category set and threshold,
     and route every row alike; the whole boosters' scores within rtol 1e-5
-    when no tree parts."""
+    (and ``score_atol``) when no tree parts."""
     T = jb.num_trees
     same = T
     for t in range(T):
@@ -198,7 +198,8 @@ def _assert_same_booster(jb, tb, X):
         jb.predict_leaf(X)[:, :same])
     if same == T:
         np.testing.assert_allclose(tb.raw_scores(X, device="cpu"),
-                                   jb.raw_scores(X), rtol=1e-5, atol=1e-6)
+                                   jb.raw_scores(X), rtol=1e-5,
+                                   atol=score_atol)
     return same
 
 

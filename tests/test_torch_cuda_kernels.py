@@ -454,3 +454,90 @@ def test_bin_on_device_card_equals_cpu(dev, route, monkeypatch):
     assert torch.equal(bin_matrix(torch.from_numpy(X).to(dev), e.to(dev),
                                   255).cpu(),
                        bin_matrix(torch.from_numpy(X), e, 255))
+
+
+def test_multiclass_leafwise_trees_card_equal_cpu(dev):
+    """K = 3 leaf-wise trees from the multiclass gradients' columns (views
+    with stride 3, as ``train()`` hands them over) grown on the card equal
+    the CPU's in every array, back to back under sync debug mode "error"
+    (the finish's per-stream counters must be zero at each tree's first
+    launch), each tree launching each kernel 15 times."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams
+    from mmlspark_tpu_torch.lightgbm.core import (make_leafwise_grower,
+                                                  make_objective)
+    n, F, B, K = 20000, 10, 63, 3
+    gen = torch.Generator().manual_seed(11)
+    binned = torch.randint(0, B, (n, F), generator=gen, dtype=torch.uint8)
+    y = (binned[:, 0].long() * K // B).float()
+    s = torch.randn((n, K), generator=gen)
+    noise = torch.rand((K, 2, n), generator=gen)
+    edges = torch.arange(B - 1, dtype=torch.float32).repeat(F, 1)
+    params = GBDTParams(num_leaves=15, objective="multiclass", num_class=K,
+                        use_quantized_grad=True, lambda_l2=1.0).resolve()
+    grow = make_leafwise_grower(15, 0, F, B, params)
+    # the (n, K) gradients are made once, so both devices quantize the
+    # same floats; each device gets the (n, K) layout and reads columns
+    g_all, h_all = make_objective(params)(s, y, torch.ones(n))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        g, h = g_all.to(d), h_all.to(d)
+        assert g.stride() == (K, 1)
+        args = (binned.to(d).t().contiguous().t(),)
+        rest = (torch.ones(n, dtype=torch.bool, device=d),
+                torch.ones(F, dtype=torch.bool, device=d), edges.to(d))
+        u = noise.to(d)
+        torch.cuda.synchronize()
+        CH.reset_launch_counts()
+        if d.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            trees = [grow(*args, g[:, c], h[:, c], *rest, noise=u[c])
+                     for c in range(K)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if d.type == "cuda":
+            assert CH.launch_counts() == {"hist_accumulate": 15 * K,
+                                          "frontier_finish": 15 * K}
+        out.append([[None if x is None else x.cpu() for x in t]
+                    for t in trees])
+    for c in range(K):
+        for name, a, b in zip(trees[0]._fields, out[0][c], out[1][c]):
+            if a is None:
+                assert b is None, name
+            elif a.is_floating_point():
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                           atol=0, err_msg=f"{c} {name}")
+            else:
+                assert torch.equal(a, b), (c, name)
+
+
+@pytest.mark.parametrize("case", ["tied", "scored", "uncovered"])
+def test_lambda_pass_card_equals_cpu(dev, case):
+    """The LambdaRank pass on the card equals the CPU's within rtol 1e-5,
+    atol 1e-6 (f32 ``exp``/``log2`` and summation orders differ by ulps),
+    at all-tied scores (ranks from the stable sort's tie order alone), at
+    spread scores and with rows outside every query; it never syncs."""
+    from mmlspark_tpu_torch.lightgbm.core import make_lambdarank_grad_fn
+    rng = np.random.default_rng(12)
+    sizes = rng.integers(16, 257, 300)
+    lead = 9 if case == "uncovered" else 0
+    gp = lead + np.concatenate([[0], np.cumsum(sizes)])
+    n = int(gp[-1]) + (13 if case == "uncovered" else 0)
+    rel = rng.integers(0, 5, n).astype(np.float32)
+    scores = np.zeros((n, 1), np.float32) if case == "tied" else \
+        rng.normal(size=(n, 1)).astype(np.float32)
+    got = []
+    for d in (dev, torch.device("cpu")):
+        fn = make_lambdarank_grad_fn(rel, gp, 1.0, device=d)
+        s = torch.from_numpy(scores).to(d)
+        torch.cuda.synchronize()
+        if d.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            g, h = fn(s)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got.append((g.cpu().numpy(), h.cpu().numpy()))
+    np.testing.assert_allclose(got[0][0], got[1][0], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[0][1], got[1][1], rtol=1e-5, atol=1e-6)
+    assert np.abs(got[0][0]).max() > 0

@@ -186,21 +186,28 @@ def test_estimator_fit_transform_on_the_ports_dataframe():
 
 
 def test_not_ported_paths_raise_with_their_roadmap_entry():
+    """Row sharding still raises its queue's ``NotImplementedError``;
+    multiclass, lambdarank and ``group_ptr`` (ported since) now train."""
     X, y = _data(n=300)
-    for params, kw, entry in (
-            (GBDTParams(num_leaves=31, objective="multiclass", num_class=3),
-             {}, "multiclass"),
-            (GBDTParams(num_leaves=31, objective="lambdarank"), {},
-             "multiclass"),
-            (GBDTParams(num_leaves=31, objective="regression"),
-             dict(group_ptr=np.array([0, 150, 300])), "ranker"),
-            (GBDTParams(max_depth=2), dict(shard_rows=True), "NCCL")):
-        with pytest.raises(NotImplementedError, match=entry):
-            train(X, y, params, device="cpu", **kw)
-    y3 = np.arange(300) % 3
+    with pytest.raises(NotImplementedError, match="NCCL"):
+        train(X, y, GBDTParams(max_depth=2), device="cpu", shard_rows=True)
+    y3 = (np.arange(300) % 3).astype(np.float32)
+    gp = np.array([0, 150, 300])
+    for params, yy, kw, trees in (
+            (GBDTParams(num_leaves=31, objective="multiclass", num_class=3,
+                        num_iterations=2), y3, {}, 6),
+            (GBDTParams(num_leaves=31, objective="lambdarank",
+                        num_iterations=2), y3, dict(group_ptr=gp), 2),
+            (GBDTParams(num_leaves=31, objective="regression",
+                        num_iterations=2), y, dict(group_ptr=gp), 2)):
+        b = train(X, yy, params, device="cpu", **kw).booster
+        assert b.num_trees == trees and b.objective == params.objective
     df = DataFrame.from_dict({"features": X, "label": y3.astype(float)})
-    with pytest.raises(NotImplementedError, match="multiclass"):
-        LightGBMClassifier().set_params(device="cpu").fit(df)
+    model = LightGBMClassifier().set_params(device="cpu",
+                                            num_iterations=2).fit(df)
+    assert model.booster.num_class == 3
+    assert np.stack(model.transform(df).collect()["probability"]).shape \
+        == (300, 3)
 
 
 # ---------------------------------------------------------------------------
