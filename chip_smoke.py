@@ -11,7 +11,9 @@ Phases; any failure exits nonzero and prints no result line:
    bench shapes (1M rows x 200 features, 255 bins): ``hist_accumulate`` at
    N = 1, 8, 16, 64 nodes in every lane layout and at its edges (128-bin
    gradients at their extremes, every row in one node and one bin, an
-   all-inactive frontier, a ragged row count); ``frontier_finish`` in
+   all-inactive frontier, a ragged row count, and one streamed tile of
+   131,072 rows whose last 48,576 are padded with node -1, at N = 1 and
+   16, also timed); ``frontier_finish`` in
    direct, subtract and depth-gated modes, in the leaf-wise slot form (the
    parent read from the carry and both children written into it; int32
    and int16 carries, the step's gate on and off) and at its edges (2 and
@@ -88,11 +90,29 @@ Phases; any failure exits nonzero and prints no result line:
    the CPU tree in every array; ``LightGBMRanker()`` defaults for 8 iterations:
    248 launches of each kernel, NDCG@10 0.9 on 200 held-out queries, above
    a random ranking's; the fit profiled.
-10. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+10. streamed — out-of-core ``train_streamed`` and checkpoints.  One tile
+   (131,072 x 200 uint8) staged host -> card in three layouts, each
+   timed with the kernel on it (PERF.md says which the driver keeps);
+   50k x 20 in tiles of 8,192 (7 tiles, the last padded): 3 quantized
+   iterations level-wise (``max_depth=4``) and leaf-wise
+   (``num_leaves=15``) on the card equal the CPU's in every booster
+   array; the bench data at 1M x 200 in tiles of 131,072 (8 tiles, the
+   last with 82,496 real rows), level-wise ``max_depth=5`` (5 passes x 8
+   tiles x 8 iterations = 320 launches of each kernel) and leaf-wise
+   ``num_leaves=31`` (one launch per tile per pass, up to 1,984), each
+   with its binning and boosting times, prefetch wait and overlap, bytes
+   per pass and the copy stream's rate, accuracy >= 0.9 on 100k fresh
+   rows, and the leaf-wise fit's peak device memory under 150 MB; the
+   level-wise fit at 262,144 rows a tile bit-identical; the leaf-wise
+   fit preempted after iteration 3 (``request_preemption``) and resumed
+   at 262,144 rows a tile bit-identical to the uninterrupted one; a
+   leaf-wise ``train()`` fit preempted and resumed: tree structure equal,
+   leaf values within 1e-6.
+11. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
-   fits, the two multiclass fits and the ranker fit, split in
-   ``launches_by_path``), the card's name and power limit, and the last
-   line ``{"ok": true, "device": {...}}``.
+   fits, the two multiclass fits, the ranker fit and the two streamed
+   fits, split in ``launches_by_path``), the card's name and power limit,
+   and the last line ``{"ok": true, "device": {...}}``.
 
 Details (per-level and per-step kernel times, every comparison) go to
 ``chiprun_out/chip_smoke_detail.json``.
@@ -113,6 +133,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROWS, N_FEAT, N_BINS, QUANT_BINS = 1_000_000, 200, 255, 16
+STREAM_TILE = 131_072           # train_streamed's tile rows at 1M x 200
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 SCALAR_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 SOURCE = "mmlspark_tpu_torch/csrc/frontier.cu"
@@ -340,6 +361,36 @@ def kernel_phase(dev):
     check_accumulate("ragged rows", binned.t()[:, :n_odd].contiguous().t(),
                      qg[:n_odd].contiguous(), qh[:n_odd].contiguous(),
                      node_ids(8, None, n_odd), 8, n_odd, QUANT_BINS)
+    # one tile of train_streamed: the bench width at 131,072 rows,
+    # feature-major as it lands on the card, the last 48,576 rows padded
+    # with node -1 (the 1M fit's last tile), lanes planned from the tile's
+    # row bound; N = 1 (a leaf-wise pass) and N = 16 (level 4)
+    T, real = STREAM_TILE, N_ROWS - 7 * STREAM_TILE
+    tile = binned[:T].t().contiguous().t()
+    qg_t, qh_t = qg[:T].contiguous(), qh[:T].contiguous()
+    stream_tile = {}
+    for N in (1, 16):
+        ids_t = node_ids(N, None, T)
+        ids_t[real:] = -1
+        check_accumulate("streamed tile", tile, qg_t, qh_t, ids_t, N, T,
+                         QUANT_BINS, decode=True)
+        lay_t = CH.lane_layout(T, T, QUANT_BINS)
+        Ct = CH._CHANNELS[lay_t.mode]
+
+        def tile_call():
+            return CH.hist_accumulate(tile, qg_t, qh_t, ids_t, N, B, lay_t)
+
+        t_tile = device_ms(tile_call, 20, KERNEL_NAMES["hist_accumulate"])
+        tb_ms, tb_by = bound_ms(T * 4 + real * (F + 2) + Ct * N * F * B * 4,
+                                real * F * Ct)
+        stream_tile[N] = {"ms": t_tile, "bound_ms": tb_ms, "bound_by": tb_by,
+                          "layout": lay_t.mode, "active_rows": real,
+                          "plain_ms": time_ms(lambda: CH.hist_accumulate_plain(
+                              tile, qg_t, qh_t, ids_t, N, B, lay_t), 3)}
+        log(f"[kernels] hist_accumulate streamed tile N={N}: {t_tile:.4f} "
+            f"ms device, bound {tb_ms:.4f} ms ({tb_by}), plain "
+            f"{stream_tile[N]['plain_ms']:.3f} ms")
+    del tile
 
     # frontier_finish: direct (root), subtract (level 4), depth-gated
     fmask = torch.ones(F, dtype=torch.bool, device=dev)
@@ -586,7 +637,8 @@ def kernel_phase(dev):
         "hist_accumulate": dict(max_abs_err=errs["hist_accumulate"],
                                 ms=t_acc, wrapper_ms=w_acc,
                                 plain_ms=t_acc_plain, bound_ms=acc_bound,
-                                bound_by=acc_by, library_ms=t_acc_lib),
+                                bound_by=acc_by, library_ms=t_acc_lib,
+                                stream_tile=stream_tile),
         "frontier_finish": dict(max_abs_err=errs["frontier_finish"],
                                 ms=t_fin, wrapper_ms=w_fin,
                                 plain_ms=t_fin_plain, bound_ms=fin_bound,
@@ -1766,6 +1818,271 @@ def ranker_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: out-of-core train_streamed, checkpoints and resume
+# ---------------------------------------------------------------------------
+
+BOOSTER_ARRAYS = ("split_feature", "threshold", "threshold_bin",
+                  "split_gain", "internal_value", "internal_count",
+                  "leaf_value", "leaf_count", "left_child", "right_child",
+                  "tree_weight")
+
+
+def booster_diff(a, b, what: str, exact=BOOSTER_ARRAYS, atol=0.0) -> bool:
+    """Raise unless the ``exact`` arrays of two boosters are equal and the
+    rest agree within ``atol``; returns whether every array is equal."""
+    same = True
+    for k in BOOSTER_ARRAYS:
+        x, y = getattr(a, k), getattr(b, k)
+        if k in exact:
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{what}: {k} differs")
+        else:
+            np.testing.assert_allclose(x, y, rtol=0, atol=atol,
+                                       err_msg=f"{what}: {k}")
+            same &= bool(np.array_equal(x, y))
+    return same
+
+
+def staging_layouts(dev):
+    """One full tile (131,072 x 200 uint8) host -> card in three layouts
+    the driver could stage: strided feature-major slices of an (F, n)
+    host matrix (the driver's), contiguous (F, T) blocks of a tile-major
+    host matrix, and row-major slices of an (n, F) one, transposed on the
+    card; and the kernel on each form (a row-major tile without the
+    transpose is read at stride F).  The host copy into pinned memory by
+    the host clock (median of 5 rounds of 10, the layouts in turns), the
+    copy to the card and the card's work (the kernel's wrapper) by CUDA
+    events."""
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    T, F, B = STREAM_TILE, N_FEAT, N_BINS
+    rng = np.random.default_rng(3)
+    n = 4 * T
+    fm = rng.integers(0, B, size=(F, n), dtype=np.uint8)
+    tiles = np.ascontiguousarray(fm.reshape(F, 4, T).transpose(1, 0, 2))
+    rm = np.ascontiguousarray(fm.T)
+    ids = torch.zeros(T, dtype=torch.int32, device=dev)
+    qg = torch.ones(T, dtype=torch.int8, device=dev)
+    qh = torch.ones(T, dtype=torch.int8, device=dev)
+    lay = CH.lane_layout(T, T, QUANT_BINS)
+    forms = {"feature_major": (fm[:, T:2 * T], (F, T)),
+             "tile_major": (tiles[1], (F, T)),
+             "row_major": (rm[T:2 * T], (T, F))}
+    pinned = {k: torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+              for k, (_, shape) in forms.items()}
+    rounds = {k: [] for k in forms}
+    for _ in range(5):
+        for k, (host, _) in forms.items():
+            src = torch.from_numpy(host)
+            pinned[k].copy_(src)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                pinned[k].copy_(src)
+            rounds[k].append((time.perf_counter() - t0) / 10 * 1e3)
+    out = {}
+    for k in forms:
+        buf = pinned[k]
+        h2d_ms = time_ms(lambda: buf.to(dev, non_blocking=True), 10)
+        on_card = buf.to(dev)
+        rec = {"host_copy_ms": float(np.median(rounds[k])),
+               "host_copy_ms_rounds": rounds[k], "h2d_ms": h2d_ms,
+               "h2d_GB_per_s": T * F / h2d_ms / 1e6}
+        if k == "row_major":
+            rec["card_transpose_ms"] = time_ms(
+                lambda: on_card.t().contiguous(), 10)
+            rec["kernel_row_major_ms"] = time_ms(
+                lambda: CH.hist_accumulate(on_card, qg, qh, ids, 1, B, lay),
+                10)
+            bins = on_card.t().contiguous().t()
+        else:
+            bins = on_card.t()
+        rec["kernel_ms"] = time_ms(
+            lambda: CH.hist_accumulate(bins, qg, qh, ids, 1, B, lay), 10)
+        rec["total_ms"] = rec["host_copy_ms"] + h2d_ms + rec["kernel_ms"] \
+            + rec.get("card_transpose_ms", 0.0)
+        out[k] = rec
+        log(f"[streamed] staging {k}: " + ", ".join(
+            f"{key} {v:.4f}" for key, v in rec.items()
+            if not isinstance(v, list)) + " (host copy rounds "
+            + " ".join(f"{v:.3f}" for v in rounds[k]) + ")")
+    del fm, rm, tiles
+    DETAIL["streamed_staging"] = out
+    return out
+
+
+def streamed_card_equals_cpu(dev):
+    """50k x 20 in tiles of 8,192 (7 tiles, the last padded): 3 quantized
+    iterations level-wise (max_depth=4) and leaf-wise (num_leaves=15) by
+    ``train_streamed`` on the card and on the CPU; every booster array
+    equal."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train_streamed
+    rng = np.random.default_rng(8)
+    n, F = 50_000, 20
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] * X[:, 2] + rng.normal(scale=0.3, size=n)
+         > 0).astype(np.float32)
+    for name, kw in (("level", dict(max_depth=4)),
+                     ("leaf", dict(num_leaves=15))):
+        p = GBDTParams(num_iterations=3, objective="binary", seed=3,
+                       use_quantized_grad=True, **kw)
+        card = train_streamed(X, y, p, tile_rows=8192)
+        cpu = train_streamed(X, y, p, tile_rows=8192, device="cpu")
+        if card.extras["num_tiles"] != 7.0:
+            raise AssertionError(f"{card.extras['num_tiles']} tiles, not 7")
+        booster_diff(card.booster, cpu.booster,
+                     f"streamed {name}-wise card vs CPU")
+        log(f"[streamed] {name}-wise 50k x 20 in 7 tiles: card = CPU in "
+            f"{len(BOOSTER_ARRAYS)}/{len(BOOSTER_ARRAYS)} booster arrays")
+
+
+def streamed_fit(label, X, y, Xt, yt, params, **kw):
+    """One streamed fit at the bench width with its launch counts (zeroed
+    just before, read just after) and its peak device memory."""
+    from mmlspark_tpu_torch.lightgbm import train_streamed
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    CH.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_streamed(X, y, params, tile_rows=STREAM_TILE, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = CH.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ex = res.extras
+    prob = np.asarray(res.booster.predict(Xt)).reshape(len(yt), -1)[:, 0]
+    if not np.isfinite(prob).all():
+        raise AssertionError(f"streamed {label}: non-finite predictions")
+    acc = float(((prob > 0.5) == (yt > 0)).mean())
+    passes = ex["hist_passes"]
+    rec = dict(ex, wall_s=wall, fit_rows_per_s=len(y) / wall,
+               boosting_row_iterations_per_s=len(y) * res.booster.num_trees
+               / ex["boosting_s"], accuracy=acc, launches=launches,
+               peak_bytes=peak, base_bytes=base,
+               h2d_GB_per_s=ex["h2d_bytes"] / max(ex["h2d_s"], 1e-9) / 1e9,
+               trees=res.booster.num_trees)
+    log(f"[streamed] {label}: {res.booster.num_trees} trees, "
+        f"{ex['num_tiles']:.0f} tiles of {ex['tile_rows']:.0f}; binning_s "
+        f"{ex['binning_s']:.3f}, boosting_s {ex['boosting_s']:.3f}, fit "
+        f"{wall:.3f} s = {rec['fit_rows_per_s']:.0f} rows/s; "
+        f"prefetch_wait_s {ex['prefetch_wait_s']:.4f}, tile_compute_s "
+        f"{ex['tile_compute_s']:.4f}, prefetch_overlap_pct "
+        f"{ex['prefetch_overlap_pct']:.2f}; {passes:.0f} histogram passes of "
+        f"{ex['hist_pass_bytes'] / 1e6:.1f} MB host -> card, "
+        f"{ex['h2d_bytes'] / 1e9:.3f} GB in all at "
+        f"{rec['h2d_GB_per_s']:.2f} GB/s on the copy stream "
+        f"({ex['h2d_s']:.3f} s); accuracy on 100k fresh rows {acc:.4f}; "
+        f"launches {launches}; peak device memory {peak / 1e6:.1f} MB "
+        f"({base / 1e6:.1f} MB before the fit)")
+    if acc < 0.9:
+        raise AssertionError(f"streamed {label}: accuracy {acc} < 0.9")
+    for name, count in launches.items():
+        if count != passes * ex["num_tiles"]:
+            raise AssertionError(f"streamed {label}: {count} launches of "
+                                 f"{name}, not one per tile per pass")
+    return res, rec
+
+
+def streamed_phase(dev):
+    import tempfile
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train, \
+        train_streamed
+    from mmlspark_tpu_torch.utils.resilience import request_preemption
+
+    staging_layouts(dev)
+    streamed_card_equals_cpu(dev)
+    X, y = bench_data(N_ROWS, seed=0)
+    Xt, yt = bench_data(100_000, seed=1)
+    level = GBDTParams(num_iterations=8, max_depth=5, objective="binary")
+    leaf = GBDTParams(num_iterations=8, num_leaves=31, objective="binary")
+    r_level, rec_level = streamed_fit("level-wise", X, y, Xt, yt, level)
+    if rec_level["launches"]["hist_accumulate"] != 320:
+        raise AssertionError("level-wise: not 5 x 8 tiles x 8 iterations")
+    r_leaf, rec_leaf = streamed_fit("leaf-wise", X, y, Xt, yt, leaf)
+    T = STREAM_TILE
+    tile_bytes = rec_leaf["hist_pass_bytes"] / rec_leaf["num_tiles"]
+    acc_bytes = {"level_N16": 16 * N_FEAT * N_BINS * 3 * 4,
+                 "leaf_N1": N_FEAT * N_BINS * 3 * 4}
+    log(f"[streamed] leaf-wise peak {rec_leaf['peak_bytes'] / 1e6:.1f} MB "
+        f"against two live tiles of {2 * tile_bytes / 1e6:.1f} MB "
+        f"({tile_bytes / 1e6:.1f} MB each: {T * N_FEAT / 1e6:.1f} MB bins, "
+        f"{T * 4 / 1e6:.2f} MB each of grad, hess and node ids) and an "
+        f"accumulator of {acc_bytes['leaf_N1'] / 1e6:.2f} MB (level-wise "
+        f"N = 16: {acc_bytes['level_N16'] / 1e6:.2f} MB); the full binned "
+        f"matrix is {N_ROWS * N_FEAT / 1e6:.0f} MB")
+    if rec_leaf["peak_bytes"] >= 150e6:
+        raise AssertionError(f"leaf-wise peak {rec_leaf['peak_bytes']} B "
+                             f">= 150 MB")
+
+    # the tile width does not move a bit
+    t0 = time.perf_counter()
+    wide = train_streamed(X, y, level, tile_rows=2 * T)
+    booster_diff(r_level.booster, wide.booster,
+                 "level-wise at 262,144 vs 131,072 rows a tile")
+    log(f"[streamed] level-wise at 262,144 rows a tile "
+        f"({wide.extras['num_tiles']:.0f} tiles): booster bit-identical to "
+        f"131,072's ({time.perf_counter() - t0:.1f} s)")
+
+    def preempt_at(k):
+        def cb(it, ev):
+            if it == k:
+                request_preemption("chip_smoke")
+        return cb
+
+    with tempfile.TemporaryDirectory() as d:
+        # leaf-wise, preempted after iteration 3, resumed at another width
+        t0 = time.perf_counter()
+        r1 = train_streamed(X, y, leaf, tile_rows=T,
+                            checkpoint_dir=d + "/s", checkpoint_every=1,
+                            callbacks=[preempt_at(3)])
+        r2 = train_streamed(X, y, leaf, tile_rows=2 * T,
+                            checkpoint_dir=d + "/s", checkpoint_every=1)
+        ex1, ex2 = r1.extras, r2.extras
+        if not (ex1["preempted"] == 1.0 and r1.booster.num_trees == 4
+                and ex2["resharded"] == 1.0
+                and ex2["resumed_from_iteration"] == 4.0):
+            raise AssertionError(f"streamed preempt/resume: {ex1} {ex2}")
+        booster_diff(r_leaf.booster, r2.booster,
+                     "leaf-wise preempted at 3, resumed at 262,144")
+        log(f"[streamed] leaf-wise preempted after iteration 3, resumed at "
+            f"262,144 rows a tile: resumed_from_iteration 4, resharded 1, "
+            f"booster bit-identical to the uninterrupted fit "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # train() on the card: leaf-wise, checkpoint_every=2, preempted
+        # after iteration 3 and resumed
+        t0 = time.perf_counter()
+        full = train(X, y, leaf)
+        prob = np.asarray(full.booster.predict(Xt)).reshape(len(yt), -1)
+        mem_acc = float(((prob[:, 0] > 0.5) == (yt > 0)).mean())
+        log(f"[streamed] accuracy on 100k fresh rows, streamed beside in "
+            f"memory: leaf-wise {rec_leaf['accuracy']:.4f} beside train() "
+            f"{mem_acc:.4f}; level-wise {rec_level['accuracy']:.4f} beside "
+            f"the slice phase's estimator "
+            f"{DETAIL.get('slice', {}).get('accuracy', float('nan')):.4f}")
+        t1 = train(X, y, leaf, checkpoint_dir=d + "/t", checkpoint_every=2,
+                   callbacks=[preempt_at(3)])
+        t2 = train(X, y, leaf, checkpoint_dir=d + "/t", checkpoint_every=2)
+        if not (t1.extras["preempted"] == 1.0
+                and t2.extras["resumed_from_iteration"] == 4.0
+                and t2.booster.num_trees == 8):
+            raise AssertionError(f"train() preempt/resume: {t1.extras} "
+                                 f"{t2.extras}")
+        bitwise = booster_diff(
+            full.booster, t2.booster, "train() preempted and resumed",
+            exact=("split_feature", "threshold_bin", "left_child",
+                   "right_child", "leaf_count"), atol=1e-6)
+        log(f"[streamed] train() leaf-wise preempted after iteration 3 and "
+            f"resumed: tree structure equal, leaf values within 1e-6, "
+            f"bitwise equal: {bitwise} ({time.perf_counter() - t0:.1f} s)")
+    DETAIL["streamed"] = {"level": rec_level, "leaf": rec_leaf,
+                          "accumulator_bytes": acc_bytes,
+                          "in_memory_leaf_accuracy": mem_acc,
+                          "train_resume_bitwise": bitwise}
+    return {"level": rec_level["launches"], "leaf": rec_leaf["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1841,12 +2158,19 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[ranker] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    stream_launches = streamed_phase(dev)
+    torch.cuda.synchronize()
+    log(f"[streamed] phase done in {time.perf_counter() - t0:.1f} s")
+
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
              "cat_level": cat_launches["level"],
              "multiclass_leaf": mc_launches["leaf"],
              "multiclass_level": mc_launches["level"],
-             "ranker": rank_launches}
+             "ranker": rank_launches,
+             "streamed_level": stream_launches["level"],
+             "streamed_leaf": stream_launches["leaf"]}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in paths.values()),

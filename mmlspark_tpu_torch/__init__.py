@@ -4,7 +4,8 @@ The JAX package beside it is the reference: every module here sits at the
 same relative path as its counterpart and keeps its public names, so a
 reader can find each twin.  This package imports ``torch`` and numpy and
 never ``jax`` or ``mmlspark_tpu``; what it needs from the JAX package's
-jax-free modules (``core/``, ``utils/pickling.py``) it keeps as its own copy.
+jax-free modules (``core/``, ``io/``, ``utils/``, ``observability/metrics``)
+it keeps as its own copy.
 
 Ported so far (the GBDT main path):
 
@@ -14,10 +15,19 @@ Ported so far (the GBDT main path):
   Hopper kernels (``csrc/frontier.cu``) that replace the fused Pallas
   frontier kernel, each beside its plain PyTorch version
 - ``lightgbm``  — BinMapper (edges on the host by the JAX package's C++
-  plane, copied as ``csrc/binning.cpp``, or numpy; bins on the card),
+  plane, copied as ``csrc/binning.cpp``, or numpy; bins on the card;
+  ``fit_streaming`` from a streaming quantile sketch),
   ``train()`` with both growers, categorical splits and the binary,
-  multiclass, regression and LambdaRank objectives,
-  LightGBMClassifier/Regressor/Ranker (the estimators also exported here)
+  multiclass, regression and LambdaRank objectives, checkpoints,
+  preemption and resume; ``train_streamed()``, out-of-core boosting of
+  host-RAM tiles through pinned memory on a copy stream (both growers);
+  LightGBMClassifier/Regressor/Ranker (the estimators and ``train_streamed``
+  also exported here)
+- ``io``        — out-of-core tiles (``chunked``) and atomic booster
+  snapshots (``checkpoint``), copies
+- ``utils``     — ``resilience`` (deadlines, preemption scopes),
+  ``concurrency``, ``pickling`` (copies) and the native loader
+- ``observability`` — ``metrics``, the registry (a copy)
 - ``models``    — the GBDT booster artifact and its scoring walk
 - ``convert``   — state carried across from the JAX package
 
@@ -29,7 +39,7 @@ __version__ = "0.2.0"
 
 from ._device import resolve_device  # noqa: E402
 from .lightgbm import (LightGBMClassifier, LightGBMRanker,  # noqa: E402
-                       LightGBMRegressor)
+                       LightGBMRegressor, train_streamed)
 
 __all__ = ["resolve_device", "__version__", "LightGBMClassifier",
-           "LightGBMRegressor", "LightGBMRanker"]
+           "LightGBMRegressor", "LightGBMRanker", "train_streamed"]

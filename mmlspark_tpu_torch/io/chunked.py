@@ -1,0 +1,395 @@
+"""Out-of-core chunked datasets — host-RAM shards streamed into device tiles
+(a copy of ``mmlspark_tpu/io/chunked.py``; only docstrings differ).
+
+The shape comes from Snap ML (arxiv 1803.06333): a hierarchy of
+out-of-core host RAM -> device memory *tiles* with asynchronous prefetch
+that overlaps the host->device transfer of tile ``k+1`` with the compute
+on tile ``k`` — classic double buffering at the host/card seam.
+
+Two pieces:
+
+- :class:`ChunkedDataset` — row-range geometry over host arrays with a
+  STATIC tile shape (every tile ships ``(tile_rows, ...)``, the last one
+  padded), so every per-tile launch sees one shape.  The tile size
+  resolves from an explicit ``tile_rows``, a ``memory_budget_bytes``
+  device budget (two tiles must fit — one training, one in flight), or the
+  ``MMLSPARK_TPU_TILE_ROWS`` env override.
+- :class:`TilePrefetcher` — ONE background worker thread runs ``load_fn``
+  one tile AHEAD of the consumer; a token semaphore caps the pipeline at
+  exactly two live tiles (double buffering, not unbounded readahead).  In
+  ``lightgbm.core.train_streamed`` the load function copies the host
+  slice into one of two pinned staging buffers and issues the host->card
+  copy on a dedicated copy stream, with an event the consumer's stream
+  waits on.  The seam is instrumented:
+  ``mmlspark_prefetch_wait_seconds`` books the time the consumer BLOCKED
+  waiting for a tile (transfer the compute could not hide) and
+  ``mmlspark_tile_compute_seconds`` books the consumer's per-tile compute
+  time, so overlap efficiency is a first-class /metrics observation
+  instead of a guess.
+"""
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+import warnings
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..observability.metrics import MetricsRegistry, get_registry
+from ..utils.resilience import current_deadline, is_transient_io
+
+__all__ = ["ChunkedDataset", "TilePrefetcher", "resolve_tile_rows",
+           "pad_tile", "TILE_ROWS_ENV"]
+
+#: env override for the tile row count (beats tile_rows/memory budget)
+TILE_ROWS_ENV = "MMLSPARK_TPU_TILE_ROWS"
+
+#: floor on resolved tile sizes: tiles below this waste every dispatch on
+#: fixed per-call overhead (and XLA padding) for no memory relief
+MIN_TILE_ROWS = 256
+
+
+def resolve_tile_rows(n_rows: int, bytes_per_row: int,
+                      tile_rows: Optional[int] = None,
+                      memory_budget_bytes: Optional[int] = None,
+                      min_tile_rows: int = MIN_TILE_ROWS) -> int:
+    """Static tile row count for an ``n_rows`` dataset.
+
+    Priority: ``MMLSPARK_TPU_TILE_ROWS`` env > explicit ``tile_rows`` >
+    ``memory_budget_bytes`` (TWO tiles must fit the budget — the training
+    tile plus the one in flight behind it) > the whole dataset (one tile,
+    the in-memory degenerate case).
+    """
+    env = os.environ.get(TILE_ROWS_ENV, "").strip()
+    if env:
+        return max(1, min(int(env), n_rows))
+    if tile_rows is not None:
+        if tile_rows < 1:
+            raise ValueError(f"tile_rows must be >= 1, got {tile_rows}")
+        return min(int(tile_rows), n_rows)
+    if memory_budget_bytes is not None:
+        per_tile = max(1, int(memory_budget_bytes) // 2)
+        rows = per_tile // max(1, int(bytes_per_row))
+        if rows < 1:
+            raise ValueError(
+                f"memory_budget_bytes={memory_budget_bytes} cannot hold two "
+                f"tiles of even one {bytes_per_row}-byte row")
+        if rows < min_tile_rows:
+            # the floor wins (tiles below it waste every dispatch), but the
+            # caller asked for a budget the floored tiles EXCEED — say so
+            # instead of silently setting up the OOM the knob exists to
+            # prevent
+            warnings.warn(
+                f"memory_budget_bytes={memory_budget_bytes} resolves to "
+                f"{rows} rows/tile, below the {min_tile_rows}-row floor; "
+                f"clamping to the floor makes the two live tiles hold "
+                f"~{2 * min_tile_rows * bytes_per_row} bytes, exceeding the "
+                "budget", RuntimeWarning, stacklevel=2)
+        return min(max(rows, min_tile_rows), n_rows)
+    return n_rows
+
+
+def pad_tile(arr: np.ndarray, lo: int, hi: int, tile_rows: int,
+             fill=0) -> np.ndarray:
+    """Static-shape tile view of ``arr[lo:hi]``: rows past ``hi`` are
+    ``fill`` so every tile ships the same ``(tile_rows, ...)`` shape (one
+    jit signature for the whole stream).  Full tiles return the raw slice
+    (no copy)."""
+    view = arr[lo:hi]
+    if hi - lo == tile_rows:
+        return view
+    out = np.full((tile_rows,) + arr.shape[1:], fill, dtype=arr.dtype)
+    out[: hi - lo] = view
+    return out
+
+
+class ChunkedDataset:
+    """Row-shard geometry + host storage for out-of-core streaming.
+
+    Holds host-resident row-aligned arrays (``X`` and any extras added via
+    :meth:`add_column`) and exposes static-shape padded tiles.  The arrays
+    stay contiguous host memory; nothing here touches the device —
+    :meth:`prefetch` hands per-tile host payloads to a
+    :class:`TilePrefetcher` whose ``load_fn`` places them.
+    """
+
+    def __init__(self, X: np.ndarray, y: Optional[np.ndarray] = None,
+                 sample_weight: Optional[np.ndarray] = None, *,
+                 tile_rows: Optional[int] = None,
+                 memory_budget_bytes: Optional[int] = None,
+                 bytes_per_row: Optional[int] = None):
+        X = np.ascontiguousarray(X)
+        self.n_rows, self.num_features = X.shape[0], int(np.prod(X.shape[1:]))
+        self.columns: Dict[str, np.ndarray] = {"X": X}
+        if y is not None:
+            self.add_column("y", y)
+        if sample_weight is not None:
+            self.add_column("w", sample_weight)
+        if bytes_per_row is None:
+            # the budget covers what a training tile actually holds on
+            # device: the feature tile plus f32 grad/hess/label/weight rows
+            bytes_per_row = X.dtype.itemsize * self.num_features + 16
+        self.bytes_per_row = int(bytes_per_row)
+        self.tile_rows = resolve_tile_rows(
+            self.n_rows, self.bytes_per_row, tile_rows, memory_budget_bytes)
+        self.memory_budget_bytes = memory_budget_bytes
+
+    # ------------------------------------------------------------- geometry
+    @property
+    def X(self) -> np.ndarray:
+        return self.columns["X"]
+
+    @property
+    def num_tiles(self) -> int:
+        return -(-self.n_rows // self.tile_rows)
+
+    def add_column(self, name: str, arr: np.ndarray) -> "ChunkedDataset":
+        arr = np.ascontiguousarray(arr)
+        if arr.shape[0] != self.n_rows:
+            raise ValueError(f"column {name!r} has {arr.shape[0]} rows, "
+                             f"dataset has {self.n_rows}")
+        self.columns[name] = arr
+        return self
+
+    def tile_slice(self, i: int) -> Tuple[int, int]:
+        if not 0 <= i < self.num_tiles:
+            raise IndexError(f"tile {i} out of range [0, {self.num_tiles})")
+        lo = i * self.tile_rows
+        return lo, min(lo + self.tile_rows, self.n_rows)
+
+    def tile_valid_rows(self, i: int) -> int:
+        lo, hi = self.tile_slice(i)
+        return hi - lo
+
+    def tile(self, i: int, names: Sequence[str],
+             fill: Dict[str, Any] = ()) -> Dict[str, np.ndarray]:
+        """Padded static-shape host tile of the named columns."""
+        lo, hi = self.tile_slice(i)
+        fill = dict(fill or {})
+        return {nm: pad_tile(self.columns[nm], lo, hi, self.tile_rows,
+                             fill.get(nm, 0)) for nm in names}
+
+    # ------------------------------------------------------------- streaming
+    def prefetch(self, make_tile: Callable[[int, int, int], Any],
+                 load_fn: Callable[[Any], Any], *,
+                 site: str = "io.chunked",
+                 clock: Optional[Callable[[], float]] = None,
+                 registry: Optional[MetricsRegistry] = None
+                 ) -> "TilePrefetcher":
+        """Double-buffered tile stream: ``make_tile(i, lo, hi)`` builds the
+        host payload and ``load_fn`` places it (both run on the worker
+        thread, overlapped with the consumer's compute)."""
+        def _load(i: int):
+            lo, hi = self.tile_slice(i)
+            return load_fn(make_tile(i, lo, hi))
+
+        return TilePrefetcher(range(self.num_tiles), _load, site=site,
+                              clock=clock, registry=registry)
+
+
+class TilePrefetcher:
+    """Background loader streaming ``load_fn(item)`` one step ahead.
+
+    Exactly double-buffered: a token semaphore lets the worker start
+    loading tile ``k+1`` only once the consumer has TAKEN tile ``k`` —
+    at most two tiles are ever materialized on the device (one training,
+    one in flight), which is the memory contract the tile-size budget is
+    computed against.
+
+    Instrumentation (both labelled by ``site``):
+
+    - ``mmlspark_prefetch_wait_seconds`` — consumer time blocked waiting
+      for the next tile.  Zero when compute fully hides the transfer; any
+      positive observation is transfer the pipeline failed to overlap.
+    - ``mmlspark_tile_compute_seconds`` — consumer time between taking a
+      tile and asking for the next (the compute the transfer hides under).
+
+    ``overlap_stats()`` folds both into a prefetch-overlap percentage.
+    ``clock`` is injectable (``utils.resilience.FakeClock``) for
+    deterministic tests; :attr:`waiting` is a test seam set while the
+    consumer is blocked on an empty pipeline.
+
+    Transient ``load_fn`` failures (flaky storage, a wedged device relay)
+    retry up to ``retries`` times with exponential backoff
+    (``retry_backoff_s`` × ``retry_backoff_mult``^k, clipped to the
+    ambient :class:`~mmlspark_tpu_torch.utils.resilience.Deadline`), classified
+    transient-vs-fatal by ``is_transient`` (default
+    ``utils.resilience.is_transient_io``); each retried attempt books
+    ``mmlspark_prefetch_retries_total{site}``.  Retries happen before the
+    tile enters the queue, so delivery stays exactly-once and in order.
+
+    Both histograms book HOST-VISIBLE time: on an async-dispatch backend a
+    consumer that only enqueues device work attributes the dispatch gap to
+    compute, so device-side serialization shows up in end-to-end
+    throughput (the bench ``ooc`` A/B gate), not here — the numbers are
+    re-anchored by whatever syncs the consumer's loop performs (the
+    streamed growers sync once per histogram pass, the trainer every
+    ``device_time_every`` steps).  Treat ``overlap_pct`` as "host stall
+    share", exact under FakeClock and honest wherever the consumer blocks.
+    """
+
+    def __init__(self, items: Iterable[Any], load_fn: Callable[[Any], Any],
+                 *, site: str = "unlabeled",
+                 clock: Optional[Callable[[], float]] = None,
+                 registry: Optional[MetricsRegistry] = None,
+                 retries: int = 3, retry_backoff_s: float = 0.05,
+                 retry_backoff_mult: float = 2.0,
+                 is_transient: Optional[Callable[[BaseException], bool]] = None,
+                 sleep: Optional[Callable[[float], None]] = None):
+        self._items = items
+        self._load = load_fn
+        self._clock = clock if clock is not None else time.perf_counter
+        self.site = site
+        # transient-failure retry: a flaky tile load must not
+        # kill an hours-long stream.  Bounded exponential backoff, clipped
+        # to the consumer's ambient Deadline (captured HERE — contextvars
+        # do not cross into the worker thread), transient-vs-fatal
+        # classified by utils.resilience.is_transient_io unless overridden.
+        # The retry happens strictly BEFORE the tile enters the queue, so
+        # exactly-once delivery and ordering are untouched.
+        self._retries = max(0, int(retries))
+        self._retry_backoff_s = float(retry_backoff_s)
+        self._retry_backoff_mult = float(retry_backoff_mult)
+        self._is_transient = is_transient if is_transient is not None \
+            else is_transient_io
+        self._sleep = sleep if sleep is not None else time.sleep
+        self._deadline = current_deadline()
+        self.retries_total = 0
+        reg = registry if registry is not None else get_registry()
+        self._c_retry = reg.counter(
+            "mmlspark_prefetch_retries_total",
+            "transient tile-load failures retried by the prefetch worker "
+            "(each inc is one failed attempt that was retried, not a "
+            "killed stream)", labels=("site",)).labels(site=site)
+        self._h_wait = reg.histogram(
+            "mmlspark_prefetch_wait_seconds",
+            "host->device prefetch stall: consumer time blocked waiting for "
+            "the next tile (transfer the compute did not hide)",
+            labels=("site",)).labels(site=site)
+        self._h_tile = reg.histogram(
+            "mmlspark_tile_compute_seconds",
+            "per-tile consumer compute time between tile takes (the window "
+            "the next tile's transfer overlaps with)",
+            labels=("site",)).labels(site=site)
+        self.wait_s = 0.0
+        self.compute_s = 0.0
+        self.tiles_served = 0
+        #: test seam: set while the consumer blocks on an empty pipeline
+        self.waiting = threading.Event()
+        self._tokens = threading.Semaphore(1)   # depth-1 readahead
+        # live TILES are bounded by the token semaphore (a tile put needs a
+        # token; the consumer returns it on take), never by the queue bound.
+        # The slack slot exists for the terminal _DONE sentinel: it is put
+        # WITHOUT a token, and with maxsize=1 it could block behind a
+        # still-untaken last tile — a consumer that then exits early would
+        # strand the worker in put() where the cancel/token release cannot
+        # reach it, leaking the thread and pinning the tile on device.
+        self._q: "queue.Queue" = queue.Queue(maxsize=2)
+        self._cancel = threading.Event()
+        self._consumed = False
+        self._thread = threading.Thread(
+            target=self._run, name=f"tile-prefetch:{site}", daemon=True)
+        # the pipeline fill (tile 0's transfer) starts NOW, at construction:
+        # callers can build the prefetcher, do setup work, and find the
+        # first tile already resident when they start iterating
+        self._thread.start()
+
+    _DONE = object()
+
+    # --------------------------------------------------------------- worker
+    def _run(self) -> None:
+        try:
+            for item in self._items:
+                self._tokens.acquire()
+                if self._cancel.is_set():
+                    return
+                self._q.put((self._load_with_retry(item), None))
+            self._q.put((self._DONE, None))
+        except BaseException as exc:  # noqa: BLE001 — propagated to consumer
+            self._q.put((self._DONE, exc))
+
+    def _load_with_retry(self, item):
+        """``load_fn`` under bounded deadline-clipped backoff: transient
+        failures retry up to ``retries`` times with exponential backoff
+        (never sleeping past the ambient deadline's remaining budget);
+        fatal failures and exhausted budgets propagate to the consumer as
+        before.  Runs on the worker thread, so retry sleeps overlap the
+        consumer's compute exactly like the load itself does."""
+        delay = self._retry_backoff_s
+        attempt = 0
+        while True:
+            try:
+                return self._load(item)
+            except BaseException as exc:  # noqa: BLE001 — classified below
+                if attempt >= self._retries or not self._is_transient(exc) \
+                        or self._cancel.is_set():
+                    raise
+                if self._deadline is not None and self._deadline.expired():
+                    raise
+                attempt += 1
+                self.retries_total += 1
+                self._c_retry.inc()
+                sleep_s = delay if self._deadline is None else \
+                    min(delay, max(0.0, self._deadline.remaining()))
+                self._sleep(sleep_s)
+                delay *= self._retry_backoff_mult
+
+    # -------------------------------------------------------------- consumer
+    def __iter__(self):
+        if self._consumed:
+            raise RuntimeError("TilePrefetcher is single-pass: build a new "
+                               "one per stream")
+        self._consumed = True
+        t_prev = None
+        try:
+            while True:
+                t0 = self._clock()
+                if t_prev is not None:
+                    self.compute_s += t0 - t_prev
+                    self._h_tile.observe(t0 - t_prev)
+                if self._q.empty():
+                    self.waiting.set()
+                tile, exc = self._q.get()
+                self.waiting.clear()
+                wait = self._clock() - t0
+                if exc is not None:
+                    raise exc
+                if tile is self._DONE:
+                    return
+                # the tile is in the consumer's hands: the worker may start
+                # the NEXT transfer (double-buffer token back)
+                self._tokens.release()
+                self.wait_s += wait
+                self._h_wait.observe(wait)
+                self.tiles_served += 1
+                t_prev = self._clock()
+                yield tile
+        finally:
+            # early exit (break / exception): unblock and retire the worker
+            self._cancel.set()
+            self._tokens.release()
+
+    # ----------------------------------------------------------------- stats
+    def snapshot(self) -> Dict[str, object]:
+        """Live, lock-free view for monitors (``/progress``, flight
+        dumps): all fields are GIL-atomic reads, safe while the stream is
+        mid-flight.  ``waiting=True`` with ``tiles_served`` frozen is the
+        signature of a hung tile load."""
+        return {"site": self.site,
+                "tiles_served": int(self.tiles_served),
+                "wait_s": round(self.wait_s, 6),
+                "compute_s": round(self.compute_s, 6),
+                "waiting": bool(self.waiting.is_set())}
+
+    def overlap_stats(self) -> Dict[str, float]:
+        """Overlap summary: ``overlap_pct`` is the share of stream wall
+        time spent computing rather than stalled on transfer — 100 means
+        every transfer was fully hidden behind compute."""
+        busy = self.wait_s + self.compute_s
+        return {"wait_s": self.wait_s, "compute_s": self.compute_s,
+                "tiles": float(self.tiles_served),
+                "overlap_pct": 100.0 * (self.compute_s / busy)
+                if busy > 0 else 100.0}

@@ -20,11 +20,16 @@ host route for ``X`` would give, which is what ``train()`` uses.
   ``±FLT_MAX`` (``np.nan_to_num``).
 
 Categorical features bin by code on every route (``_overwrite_cat_bins``).
+
+Out of core, ``BinMapper.fit_streaming`` finds the edges from a
+``StreamingQuantileSketch`` fed one host tile at a time (copies of the
+reference's, whose reservoir draws come from the same
+``np.random.default_rng(seed)``, so both keep the very same rows).
 """
 from __future__ import annotations
 
 import multiprocessing
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
@@ -43,6 +48,50 @@ def host_route(cells: int) -> str:
     if cells >= NATIVE_MIN_CELLS and multiprocessing.cpu_count() >= 4:
         return "cxx"
     return "numpy"
+
+
+class StreamingQuantileSketch:
+    """Bounded-memory quantile sketch for out-of-core edge finding: a
+    vectorized row reservoir (Algorithm R) fed tile by tile.
+
+    ``BinMapper.fit`` already computes edges from a <=``sample_cnt`` row
+    sample; this sketch produces the SAME kind of sample without ever
+    holding the full matrix — ``fit_streaming`` over host tiles is the
+    out-of-core twin of ``fit``.  When the total row count fits the
+    reservoir the sample is the exact dataset (every row retained in
+    order), so streamed edges are IDENTICAL to the in-memory fit's; above
+    the cap each row survives with probability ``cap / n`` (within-chunk
+    replacement collisions resolve last-write-wins — a sketch, not a
+    permutation-exact reservoir, which edge quantiles do not need).
+    """
+
+    def __init__(self, num_features: int, sample_cnt: int = 200_000,
+                 seed: int = 3):
+        self.cap = int(sample_cnt)
+        self.seen = 0
+        self._buf = np.empty((self.cap, num_features), np.float32)
+        self._rng = np.random.default_rng(seed)
+
+    def add(self, chunk: np.ndarray) -> "StreamingQuantileSketch":
+        chunk = np.asarray(chunk, np.float32)
+        m = chunk.shape[0]
+        fill = max(0, min(self.cap - self.seen, m))
+        if fill:
+            self._buf[self.seen:self.seen + fill] = chunk[:fill]
+        rest = chunk[fill:]
+        if rest.shape[0]:
+            s = self.seen + fill + np.arange(rest.shape[0])
+            accept = self._rng.random(rest.shape[0]) < self.cap / (s + 1.0)
+            idx = np.flatnonzero(accept)
+            if idx.size:
+                slots = self._rng.integers(0, self.cap, size=idx.size)
+                self._buf[slots] = rest[idx]
+        self.seen += m
+        return self
+
+    def sample(self) -> np.ndarray:
+        """The retained row sample (the whole stream when it fit)."""
+        return self._buf[: min(self.seen, self.cap)]
 
 
 class BinMapper:
@@ -102,6 +151,25 @@ class BinMapper:
                 edges[f, :e.size] = e
         self.edges = edges
         return self
+
+    def fit_streaming(self, chunks: Iterable[np.ndarray],
+                      sample_cnt: int = 200_000, seed: int = 3) -> "BinMapper":
+        """Out-of-core ``fit``: edges from a :class:`StreamingQuantileSketch`
+        fed one host tile at a time — no full-matrix materialization.  When
+        the stream's total rows fit ``sample_cnt`` the resulting edges are
+        bit-identical to ``fit`` on the concatenated matrix (the reservoir
+        holds every row; ``fit`` would have used them all too)."""
+        sketch: Optional[StreamingQuantileSketch] = None
+        for chunk in chunks:
+            chunk = np.asarray(chunk, np.float32)
+            if sketch is None:
+                sketch = StreamingQuantileSketch(chunk.shape[1], sample_cnt,
+                                                 seed)
+            sketch.add(chunk)
+        if sketch is None:
+            raise ValueError("fit_streaming received an empty chunk stream")
+        # the sample already fits fit()'s budget: no re-subsampling happens
+        return self.fit(sketch.sample(), sample_cnt=sample_cnt, seed=seed)
 
     def _fitted(self) -> np.ndarray:
         if self.edges is None:

@@ -24,15 +24,21 @@ histograms come from ``build_quantized`` (the same kernels, gains off) and
 the one-vs-rest and sorted-subset split search runs in torch
 (``_CatTools``).  Edges are found on the host; ``train()`` applies the
 bins on the card.  The host drives a plain per-iteration loop; tree
-arrays stay on the device until the end.  Not ported yet, each raising
-``NotImplementedError`` that names its ROADMAP.md entry: row sharding and
-voting, checkpoints and the live monitor.
+arrays stay on the device until the end.  ``train()`` checkpoints,
+honours preemption and resumes (``io.checkpoint``, the JAX package's file
+format).  ``train_streamed()`` is the out-of-core driver: host-RAM tiles
+through pinned memory on a copy stream into ``build_quantized``, both
+growers, with the same checkpoints and an elastic (re-tiled) resume.  Not
+ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP.md entry: row sharding and voting, and the live monitor.
 The JAX package's scan-chunked multi-iteration path exists to amortize a
 device relay's per-dispatch latency; the port launches per iteration and
 has no counterpart.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import math
 import time
@@ -42,10 +48,14 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, default_quantized, resolve_device
+from ..io.checkpoint import (CheckpointManager, book_reshard,
+                             check_resume_arg, resume_required_error,
+                             topology_stanza)
 from ..models.gbdt import GBDTBooster, children_depth_bound, \
     perfect_tree_children
 from ..ops import cuda_histogram
 from ..ops import histogram as hist_ops
+from ..utils.resilience import PreemptionToken, preemption_scope
 from .binning import BinMapper
 
 
@@ -521,13 +531,18 @@ class _CatTools:
                            onehot_m)
 
 
-def _split_math(params: GBDTParams, ct: _CatTools):
-    """The split arithmetic both growers share: ``(leaf_output,
-    split_gains)``."""
+def _split_math(params: GBDTParams, ct: _CatTools, float_prefix=None):
+    """The split arithmetic the growers share: ``(leaf_output,
+    split_gains)``.  ``float_prefix(h)`` sums float histograms over dim -2
+    (default ``torch.cumsum``; the streamed driver passes the kernel's
+    sequential bin order)."""
     l1, l2 = params.lambda_l1, params.lambda_l2
     min_data = float(params.min_data_in_leaf)
     min_hess = params.min_sum_hessian_in_leaf
     max_delta = params.max_delta_step
+    if float_prefix is None:
+        def float_prefix(h):
+            return torch.cumsum(h, dim=-2)
 
     def thresh(G):
         return torch.sign(G) * torch.clamp(G.abs() - l1, min=0.0)
@@ -555,8 +570,7 @@ def _split_math(params: GBDTParams, ct: _CatTools):
             def deq(h):
                 return h
 
-            def prefix(h):
-                return torch.cumsum(h, dim=-2)
+            prefix = float_prefix
         else:
             def deq(h):
                 return hist_ops.dequantize_histogram(h, *scales)
@@ -1210,17 +1224,130 @@ _TREE_KEYS = ("left_child", "right_child", "split_feature", "threshold",
               "internal_count", "leaf_value", "leaf_count")
 
 
-def _check_ported(p: GBDTParams, *, shard_rows, checkpoint_dir,
-                  checkpoint_every, monitor_port,
+def _check_ported(p: GBDTParams, *, shard_rows, monitor_port,
                   monitor_stall_timeout_s) -> None:
     if shard_rows or p.voting_k:
         raise _not_ported("row sharding and voting",
                           "the sharded GBDT over NCCL")
-    if checkpoint_dir or checkpoint_every:
-        raise _not_ported("checkpoints", "train_streamed, checkpoints and "
-                          "resume")
     if monitor_port is not None or monitor_stall_timeout_s is not None:
         raise _not_ported("the training monitor", "compute-plane telemetry")
+
+
+def _params_sig(p: GBDTParams) -> tuple:
+    """The params half of a checkpoint's fingerprint (the JAX package's
+    ``_params_sig``, without its histogram-backend entry)."""
+    return (p.growth, p.num_leaves, p.max_depth, p.max_bin, p.objective,
+            p.num_class, p.boosting_type,
+            p.learning_rate, p.lambda_l1, p.lambda_l2, p.min_data_in_leaf,
+            p.min_sum_hessian_in_leaf, p.min_gain_to_split, p.max_delta_step,
+            p.sigmoid, p.alpha, p.tweedie_variance_power,
+            p.top_rate, p.other_rate, p.feature_fraction,
+            p.bagging_fraction, p.bagging_freq,
+            tuple(p.categorical_features or ()), tuple(p.cat_subset or ()),
+            p.max_cat_to_onehot, p.cat_smooth, p.cat_l2, p.max_cat_threshold,
+            p.voting_k, p.use_quantized_grad, p.num_grad_quant_bins,
+            p.seed)
+
+
+def _content_fingerprint(arr: np.ndarray) -> int:
+    """Cheap strided content hash for cache keys: crc32 over ~4k strided
+    elements.  Catches in-place mutation of a cached array that id()/shape
+    keys alone cannot, at O(4k) cost regardless of array size.  Mutations
+    confined to the skipped strides are (by design) not detected — it is a
+    guard rail, not a cryptographic digest."""
+    import zlib
+    if arr.size == 0:
+        return 0
+    step = max(1, arr.size // 4096)
+    # arr.flat[::step] materializes ONLY the ~4k sampled elements; ravel()
+    # would copy the whole array whenever it is not C-contiguous
+    sample = arr.flat[::step]
+    return zlib.crc32(np.ascontiguousarray(sample).tobytes())
+
+
+# ---------------------------------------------------------------------------
+# checkpoints (both drivers share the format of the JAX package's)
+# ---------------------------------------------------------------------------
+
+def _host_array(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _booster_ckpt_arrays(trees: Dict[str, list], tree_weights: list,
+                         bag_mask) -> Callable[[], Dict[str, np.ndarray]]:
+    """Snapshot-arrays callable shared by ``train`` and ``train_streamed``
+    (one copy so the two drivers' checkpoint formats cannot drift).  The
+    training thread pays only list copies; the host copies of device
+    tensors, ``np.stack`` and ``np.packbits`` run on the manager's writer
+    thread.  Tree arrays and the bag mask are immutable once captured (the
+    loop REBINDS them rather than mutating, and each tree's arrays are
+    fresh tensors), so the deferred reads are safe."""
+    tl = {k: list(v) for k, v in trees.items()}
+    tw = list(tree_weights)
+
+    def _arrays(tl=tl, tw=tw, bm=bag_mask):
+        out = {k: np.stack([_host_array(a) for a in v])
+               for k, v in tl.items()}
+        out["tree_weight"] = np.asarray(tw, np.float32)
+        if bm is not None:
+            out["bag_mask"] = np.packbits(_host_array(bm).astype(bool))
+        return out
+
+    return _arrays
+
+
+def _booster_ckpt_meta(completed_iter: int, n_init_trees: int, rng,
+                       best_metric, best_iter: int, rounds_no_improve: int,
+                       evals: list, init_score: float, fingerprint: str,
+                       finished: bool, num_iterations: int,
+                       fmt: str, topology: Optional[Dict] = None) -> Dict:
+    """Snapshot meta shared by both drivers.  ``completed_iter`` is the
+    ONE convention both must use: boosting iterations completed beyond the
+    user's warm-start trees, derived from the tree count (robust to early
+    stopping, where loop counters and completed work can disagree at the
+    break).  ``topology`` is the recorded-but-not-identity stanza: a resume
+    onto a changed tile geometry diffs it instead of rejecting it."""
+    meta = {"iteration": int(completed_iter),
+            "n_init_trees": int(n_init_trees),
+            "rng_state": rng.bit_generator.state,
+            "best_metric": best_metric, "best_iter": int(best_iter),
+            "rounds_no_improve": int(rounds_no_improve),
+            "evals": [dict(e) for e in evals],
+            "init_score": float(init_score),
+            "fingerprint": fingerprint, "finished": bool(finished),
+            "num_iterations": int(num_iterations), "format": fmt}
+    if topology is not None:
+        meta["topology"] = topology
+    return meta
+
+
+_CKPT_FINGERPRINT_MISMATCH = (
+    "checkpoint_dir holds a snapshot for different data or params "
+    "(fingerprint mismatch) — point checkpoint_dir at a fresh directory, "
+    "or pass resume='never' (docs/RESILIENCE.md: training fault tolerance)")
+
+
+def _booster_of_snapshot(arrs: Dict[str, np.ndarray], meta: Dict,
+                         p: GBDTParams, F: int, K: int) -> GBDTBooster:
+    """The booster a ``train()`` snapshot holds (it replaces any user
+    ``init_booster``: the snapshot already contains those trees)."""
+    return GBDTBooster(
+        np.asarray(arrs["split_feature"]), np.asarray(arrs["threshold"]),
+        np.asarray(arrs["threshold_bin"]), np.asarray(arrs["split_gain"]),
+        np.asarray(arrs["internal_value"]),
+        np.asarray(arrs["internal_count"]), np.asarray(arrs["leaf_value"]),
+        np.asarray(arrs["leaf_count"]),
+        np.asarray(arrs["tree_weight"], np.float32),
+        left_child=np.asarray(arrs["left_child"]),
+        right_child=np.asarray(arrs["right_child"]),
+        max_depth=children_depth_bound(arrs["left_child"],
+                                       arrs["right_child"]),
+        num_features=F, objective=p.objective, num_class=K,
+        init_score=float(meta["init_score"]),
+        average_output=(p.boosting_type == "rf"), sigmoid=p.sigmoid,
+        categorical_features=list(p.categorical_features or []),
+        cat_bitset=(np.asarray(arrs["cat_bitset"], bool)
+                    if "cat_bitset" in arrs else None))
 
 
 def _bin(mapper: BinMapper, X: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -1257,6 +1384,8 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
           shard_rows: bool = False,
           checkpoint_dir: Optional[str] = None,
           checkpoint_every: int = 0,
+          checkpoint_keep_last: int = 3,
+          resume: str = "auto",
           monitor_port: Optional[int] = None,
           monitor_stall_timeout_s: Optional[float] = None,
           device: DeviceLike = None) -> TrainResult:
@@ -1279,16 +1408,29 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     come from the host ``np.random.default_rng(seed)`` in the JAX package's
     order, so a seed gives both packages the same masks.  A ``valid`` set
     is scored after every tree and drives early stopping; ``init_booster``
-    warm-starts from an existing booster."""
+    warm-starts from an existing booster.
+
+    Fault tolerance, as in the JAX package: with ``checkpoint_dir`` the run
+    snapshots its booster so far, the completed iteration count, the host
+    ``rng`` state, the bag mask and the early-stopping state every
+    ``checkpoint_every`` iterations and once at the end, serialized on the
+    ``io.checkpoint.CheckpointManager``'s writer thread (the loop pays only
+    for list copies).  ``resume="auto"`` restores the newest valid snapshot
+    through the warm-start path (the snapshot's booster replaces any
+    ``init_booster``); ``"must"`` raises without one, ``"never"`` ignores
+    it.  SIGTERM/SIGINT (or ``utils.resilience.request_preemption``) during
+    the loop writes one last snapshot at the next iteration boundary and
+    returns with ``extras["preempted"]`` set.  The snapshot file format is
+    the JAX package's, so either package reads the other's files; the
+    fingerprint, though, is built from each package's own params signature,
+    so one package does not resume the other's run."""
     dev = resolve_device(device)
     p = params.resolve()
     p = dataclasses.replace(
         p, use_quantized_grad=default_quantized(dev, p.use_quantized_grad))
-    _check_ported(p, shard_rows=shard_rows,
-                  checkpoint_dir=checkpoint_dir,
-                  checkpoint_every=checkpoint_every,
-                  monitor_port=monitor_port,
+    _check_ported(p, shard_rows=shard_rows, monitor_port=monitor_port,
                   monitor_stall_timeout_s=monitor_stall_timeout_s)
+    check_resume_arg(resume, checkpoint_dir=checkpoint_dir)
     is_rank = p.objective == "lambdarank"
     if is_rank and group_ptr is None:
         raise ValueError("lambdarank requires group_ptr")
@@ -1315,6 +1457,32 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     B = mapper.num_bins
     if p.categorical_features and p.cat_subset is None:
         p = dataclasses.replace(p, cat_subset=_cat_subset(p, binned, B))
+
+    # ---- checkpoints: the fingerprint is the data/params identity (must
+    # match); the topology stanza is recorded and may differ
+    fingerprint = repr((_params_sig(p), n, F, B, K, shard_rows,
+                        _content_fingerprint(X)))
+    topology = topology_stanza(shard_count=1, device_count=1)
+    mgr = CheckpointManager(checkpoint_dir, site="lightgbm.train",
+                            keep_last=checkpoint_keep_last) \
+        if checkpoint_dir else None
+    resume_meta, resume_bag, resharded = None, None, False
+    n_user_init = init_booster.num_trees if init_booster is not None else 0
+    if mgr is not None and resume in ("auto", "must"):
+        got = mgr.load_latest(current_topology=topology)
+        if got is None and resume == "must":
+            raise resume_required_error(checkpoint_dir)
+        if got is not None:
+            _, arrs, resume_meta = got
+            if resume_meta.get("fingerprint") != fingerprint:
+                raise ValueError(_CKPT_FINGERPRINT_MISMATCH)
+            delta = resume_meta.get("topology_delta")
+            if delta is not None and delta["changed"]:
+                book_reshard("lightgbm.train", delta)
+                resharded = True
+            init_booster = _booster_of_snapshot(arrs, resume_meta, p, F, K)
+            n_user_init = int(resume_meta.get("n_init_trees", 0))
+            resume_bag = arrs.get("bag_mask")
 
     t0 = time.perf_counter()
     edges = torch.from_numpy(mapper.edges).to(dev)
@@ -1380,13 +1548,32 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         binned_v = _bin(mapper, Xv, dev)
         scores_v = torch.full((Xv.shape[0], K), init_score,
                               dtype=torch.float32, device=dev)
+        if resume_meta is not None:
+            # the trees grown before the snapshot score the valid set, the
+            # user's warm-start trees do not (as in the uninterrupted run)
+            for t in range(n_user_init, len(tree_weights)):
+                scores_v[:, t % K] += trees["leaf_value"][t][
+                    walk_tree(binned_v, t)] * tree_weights[t]
     best_metric = -np.inf if larger_better else np.inf
     best_iter = -1
     rounds_no_improve = 0
+    if resume_meta is not None:
+        # the host loop state: the rng (feature, bag and DART draws), the
+        # early-stopping scalars and the evals.  The quantizer's and the
+        # GOSS draw's torch.Generator is re-seeded every iteration from
+        # (seed, iteration), so no torch generator state is snapshotted.
+        rng.bit_generator.state = resume_meta["rng_state"]
+        best_metric = float(resume_meta["best_metric"])
+        best_iter = int(resume_meta["best_iter"])
+        rounds_no_improve = int(resume_meta["rounds_no_improve"])
+        evals[:] = [dict(e) for e in resume_meta.get("evals", [])]
 
     feat_mask_full = torch.ones((F,), dtype=torch.bool, device=dev)
     hist_mask_full = torch.ones((n,), dtype=torch.bool, device=dev)
     bag_mask = None
+    if resume_bag is not None:
+        bag_mask = torch.from_numpy(
+            np.unpackbits(resume_bag)[:n].astype(bool)).to(dev)
     gen = torch.Generator(device=dev)
     shrink = 1.0 if p.boosting_type == "rf" else p.learning_rate
     is_goss = p.boosting_type == "goss"
@@ -1398,11 +1585,50 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         if is_rank else None
 
     start_iter = len(tree_weights) // K
+    done_before = 0
+    if resume_meta is not None:
+        done_before = int(resume_meta["iteration"])
+        if resume_meta.get("finished") and p.num_iterations <= int(
+                resume_meta.get("num_iterations", done_before)):
+            # the snapshot IS the finished run: return its booster; a
+            # larger num_iterations keeps training
+            done_before = p.num_iterations
+    end_iter = start_iter + max(0, p.num_iterations - done_before)
+    preempted = False
+    last_ckpt_iter = start_iter
+    trees_at_loop_start = len(tree_weights)
+
+    def save_ckpt(finished: bool, block: bool = False) -> None:
+        # the one completed-iteration convention: trees beyond the user's
+        # warm start, from the tree count
+        done = len(tree_weights) // K - n_user_init // K
+        meta = _booster_ckpt_meta(done, n_user_init, rng, best_metric,
+                                  best_iter, rounds_no_improve, evals,
+                                  init_score, fingerprint, finished,
+                                  p.num_iterations, "booster_v1",
+                                  topology=topology)
+        mgr.save(done, _booster_ckpt_arrays(trees, tree_weights, bag_mask),
+                 meta, block=block)
+
+    # the preemption scope only when checkpointing is on: without a
+    # snapshot to write, a SIGTERM keeps its default behaviour
+    scope = preemption_scope() if mgr is not None \
+        else contextlib.nullcontext(PreemptionToken())
     t0 = time.perf_counter()
     # a profiler range (a no-op unless a profiler runs) that lets a trace
     # tell the loop's device work from the binning kernels before it
-    with torch.profiler.record_function("train.boosting"):
-        for it in range(start_iter, start_iter + p.num_iterations):
+    with torch.profiler.record_function("train.boosting"), scope as token:
+        for it in range(start_iter, end_iter):
+            if token.requested:
+                # one last snapshot at this iteration boundary, then a
+                # clean partial return the caller can resume from
+                save_ckpt(finished=False, block=True)
+                preempted = True
+                break
+            if mgr is not None and checkpoint_every > 0 \
+                    and it - last_ckpt_iter >= checkpoint_every:
+                save_ckpt(finished=False)
+                last_ckpt_iter = it
             # host-side draws, in the JAX package's order: features, bag, DART
             feat_mask = feat_mask_full
             if p.feature_fraction < 1.0:
@@ -1502,6 +1728,13 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                 for cb in callbacks:
                     cb(it, evals[-1] if evals else None)
 
+        if mgr is not None:
+            if not preempted and (len(tree_weights) > trees_at_loop_start
+                                  or resume_meta is None):
+                # terminal snapshot (early stopping too); a finished-run
+                # restore that grew nothing skips the re-save
+                save_ckpt(finished=True, block=True)
+            mgr.close()
         # one sync, after the loop
         trees_np = {k: np.stack([t.cpu().numpy() for t in v])
                     for k, v in trees.items()}
@@ -1526,8 +1759,952 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         sigmoid=p.sigmoid,
         categorical_features=list(p.categorical_features or []),
         cat_bitset=trees_np.get("cat_bitset"))
+    extras = {"binning_s": t_edges + t_apply, "edges_s": t_edges,
+              "bin_apply_s": t_apply, "transfer_s": t_transfer,
+              "boosting_s": t_boost}
+    if mgr is not None:
+        extras.update(_ckpt_extras(preempted, resume_meta, mgr, resharded))
     return TrainResult(booster=booster, evals=evals, bin_mapper=mapper,
-                       extras={"binning_s": t_edges + t_apply,
-                               "edges_s": t_edges, "bin_apply_s": t_apply,
-                               "transfer_s": t_transfer,
-                               "boosting_s": t_boost})
+                       extras=extras)
+
+
+def _ckpt_extras(preempted: bool, resume_meta, mgr, resharded: bool
+                 ) -> Dict[str, float]:
+    return {"preempted": float(preempted),
+            "resumed_from_iteration": float(resume_meta["iteration"])
+            if resume_meta is not None else -1.0,
+            "checkpoint_saves": float(mgr.saves_ok),
+            "resharded": float(resharded)}
+
+
+# ---------------------------------------------------------------------------
+# out-of-core streamed training: host-RAM tiles -> the card
+# ---------------------------------------------------------------------------
+
+def _check_quant_tile_bound(use_quant: bool, quant_bins: int,
+                            total_rows: int) -> None:
+    """Tile-accumulation twin of the per-build overflow guard: each
+    per-tile build guards int32 overflow against its OWN tile's rows, but
+    the driver accumulates decoded partials across every tile — a
+    root-level cell can hold the full dataset's sums, so the guard must
+    see the total."""
+    if not use_quant:
+        return
+    qh_cap = max(1, quant_bins - 1)
+    if int(total_rows) * qh_cap >= (1 << 31):
+        raise ValueError(
+            "quantized histograms overflow int32 when accumulated across "
+            f"tiles above {(1 << 31) // qh_cap} total rows at {quant_bins} "
+            "quantization bins — lower num_grad_quant_bins or disable "
+            "use_quantized_grad")
+
+
+def _quant_mix(g_host: np.ndarray, h_host: np.ndarray) -> np.int32:
+    """Per-iteration quantization key mix for the streamed driver: an
+    exact INTEGER fold of the bitcast |grad|/hess magnitudes over the
+    whole host row space.  Integer adds are associative and the host
+    arrays are tile-independent, so the mix — and every row's stochastic
+    rounding — survives a resume onto a different tile width bit-for-bit."""
+    gi = int(np.abs(g_host).view(np.int32).astype(np.int64).sum())
+    hi = int(h_host.view(np.int32).astype(np.int64).sum())
+    total = (gi + 3 * hi) & 0xFFFFFFFF
+    if total >= 1 << 31:
+        total -= 1 << 32
+    return np.int32(total)
+
+
+def _np_walk_tree(binned: np.ndarray, sf: np.ndarray, tb: np.ndarray,
+                  lch: np.ndarray, rch: np.ndarray,
+                  depth_bound: int) -> np.ndarray:
+    """Host twin of ``make_binned_walker`` for numerical splits: per-row
+    leaf index of ONE tree over host-resident binned data.  Integer
+    compares and gathers only, so the leaf assignment is exactly the one
+    the device walker (and the streamed router) produces — which is what
+    lets resume replay reconstruct training scores bit-for-bit without
+    ever putting the full binned matrix on the device."""
+    n = binned.shape[0]
+    node = np.zeros((n,), np.int64)
+    rows = np.arange(n)
+    sf = np.asarray(sf, np.int64)
+    tb = np.asarray(tb, np.int64)
+    lch = np.asarray(lch, np.int64)
+    rch = np.asarray(rch, np.int64)
+    for _ in range(max(1, int(depth_bound))):
+        j = np.maximum(node, 0)
+        f = sf[j]
+        go_right = (f >= 0) & (binned[rows, np.maximum(f, 0)].astype(np.int64)
+                               > tb[j])
+        child = np.where(go_right, rch[j], lch[j])
+        node = np.where(node >= 0, child, node)
+    return ~node
+
+
+def _np_leaf_output(G, H, l1: float, l2: float, max_delta: float):
+    """Host-side twin of the growers' leaf_output (f32 in, f32 out).
+    Empty nodes (G=H=0, l2=0) yield NaN exactly like the device version —
+    callers mask them behind a count check, so the numpy warning is
+    suppressed rather than papered over with a fake value."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        t = np.sign(G) * np.maximum(np.abs(G) - l1, 0.0)
+        v = (-t / (H + l2)).astype(np.float32)
+    if max_delta > 0:
+        v = np.clip(v, -max_delta, max_delta)
+    return v
+
+
+class _TileStager:
+    """The host -> device leg of one tile.  A payload is a list of
+    ``(host slice, fill)`` pairs whose last axis is the tile's real rows;
+    each lands padded to ``T`` rows.  On the card the slices are copied
+    into one of two pinned staging buffers (alternating; a buffer is
+    refilled only after the copy out of its previous use has finished),
+    then to the card with non-blocking copies on a dedicated copy stream,
+    after which an event is recorded.  ``ready`` (on the consumer's
+    thread) makes the consumer's current stream wait on that event and
+    ties each device tensor to that stream (``record_stream``), so the
+    caching allocator does not hand a tile's memory to the next tile while
+    a kernel still reads it.  On the CPU the padded host arrays are handed
+    over as tensors.  Books the bytes copied and, on the card, the copy
+    stream's time (CUDA events, read at the consumer's sync points)."""
+
+    def __init__(self, dev: torch.device, T: int):
+        self.dev, self.T = dev, T
+        self.cuda = dev.type == "cuda"
+        self.bytes = 0
+        self.copy_s = 0.0
+        if self.cuda:
+            self.stream = torch.cuda.Stream(dev)
+            self._pinned = [{}, {}]
+            self._done = [None, None]
+            self._slot = 0
+            self._timing = collections.deque()
+
+    def _padded(self, bufs, key, src: np.ndarray, fill) -> torch.Tensor:
+        shape = src.shape[:-1] + (self.T,)
+        buf = bufs.get(key) if bufs is not None else None
+        if buf is None:
+            buf = torch.empty(shape, dtype=torch.from_numpy(src[..., :0])
+                              .dtype, pin_memory=bufs is not None)
+            if bufs is not None:
+                bufs[key] = buf
+        m = src.shape[-1]
+        buf[..., :m].copy_(torch.from_numpy(src))
+        if m < self.T:
+            buf[..., m:].fill_(fill)
+        return buf
+
+    def load(self, parts):
+        """Runs on the prefetch worker thread."""
+        if not self.cuda:
+            out = [self._padded(None, k, src, fill)
+                   for k, (src, fill) in enumerate(parts)]
+            self.bytes += sum(t.nbytes for t in out)
+            return out, None
+        slot = self._slot
+        self._slot ^= 1
+        if self._done[slot] is not None:
+            self._done[slot].synchronize()      # its last copy has left
+        host = [self._padded(self._pinned[slot], (k, src.shape[:-1],
+                                                  src.dtype), src, fill)
+                for k, (src, fill) in enumerate(parts)]
+        with torch.cuda.stream(self.stream):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(self.stream)
+            out = [h.to(self.dev, non_blocking=True) for h in host]
+            done = torch.cuda.Event(enable_timing=True)
+            done.record(self.stream)
+        self._done[slot] = done
+        self._timing.append((start, done))
+        self.bytes += sum(h.nbytes for h in host)
+        return out, done
+
+    def ready(self, tile):
+        """The tile's device tensors, safe to use on the current stream."""
+        out, done = tile
+        if done is not None:
+            cur = torch.cuda.current_stream(self.dev)
+            cur.wait_event(done)
+            for t in out:
+                t.record_stream(cur)
+        return out
+
+    def drain(self) -> None:
+        """Book the copy time of every copy that has finished."""
+        if not self.cuda:
+            return
+        while self._timing and self._timing[0][1].query():
+            start, done = self._timing.popleft()
+            self.copy_s += start.elapsed_time(done) / 1e3
+
+
+#: rows per chunk of the edge sketch's pass.  Fixed, so that above the
+#: sample cap the reservoir's draws, and with them the edges, do not depend
+#: on the tile width.  The JAX package feeds the sketch tile-sized chunks,
+#: so there the edges above the cap move with ``tile_rows`` and a re-tiled
+#: resume is bit-identical only below the cap (ROADMAP.md §3).
+SKETCH_CHUNK_ROWS = 65_536
+
+
+def _quantize_rows(g_host: np.ndarray, h_host: np.ndarray, quant_bins: int,
+                   g_scale: float, h_scale: float, seed: int, mix: int,
+                   dev: torch.device, chunk: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Every row's quantized gradient and hessian, once per iteration:
+    ``quantize_gradients`` on ``dev`` in chunks of ``chunk`` rows (one
+    tile's worth, so nothing row-sized stays there), with the noise keyed
+    per GLOBAL row.  Returns host int8 ``(qg, qh)``; each row's values
+    depend on nothing but its own gradient, the scales and (seed, mix,
+    row), so any tiling of them sums to the same histograms."""
+    n = g_host.shape[0]
+    qg_h = np.empty((n,), np.int8)
+    qh_h = np.empty((n,), np.int8)
+    gs = torch.tensor(g_scale, dtype=torch.float32, device=dev)
+    hs = torch.tensor(h_scale, dtype=torch.float32, device=dev)
+    for lo in range(0, n, chunk):
+        hi = min(n, lo + chunk)
+        qg, qh, _, _ = hist_ops.quantize_gradients(
+            torch.from_numpy(g_host[lo:hi]).to(dev),
+            torch.from_numpy(h_host[lo:hi]).to(dev), quant_bins,
+            g_scale=gs, h_scale=hs,
+            row_ids=torch.arange(lo, hi, device=dev), seed=seed, mix=mix)
+        qg_h[lo:hi] = qg.to(torch.int8).cpu().numpy()
+        qh_h[lo:hi] = qh.to(torch.int8).cpu().numpy()
+    return qg_h, qh_h
+
+
+def _stream_bins(cd, max_bin: int, sample_cnt: int = 200_000
+                 ) -> Tuple[BinMapper, np.ndarray]:
+    """Streamed binning: the sketch pass (``SKETCH_CHUNK_ROWS`` at a
+    time), then host uint8 bins tile by tile, each tile by the host route
+    its own cell count picks (as the JAX package bins: a short last tile
+    may take the numpy route while the others take the C++ one), stored
+    feature-major ``(F, n)``.  Below the sample cap the edges are the JAX
+    package's whatever the chunking."""
+    n = cd.n_rows
+    mapper = BinMapper(max_bin).fit_streaming(
+        (cd.X[lo:lo + SKETCH_CHUNK_ROWS]
+         for lo in range(0, n, SKETCH_CHUNK_ROWS)), sample_cnt=sample_cnt)
+    binned_fm = np.empty((cd.num_features, cd.n_rows), np.uint8)
+    for i in range(cd.num_tiles):
+        lo, hi = cd.tile_slice(i)
+        binned_fm[:, lo:hi] = mapper.transform(cd.X[lo:hi]).T
+    return mapper, binned_fm
+
+
+def train_streamed(X, y: Optional[np.ndarray] = None,
+                   params: GBDTParams = None,
+                   sample_weight: Optional[np.ndarray] = None,
+                   valid: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+                   tile_rows: Optional[int] = None,
+                   memory_budget_bytes: Optional[int] = None,
+                   feature_names: Optional[List[str]] = None,
+                   init_booster: Optional[GBDTBooster] = None,
+                   callbacks: Optional[List[Callable]] = None,
+                   checkpoint_dir: Optional[str] = None,
+                   checkpoint_every: int = 0,
+                   checkpoint_keep_last: int = 3,
+                   resume: str = "auto",
+                   monitor_port: Optional[int] = None,
+                   monitor_stall_timeout_s: Optional[float] = None,
+                   device: DeviceLike = None) -> TrainResult:
+    """Out-of-core boosting (the JAX package's ``train_streamed``): the
+    dataset lives in host RAM and streams through the device in
+    fixed-shape tiles with double-buffered prefetch (``io.chunked``).
+    Nothing row-sized is ever resident on the device except the two live
+    tiles, so the trainable dataset is bounded by host RAM, not by the
+    card's memory.  Runs on the card unless ``device="cpu"``.
+
+    The host holds the bins feature-major, ``(F, n)`` uint8, so a tile is
+    ``F`` contiguous row runs and lands on the card as the feature-major
+    matrix ``hist_accumulate`` reads.  Each tile is copied into one of two
+    pinned staging buffers and to the card on a dedicated copy stream; the
+    consumer's stream waits on the copy's event (``_TileStager``).
+
+    Numerics: bin edges come from a streaming quantile sketch (identical
+    to the in-memory fit whenever the stream fits the sample budget); the
+    gradient pass evaluates the objective in float64 and rounds once to
+    float32 (the card's and the CPU's float32 ``exp`` differ in the last
+    place; the rounded float64 results agree), and the quantization scales
+    come from the global grad/hess maxima of that pass, so each tile
+    quantizes in IDENTICAL units.  Every row is quantized once per
+    iteration (``_quantize_rows``, a tile's worth of rows at a time on the
+    device), its rounding noise keyed on its GLOBAL row
+    (``ops.histogram.row_noise``) and a per-iteration integer mix of the
+    host gradients (``_quant_mix``); the tiles carry the int8 values, and the per-tile int32 partials (``build_quantized``: both
+    Hopper kernels on the card, the plain build on the CPU) accumulate to
+    the same integers under any tile width.
+    Split search runs on the accumulated histograms on the device, with
+    the in-memory growers' arithmetic (``_split_math``): the quantized
+    path scans them in integer (exact and order-free) and dequantizes the
+    prefix sums, the float path scans in the sequential order of
+    ``cuda_histogram._cumsum_bins``, so the card and the CPU pick the same
+    splits; row routing and the tree bookkeeping run on the host.
+
+    Both grower families stream: ``growth="level"`` runs one accumulate ->
+    decide -> route cycle per level (D passes over the tiles per tree, the
+    routing of a level riding the prefetch worker of the next pass);
+    ``growth="leaf"`` rebuilds the split leaf's left child per step and
+    derives the sibling by exact integer subtraction from a host-resident
+    stored-histogram table (``1 + (num_leaves - 1)`` passes per tree).
+
+    ``X`` may be a raw ``(n, F)`` array or a prebuilt
+    ``io.chunked.ChunkedDataset`` (then ``y``/``w`` ride its columns).
+    Tile size resolves from ``tile_rows`` / ``memory_budget_bytes`` /
+    ``MMLSPARK_TPU_TILE_ROWS`` (``io.chunked.resolve_tile_rows``).
+
+    Warm start: ``init_booster`` continues a single-output gbdt booster;
+    its trees replay on the host (exact integer walks + the same float32
+    score adds training performs).
+
+    Checkpoints, preemption and resume as the JAX package's: with
+    ``checkpoint_dir`` the run snapshots its booster, iteration, host rng
+    and bag mask every ``checkpoint_every`` iterations and at the end (the
+    writer thread serializes); ``resume="auto"`` restores the newest valid
+    snapshot and replays it, ``"must"`` raises without one.
+    SIGTERM/SIGINT or ``utils.resilience.request_preemption`` writes one
+    last snapshot at the next iteration boundary and returns with
+    ``extras["preempted"]``.  The tile geometry is recorded, not identity:
+    a resume may re-tile (``extras["resharded"]``), and with quantized
+    histograms the resumed booster is bit-identical to an uninterrupted
+    run at either width.  Snapshot files share the JAX package's format;
+    the fingerprints do not match across packages (each hashes its own
+    params signature), so one package does not resume the other's run.
+
+    ``extras``: tile geometry, the prefetch overlap (``prefetch_wait_s``,
+    ``tile_compute_s``, ``prefetch_overlap_pct``: host-visible times),
+    ``binning_s`` and ``boosting_s``, the host -> device bytes per
+    histogram pass (``hist_pass_bytes``) and in all (``h2d_bytes``), the
+    copy stream's time (``h2d_s``, 0 on the CPU) and the pass counts.
+
+    Not streamed (``ValueError``, as in the JAX package): multiclass,
+    lambdarank, dart/goss/rf and categorical features.  The reference's
+    spans, phase attribution and live monitor wait for the port's
+    observability layer (ROADMAP.md §1 item 13): ``monitor_port`` and
+    ``monitor_stall_timeout_s`` raise ``NotImplementedError``.
+    """
+    from ..io.chunked import ChunkedDataset, TilePrefetcher
+
+    if params is None:
+        raise ValueError("params is required")
+    dev = resolve_device(device)
+    p = params.resolve()
+    if p.objective in ("lambdarank", "multiclass"):
+        raise ValueError(f"streamed training does not support objective="
+                         f"{p.objective!r} yet (see docs/out_of_core.md)")
+    if p.boosting_type != "gbdt":
+        raise ValueError("streamed training supports boosting_type='gbdt' "
+                         f"only (got {p.boosting_type!r})")
+    if p.categorical_features:
+        raise ValueError("streamed training does not support categorical "
+                         "features yet (see docs/out_of_core.md)")
+    _check_ported(p, shard_rows=False, monitor_port=monitor_port,
+                  monitor_stall_timeout_s=monitor_stall_timeout_s)
+
+    # ---- dataset geometry
+    if isinstance(X, ChunkedDataset):
+        cd = X
+        if tile_rows is not None or memory_budget_bytes is not None:
+            raise ValueError("tile sizing belongs to the ChunkedDataset "
+                             "when one is passed directly")
+        y = cd.columns.get("y") if y is None else np.asarray(y, np.float32)
+        w = cd.columns.get("w")
+        if w is not None and sample_weight is not None:
+            raise ValueError("sample weights belong to the ChunkedDataset "
+                             "('w' column) when one is passed directly")
+    else:
+        cd = ChunkedDataset(np.asarray(X, np.float32), tile_rows=tile_rows,
+                            memory_budget_bytes=memory_budget_bytes)
+        w = None
+    if y is None:
+        raise ValueError("labels are required (y= or a 'y' dataset column)")
+    y = np.asarray(y, np.float32)
+    n, F = cd.n_rows, cd.num_features
+    T = cd.tile_rows
+    if w is None:
+        w = np.ones(n, np.float32) if sample_weight is None \
+            else np.asarray(sample_weight, np.float32)
+    w = np.asarray(w, np.float32)
+    if len(y) != n or len(w) != n:
+        raise ValueError("X, y and sample_weight row counts disagree")
+    if p.objective in ("poisson", "tweedie") and (y < 0).any():
+        raise ValueError(f"objective {p.objective!r} requires non-negative "
+                         "labels")
+    if p.objective == "gamma" and (y <= 0).any():
+        raise ValueError("objective 'gamma' requires strictly positive "
+                         "labels")
+    if init_booster is not None:
+        if init_booster.num_class != 1 or \
+                init_booster.objective == "multiclass":
+            raise ValueError(
+                "streamed continuation supports single-output boosters only "
+                f"(init_booster.num_class={init_booster.num_class}); use "
+                "train() for multiclass continuation (docs/out_of_core.md)")
+        if bool(getattr(init_booster, "average_output", False)):
+            raise ValueError(
+                "streamed training does not support rf-averaged boosters "
+                "(boosting_type='rf' is not streamed; docs/out_of_core.md)")
+        if getattr(init_booster, "categorical_features", None) \
+                or getattr(init_booster, "cat_bitset", None) is not None:
+            raise ValueError(
+                "streamed training does not support categorical features "
+                "yet, so a categorical booster cannot continue here "
+                "(docs/out_of_core.md)")
+        if int(init_booster.num_features) != F:
+            raise ValueError(
+                f"init_booster was trained on {init_booster.num_features} "
+                f"features, dataset has {F}")
+
+    p = dataclasses.replace(
+        p, use_quantized_grad=default_quantized(dev, p.use_quantized_grad))
+    use_quant = p.use_quantized_grad
+    qb = p.num_grad_quant_bins
+    qg_cap = max(1, qb // 2)
+    qh_cap = max(1, qb - 1)
+    _check_quant_tile_bound(use_quant, qb, n)
+    check_resume_arg(resume, checkpoint_dir=checkpoint_dir)
+
+    t0 = time.perf_counter()
+    mapper, binned_fm = _stream_bins(cd, p.max_bin)
+    B = mapper.num_bins
+    binned_h = binned_fm.T                 # (n, F) view for the host walks
+    t_binning = time.perf_counter() - t0
+    edges_np = mapper.edges
+    ct = _CatTools(p, F, B)
+    edge_ok = ct.edge_ok(torch.from_numpy(edges_np).to(dev))
+
+    l1, l2 = p.lambda_l1, p.lambda_l2
+    min_gain = p.min_gain_to_split
+    max_delta = p.max_delta_step
+    lr = p.learning_rate
+    objective = make_objective(p)
+    D = p.depth_bound
+    rng = np.random.default_rng(p.seed)
+    f32 = torch.float32
+
+    # the in-memory growers' split arithmetic; the float path scans in the
+    # kernel's sequential bin order, so the card and the CPU round alike
+    _, split_gains = _split_math(p, ct,
+                                 float_prefix=cuda_histogram._cumsum_bins)
+
+    def best_splits(hist, scales, fmask, depth_ok: bool = True):
+        """Best split of each of the ``(N, F, B, 3)`` histograms, on their
+        device; one host sync.  Returns host arrays (gain, feature, bin,
+        left stats (N, 3), node totals (N, 3))."""
+        N = hist.shape[0]
+        gain, left3, tot = split_gains(hist, fmask, edge_ok, depth_ok,
+                                       scales if use_quant else None)
+        flat = gain.reshape(N, F * B)
+        best = torch.argmax(flat, dim=1)
+        rows = torch.arange(N, device=hist.device)
+        bf, bb = best // B, best % B
+        rec = torch.cat([flat[rows, best][:, None], bf[:, None].to(f32),
+                         bb[:, None].to(f32), left3[rows, bf, bb],
+                         torch.stack(tot, dim=1)], dim=1).cpu().numpy()
+        return (rec[:, 0], rec[:, 1].astype(np.int32),
+                rec[:, 2].astype(np.int32), rec[:, 3:6], rec[:, 6:9])
+
+    # ---- prefetch plumbing: payloads built AND staged on the worker
+    # thread (routing for the next tile rides there too, overlapped with
+    # the consumer's histogram launches on the current tile)
+    OOC_SITE = "lightgbm.ooc_tile"
+    stager = _TileStager(dev, T)
+    totals = {"wait_s": 0.0, "compute_s": 0.0, "tiles": 0.0,
+              "grad_passes": 0, "hist_passes": 0, "hist_bytes": 0}
+
+    def stream(make_tile):
+        def load(i):
+            lo, hi = cd.tile_slice(i)
+            return i, lo, hi, stager.load(make_tile(i, lo, hi))
+        return TilePrefetcher(range(cd.num_tiles), load, site=OOC_SITE)
+
+    def finish_stream(pf):
+        st = pf.overlap_stats()
+        totals["wait_s"] += st["wait_s"]
+        totals["compute_s"] += st["compute_s"]
+        totals["tiles"] += st["tiles"]
+
+    init_score = init_score_of(p.objective, y, w, p.sigmoid)
+    scores_h = np.full((n,), init_score, np.float32)
+    g_host = np.empty((n,), np.float32)
+    h_host = np.empty((n,), np.float32)
+
+    # ---- valid set (in memory: the heldout set is driver-sized)
+    metric_name = p.metric or default_metric(p.objective)
+    metric_fn, larger_better = resolve_metric(metric_name, p)
+    evals: List[Dict[str, float]] = []
+    has_valid = valid is not None
+    if has_valid:
+        Xv = np.asarray(valid[0], np.float32)
+        yv = np.asarray(valid[1], np.float32)
+        binned_v_h = mapper.transform(Xv)   # host copy: resume replay walks
+        binned_v = torch.from_numpy(binned_v_h).to(dev)
+        scores_v = np.full((Xv.shape[0], 1), init_score, np.float32)
+        walker = make_binned_walker(D)
+    best_metric = -np.inf if larger_better else np.inf
+    best_iter = -1
+    rounds_no_improve = 0
+
+    level_growth = p.growth == "level"
+    L = p.num_leaves
+    I = L - 1
+    if level_growth:
+        lc_const, rc_const = perfect_tree_children(D)
+
+    trees: Dict[str, List[np.ndarray]] = {k: [] for k in _TREE_KEYS}
+    tree_weights: List[float] = []
+    bag_on = p.bagging_freq > 0 and p.bagging_fraction < 1.0
+    ff_on = p.feature_fraction < 1.0
+    mask_h = np.ones((n,), bool)
+    bag_mask = None
+
+    # ---- checkpoints: identity carries data and params; the tile
+    # geometry is the topology stanza, recorded and allowed to differ
+    fingerprint = repr((_params_sig(p), n, F, B,
+                        _content_fingerprint(cd.X)))
+    topology = topology_stanza(shard_count=1, num_tiles=int(cd.num_tiles),
+                               tile_rows=int(T))
+    manager = CheckpointManager(checkpoint_dir,
+                                site="lightgbm.train_streamed",
+                                keep_last=checkpoint_keep_last) \
+        if checkpoint_dir else None
+    n_init_trees = 0
+    start_iter = 0
+    resumed_from = -1
+    resharded = False
+    preempted = False
+
+    def replay_range(t0_: int, t1_: int, valid_too: bool) -> None:
+        """Replay stored trees [t0_, t1_) into the running scores with the
+        EXACT float32 adds the live loop performs (host walks are pure
+        integer ops), so a resumed run's state is bit-identical to the
+        uninterrupted one's at the same iteration."""
+        if t1_ <= t0_:
+            return
+        depth_b = children_depth_bound(
+            np.stack(trees["left_child"][t0_:t1_]),
+            np.stack(trees["right_child"][t0_:t1_]))
+        for t in range(t0_, t1_):
+            sf_t, tb_t = trees["split_feature"][t], trees["threshold_bin"][t]
+            lch_t, rch_t = trees["left_child"][t], trees["right_child"][t]
+            lv_t = np.asarray(trees["leaf_value"][t], np.float32)
+            w_t = float(tree_weights[t])
+            leaf = _np_walk_tree(binned_h, sf_t, tb_t, lch_t, rch_t, depth_b)
+            contrib = lv_t[leaf]
+            if w_t != 1.0:
+                contrib = (contrib * np.float32(w_t)).astype(np.float32)
+            np.add(scores_h, contrib, out=scores_h)
+            if valid_too and has_valid:
+                leaf_v = _np_walk_tree(binned_v_h, sf_t, tb_t, lch_t, rch_t,
+                                       depth_b)
+                contrib_v = lv_t[leaf_v]
+                if w_t != 1.0:
+                    contrib_v = (contrib_v * np.float32(w_t)) \
+                        .astype(np.float32)
+                scores_v[:, 0] += contrib_v
+
+    def save_ckpt(finished: bool, block: bool = False) -> None:
+        # list copies and the rng state here; stacking and the atomic
+        # publish on the manager's writer thread
+        done = len(tree_weights) - n_init_trees
+        meta = _booster_ckpt_meta(done, n_init_trees, rng, best_metric,
+                                  best_iter, rounds_no_improve, evals,
+                                  init_score, fingerprint, finished,
+                                  p.num_iterations, "streamed_booster_v1",
+                                  topology=topology)
+        manager.save(done, _booster_ckpt_arrays(trees, tree_weights,
+                                                bag_mask), meta,
+                     block=block)
+
+    resumed = False
+    if manager is not None and resume in ("auto", "must"):
+        got = manager.load_latest(current_topology=topology)
+        if got is None and resume == "must":
+            raise resume_required_error(checkpoint_dir)
+        if got is not None:
+            _, arrs, meta = got
+            if meta.get("fingerprint") != fingerprint:
+                raise ValueError(_CKPT_FINGERPRINT_MISMATCH)
+            delta = meta.get("topology_delta")
+            if delta is not None and delta["changed"]:
+                # re-tiled resume: the row-keyed rounding keeps the booster
+                # bit-identical to an uninterrupted run at either width
+                book_reshard("lightgbm.train_streamed", delta)
+                resharded = True
+            t_done = int(arrs["split_feature"].shape[0])
+            for k in _TREE_KEYS:
+                trees[k] = [np.asarray(arrs[k][t]) for t in range(t_done)]
+            tree_weights[:] = [float(x) for x in arrs["tree_weight"]]
+            n_init_trees = int(meta.get("n_init_trees", 0))
+            rng.bit_generator.state = meta["rng_state"]
+            if "bag_mask" in arrs:
+                bag_mask = np.unpackbits(arrs["bag_mask"])[:n].astype(bool)
+            best_metric = float(meta["best_metric"])
+            best_iter = int(meta["best_iter"])
+            rounds_no_improve = int(meta["rounds_no_improve"])
+            evals[:] = [dict(e) for e in meta.get("evals", [])]
+            replay_range(0, n_init_trees, valid_too=False)
+            if float(meta["init_score"]) != float(init_score):
+                scores_h += np.float32(float(meta["init_score"])
+                                       - init_score)
+                init_score = float(meta["init_score"])
+                if has_valid:
+                    scores_v[:] = init_score
+            replay_range(n_init_trees, t_done, valid_too=True)
+            resumed_from = int(meta["iteration"])
+            start_iter = resumed_from
+            if meta.get("finished") and p.num_iterations <= int(
+                    meta.get("num_iterations", resumed_from)):
+                # the snapshot IS the finished run: return its booster
+                start_iter = p.num_iterations
+            resumed = True
+    if not resumed and init_booster is not None:
+        # warm start: replay the incoming booster's trees on the host
+        for t in range(init_booster.num_trees):
+            for k in _TREE_KEYS:
+                trees[k].append(np.asarray(getattr(init_booster, k)[t]))
+            tree_weights.append(float(init_booster.tree_weight[t]))
+        n_init_trees = init_booster.num_trees
+        replay_range(0, n_init_trees, valid_too=False)
+        if float(init_booster.init_score) != float(init_score):
+            # shift the base score AFTER the replay (train()'s order)
+            scores_h += np.float32(init_booster.init_score - init_score)
+            init_score = float(init_booster.init_score)
+            if has_valid:
+                scores_v[:] = init_score
+
+    def grad_pass():
+        """Gradients per tile on the device, stored on the host, and the
+        global grad/hess maxima every tile's quantization shares."""
+        pf = stream(lambda i, lo, hi: [(scores_h[lo:hi], 0.0),
+                                       (y[lo:hi], 0.0), (w[lo:hi], 0.0)])
+        gmax = hmax = 0.0
+        for i, lo, hi, tile in pf:
+            sc_t, y_t, w_t = stager.ready(tile)
+            g_t, h_t = objective(sc_t.double()[:, None], y_t.double(),
+                                 w_t.double())
+            gh = torch.stack([g_t[:hi - lo, 0], h_t[:hi - lo, 0]]).to(f32) \
+                .cpu().numpy()
+            g_host[lo:hi], h_host[lo:hi] = gh
+            gmax = max(gmax, float(np.abs(gh[0]).max()))
+            hmax = max(hmax, float(gh[1].max()))
+        finish_stream(pf)
+        stager.drain()
+        totals["grad_passes"] += 1
+        g_scale = max(gmax, 1e-12) / qg_cap
+        h_scale = max(hmax, 1e-12) / qh_cap
+        return g_scale, h_scale
+
+    def route(lo, hi, bf, bb, do):
+        """Host row routing (numerical splits): node -> 2*node + right,
+        the level-wise grower's order."""
+        node = node_h[lo:hi]
+        f = np.maximum(bf[node], 0)
+        rb = binned_fm[f, np.arange(lo, hi)].astype(np.int32)
+        go_right = do[node] & (rb > bb[node])
+        node_h[lo:hi] = 2 * node + go_right
+
+    # the tiles' gradient columns: int8 quantized values (filled once per
+    # iteration) or the float32 gradients themselves
+    grad_cols = {"g": g_host, "h": h_host}
+
+    def hist_pass(nodes_d, scales, decisions, node_of):
+        """One accumulate pass over every tile: this level's routing (when
+        ``decisions`` carries the previous level's splits) runs on the
+        prefetch worker, then the consumer folds the tile's partial into
+        the accumulator on the device; no host sync inside the loop."""
+        gc, hc = grad_cols["g"], grad_cols["h"]
+
+        def make_tile(i, lo, hi):
+            if decisions is not None:
+                route(lo, hi, *decisions)
+            node_t = np.where(mask_h[lo:hi], node_of(lo, hi),
+                              -1).astype(np.int32)
+            return [(binned_fm[:, lo:hi], 0), (gc[lo:hi], 0),
+                    (hc[lo:hi], 0), (node_t, -1)]
+
+        acc = torch.zeros((nodes_d, F, B, 3),
+                          dtype=torch.int32 if use_quant else f32,
+                          device=dev)
+        bytes0 = stager.bytes
+        pf = stream(make_tile)
+        for i, lo, hi, tile in pf:
+            b_t, g_t, h_t, n_t = stager.ready(tile)
+            bins_t = b_t.t()                   # (T, F) feature-major view
+            if use_quant:
+                acc += hist_ops.build_quantized(
+                    bins_t, g_t, h_t, n_t, nodes_d, B, quant_bins=qb,
+                    node_rows_bound=T)
+            else:
+                acc += hist_ops.build_histograms(bins_t, g_t, h_t, n_t,
+                                                 nodes_d, B)
+        finish_stream(pf)
+        totals["hist_passes"] += 1
+        totals["hist_bytes"] = stager.bytes - bytes0
+        return acc
+
+    scope = preemption_scope() if manager is not None \
+        else contextlib.nullcontext(PreemptionToken())
+    last_ckpt_iter = start_iter
+    trees_at_loop_start = len(tree_weights)
+    t0 = time.perf_counter()
+    with scope as token:
+        for it in range(start_iter, p.num_iterations):
+            if token.requested:
+                save_ckpt(finished=False, block=True)
+                preempted = True
+                break
+            # ---- per-iteration host randomness (train()'s order)
+            feat_mask = np.ones((F,), bool)
+            if ff_on:
+                keep = max(1, int(round(p.feature_fraction * F)))
+                feat_mask[:] = False
+                feat_mask[rng.choice(F, size=keep, replace=False)] = True
+            if bag_on and (it % p.bagging_freq == 0 or bag_mask is None):
+                bag_mask = rng.random(n) < p.bagging_fraction
+            mask_h = bag_mask if bag_on else np.ones((n,), bool)
+            fm_dev = torch.from_numpy(feat_mask).to(dev)
+
+            g_scale, h_scale = grad_pass()
+            scales = torch.tensor([g_scale, h_scale], dtype=f32, device=dev)
+            if use_quant:
+                grad_cols["g"], grad_cols["h"] = _quantize_rows(
+                    g_host, h_host, qb, g_scale, h_scale, p.seed,
+                    int(_quant_mix(g_host, h_host)), dev, T)
+            node_h = np.zeros((n,), np.int32)
+
+            if level_growth:
+                sf = np.full((I,), -1, np.int32)
+                tb = np.zeros((I,), np.int32)
+                th = np.zeros((I,), np.float32)
+                sg = np.zeros((I,), np.float32)
+                iv = np.zeros((I,), np.float32)
+                ic = np.zeros((I,), np.float32)
+                decisions = None
+                for d in range(D):
+                    nodes_d = 2 ** d
+                    off = nodes_d - 1
+                    acc = hist_pass(nodes_d, scales, decisions,
+                                    lambda lo, hi: node_h[lo:hi])
+                    gain_d, bf_d, bb_d, left_d, tot_d = best_splits(
+                        acc, scales, fm_dev)
+                    stager.drain()
+                    do_d = gain_d > min_gain
+                    left_d = np.where(do_d[:, None], left_d, tot_d)
+                    right_d = tot_d - left_d
+                    idx = off + np.arange(nodes_d)
+                    sf[idx] = np.where(do_d, bf_d, -1)
+                    tb[idx] = bb_d
+                    th[idx] = edges_np[bf_d, np.clip(bb_d, 0, B - 2)]
+                    sg[idx] = np.where(do_d, gain_d, 0.0)
+                    iv[idx] = _np_leaf_output(tot_d[:, 0], tot_d[:, 1], l1,
+                                              l2, max_delta)
+                    ic[idx] = tot_d[:, 2]
+                    decisions = (bf_d, bb_d, do_d)
+                # the last level's routing over the whole host array
+                route(0, n, *decisions)
+                lv2 = np.stack([_np_leaf_output(left_d[:, 0], left_d[:, 1],
+                                                l1, l2, max_delta),
+                                _np_leaf_output(right_d[:, 0], right_d[:, 1],
+                                                l1, l2, max_delta)],
+                               axis=1).reshape(L)
+                lc2 = np.stack([left_d[:, 2], right_d[:, 2]],
+                               axis=1).reshape(L)
+                leaf_value = np.where(lc2 > 0, lv2, 0.0).astype(np.float32)
+                leaf_count = lc2.astype(np.float32)
+                leaf_of_row = node_h
+                lch, rch = lc_const, rc_const
+            else:
+                (sf, tb, th, sg, iv, ic, leaf_value, leaf_count, lch, rch,
+                 leaf_of_row) = _grow_leafwise_streamed(
+                    p, F, B, scales, fm_dev, node_h, binned_fm, edges_np,
+                    hist_pass, best_splits, stager, l1, l2, max_delta)
+
+            lv_s = (leaf_value * lr).astype(np.float32)
+            scores_h += lv_s[leaf_of_row]
+            for k_name, arr in zip(
+                    _TREE_KEYS,
+                    (lch, rch, sf, th, tb, sg, iv, ic, lv_s, leaf_count)):
+                trees[k_name].append(np.asarray(arr))
+            tree_weights.append(1.0)
+
+            if has_valid:
+                leaf_v = walker(
+                    binned_v, torch.from_numpy(sf).to(dev),
+                    torch.from_numpy(tb).to(dev),
+                    torch.from_numpy(np.asarray(lch, np.int32)).to(dev),
+                    torch.from_numpy(np.asarray(rch, np.int32)).to(dev)
+                ).cpu().numpy()
+                scores_v[:, 0] += lv_s[leaf_v]
+                m = metric_fn(yv, scores_v.astype(np.float64))
+                evals.append({metric_name: m, "iteration": it})
+                improved = m > best_metric if larger_better \
+                    else m < best_metric
+                if improved:
+                    best_metric, best_iter, rounds_no_improve = m, it, 0
+                else:
+                    rounds_no_improve += 1
+                if p.early_stopping_round > 0 and \
+                        rounds_no_improve >= p.early_stopping_round:
+                    break
+            if callbacks:
+                for cb in callbacks:
+                    cb(it, evals[-1] if evals else None)
+            if manager is not None and checkpoint_every > 0 \
+                    and it + 1 - last_ckpt_iter >= checkpoint_every:
+                save_ckpt(finished=False)
+                last_ckpt_iter = it + 1
+    t_boost = time.perf_counter() - t0
+
+    if manager is not None:
+        if not preempted and (len(tree_weights) > trees_at_loop_start
+                              or not resumed):
+            # terminal snapshot (early stopping too); a finished-run
+            # restore that grew nothing skips the re-save
+            save_ckpt(finished=True, block=True)
+        manager.close()
+
+    if p.growth == "leaf":
+        D = children_depth_bound(np.stack(trees["left_child"]),
+                                 np.stack(trees["right_child"]))
+    booster = GBDTBooster(
+        np.stack(trees["split_feature"]), np.stack(trees["threshold"]),
+        np.stack(trees["threshold_bin"]), np.stack(trees["split_gain"]),
+        np.stack(trees["internal_value"]),
+        np.stack(trees["internal_count"]),
+        np.stack(trees["leaf_value"]), np.stack(trees["leaf_count"]),
+        np.asarray(tree_weights, np.float32),
+        left_child=np.stack(trees["left_child"]),
+        right_child=np.stack(trees["right_child"]),
+        max_depth=D, num_features=F, objective=p.objective, num_class=1,
+        init_score=init_score, feature_names=feature_names,
+        best_iteration=best_iter, sigmoid=p.sigmoid)
+
+    stager.drain()
+    busy = totals["wait_s"] + totals["compute_s"]
+    extras = {
+        "num_tiles": float(cd.num_tiles), "tile_rows": float(T),
+        "prefetch_wait_s": round(totals["wait_s"], 6),
+        "tile_compute_s": round(totals["compute_s"], 6),
+        "tiles_streamed": totals["tiles"],
+        "prefetch_overlap_pct": round(
+            100.0 * totals["compute_s"] / busy, 2) if busy > 0 else 100.0,
+        "quantized": float(use_quant),
+        "binning_s": t_binning, "boosting_s": t_boost,
+        "grad_passes": float(totals["grad_passes"]),
+        "hist_passes": float(totals["hist_passes"]),
+        "hist_pass_bytes": float(totals["hist_bytes"]),
+        "h2d_bytes": float(stager.bytes), "h2d_s": stager.copy_s,
+    }
+    if manager is not None:
+        extras.update({"preempted": float(preempted),
+                       "resumed_from_iteration": float(resumed_from),
+                       "checkpoint_saves": float(manager.saves_ok),
+                       "resharded": float(resharded)})
+    return TrainResult(booster=booster, evals=evals, bin_mapper=mapper,
+                       extras=extras)
+
+
+def _grow_leafwise_streamed(p, F, B, scales, fm_dev, node_h, binned_fm,
+                            edges_np, hist_pass, best_splits, stager, l1,
+                            l2, max_delta):
+    """One leaf-wise tree over the tile stream: LightGBM's best-first
+    growth with the histogram passes streamed.  Per split step the LEFT
+    child's histogram is rebuilt with one accumulate pass over every tile
+    (``hist_pass`` with a single node) and the sibling comes from exact
+    integer subtraction against a host-resident stored-histogram table,
+    ``(num_leaves, F, B, 3)``.  The bookkeeping runs in host numpy, as in
+    the JAX package; a step whose best gain fails ``min_gain_to_split``
+    ends the tree (later steps could only see smaller global-best gains).
+    Both children's candidates come from one ``best_splits`` call on the
+    device."""
+    L, M = p.num_leaves, p.num_leaves - 1
+    depth_cap = p.max_depth
+    min_gain = p.min_gain_to_split
+    dev = fm_dev.device
+    stored = np.zeros((L, F, B, 3),
+                      np.int32 if p.use_quantized_grad else np.float32)
+
+    lc_arr = np.full((M,), -1, np.int32)
+    rc_arr = np.full((M,), -1, np.int32)
+    sf = np.full((M,), -1, np.int32)
+    tb = np.zeros((M,), np.int32)
+    th = np.zeros((M,), np.float32)
+    sg = np.zeros((M,), np.float32)
+    iv = np.zeros((M,), np.float32)
+    ic = np.zeros((M,), np.float32)
+    leaf_tot = np.zeros((L, 3), np.float32)
+    leaf_depth = np.zeros((L,), np.int32)
+    created = np.zeros((L,), bool)
+    created[0] = True
+    leaf_parent = np.full((L,), -1, np.int32)
+    leaf_side = np.zeros((L,), np.int32)
+    best_gain = np.full((L,), -np.inf, np.float32)
+    best_feat = np.zeros((L,), np.int32)
+    best_bin = np.zeros((L,), np.int32)
+    best_left = np.zeros((L, 3), np.float32)
+
+    def depth_ok_of(d):
+        return True if depth_cap <= 0 else bool(d < depth_cap)
+
+    def candidates(hists, slots, dok):
+        g, f, b, left, tot = best_splits(hists, scales, fm_dev, dok)
+        stager.drain()
+        best_gain[slots], best_feat[slots], best_bin[slots] = g, f, b
+        best_left[slots] = left
+        return tot
+
+    # root: one streamed pass with a single node id
+    h_root = hist_pass(1, scales, None,
+                       lambda lo, hi: np.zeros((hi - lo,), np.int32))
+    stored[0] = h_root[0].cpu().numpy()
+    leaf_tot[0] = candidates(h_root, [0], depth_ok_of(0))[0]
+
+    for s in range(M):
+        j = int(np.argmax(best_gain))
+        if not best_gain[j] > min_gain:
+            break
+        new_leaf = s + 1
+        f, b = int(best_feat[j]), int(best_bin[j])
+        tot = leaf_tot[j].copy()
+
+        sf[s] = f
+        tb[s] = b
+        th[s] = edges_np[f, min(max(b, 0), B - 2)]
+        sg[s] = best_gain[j]
+        iv[s] = _np_leaf_output(tot[0:1], tot[1:2], l1, l2, max_delta)[0]
+        ic[s] = tot[2]
+
+        pn, side = leaf_parent[j], leaf_side[j]
+        if pn >= 0:
+            (lc_arr if side == 0 else rc_arr)[pn] = s
+        lc_arr[s] = -(j + 1)
+        rc_arr[s] = -(new_leaf + 1)
+        leaf_parent[j], leaf_side[j] = s, 0
+        leaf_parent[new_leaf], leaf_side[new_leaf] = s, 1
+        created[new_leaf] = True
+
+        # route leaf j's rows (whole host array: one vectorized pass)
+        go_right = (node_h == j) & (binned_fm[f] > b)
+        node_h[go_right] = new_leaf
+
+        left_stats = best_left[j].copy()
+        leaf_tot[j] = left_stats
+        leaf_tot[new_leaf] = tot - left_stats
+        d_new = leaf_depth[j] + 1
+        leaf_depth[j] = leaf_depth[new_leaf] = d_new
+
+        # left child rebuilt over the stream; sibling by exact subtraction
+        hl = hist_pass(1, scales, None,
+                       lambda lo, hi: np.where(node_h[lo:hi] == j, 0, -1)
+                       .astype(np.int32))
+        hl_h = hl[0].cpu().numpy()
+        hr_h = stored[j] - hl_h
+        stored[j], stored[new_leaf] = hl_h, hr_h
+        pair = torch.cat([hl, torch.from_numpy(hr_h)[None].to(dev)])
+        candidates(pair, [j, new_leaf], depth_ok_of(d_new))
+
+    lv = _np_leaf_output(leaf_tot[:, 0], leaf_tot[:, 1], l1, l2, max_delta)
+    leaf_value = np.where(created, lv, 0.0).astype(np.float32)
+    leaf_count = np.where(created, leaf_tot[:, 2], 0.0).astype(np.float32)
+    return (sf, tb, th, sg, iv, ic, leaf_value, leaf_count, lc_arr, rc_arr,
+            node_h.copy())

@@ -11,11 +11,14 @@ multiclass labels, the regressor's objectives and the ranker's LambdaRank
 pass through to ``train()``; the classifier's ``num_batches`` trains in
 sequential batches with warm start between them (the reference's
 ``LightGBMBase.scala:46-61``), and the regressor, as the JAX package's,
-trains in one batch whatever it says.  The distributed, checkpoint and monitor params
-(``parallelism="voting_parallel"``, ``shard_rows``, ``checkpoint_dir``,
-``checkpoint_every``, ``monitor_port``, ``monitor_stall_timeout_s``) reach
-``train()``, which raises ``NotImplementedError`` naming their ROADMAP.md
-entry for any value other than the default.  ``device`` picks where
+trains in one batch whatever it says.  ``checkpoint_dir`` and
+``checkpoint_every`` reach ``train()`` (periodic snapshots, preemption and
+resume; with ``num_batches > 1`` each batch checkpoints into its own
+``batch_{i:04d}`` directory, as in the reference).  The distributed and
+monitor params (``parallelism="voting_parallel"``, ``shard_rows``,
+``monitor_port``, ``monitor_stall_timeout_s``) reach ``train()``, which
+raises ``NotImplementedError`` naming their ROADMAP.md entry for any value
+other than the default.  ``device`` picks where
 training and scoring run: the card by default, ``"cpu"`` for the plain
 PyTorch versions.
 """
@@ -203,8 +206,13 @@ class _LightGBMBase(Estimator, HasFeaturesCol, HasLabelCol, HasWeightCol):
             params,
             num_iterations=max(1, params.num_iterations // num_batches))
         result = None
+        base_dir = kw["checkpoint_dir"]
         for i in range(num_batches):
             sl = slice(bounds[i], bounds[i + 1])
+            if base_dir:
+                # batches sharing one directory would resume each other's
+                # snapshots: the batch index namespaces them
+                kw["checkpoint_dir"] = f"{base_dir}/batch_{i:04d}"
             result = gbdt_core.train(
                 X[sl], y[sl], batch_params,
                 sample_weight=None if w is None else w[sl],

@@ -11,7 +11,8 @@ What is here:
 - ``build_histograms`` — the float path (CPU default, ``use_quantized_grad``
   off), an ``index_add_`` over a flattened (node, feature, bin) index;
 - ``quantize_gradients`` / ``dequantize_histogram`` — LightGBM 4.x
-  quantized training, single-shard;
+  quantized training, single-shard; ``row_noise`` — its counter-based
+  rounding noise, a pure function of (seed, mix, global row, channel);
 - ``_packed_layout`` / ``_pack_lanes`` / ``_unpack_lanes`` — the packed
   int32 lane plan, copied as integer code: the bit-exactness contract with
   the JAX package and with the CUDA kernels rides on them;
@@ -138,11 +139,57 @@ def build_histograms(binned: torch.Tensor, grad: torch.Tensor,
 # quantized-gradient packed histograms (LightGBM 4.x quantized training)
 # ---------------------------------------------------------------------------
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in ``[0, 2**32)``: the product
+    is split at 16 bits, so no intermediate leaves int64 and every device
+    computes the same bits."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + ((hi * (c & 0xFFFF)) << 16)) & _M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer on int64 tensors in ``[0, 2**32)``."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _fmix32_int(h: int) -> int:
+    h &= _M32
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _M32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def row_noise(row_ids: torch.Tensor, seed: int, mix: int = 0) -> torch.Tensor:
+    """The quantizer's uniforms keyed on each row's GLOBAL id: ``(2, n)``
+    float32 in ``[0, 1)``, channel 0 for the gradient and 1 for the
+    hessian.  ``u = fmix32(fmix32(row) ^ key(seed, mix, channel))``, scaled
+    from its top 24 bits, in integer ops only: a row draws the same
+    uniforms under any tiling, on the CPU and on the card alike (the role
+    of the JAX package's ``fold_in(key, row_id)``, with other bits)."""
+    r = _fmix32(row_ids.to(torch.int64) & _M32)
+    base = _fmix32_int(_fmix32_int(int(seed)) ^ (int(mix) & _M32))
+    h = _fmix32(torch.stack([
+        r ^ _fmix32_int(base ^ (0x9E3779B9 * (c + 1) & _M32))
+        for c in (0, 1)]))
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
 def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                        quant_bins: int, *,
                        generator: Optional[torch.Generator] = None,
                        noise: Optional[torch.Tensor] = None,
-                       g_scale=None, h_scale=None):
+                       g_scale=None, h_scale=None,
+                       row_ids: Optional[torch.Tensor] = None,
+                       seed: int = 0, mix: int = 0):
     """Stochastically round per-row grad/hess to small ints (single shard).
 
     Returns ``(qg, qh, g_scale, h_scale)``: ``qg`` int32 in
@@ -152,10 +199,13 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     rounding as ``mmlspark_tpu.ops.histogram.quantize_gradients``.
 
     The uniforms ``u`` come from ``noise`` (``(2, n)`` float32, so a test
-    can hand both packages the same numbers) or else from ``generator``.
-    The JAX package keys its noise on a float bitcast of the gradient sum,
-    which no other summation order reproduces, so the two packages agree
-    bit for bit only when given the same uniforms."""
+    can hand both packages the same numbers), else from ``row_ids`` (each
+    row's global id: ``row_noise(row_ids, seed, mix)``, the out-of-core
+    driver's form, the same under any tile width), else from
+    ``generator``.  The JAX package keys its noise on a float bitcast of
+    the gradient sum or on threefry bits, which this package does not
+    reproduce, so the two packages agree bit for bit only when given the
+    same uniforms."""
     g = grad.to(torch.float32)
     h = hess.to(torch.float32)
     qg_cap = max(1, quant_bins // 2)
@@ -176,6 +226,8 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                                               device=g.device), min=1e-30)
         h_scale = torch.clamp(torch.as_tensor(h_scale, dtype=torch.float32,
                                               device=g.device), min=1e-30)
+    if noise is None and row_ids is not None:
+        noise = row_noise(row_ids, seed, mix)
     if noise is None:
         if generator is None:
             raise ValueError("quantize_gradients needs a generator or noise")

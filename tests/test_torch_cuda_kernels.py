@@ -541,3 +541,37 @@ def test_lambda_pass_card_equals_cpu(dev, case):
     np.testing.assert_allclose(got[0][0], got[1][0], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(got[0][1], got[1][1], rtol=1e-5, atol=1e-6)
     assert np.abs(got[0][0]).max() > 0
+
+
+def test_row_noise_on_the_card_equals_cpu(dev):
+    """The streamed quantizer's counter-based noise is integer arithmetic:
+    the same bits on the card and on the CPU."""
+    from mmlspark_tpu_torch.ops.histogram import row_noise
+    rows = torch.arange(3_000_000, 3_400_000)
+    assert torch.equal(row_noise(rows.to(dev), 7, -99).cpu(),
+                       row_noise(rows, 7, -99))
+
+
+@pytest.mark.parametrize("growth", [dict(max_depth=4), dict(num_leaves=9)],
+                         ids=["level", "leaf"])
+def test_train_streamed_card_equals_cpu(dev, growth):
+    """Tiles through pinned memory on the copy stream into the kernels:
+    the card's streamed booster equals the CPU's in every array, and the
+    tile width moves no bit."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train_streamed
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(9_000, 12)).astype(np.float32)
+    y = (X[:, 0] - X[:, 1] * X[:, 2] > 0).astype(np.float32)
+    p = GBDTParams(num_iterations=3, objective="binary", seed=2,
+                   use_quantized_grad=True, bagging_fraction=0.8,
+                   bagging_freq=1, **growth)
+    card = train_streamed(X, y, p, tile_rows=2_000)
+    assert card.extras["h2d_s"] > 0.0
+    others = (train_streamed(X, y, p, tile_rows=2_000, device="cpu"),
+              train_streamed(X, y, p, tile_rows=3_500))
+    for other in others:
+        for k in ("split_feature", "threshold_bin", "left_child",
+                  "right_child", "split_gain", "internal_value",
+                  "leaf_value", "leaf_count", "tree_weight"):
+            np.testing.assert_array_equal(getattr(card.booster, k),
+                                          getattr(other.booster, k))

@@ -101,15 +101,31 @@ def test_regressor_trains_in_one_batch_as_the_reference():
     (dict(parallelism="voting_parallel"), "NCCL"),
     (dict(parallelism="voting_parallel", top_k=5), "NCCL"),
     (dict(shard_rows=True), "NCCL"),
-    (dict(checkpoint_dir="ckpt"), "checkpoints"),
-    (dict(checkpoint_every=5), "checkpoints"),
+    (dict(checkpoint_dir="ckpt"), None),
+    (dict(checkpoint_every=5), None),
     (dict(monitor_port=0), "telemetry"),
     (dict(monitor_stall_timeout_s=30.0), "telemetry")],
     ids=["voting", "voting_top_k", "shard_rows", "checkpoint_dir",
          "checkpoint_every", "monitor_port", "monitor_stall_timeout_s"])
-def test_unported_params_raise_their_queue(kw, queue):
+def test_unported_params_raise_their_queue(kw, queue, tmp_path):
+    """Params whose queue is still open raise it; the checkpoint params
+    (``queue`` None) are ported: the fit trains and, with a directory,
+    leaves its terminal snapshot there."""
     X, y = _data(n=300, f=4, seed=2)
     df = DataFrame.from_dict({"features": X, "label": y})
+    if queue is None:
+        from mmlspark_tpu_torch.io.checkpoint import snapshot_steps
+        for est in (port_est.LightGBMClassifier(),
+                    port_est.LightGBMRegressor()):
+            if "checkpoint_dir" in kw:   # one fresh directory per run
+                kw = dict(kw, checkpoint_dir=str(
+                    tmp_path / type(est).__name__ / "ckpt"))
+            model = est.set_params(device="cpu", num_iterations=1,
+                                   num_leaves=4, **kw).fit(df)
+            assert model.booster.num_trees == 1
+            if "checkpoint_dir" in kw:
+                assert snapshot_steps(kw["checkpoint_dir"]) == [1]
+        return
     with pytest.raises(NotImplementedError, match=queue):
         port_est.LightGBMClassifier().set_params(
             device="cpu", num_iterations=1, num_leaves=4, **kw).fit(df)

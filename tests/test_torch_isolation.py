@@ -90,6 +90,12 @@ def test_entry_points_need_the_card_unless_told_cpu(monkeypatch):
     y = (X[:, 0] > 0).astype(np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train(X, y, GBDTParams(num_iterations=1, max_depth=2))
+    from mmlspark_tpu_torch import train_streamed
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_streamed(X, y, GBDTParams(num_iterations=1, max_depth=2),
+                       tile_rows=64)
+    assert train_streamed(X, y, GBDTParams(num_iterations=1, max_depth=2),
+                          tile_rows=64, device="cpu").booster.num_trees == 1
     booster = train(X, y, GBDTParams(num_iterations=1, max_depth=2),
                     device="cpu").booster
     assert isinstance(booster, GBDTBooster)
