@@ -103,16 +103,42 @@ Phases; any failure exits nonzero and prints no result line:
    with its binning and boosting times, prefetch wait and overlap, bytes
    per pass and the copy stream's rate, accuracy >= 0.9 on 100k fresh
    rows, and the leaf-wise fit's peak device memory under 150 MB; the
-   level-wise fit at 262,144 rows a tile bit-identical; the leaf-wise
-   fit preempted after iteration 3 (``request_preemption``) and resumed
-   at 262,144 rows a tile bit-identical to the uninterrupted one; a
-   leaf-wise ``train()`` fit preempted and resumed: tree structure equal,
-   leaf values within 1e-6.
-11. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+   level-wise fit at 262,144 rows a tile (4 tiles, 5 x 4 x 8 = 160
+   launches of each kernel, accuracy >= 0.9) with edges equal to the
+   host sketch fed those same tiles (1M rows are above the sketch's
+   200,000-row sample cap, where the edges follow the tile width, as the
+   JAX package's do; whether its booster differs from the 131,072-row
+   fit's is printed, not gated); the leaf-wise fit preempted after
+   iteration 3 (``request_preemption``) and resumed at the same width,
+   bit-identical to the uninterrupted one; below the cap, the bench
+   data's first 196,608 rows preempted at 32,768 rows a tile and resumed
+   at 65,536, bit-identical to the uninterrupted fit; a leaf-wise
+   ``train()`` fit preempted and resumed: tree structure equal, leaf
+   values within 1e-6.
+11. dnn    — deep-learning scoring, no JAX on the card: the committed
+   ``artifacts/model_repo/ShapesResNet20`` through the port's repo and
+   ``JaxModel`` (batch 256) on the trainer's 8,000-image holdout,
+   accuracy within 0.002 of ``eval.json``, logits card = CPU on 512
+   images; ResNet-50 at full width (224 x 224 x 3, 1000 classes, 2048-d
+   features, every weight and BN statistic seeded): features of 8 images
+   card = CPU in float32 (TF32 off) and bfloat16 = float32 on the card,
+   each within its stated tolerance; backbone images/s at batch 256 in
+   float32 and bfloat16 (CUDA events around normalize + ``features=True``),
+   FLOPs per image from the layer shapes, the share of the dtype's dense
+   peak and the peak memory; ``ImageFeaturizer`` end to end on 10,000
+   seeded 32 x 32 x 3 uint8 images (resize to 224 and normalize on the
+   card, bfloat16 backbone, batch 256): wall images/s and its split (host
+   stacking, host -> card, device, card -> host), the first 4 images'
+   features = the backbone's on the same resized input; the committed
+   ONNX ``DigitsMLP``: logits card = CPU on 256 seeded inputs.  One
+   summary line; details in the detail file.
+12. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
    fits, the two multiclass fits, the ranker fit and the two streamed
-   fits, split in ``launches_by_path``), the card's name and power limit,
-   and the last line ``{"ok": true, "device": {...}}``.
+   fits, split in ``launches_by_path``; the dnn phase runs no kernel of
+   this repository: the JAX package runs its DNN path in XLA, outside
+   any Pallas kernel, and the port in cuDNN/cuBLAS), the card's name and
+   power limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Details (per-level and per-step kernel times, every comparison) go to
 ``chiprun_out/chip_smoke_detail.json``.
@@ -1935,7 +1961,8 @@ def streamed_card_equals_cpu(dev):
             f"{len(BOOSTER_ARRAYS)}/{len(BOOSTER_ARRAYS)} booster arrays")
 
 
-def streamed_fit(label, X, y, Xt, yt, params, **kw):
+def streamed_fit(label, X, y, Xt, yt, params, tile_rows=STREAM_TILE,
+                 **kw):
     """One streamed fit at the bench width with its launch counts (zeroed
     just before, read just after) and its peak device memory."""
     from mmlspark_tpu_torch.lightgbm import train_streamed
@@ -1945,7 +1972,7 @@ def streamed_fit(label, X, y, Xt, yt, params, **kw):
     torch.cuda.reset_peak_memory_stats()
     CH.reset_launch_counts()
     t0 = time.perf_counter()
-    res = train_streamed(X, y, params, tile_rows=STREAM_TILE, **kw)
+    res = train_streamed(X, y, params, tile_rows=tile_rows, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = CH.launch_counts()
@@ -1988,6 +2015,7 @@ def streamed_phase(dev):
     import tempfile
     from mmlspark_tpu_torch.lightgbm import GBDTParams, train, \
         train_streamed
+    from mmlspark_tpu_torch.lightgbm.binning import BinMapper
     from mmlspark_tpu_torch.utils.resilience import request_preemption
 
     staging_layouts(dev)
@@ -2007,7 +2035,8 @@ def streamed_phase(dev):
     log(f"[streamed] leaf-wise peak {rec_leaf['peak_bytes'] / 1e6:.1f} MB "
         f"against two live tiles of {2 * tile_bytes / 1e6:.1f} MB "
         f"({tile_bytes / 1e6:.1f} MB each: {T * N_FEAT / 1e6:.1f} MB bins, "
-        f"{T * 4 / 1e6:.2f} MB each of grad, hess and node ids) and an "
+        f"{T / 1e6:.2f} MB each of int8 grad and hess, {T * 4 / 1e6:.2f} "
+        f"MB of int32 node ids) and an "
         f"accumulator of {acc_bytes['leaf_N1'] / 1e6:.2f} MB (level-wise "
         f"N = 16: {acc_bytes['level_N16'] / 1e6:.2f} MB); the full binned "
         f"matrix is {N_ROWS * N_FEAT / 1e6:.0f} MB")
@@ -2015,14 +2044,29 @@ def streamed_phase(dev):
         raise AssertionError(f"leaf-wise peak {rec_leaf['peak_bytes']} B "
                              f">= 150 MB")
 
-    # the tile width does not move a bit
+    # above the sketch's cap the edges follow the tile width, as the
+    # reference's do: at 262,144 rows a tile they are the host sketch's
+    # fed those tiles; the booster is printed as differing or not
     t0 = time.perf_counter()
-    wide = train_streamed(X, y, level, tile_rows=2 * T)
-    booster_diff(r_level.booster, wide.booster,
-                 "level-wise at 262,144 vs 131,072 rows a tile")
+    wide, rec_wide = streamed_fit("level-wise at 262,144 rows a tile", X, y,
+                                  Xt, yt, level, tile_rows=2 * T)
+    if rec_wide["launches"]["hist_accumulate"] != 160:
+        raise AssertionError("level-wise at 262,144: not 5 x 4 tiles x 8 "
+                             "iterations")
+    host = BinMapper(N_BINS).fit_streaming(
+        X[lo:lo + 2 * T] for lo in range(0, N_ROWS, 2 * T))
+    if not np.array_equal(wide.bin_mapper.edges, host.edges):
+        raise AssertionError("level-wise at 262,144: edges differ from the "
+                             "host sketch fed the same tiles")
+    same = all(np.array_equal(getattr(r_level.booster, k),
+                              getattr(wide.booster, k))
+               for k in BOOSTER_ARRAYS)
     log(f"[streamed] level-wise at 262,144 rows a tile "
-        f"({wide.extras['num_tiles']:.0f} tiles): booster bit-identical to "
-        f"131,072's ({time.perf_counter() - t0:.1f} s)")
+        f"({wide.extras['num_tiles']:.0f} tiles): edges = the host sketch "
+        f"fed those tiles; 160 launches; booster "
+        f"{'bit-identical to' if same else 'differs from'} 131,072's "
+        f"(above the sketch's cap the edges follow the width) "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     def preempt_at(k):
         def cb(it, ev):
@@ -2030,25 +2074,37 @@ def streamed_phase(dev):
                 request_preemption("chip_smoke")
         return cb
 
-    with tempfile.TemporaryDirectory() as d:
-        # leaf-wise, preempted after iteration 3, resumed at another width
+    def preempt_resume(label, Xs, ys, ref, params, t_first, t_resume, d):
         t0 = time.perf_counter()
-        r1 = train_streamed(X, y, leaf, tile_rows=T,
-                            checkpoint_dir=d + "/s", checkpoint_every=1,
+        r1 = train_streamed(Xs, ys, params, tile_rows=t_first,
+                            checkpoint_dir=d, checkpoint_every=1,
                             callbacks=[preempt_at(3)])
-        r2 = train_streamed(X, y, leaf, tile_rows=2 * T,
-                            checkpoint_dir=d + "/s", checkpoint_every=1)
+        r2 = train_streamed(Xs, ys, params, tile_rows=t_resume,
+                            checkpoint_dir=d, checkpoint_every=1)
         ex1, ex2 = r1.extras, r2.extras
         if not (ex1["preempted"] == 1.0 and r1.booster.num_trees == 4
-                and ex2["resharded"] == 1.0
+                and ex2["resharded"] == float(t_first != t_resume)
                 and ex2["resumed_from_iteration"] == 4.0):
-            raise AssertionError(f"streamed preempt/resume: {ex1} {ex2}")
-        booster_diff(r_leaf.booster, r2.booster,
-                     "leaf-wise preempted at 3, resumed at 262,144")
-        log(f"[streamed] leaf-wise preempted after iteration 3, resumed at "
-            f"262,144 rows a tile: resumed_from_iteration 4, resharded 1, "
-            f"booster bit-identical to the uninterrupted fit "
-            f"({time.perf_counter() - t0:.1f} s)")
+            raise AssertionError(f"streamed preempt/resume {label}: {ex1} "
+                                 f"{ex2}")
+        booster_diff(ref.booster, r2.booster, label)
+        log(f"[streamed] {label}: resumed_from_iteration 4, resharded "
+            f"{ex2['resharded']:.0f}, booster bit-identical to the "
+            f"uninterrupted fit ({time.perf_counter() - t0:.1f} s)")
+
+    with tempfile.TemporaryDirectory() as d:
+        # leaf-wise at 1M rows (above the cap), preempted after iteration 3
+        # and resumed at the same width
+        preempt_resume("leaf-wise preempted at 3, resumed at 131,072",
+                       X, y, r_leaf, leaf, T, T, d + "/s")
+        # below the cap a resume may re-tile: the bench data's first
+        # 196,608 rows at 32,768 rows a tile, resumed at 65,536
+        n_small = 196_608
+        Xs, ys = X[:n_small], y[:n_small]
+        small = train_streamed(Xs, ys, leaf, tile_rows=32_768)
+        preempt_resume("leaf-wise 196,608 rows preempted at 3 in tiles of "
+                       "32,768, resumed at 65,536", Xs, ys, small, leaf,
+                       32_768, 65_536, d + "/r")
 
         # train() on the card: leaf-wise, checkpoint_every=2, preempted
         # after iteration 3 and resumed
@@ -2077,10 +2133,325 @@ def streamed_phase(dev):
             f"resumed: tree structure equal, leaf values within 1e-6, "
             f"bitwise equal: {bitwise} ({time.perf_counter() - t0:.1f} s)")
     DETAIL["streamed"] = {"level": rec_level, "leaf": rec_leaf,
+                          "level_262144": rec_wide,
+                          "level_262144_booster_equal": same,
                           "accumulator_bytes": acc_bytes,
                           "in_memory_leaf_accuracy": mem_acc,
                           "train_resume_bitwise": bitwise}
     return {"level": rec_level["launches"], "leaf": rec_leaf["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: deep-learning scoring (ResNet family, JaxModel, ImageFeaturizer,
+# the model repo, ONNX import)
+# ---------------------------------------------------------------------------
+
+#: dense peaks of one H100 SXM (data sheet) for the dtypes the backbone runs
+#: in: bfloat16 on the tensor cores, float32 with TF32 off on the CUDA cores
+DNN_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+#: card vs CPU in float32 (TF32 off on the card): max |diff| over the
+#: outputs' max |value|.  cuDNN picks other algorithms, and so other
+#: summation orders, than the CPU; float32 rounds ~1e-7 per layer, and the
+#: differences measured on narrow nets are ~1e-6 relative
+F32_REL_TOL = 1e-4
+#: bfloat16 against float32 on the card, same measure: bfloat16 keeps 8
+#: significant bits and rounds every layer's output (0.4% measured on the
+#: seeded ResNet-50 on the CPU).  It must also lie above BF16_REL_FLOOR:
+#: a bfloat16 path that computed in float32 would agree within
+#: F32_REL_TOL
+BF16_REL_TOL = 2e-2
+BF16_REL_FLOOR = 10 * F32_REL_TOL
+#: the backbone's input side, batch, and timed calls per dtype
+DNN_HW = 224
+DNN_BATCH = 256
+DNN_REPS = {"float32": 4, "bfloat16": 10}
+#: the featurizer's images: CIFAR-10's test-set size
+FEATURIZER_IMAGES = 10_000
+
+
+def rel_err(a, b) -> float:
+    a = a.detach().float().cpu() if isinstance(a, torch.Tensor) else \
+        torch.as_tensor(a).float()
+    b = b.detach().float().cpu() if isinstance(b, torch.Tensor) else \
+        torch.as_tensor(b).float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def seeded_resnet50(gen: torch.Generator):
+    """ResNet-50 at full width (224 x 224 x 3 in, 1000 classes, 2048-d
+    features) with every weight and BN statistic drawn from ``gen``:
+    flax's initializers for the kernels, BN scales in [0.7, 1.1] ([0.2, 0.5]
+    for the last BN of each block, so the residual branch is live but
+    damped), biases and means N(0, 0.1^2), variances in [0.5, 1.5]."""
+    from mmlspark_tpu_torch.models import resnet
+    model = resnet.resnet50(generator=gen)
+
+    def bn(m, lo, hi):
+        c = m.weight.numel()
+        m.weight.copy_(torch.empty(c).uniform_(lo, hi, generator=gen))
+        m.bias.copy_(torch.randn(c, generator=gen) * 0.1)
+        m.running_mean.copy_(torch.randn(c, generator=gen) * 0.1)
+        m.running_var.copy_(torch.empty(c).uniform_(0.5, 1.5, generator=gen))
+
+    with torch.no_grad():
+        bn(model.bn_init, 0.7, 1.1)
+        for block in model.blocks:
+            for m in block.norms[:-1]:
+                bn(m, 0.7, 1.1)
+            bn(block.norms[-1], 0.2, 0.5)
+            if block.proj:
+                bn(block.norm_proj, 0.7, 1.1)
+        model.head.bias.copy_(torch.randn(1000, generator=gen) * 0.1)
+    return model
+
+
+def conv_flops(model, hw: int) -> float:
+    """FLOPs of one image through ``model(x, features=True)``, counted from
+    the layer shapes as 2 x multiply-adds of every convolution (BN, ReLU,
+    pooling and the residual adds are left out: < 0.5%)."""
+    from mmlspark_tpu_torch.models import resnet
+    total = []
+
+    def hook(m, inp, out):
+        o, i, kh, kw = m.weight.shape
+        total.append(2.0 * out.shape[2] * out.shape[3] * o * i * kh * kw)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, resnet.Conv)]
+    with torch.inference_mode():
+        model(torch.zeros(1, hw, hw, 3, device=model.head.weight.device),
+              features=True)
+    for h in handles:
+        h.remove()
+    return sum(total)
+
+
+def dnn_checkpoint(dev, repo: str):
+    """The committed ShapesResNet20 through the port's repo and JaxModel on
+    the card: the trainer's holdout (``tools/train_backbone.py``:
+    ``make_shapes(8000, seed=1)``, scored raw), accuracy within 0.002 of
+    ``eval.json``; the card's logits = the CPU port's on the first 512."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.dl import JaxModel, ModelDownloader
+    from mmlspark_tpu_torch.dl.procedural_shapes import make_shapes
+    with open(os.path.join(repo, "ShapesResNet20", "eval.json")) as f:
+        pinned = json.load(f)["shapes_holdout_acc"]
+    t0 = time.perf_counter()
+    X, y = make_shapes(8000, seed=1)
+    data_s = time.perf_counter() - t0
+    payload = ModelDownloader(local_cache=repo).download_by_name(
+        "ShapesResNet20")
+    jm = JaxModel(input_col="image", output_col="logits", batch_size=256,
+                  input_shape=[32, 32, 3])
+    jm.set("model", payload)
+    if jm.runner().device.type != "cuda" or any(
+            p.device.type != "cuda" for p in jm.runner().module.parameters()):
+        raise AssertionError("ShapesResNet20 is not on the card")
+    t0 = time.perf_counter()
+    out = jm.transform(DataFrame.from_dict({"image": X})).collect()["logits"]
+    score_s = time.perf_counter() - t0
+    logits = np.stack(list(out))
+    if logits.shape != (8000, 10) or not np.isfinite(logits).all():
+        raise AssertionError(f"ShapesResNet20 logits {logits.shape}")
+    acc = float((logits.argmax(1) == y).mean())
+    cpu = ModelDownloader(local_cache=repo).download_by_name(
+        "ShapesResNet20", device="cpu")
+    with torch.inference_mode():
+        ref = cpu.module(torch.from_numpy(X[:512])).numpy()
+    err = rel_err(logits[:512], ref)
+    rec = {"accuracy": acc, "pinned": pinned, "card_vs_cpu_rel": err,
+           "max_abs_logit": float(np.abs(ref).max()),
+           "make_shapes_s": data_s, "transform_s": score_s,
+           "bucket_calls": dict(jm.runner().bucket_calls)}
+    if abs(acc - pinned) > 0.002:
+        raise AssertionError(f"ShapesResNet20 accuracy {acc} vs {pinned}")
+    if err > F32_REL_TOL:
+        raise AssertionError(f"ShapesResNet20 card vs CPU: {err}")
+    return rec
+
+
+def dnn_backbone(dev):
+    """ResNet-50 at full width: features of 8 images card = CPU (float32,
+    TF32 off) and bfloat16 = float32 on the card; backbone images/s at
+    batch 256 for both dtypes (CUDA events around warm back-to-back calls
+    of normalize + ``features=True``, as ``bench.py``'s ``phase_resnet``),
+    FLOPs per image, the share of the dtype's dense peak, peak memory."""
+    from mmlspark_tpu_torch.models import resnet
+    from mmlspark_tpu_torch.ops import image
+    gen = torch.Generator().manual_seed(50)
+    cpu32 = seeded_resnet50(gen)
+    width = cpu32.head.in_features
+    models = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        m = resnet.ResNet.from_config({**cpu32.config(),
+                                       "dtype": str(dtype)[6:]})
+        m.load_state_dict(cpu32.state_dict())
+        models[name] = m.to(dev)
+    imgs = torch.rand(8, DNN_HW, DNN_HW, 3, generator=torch.Generator(
+        ).manual_seed(51)) * 255
+    with torch.inference_mode():
+        ref = cpu32(image.normalize(imgs), features=True)
+        x8 = image.normalize(imgs.to(dev))
+        f32 = models["float32"](x8, features=True)
+        f16 = models["bfloat16"](x8, features=True)
+    if f32.shape != (8, width) or not torch.isfinite(f32).all() \
+            or not torch.isfinite(f16).all():
+        raise AssertionError(f"ResNet-50 features {tuple(f32.shape)}")
+    rec = {"features_f32_card_vs_cpu_rel": rel_err(f32, ref),
+           "features_bf16_vs_f32_card_rel": rel_err(f16, f32),
+           "max_abs_feature": float(ref.abs().max())}
+    if rec["features_f32_card_vs_cpu_rel"] > F32_REL_TOL:
+        raise AssertionError(f"ResNet-50 card vs CPU: {rec}")
+    if not BF16_REL_FLOOR < rec["features_bf16_vs_f32_card_rel"] \
+            <= BF16_REL_TOL:
+        raise AssertionError(f"ResNet-50 bfloat16 vs float32: {rec}")
+    flops = conv_flops(models["float32"], DNN_HW)
+    x = torch.rand(DNN_BATCH, DNN_HW, DNN_HW, 3, device=dev,
+                   generator=torch.Generator(dev).manual_seed(52)) * 255
+    for name, m in models.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            ms = time_ms(lambda: m(image.normalize(x), features=True),
+                         DNN_REPS[name])
+        ips = DNN_BATCH / ms * 1e3
+        rec[name] = {"ms_per_batch": ms, "batch": DNN_BATCH,
+                     "images_per_s": ips,
+                     "tflops": flops * ips / 1e12,
+                     "peak_share": flops * ips / DNN_PEAK_FLOPS[name],
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "base_bytes": base}
+    rec["gflop_per_image"] = flops / 1e9
+    rec["bfloat16"]["profile"] = backbone_profile(models["bfloat16"], x)
+    return models, rec
+
+
+def backbone_profile(model, x, calls: int = 3):
+    """Where a backbone call's device time goes: ``torch.profiler`` over
+    ``calls`` warm calls; the device time per call, the busy share of the
+    window's wall and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch.ops import image
+    with torch.inference_mode():
+        model(image.normalize(x), features=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                model(image.normalize(x), features=True)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"device_ms_per_call": total / calls,
+            "busy_share": total / 1e3 / wall,
+            "top": [{"name": e.key[:90], "calls": e.count // calls,
+                     "ms_per_call": e.self_device_time_total / 1e3 / calls}
+                    for e in kernels[:10]]}
+
+
+def dnn_featurizer(dev, model_bf16):
+    """The BASELINE config's shape end to end: 10,000 seeded 32 x 32 x 3
+    uint8 images (CIFAR-10's test-set size and shape) through
+    ``ImageFeaturizer`` with the bfloat16 ResNet-50 (224 x 224, batch
+    256): resize and normalize on the card, 2048-d features.  Wall
+    images/s of ``transform`` and its split (host stacking, host -> card,
+    device, card -> host); the first 4 images' features equal the
+    backbone's on the same resized input."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.dl import FlaxModelPayload, ImageFeaturizer
+    from mmlspark_tpu_torch.ops import image
+    rng = np.random.default_rng(53)
+    X = rng.integers(0, 256, (FEATURIZER_IMAGES, 32, 32, 3), dtype=np.uint8)
+    feat = ImageFeaturizer(input_col="image", output_col="features",
+                           height=DNN_HW, width=DNN_HW, batch_size=DNN_BATCH)
+    feat.set_model(payload=FlaxModelPayload(module=model_bf16))
+    warm = DataFrame.from_dict({"image": X[:DNN_BATCH]})
+    feat.transform(warm).collect()
+    runner = feat._build_runner().runner()
+    if runner.device.type != "cuda" or any(
+            p.device.type != "cuda" for p in runner.module.parameters()):
+        raise AssertionError("the featurizer does not run on the card")
+    before = dict(runner.phase_s)
+    df = DataFrame.from_dict({"image": X})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = feat.transform(df).collect()["features"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = np.stack(list(out[:4]))
+    split = {k: runner.phase_s[k] - before[k] for k in before}
+    with torch.inference_mode():
+        first = torch.from_numpy(X[:DNN_BATCH].astype(np.float32)).to(dev)
+        direct = model_bf16(image.normalize(image.resize(first, DNN_HW,
+                                                         DNN_HW)),
+                            features=True)[:4]
+    err = rel_err(got, direct)
+    rec = {"images": len(out), "wall_s": wall,
+           "images_per_s": len(out) / wall, "split_s": split,
+           "features_vs_backbone_rel": err,
+           "bucket_calls": dict(runner.bucket_calls)}
+    if len(out) != FEATURIZER_IMAGES or out[0].shape != (model_bf16.head.in_features,) or \
+            not np.isfinite(got).all():
+        raise AssertionError(f"featurizer output {len(out)} x "
+                             f"{out[0].shape}")
+    if err > 1e-3:
+        raise AssertionError(f"featurizer vs backbone: {err}")
+    return rec
+
+
+def dnn_onnx(dev, repo: str):
+    """The committed ONNX DigitsMLP through the port's repo: logits on 256
+    seeded inputs card = CPU (its pinned accuracy needs sklearn's digits,
+    which the tier-1 tests hold)."""
+    from mmlspark_tpu_torch.dl import ModelDownloader
+    x = np.random.default_rng(54).uniform(0, 1, (256, 64)).astype(np.float32)
+    card, cpu = (ModelDownloader(local_cache=repo).download_by_name(
+        "DigitsMLP", device=d).apply(x) for d in (None, "cpu"))
+    if card.device.type != "cuda" or card.shape != (256, 10):
+        raise AssertionError(f"DigitsMLP on {card.device}, {card.shape}")
+    err = rel_err(card, cpu)
+    if err > F32_REL_TOL:
+        raise AssertionError(f"DigitsMLP card vs CPU: {err}")
+    return {"card_vs_cpu_rel": err}
+
+
+def dnn_phase(dev):
+    repo = os.path.join(ROOT, "artifacts", "model_repo")
+    t0 = time.perf_counter()
+    ckpt = dnn_checkpoint(dev, repo)
+    t_ckpt = time.perf_counter() - t0
+    models, backbone = dnn_backbone(dev)
+    del models["float32"]
+    t_backbone = time.perf_counter() - t0 - t_ckpt
+    feat = dnn_featurizer(dev, models["bfloat16"])
+    onnx = dnn_onnx(dev, repo)
+    DETAIL["dnn"] = {"shapes_resnet20": ckpt, "resnet50": backbone,
+                     "featurizer": feat, "digits_mlp": onnx,
+                     "seconds": {"checkpoint": t_ckpt,
+                                 "backbone": t_backbone,
+                                 "total": time.perf_counter() - t0}}
+    b16, b32 = backbone["bfloat16"], backbone["float32"]
+    sp = feat["split_s"]
+    log(f"[dnn] ShapesResNet20 accuracy {ckpt['accuracy']:.4f} (pinned "
+        f"{ckpt['pinned']}), card vs CPU {ckpt['card_vs_cpu_rel']:.2e}; "
+        f"ResNet-50 features card vs CPU {backbone['features_f32_card_vs_cpu_rel']:.2e}"
+        f" (f32), bf16 vs f32 {backbone['features_bf16_vs_f32_card_rel']:.2e}; "
+        f"backbone at batch 256, {backbone['gflop_per_image']:.3f} GFLOP/image: "
+        f"f32 {b32['images_per_s']:.1f} img/s ({100 * b32['peak_share']:.1f}% "
+        f"of 67 TFLOP/s, peak {b32['peak_bytes'] / 1e9:.2f} GB), bf16 "
+        f"{b16['images_per_s']:.1f} img/s ({100 * b16['peak_share']:.1f}% of "
+        f"989 TFLOP/s, peak {b16['peak_bytes'] / 1e9:.2f} GB); featurizer "
+        f"10,000 x 32x32 -> 224, bf16: {feat['images_per_s']:.1f} img/s "
+        f"(wall {feat['wall_s']:.3f} s: stack {sp['stack']:.3f}, h2d "
+        f"{sp['h2d']:.3f}, device {sp['device']:.3f}, d2h {sp['d2h']:.3f}), "
+        f"vs backbone {feat['features_vs_backbone_rel']:.1e}; DigitsMLP "
+        f"card vs CPU {onnx['card_vs_cpu_rel']:.1e}")
 
 
 def main() -> int:
@@ -2162,6 +2533,11 @@ def main() -> int:
     stream_launches = streamed_phase(dev)
     torch.cuda.synchronize()
     log(f"[streamed] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    dnn_phase(dev)
+    torch.cuda.synchronize()
+    log(f"[dnn] phase done in {time.perf_counter() - t0:.1f} s")
 
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],

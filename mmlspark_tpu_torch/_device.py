@@ -7,7 +7,9 @@ runs every kernel's plain PyTorch version instead.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+import threading
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -38,3 +40,42 @@ def default_quantized(device: torch.device,
     if use_quantized_grad is None:
         return device.type != "cpu"
     return bool(use_quantized_grad)
+
+
+_TF32_LOCK = threading.Lock()
+_tf32_holders = 0
+_tf32_saved = (True, False)
+
+
+@contextlib.contextmanager
+def float32_exact(enabled: bool = True) -> Iterator[None]:
+    """Float32 convolutions and matrix products in float32 for the body:
+    cuDNN's TF32 (on by default for convolutions) and cuBLAS's (off by
+    default) are both switched off, and both flags are restored after, so
+    nothing is left changed for the caller.  A float32 model of the port
+    computes in float32 on the card, as it does on the CPU; bfloat16 is
+    the fast path.
+
+    The flags are process-wide in PyTorch, so bodies on several threads
+    share one switch: the first to enter saves and clears the flags, the
+    last to leave restores them, under a lock.  While any body runs, TF32
+    is off for every thread."""
+    global _tf32_holders, _tf32_saved
+    if not enabled:
+        yield
+        return
+    with _TF32_LOCK:
+        if _tf32_holders == 0:
+            _tf32_saved = (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_holders += 1
+    try:
+        yield
+    finally:
+        with _TF32_LOCK:
+            _tf32_holders -= 1
+            if _tf32_holders == 0:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = _tf32_saved

@@ -6,14 +6,19 @@ and numpy arrays), so this module imports nothing of ``mmlspark_tpu``.
 - ``booster_from_arrays`` — a JAX booster's ``_ARRAYS`` + ``_META``
   -> the port's ``GBDTBooster`` (``GBDTBooster.from_string`` also reads the
   JAX package's ``to_string`` output unchanged);
-- ``bin_mapper_from_edges`` — fitted bin edges -> the port's ``BinMapper``.
+- ``bin_mapper_from_edges`` — fitted bin edges -> the port's ``BinMapper``;
+- ``resnet_state_dict_from_flax`` — a flax ResNet's variables (the nested
+  dict, or the flat ``"params/BasicBlock_0/Conv_0/kernel"`` keys of a
+  ``variables.npz``) -> the ``state_dict`` of ``models.resnet.ResNet``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+import re
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .lightgbm.binning import BinMapper
 from .lightgbm.core import GBDTParams
@@ -50,3 +55,95 @@ def bin_mapper_from_edges(edges: np.ndarray, max_bin: int,
     mapper = BinMapper(max_bin, categorical_features=categorical_features)
     mapper.edges = edges.copy()
     return mapper
+
+
+_BLOCK = re.compile(r"^(?:BasicBlock|BottleneckBlock)_(\d+)$")
+_LAYER = re.compile(r"^(Conv|BatchNorm)_(\d+)$")
+_BN_LEAF = {("params", "scale"): "weight", ("params", "bias"): "bias",
+            ("batch_stats", "mean"): "running_mean",
+            ("batch_stats", "var"): "running_var"}
+
+
+def flatten_variables(variables: Mapping, sep: str = "/"
+                      ) -> Dict[str, np.ndarray]:
+    """``{"params": {"a": {"kernel": x}}}`` -> ``{"params/a/kernel": x}``;
+    keys already flat pass through."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix, node):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(f"{prefix}{sep}{k}" if prefix else str(k), v)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk("", variables)
+    return flat
+
+
+def _resnet_name(collection: str, path: Sequence[str]) -> str:
+    """The port's state_dict name of one flax leaf, or KeyError."""
+    *mods, leaf = path
+    if collection == "params" and mods == ["head"] \
+            and leaf in ("kernel", "bias"):
+        return "head." + ("weight" if leaf == "kernel" else "bias")
+    if mods == ["conv_init"] and (collection, leaf) == ("params", "kernel"):
+        return "conv_init.weight"
+    if len(mods) == 1 and mods[0] == "bn_init" \
+            and (collection, leaf) in _BN_LEAF:
+        return "bn_init." + _BN_LEAF[collection, leaf]
+    if len(mods) == 2 and _BLOCK.match(mods[0]):
+        block = f"blocks.{_BLOCK.match(mods[0]).group(1)}."
+        layer, m = mods[1], _LAYER.match(mods[1])
+        if (collection, leaf) == ("params", "kernel"):
+            if m and m.group(1) == "Conv":
+                return f"{block}convs.{m.group(2)}.weight"
+            if layer == "conv_proj":
+                return block + "conv_proj.weight"
+        elif (collection, leaf) in _BN_LEAF:
+            if m and m.group(1) == "BatchNorm":
+                return f"{block}norms.{m.group(2)}.{_BN_LEAF[collection, leaf]}"
+            if layer == "norm_proj":
+                return f"{block}norm_proj.{_BN_LEAF[collection, leaf]}"
+    raise KeyError("/".join([collection, *path]))
+
+
+def resnet_state_dict_from_flax(variables: Mapping,
+                                model: Optional[torch.nn.Module] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``models.resnet.ResNet`` holding a flax
+    ResNet's weights (``mmlspark_tpu/models/resnet.py``).
+
+    Conv kernels HWIO -> OIHW; the Dense head ``(in, out)`` -> ``(out,
+    in)``; BatchNorm ``params/scale``, ``params/bias``,
+    ``batch_stats/mean``, ``batch_stats/var`` -> ``weight``, ``bias``,
+    ``running_mean``, ``running_var``; flax's auto names
+    (``BasicBlock_i`` / ``BottleneckBlock_i`` numbered across stages,
+    ``Conv_k``, ``BatchNorm_k``, ``conv_proj``, ``norm_proj``, ``conv_init``,
+    ``bn_init``, ``head``) -> ``blocks.i.convs.k``, ``blocks.i.norms.k``
+    and the same names.  A flax key that names nothing of the port raises
+    ``KeyError``; with ``model`` given, a name or shape of its
+    ``state_dict`` left unfilled, or filled with another shape, raises
+    ``ValueError``.  Arrays come out float32 on the CPU
+    (``load_state_dict`` casts them to the model's dtype)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, arr in flatten_variables(variables).items():
+        collection, *path = key.split("/")
+        name = _resnet_name(collection, path)
+        a = np.asarray(arr, np.float32)
+        if name.endswith("weight") and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif name == "head.weight":
+            a = a.T
+        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    if model is not None:
+        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in out.items()}
+        missing = sorted(set(want) - set(got))
+        extra = sorted(set(got) - set(want))
+        wrong = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+        if missing or extra or wrong:
+            raise ValueError(f"flax variables do not fit the model: missing "
+                             f"{missing}, unexpected {extra}, shape differs "
+                             f"{[(k, got[k], want[k]) for k in wrong]}")
+    return out

@@ -1937,14 +1937,6 @@ class _TileStager:
             self.copy_s += start.elapsed_time(done) / 1e3
 
 
-#: rows per chunk of the edge sketch's pass.  Fixed, so that above the
-#: sample cap the reservoir's draws, and with them the edges, do not depend
-#: on the tile width.  The JAX package feeds the sketch tile-sized chunks,
-#: so there the edges above the cap move with ``tile_rows`` and a re-tiled
-#: resume is bit-identical only below the cap (ROADMAP.md §3).
-SKETCH_CHUNK_ROWS = 65_536
-
-
 def _quantize_rows(g_host: np.ndarray, h_host: np.ndarray, quant_bins: int,
                    g_scale: float, h_scale: float, seed: int, mix: int,
                    dev: torch.device, chunk: int
@@ -1974,16 +1966,18 @@ def _quantize_rows(g_host: np.ndarray, h_host: np.ndarray, quant_bins: int,
 
 def _stream_bins(cd, max_bin: int, sample_cnt: int = 200_000
                  ) -> Tuple[BinMapper, np.ndarray]:
-    """Streamed binning: the sketch pass (``SKETCH_CHUNK_ROWS`` at a
-    time), then host uint8 bins tile by tile, each tile by the host route
-    its own cell count picks (as the JAX package bins: a short last tile
-    may take the numpy route while the others take the C++ one), stored
-    feature-major ``(F, n)``.  Below the sample cap the edges are the JAX
-    package's whatever the chunking."""
-    n = cd.n_rows
+    """Streamed binning: the sketch pass fed the dataset's tiles, then
+    host uint8 bins tile by tile, each tile by the host route its own cell
+    count picks (as the JAX package bins: a short last tile may take the
+    numpy route while the others take the C++ one), stored feature-major
+    ``(F, n)``.  The sketch sees the chunks the JAX package's
+    ``train_streamed`` gives it, so the edges are the reference's at every
+    tile width: below the sample cap they do not depend on the width;
+    above it the reservoir's draws follow the chunks, and the edges move
+    with ``tile_rows`` as the reference's do."""
     mapper = BinMapper(max_bin).fit_streaming(
-        (cd.X[lo:lo + SKETCH_CHUNK_ROWS]
-         for lo in range(0, n, SKETCH_CHUNK_ROWS)), sample_cnt=sample_cnt)
+        (cd.X[slice(*cd.tile_slice(i))] for i in range(cd.num_tiles)),
+        sample_cnt=sample_cnt)
     binned_fm = np.empty((cd.num_features, cd.n_rows), np.uint8)
     for i in range(cd.num_tiles):
         lo, hi = cd.tile_slice(i)
@@ -2020,8 +2014,10 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     pinned staging buffers and to the card on a dedicated copy stream; the
     consumer's stream waits on the copy's event (``_TileStager``).
 
-    Numerics: bin edges come from a streaming quantile sketch (identical
-    to the in-memory fit whenever the stream fits the sample budget); the
+    Numerics: bin edges come from a streaming quantile sketch fed the
+    tiles, as the JAX package feeds it (identical to the in-memory fit
+    whenever the stream fits the sample budget; above it the edges depend
+    on the tile width, the reference's at each width); the
     gradient pass evaluates the objective in float64 and rounds once to
     float32 (the card's and the CPU's float32 ``exp`` differ in the last
     place; the rounded float64 results agree), and the quantization scales
@@ -2064,9 +2060,12 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     SIGTERM/SIGINT or ``utils.resilience.request_preemption`` writes one
     last snapshot at the next iteration boundary and returns with
     ``extras["preempted"]``.  The tile geometry is recorded, not identity:
-    a resume may re-tile (``extras["resharded"]``), and with quantized
+    a resume may re-tile (``extras["resharded"]``).  With quantized
     histograms the resumed booster is bit-identical to an uninterrupted
-    run at either width.  Snapshot files share the JAX package's format;
+    run at the same width, and at either width while the rows fit the
+    edge sketch's sample cap (200,000): above it the edges follow the tile
+    width, as the reference's do (the snapshot holds no edges; the resume
+    re-bins).  Snapshot files share the JAX package's format;
     the fingerprints do not match across packages (each hashes its own
     params signature), so one package does not resume the other's run.
 
@@ -2328,6 +2327,7 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
             if delta is not None and delta["changed"]:
                 # re-tiled resume: the row-keyed rounding keeps the booster
                 # bit-identical to an uninterrupted run at either width
+                # while the rows fit the sketch's cap (the edges re-bin)
                 book_reshard("lightgbm.train_streamed", delta)
                 resharded = True
             t_done = int(arrs["split_feature"].shape[0])
@@ -2378,12 +2378,16 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
         pf = stream(lambda i, lo, hi: [(scores_h[lo:hi], 0.0),
                                        (y[lo:hi], 0.0), (w[lo:hi], 0.0)])
         gmax = hmax = 0.0
-        for i, lo, hi, tile in pf:
-            sc_t, y_t, w_t = stager.ready(tile)
+
+        def grads(m, sc_t, y_t, w_t):
             g_t, h_t = objective(sc_t.double()[:, None], y_t.double(),
                                  w_t.double())
-            gh = torch.stack([g_t[:hi - lo, 0], h_t[:hi - lo, 0]]).to(f32) \
-                .cpu().numpy()
+            return torch.stack([g_t[:m, 0], h_t[:m, 0]]).to(f32).cpu() \
+                .numpy()
+
+        for i, lo, hi, tile in pf:
+            gh = grads(hi - lo, *stager.ready(tile))
+            del tile                    # see hist_pass
             g_host[lo:hi], h_host[lo:hi] = gh
             gmax = max(gmax, float(np.abs(gh[0]).max()))
             hmax = max(hmax, float(gh[1].max()))
@@ -2425,18 +2429,23 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
         acc = torch.zeros((nodes_d, F, B, 3),
                           dtype=torch.int32 if use_quant else f32,
                           device=dev)
+
+        def partial(b_t, g_t, h_t, n_t):
+            bins_t = b_t.t()                   # (T, F) feature-major view
+            if use_quant:
+                return hist_ops.build_quantized(
+                    bins_t, g_t, h_t, n_t, nodes_d, B, quant_bins=qb,
+                    node_rows_bound=T)
+            return hist_ops.build_histograms(bins_t, g_t, h_t, n_t,
+                                             nodes_d, B)
+
         bytes0 = stager.bytes
         pf = stream(make_tile)
         for i, lo, hi, tile in pf:
-            b_t, g_t, h_t, n_t = stager.ready(tile)
-            bins_t = b_t.t()                   # (T, F) feature-major view
-            if use_quant:
-                acc += hist_ops.build_quantized(
-                    bins_t, g_t, h_t, n_t, nodes_d, B, quant_bins=qb,
-                    node_rows_bound=T)
-            else:
-                acc += hist_ops.build_histograms(bins_t, g_t, h_t, n_t,
-                                                 nodes_d, B)
+            acc += partial(*stager.ready(tile))
+            # taking tile k + 1 lets the worker stage k + 2 at once: the
+            # loop holds nothing of tile k by then, so two tiles are live
+            del tile
         finish_stream(pf)
         totals["hist_passes"] += 1
         totals["hist_bytes"] = stager.bytes - bytes0

@@ -1,1 +1,2 @@
-"""Tensor ops of the port: histogram builds and the Hopper frontier kernels."""
+"""Tensor ops of the port: histogram builds and the Hopper frontier kernels,
+and the NHWC image ops (``ops.image``)."""

@@ -102,3 +102,56 @@ def test_entry_points_need_the_card_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         booster.predict(X)
     assert resolve_device("cpu") == torch.device("cpu")
+
+    # deep-learning scoring: the runner, JaxModel, ImageFeaturizer,
+    # ImageTransformer and the model downloader
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.dl import (ImageFeaturizer, JaxModel,
+                                       ModelDownloader)
+    from mmlspark_tpu_torch.models import resnet
+    from mmlspark_tpu_torch.models.runner import ModelRunner
+    from mmlspark_tpu_torch.opencv import ImageTransformer
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelRunner(apply_fn=lambda s, b: b)
+    runner = ModelRunner(apply_fn=lambda s, b: b * 2, device="cpu")
+    np.testing.assert_array_equal(runner.apply_batch(X), X * 2)
+    images = np.empty(2, dtype=object)
+    for i in range(2):
+        images[i] = np.zeros((8, 8, 3), np.float32)
+    df = DataFrame.from_dict({"image": images})
+    net = resnet.ResNet([1], resnet.BasicBlock, 3, num_filters=4,
+                        cifar_stem=True)
+    stages = [
+        JaxModel(input_col="image", output_col="out").set_model(module=net),
+        ImageFeaturizer(input_col="image", output_col="out", height=8,
+                        width=8).set_model(module=net),
+        ImageTransformer(input_col="image", output_col="out").flip(1),
+    ]
+    for stage in stages:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            stage.transform(df)
+        out = stage.set_params(device="cpu").transform(df).collect()["out"]
+        assert len(out) == 2 and np.isfinite(np.stack(list(out))).all()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelDownloader().download_by_name("ResNet18")
+    payload = ModelDownloader().download_by_name("ResNet18", device="cpu")
+    assert payload.module.conv_init.weight.device == torch.device("cpu")
+
+    # ONNX: the payload, and a graph fed numpy, run on the card by default
+    from mmlspark_tpu_torch.dl import OnnxModelPayload, onnx_to_jax
+    with open(os.path.join(ROOT, "artifacts", "model_repo", "DigitsMLP",
+                           "onnx", "model.onnx"), "rb") as f:
+        data = f.read()
+    digits = np.zeros((2, 64), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OnnxModelPayload(data).apply(digits)
+    fn, weights = onnx_to_jax(data)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fn(weights, digits)
+    out = OnnxModelPayload(data, device="cpu").apply(digits)
+    assert out.device == torch.device("cpu") and out.shape == (2, 10)
+    repo = os.path.join(ROOT, "artifacts", "model_repo")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelDownloader(local_cache=repo).download_by_name("DigitsMLP")
+    assert ModelDownloader(local_cache=repo).download_by_name(
+        "DigitsMLP", device="cpu").apply(digits).shape == (2, 10)

@@ -305,6 +305,36 @@ def test_prefetcher_keeps_two_tiles_live_and_retires_its_worker():
         list(pf)
 
 
+@pytest.mark.parametrize("growth", ["level", "leaf"])
+def test_streamed_loops_hold_at_most_two_tiles(growth, monkeypatch):
+    """Taking tile k + 1 lets the prefetch worker stage k + 2 at once, so
+    the streamed loops must hold nothing of tile k by then.  With the
+    consumer slowed between taking a tile and using it (the worker stages
+    the next meanwhile), no tile is staged while two others are alive."""
+    import weakref
+    alive, most = [], [0]
+    load, ready = port_core._TileStager.load, port_core._TileStager.ready
+
+    def counted_load(self, parts):
+        most[0] = max(most[0], 1 + sum(r() is not None for r in alive))
+        out = load(self, parts)
+        alive.append(weakref.ref(out[0][0]))
+        return out
+
+    def slow_ready(self, tile):
+        time.sleep(0.005)
+        return ready(self, tile)
+
+    monkeypatch.setattr(port_core._TileStager, "load", counted_load)
+    monkeypatch.setattr(port_core._TileStager, "ready", slow_ready)
+    X, y = _parity_data(n=1000)
+    shape = {"max_depth": 3} if growth == "level" else {"num_leaves": 6}
+    res = train_streamed(X, y, GBDTParams(num_iterations=2, **shape),
+                         tile_rows=200, device="cpu")
+    assert res.extras["num_tiles"] == 5 and len(alive) > 20
+    assert most[0] == 2
+
+
 # ------------------------------------------------ tiles and the quantizer
 
 def _tile_inputs(n=1_000, F=5, B=31, seed=4):
@@ -426,29 +456,39 @@ def test_a_short_last_tile_takes_its_own_host_route(monkeypatch):
     assert int(binned_fm[1, 2 * T:].max()) > 0           # the numpy tile
 
 
-def test_streamed_edges_do_not_depend_on_the_tile_width(monkeypatch):
-    """Above the sample cap the sketch's draws depend on its chunks; the
-    port feeds it fixed ``SKETCH_CHUNK_ROWS`` chunks, so edges and bins are
-    the same at any tile width (the JAX package feeds it tiles: there they
-    move), and they are the JAX package's sketch fed those same chunks."""
+def test_streamed_edges_equal_the_reference_at_every_tile_width(
+        monkeypatch):
+    """Both packages feed the edge sketch the dataset's tiles.  With the
+    sample cap patched to 900 rows (3,000 rows stream past it), the port's
+    ``train_streamed`` edges, and its ``_stream_bins`` edges, equal the JAX
+    package's ``train_streamed`` edges at 250 and at 1,000 rows a tile;
+    above the cap the reservoir's draws follow the chunks, so the two
+    widths give different edges, in both packages alike."""
     rng = np.random.default_rng(5)
     X = rng.normal(size=(3_000, 4)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
     cap = 900
-
-    def jax_edges(chunk):
-        return JaxBinMapper(63).fit_streaming(
-            (X[lo:lo + chunk] for lo in range(0, 3_000, chunk)),
-            sample_cnt=cap).edges
-
-    for chunk in (port_core.SKETCH_CHUNK_ROWS, 700):
-        monkeypatch.setattr(port_core, "SKETCH_CHUNK_ROWS", chunk)
-        got = [port_core._stream_bins(chunked.ChunkedDataset(X, tile_rows=T),
-                                      63, sample_cnt=cap)
-               for T in (250, 1_000)]
-        np.testing.assert_array_equal(got[0][0].edges, got[1][0].edges)
-        np.testing.assert_array_equal(got[0][1], got[1][1])
-        np.testing.assert_array_equal(got[0][0].edges, jax_edges(chunk))
-    assert not np.array_equal(jax_edges(250), jax_edges(1_000))
+    for mapper_cls in (BinMapper, JaxBinMapper):
+        fit = mapper_cls.fit_streaming
+        monkeypatch.setattr(
+            mapper_cls, "fit_streaming",
+            lambda self, chunks, sample_cnt=cap, seed=3, _fit=fit:
+            _fit(self, chunks, sample_cnt=cap, seed=seed))
+    edges = {}
+    for T in (250, 1_000):
+        ref = jax_core.train_streamed(
+            X, y, JaxParams(num_iterations=1, max_depth=2, max_bin=63),
+            tile_rows=T).bin_mapper.edges
+        port = train_streamed(
+            X, y, GBDTParams(num_iterations=1, max_depth=2, max_bin=63),
+            tile_rows=T, device="cpu").bin_mapper.edges
+        mapper, binned_fm = port_core._stream_bins(
+            chunked.ChunkedDataset(X, tile_rows=T), 63)
+        np.testing.assert_array_equal(port, ref)
+        np.testing.assert_array_equal(mapper.edges, ref)
+        np.testing.assert_array_equal(binned_fm, mapper.transform(X).T)
+        edges[T] = ref
+    assert not np.array_equal(edges[250], edges[1_000])
 
 
 # ----------------------------------------------------------- the driver
