@@ -132,13 +132,39 @@ Phases; any failure exits nonzero and prints no result line:
    features = the backbone's on the same resized input; the committed
    ONNX ``DigitsMLP``: logits card = CPU on 256 seeded inputs.  One
    summary line; details in the detail file.
-12. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+12. seq    — the sequence models, no JAX on the card.  (a) Decode at
+   ``bench.py``'s LM (vocab 512, embed 256, 4 heads, 4 layers, mlp 512,
+   max_len 4096, causal, float32, seeded weights) through
+   ``ModelRunner.decode``: bench.py's arm (8 x 16-token prompts, 32 new
+   tokens) and 64 ragged prompts of 16-128 tokens with 128 new tokens
+   and ``eos_id`` the token the model emits most, each dense and paged at
+   page sizes 64 and 16: greedy tokens dense = paged bit-identical,
+   collected logits within 1e-4 of dense, the card's tokens = the CPU's
+   (except from a near-tie step, where the CPU's top two logits lie
+   within 1e-4, reported) and logits within 1e-4, every page back in its
+   pool; tokens/s (CUDA events around the call, and wall), steps,
+   ``pages_peak``, cache bytes per sequence, peak memory; the dense and
+   16-token-page decodes profiled (device time per forward, busy share,
+   launches per forward, top kernels).  (b)
+   ``TransformerEncoder`` at its defaults (vocab 512) on 8 x 4,096 tokens
+   through ``JaxModel``: dense = blockwise = ring and card = CPU (2
+   sequences) within 1e-4 of the outputs' largest magnitude;
+   sequences/s and peak memory per mode.  (c) BASELINE config 5:
+   ``BiLSTMTagger`` defaults, vocab 200, 3 tags, ``JaxModel`` at batch
+   256 on 16,384 x 24 and 1,024 x 512 tokens: tokens/s, card = CPU
+   within 1e-4 on 256 sequences each.  (d) ``export_gbdt`` of a booster
+   fitted on the card, imported on the card, = ``raw_scores`` within
+   1e-5; ``export_resnet`` of seeded ResNet-50 weights, imported, within
+   1e-4 of the port's ResNet-50; a small torch CNN through
+   ``torch_to_jax_model`` within 1e-5 of the module's own output.
+13. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
    fits, the two multiclass fits, the ranker fit and the two streamed
-   fits, split in ``launches_by_path``; the dnn phase runs no kernel of
-   this repository: the JAX package runs its DNN path in XLA, outside
-   any Pallas kernel, and the port in cuDNN/cuBLAS), the card's name and
-   power limit, and the last line ``{"ok": true, "device": {...}}``.
+   fits, split in ``launches_by_path``; the dnn and seq phases run no
+   kernel of this repository: the JAX package runs those paths in XLA,
+   outside any Pallas kernel, and the port in cuDNN/cuBLAS and eager
+   PyTorch), the card's name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Details (per-level and per-step kernel times, every comparison) go to
 ``chiprun_out/chip_smoke_detail.json``.
@@ -2454,6 +2480,402 @@ def dnn_phase(dev):
         f"card vs CPU {onnx['card_vs_cpu_rel']:.1e}")
 
 
+# --------------------------------------------------------------------- seq
+#: bench.py's decode LM (``phase_runner``, ``bench.py:449-452``)
+SEQ_LM = dict(vocab_size=512, num_classes=512, embed_dim=256, num_heads=4,
+              num_layers=4, mlp_dim=512, max_len=4096, causal=True,
+              pool="none")
+#: the reference's committed decode tolerance (tests/test_paged_decode.py)
+DECODE_ATOL = 1e-4
+SEQ_PAGE_SIZES = (64, 16)
+ENCODER_BATCH, ENCODER_LEN = 8, 4096
+BILSTM_POINTS = ((16_384, 24), (1_024, 512))   # (sequences, tokens)
+BILSTM_BATCH = 256
+
+
+def _column(rows):
+    col = np.empty(len(rows), dtype=object)
+    for i, r in enumerate(rows):
+        col[i] = r
+    return col
+
+
+def timed_decode(runner, prompts, **kw):
+    """One decode on the card: CUDA events around the call (the device
+    timeline, host gaps included) and the host clock; tokens/s counts the
+    real (unfrozen) tokens; peak memory above what was held before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res = runner.decode(prompts, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ev_s = start.elapsed_time(end) / 1e3
+    ex = res.extras
+    rec = {"tokens_per_s_events": ex["real_tokens"] / ev_s,
+           "tokens_per_s_wall": ex["real_tokens"] / wall,
+           "events_s": ev_s, "wall_s": wall, "steps": res.steps,
+           "real_tokens": ex["real_tokens"],
+           "cache_bytes_per_seq": ex["cache_bytes_per_seq"],
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "dispatch_s": ex["dispatch_s"], "device_s": ex["device_s"]}
+    if ex["kv_layout"] == "paged":
+        rec.update(pages_peak=ex["pages_peak"],
+                   pages_prefill=ex["pages_prefill"],
+                   table_width=ex["table_width"])
+    return res, rec
+
+
+def decode_profile(runner, prompts, **kw):
+    """Where one decode's time goes: ``torch.profiler`` over a warm call;
+    the device time and its busy share of the call's wall, kernel launches
+    per step and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = runner.decode(prompts, **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    forwards = res.steps + 1
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "busy_share": device_ms / 1e3 / wall,
+            "launches_per_forward": launches / forwards,
+            "device_ms_per_step": device_ms / forwards,
+            "wall_ms_per_step": wall * 1e3 / forwards,
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "ms": e.self_device_time_total / 1e3}
+                    for e in kernels[:8]]}
+
+
+def decode_card_vs_cpu(card, cpu, what: str):
+    """Tokens equal, except from a step where the CPU's top-two logits lie
+    within DECODE_ATOL (a near-tie, reported); logits within DECODE_ATOL
+    up to and including each row's first divergent step."""
+    near_ties, max_err = [], 0.0
+    for b in range(card.tokens.shape[0]):
+        bad = np.nonzero(card.tokens[b] != cpu.tokens[b])[0]
+        stop = card.tokens.shape[1] if len(bad) == 0 else int(bad[0]) + 1
+        err = float(np.abs(card.logits[b, :stop]
+                           - cpu.logits[b, :stop]).max())
+        max_err = max(max_err, err)
+        if err > DECODE_ATOL:
+            raise AssertionError(f"{what}: row {b} logits card vs CPU {err}")
+        if len(bad):
+            t = int(bad[0])
+            top2 = np.sort(cpu.logits[b, t])[-2:]
+            gap = float(top2[1] - top2[0])
+            if gap > DECODE_ATOL:
+                raise AssertionError(f"{what}: row {b} step {t} tokens "
+                                     f"differ, CPU top-two gap {gap}")
+            near_ties.append({"row": b, "step": t, "gap": gap})
+    return {"max_abs_logit_err": max_err, "near_ties": near_ties}
+
+
+def seq_decode_point(dev, lm, name, prompts, lengths, new_tokens,
+                     eos_id=None):
+    """One decode point in both layouts: dense and paged at each page size
+    give the same greedy tokens, bit for bit; their collected logits agree
+    within DECODE_ATOL; the card's agree with the CPU's; every paged page is
+    back in its pool at the end."""
+    from mmlspark_tpu_torch.models import ModelRunner
+    runner = ModelRunner(module=lm, name=f"seq.{name}",
+                         batch_size=len(prompts))
+    if runner.device.type != "cuda":
+        raise AssertionError("the decode runner is not on the card")
+    kw = dict(lengths=lengths, max_new_tokens=new_tokens, eos_id=eos_id)
+    layouts = {"dense": {}}
+    layouts.update({f"paged{ps}": {"kv_layout": "paged", "page_size": ps}
+                    for ps in SEQ_PAGE_SIZES})
+    rec = {"batch": len(prompts), "prompt_lens": [int(lengths.min()),
+                                                  int(lengths.max())],
+           "new_tokens": new_tokens, "eos_id": eos_id}
+    greedy = {}
+    for lay, lkw in layouts.items():
+        runner.decode(prompts, **kw, **lkw)                     # warm
+        greedy[lay], rec[lay] = timed_decode(runner, prompts, **kw, **lkw)
+        if lay != "dense" and not np.array_equal(greedy[lay].tokens,
+                                                 greedy["dense"].tokens):
+            raise AssertionError(f"{name}: {lay} greedy tokens differ from "
+                                 "dense")
+        if lay != "dense" and greedy[lay].steps != greedy["dense"].steps:
+            raise AssertionError(f"{name}: {lay} steps differ")
+    logits = {lay: runner.decode(prompts, collect_logits=True, **kw, **lkw)
+              for lay, lkw in layouts.items()}
+    for lay, res in logits.items():
+        if not np.array_equal(res.tokens, logits["dense"].tokens):
+            raise AssertionError(f"{name}: {lay} collect_logits tokens")
+        err = float(np.abs(res.logits - logits["dense"].logits).max())
+        rec[lay]["logits_vs_dense"] = err
+        if err > DECODE_ATOL:
+            raise AssertionError(f"{name}: {lay} logits vs dense {err}")
+    if not np.array_equal(logits["dense"].tokens, greedy["dense"].tokens):
+        raise AssertionError(f"{name}: fused and host-argmax tokens differ")
+    for lay in ("dense", f"paged{SEQ_PAGE_SIZES[-1]}"):
+        rec[lay]["profile"] = decode_profile(runner, prompts, **kw,
+                                             **layouts[lay])
+    for ps in SEQ_PAGE_SIZES:
+        pool = runner.page_pool(ps)
+        if pool.pages_in_use():
+            raise AssertionError(f"{name}: {pool.pages_in_use()} pages of "
+                                 f"size {ps} still held")
+    cpu = ModelRunner(module=lm, name=f"seq.{name}.cpu", device="cpu")
+    t0 = time.perf_counter()
+    ref = cpu.decode(prompts, collect_logits=True, **kw)
+    rec["cpu_s"] = time.perf_counter() - t0
+    rec["card_vs_cpu"] = decode_card_vs_cpu(logits["dense"], ref, name)
+    rec["finished_rows"] = int((greedy["dense"].tokens == eos_id).any(1).sum()
+                               ) if eos_id is not None else 0
+    return rec
+
+
+def seq_decode(dev):
+    """(a) decode at bench.py's LM (seeded weights, float32): bench.py's
+    arm (8 x 16 prompts, 32 new tokens) and a batch of 64 ragged 16-128
+    token prompts, 128 new tokens, with ``eos_id`` the token the model
+    emits most often there (so some rows finish and free their pages)."""
+    from mmlspark_tpu_torch.models import TransformerEncoder
+    lm = TransformerEncoder(**SEQ_LM,
+                            generator=torch.Generator().manual_seed(60))
+    rng = np.random.default_rng(61)
+    out = {}
+    prompts = rng.integers(0, 512, (8, 16)).astype(np.int32)
+    out["bench"] = seq_decode_point(dev, lm, "bench", prompts,
+                                    np.full(8, 16, np.int32), 32)
+    lengths = rng.integers(16, 129, 64).astype(np.int32)
+    prompts = rng.integers(0, 512, (64, int(lengths.max()))).astype(np.int32)
+    from mmlspark_tpu_torch.models import ModelRunner
+    probe = ModelRunner(module=lm, name="seq.probe").decode(
+        prompts, lengths=lengths, max_new_tokens=128)
+    eos = int(np.bincount(probe.tokens.ravel()).argmax())
+    out["large"] = seq_decode_point(dev, lm, "large", prompts, lengths, 128,
+                                    eos_id=eos)
+    return out
+
+
+def seq_encoder(dev):
+    """(b) ``TransformerEncoder`` at its defaults (vocab 512) scoring 8 x
+    4,096 tokens through ``JaxModel``, dense, blockwise and ring: the three
+    agree, and the card agrees with the CPU on 2 sequences."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.dl import JaxModel
+    from mmlspark_tpu_torch.models import TransformerEncoder
+    cpu = TransformerEncoder(512, generator=torch.Generator().manual_seed(62))
+    x = np.random.default_rng(63).integers(
+        0, 512, (ENCODER_BATCH, ENCODER_LEN)).astype(np.int32)
+    df = DataFrame.from_dict({"tokens": _column(x)})
+    rec, outs = {}, {}
+    for mode in ("dense", "blockwise", "ring"):
+        model = TransformerEncoder.from_config({**cpu.config(),
+                                                "attention_mode": mode})
+        model.load_state_dict(cpu.state_dict())
+        jm = JaxModel(input_col="tokens", output_col="logits",
+                      batch_size=ENCODER_BATCH, input_dtype="int32")
+        jm.set_model(module=model)
+        jm.transform(df).collect()                              # warm
+        if jm.runner().device.type != "cuda":
+            raise AssertionError("the encoder is not on the card")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = jm.transform(df).collect()["logits"]
+        wall = time.perf_counter() - t0
+        outs[mode] = np.stack(list(out))
+        rec[mode] = {"sequences_per_s": ENCODER_BATCH / wall, "wall_s": wall,
+                     "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        del jm, model
+    if outs["dense"].shape != (ENCODER_BATCH, 2) or \
+            not np.isfinite(outs["dense"]).all():
+        raise AssertionError(f"encoder output {outs['dense'].shape}")
+    for mode in ("blockwise", "ring"):
+        rec[mode]["vs_dense_rel"] = rel_err(outs[mode], outs["dense"])
+        if rec[mode]["vs_dense_rel"] > F32_REL_TOL:
+            raise AssertionError(f"encoder {mode} vs dense: {rec[mode]}")
+    with torch.inference_mode():
+        ref = cpu(torch.from_numpy(x[:2]))
+    rec["card_vs_cpu_rel"] = rel_err(outs["dense"][:2], ref)
+    rec["max_abs_logit"] = float(ref.abs().max())
+    if rec["card_vs_cpu_rel"] > F32_REL_TOL:
+        raise AssertionError(f"encoder card vs CPU: {rec['card_vs_cpu_rel']}")
+    return rec
+
+
+def seq_bilstm(dev):
+    """(c) BASELINE config 5: ``BiLSTMTagger`` at its defaults with the
+    example's vocabulary (200) and tags (3) through ``JaxModel`` at batch
+    256: 16,384 sequences of the example's 24 tokens, then 1,024 of 512;
+    tokens/s per length; the card's logits equal the CPU's on the first 256
+    sequences of each."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.dl import JaxModel
+    from mmlspark_tpu_torch.models import BiLSTMTagger
+    cpu = BiLSTMTagger(200, 3, generator=torch.Generator().manual_seed(64))
+    card = BiLSTMTagger.from_config(cpu.config())
+    card.load_state_dict(cpu.state_dict())
+    jm = JaxModel(input_col="tokens", output_col="tags",
+                  batch_size=BILSTM_BATCH, input_dtype="int32")
+    jm.set_model(module=card)
+    rec = {}
+    rng = np.random.default_rng(65)
+    for n, L in BILSTM_POINTS:
+        x = rng.integers(0, 200, (n, L)).astype(np.int32)
+        df = DataFrame.from_dict({"tokens": _column(x)})
+        jm.transform(DataFrame.from_dict(
+            {"tokens": _column(x[:BILSTM_BATCH])})).collect()   # warm
+        if jm.runner().device.type != "cuda":
+            raise AssertionError("the tagger is not on the card")
+        runner = jm.runner()
+        before = dict(runner.phase_s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = jm.transform(df).collect()["tags"]
+        wall = time.perf_counter() - t0
+        got = np.stack(list(out[:BILSTM_BATCH]))
+        with torch.inference_mode():
+            ref = cpu(torch.from_numpy(x[:BILSTM_BATCH]))
+        err = rel_err(got, ref)
+        rec[f"{n}x{L}"] = {
+            "tokens_per_s": n * L / wall, "wall_s": wall,
+            "split_s": {k: runner.phase_s[k] - before[k] for k in before},
+            "card_vs_cpu_rel": err}
+        if len(out) != n or out[0].shape != (L, 3) or \
+                not np.isfinite(got).all():
+            raise AssertionError(f"tagger output {len(out)} x {out[0].shape}")
+        if err > F32_REL_TOL:
+            raise AssertionError(f"tagger {n}x{L} card vs CPU: {err}")
+    return rec
+
+
+def seq_interchange(dev):
+    """(d) ONNX export of a booster fitted on the card and of seeded
+    ResNet-50 weights, each imported by the port's ``onnx_import`` on the
+    card; a small torch CNN through ``torch_to_jax_model``."""
+    from mmlspark_tpu_torch._device import float32_exact
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.dl import (export_gbdt, export_resnet,
+                                       onnx_to_jax, torch_to_jax_model)
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    rec = {}
+    X, y = bench_data(50_000, seed=66)
+    X = X[:, :20].copy()
+    booster = train(X, y, GBDTParams(num_iterations=4, num_leaves=15,
+                                     objective="binary")).booster
+    fn, weights = onnx_to_jax(export_gbdt(booster))
+    Xd = torch.from_numpy(X).to(dev)
+    label, scores = fn(weights, Xd)
+    raw = booster.raw_scores(X)
+    if scores.device.type != "cuda":
+        raise AssertionError("the imported booster ran off the card")
+    rec["gbdt_max_abs_err"] = float(np.abs(scores[:, 1].cpu().numpy()
+                                           - raw.ravel()).max())
+    if rec["gbdt_max_abs_err"] > 1e-5:
+        raise AssertionError(f"exported booster vs raw_scores: {rec}")
+    model = seeded_resnet50(torch.Generator().manual_seed(67)).to(dev)
+    t0 = time.perf_counter()
+    data = export_resnet(model)
+    rec["resnet50_export_s"] = time.perf_counter() - t0
+    rec["resnet50_onnx_mb"] = len(data) / 1e6
+    fn, weights = onnx_to_jax(data)
+    weights = {k: torch.tensor(v, device=dev) for k, v in weights.items()}
+    x = torch.rand(4, DNN_HW, DNN_HW, 3, device=dev,
+                   generator=torch.Generator(dev).manual_seed(68))
+    with torch.inference_mode():
+        want = model(x)
+        got = fn(weights, x.permute(0, 3, 1, 2).contiguous())
+    rec["resnet50_rel"] = rel_err(got, want)
+    if rec["resnet50_rel"] > F32_REL_TOL:
+        raise AssertionError(f"exported ResNet-50 vs the port's: {rec}")
+    net = torch.nn.Sequential(
+        torch.nn.Conv2d(3, 16, 3, padding=1), torch.nn.BatchNorm2d(16),
+        torch.nn.ReLU(), torch.nn.MaxPool2d(2),
+        torch.nn.Conv2d(16, 32, 3, stride=2), torch.nn.ReLU(),
+        torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+        torch.nn.Linear(32, 10)).eval()
+    gen = torch.Generator().manual_seed(69)
+    with torch.no_grad():
+        bn = net[1]
+        bn.running_mean.copy_(torch.randn(16, generator=gen) * 0.2)
+        bn.running_var.copy_(torch.rand(16, generator=gen) + 0.5)
+    imgs = np.random.default_rng(70).normal(size=(64, 32, 32, 3)).astype(
+        np.float32)
+    jm = torch_to_jax_model(net, input_col="image", output_col="logits",
+                            batch_size=32)
+    out = np.stack(list(jm.transform(DataFrame.from_dict(
+        {"image": _column(imgs)})).collect()["logits"]))
+    if jm.runner().device.type != "cuda":
+        raise AssertionError("the imported CNN is not on the card")
+    net = net.to(dev)
+    with torch.inference_mode(), float32_exact():
+        want = net(torch.from_numpy(imgs).to(dev).permute(0, 3, 1, 2))
+    rec["torch_cnn_rel"] = rel_err(out, want)
+    if rec["torch_cnn_rel"] > 1e-5:
+        raise AssertionError(f"imported CNN vs the torch module: {rec}")
+    return rec
+
+
+def seq_phase(dev):
+    t0 = time.perf_counter()
+    dec = seq_decode(dev)
+    t_dec = time.perf_counter() - t0
+    enc = seq_encoder(dev)
+    t_enc = time.perf_counter() - t0 - t_dec
+    tag = seq_bilstm(dev)
+    inter = seq_interchange(dev)
+    DETAIL["seq"] = {"decode": dec, "encoder": enc, "bilstm": tag,
+                     "interchange": inter,
+                     "seconds": {"decode": t_dec, "encoder": t_enc,
+                                 "total": time.perf_counter() - t0}}
+    for point, r in dec.items():
+        lays = " | ".join(
+            f"{lay} {r[lay]['tokens_per_s_events']:.0f} tok/s (events; wall "
+            f"{r[lay]['tokens_per_s_wall']:.0f}), {r[lay]['steps']} steps, "
+            f"{r[lay]['cache_bytes_per_seq'] / 1e6:.3f} MB/seq"
+            + (f", pages_peak {r[lay]['pages_peak']}" if "pages_peak"
+               in r[lay] else "")
+            + f", peak {r[lay]['peak_bytes'] / 1e6:.1f} MB"
+            + (", profiled: {device_ms_per_step:.3f} device / "
+               "{wall_ms_per_step:.3f} wall ms per forward, busy "
+               "{busy_share:.2f}, {launches_per_forward:.0f} launches per "
+               "forward".format(**r[lay]["profile"]) if "profile" in r[lay]
+               else "")
+            for lay in ("dense", *(f"paged{ps}" for ps in SEQ_PAGE_SIZES)))
+        log(f"[seq] decode {point} (B {r['batch']}, prompts "
+            f"{r['prompt_lens'][0]}-{r['prompt_lens'][1]}, "
+            f"{r['new_tokens']} new, eos {r['eos_id']}, "
+            f"{r['finished_rows']} rows hit eos): {lays}; dense = paged "
+            f"tokens; logits card vs CPU "
+            f"{r['card_vs_cpu']['max_abs_logit_err']:.1e}, near-ties "
+            f"{r['card_vs_cpu']['near_ties']}")
+    log(f"[seq] encoder {ENCODER_BATCH} x {ENCODER_LEN} (vocab 512, "
+        "defaults): " + " | ".join(
+        f"{m} {enc[m]['sequences_per_s']:.1f} seq/s, peak "
+        f"{enc[m]['peak_bytes'] / 1e9:.2f} GB"
+        + (f", vs dense {enc[m]['vs_dense_rel']:.1e}" if m != "dense"
+           else "") for m in ("dense", "blockwise", "ring"))
+        + f"; card vs CPU {enc['card_vs_cpu_rel']:.1e}")
+    log("[seq] BiLSTM (config 5, batch 256): " + " | ".join(
+        f"{k} {v['tokens_per_s']:.0f} tok/s (wall {v['wall_s']:.3f} s, card "
+        f"vs CPU {v['card_vs_cpu_rel']:.1e})" for k, v in tag.items()))
+    log(f"[seq] interchange: exported booster vs raw_scores "
+        f"{inter['gbdt_max_abs_err']:.1e}; exported ResNet-50 "
+        f"({inter['resnet50_onnx_mb']:.1f} MB) vs the port's "
+        f"{inter['resnet50_rel']:.1e}; imported CNN vs torch "
+        f"{inter['torch_cnn_rel']:.1e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2538,6 +2960,11 @@ def main() -> int:
     dnn_phase(dev)
     torch.cuda.synchronize()
     log(f"[dnn] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    seq_phase(dev)
+    torch.cuda.synchronize()
+    log(f"[seq] phase done in {time.perf_counter() - t0:.1f} s")
 
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],

@@ -17,18 +17,23 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises without a GPU); anything else as given."""
+    """``None`` -> the current CUDA device (raises without a GPU); anything
+    else as given.  A CUDA device always carries its index (``cuda`` ->
+    ``cuda:0``), so it compares equal to the device of the tensors on it."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "mmlspark_tpu_torch runs on a CUDA device and none is "
                 "available; pass device='cpu' to run the plain PyTorch "
                 "versions on the host")
-        return torch.device("cuda")
+        device = "cuda"
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is "
+                               "not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

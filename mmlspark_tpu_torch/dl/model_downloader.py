@@ -16,7 +16,10 @@ the block type and count from the ``BasicBlock_i`` / ``BottleneckBlock_i``
 keys, the stage sizes from the runs of equal widths between the stride
 changes, ``num_filters`` from ``conv_init``'s kernel, ``cifar_stem`` from a
 3x3 stem, the classes from the head (``artifacts/model_repo/ShapesResNet20``
-is such a directory).
+is such a directory).  A BiLSTM tagger's variables (``fwd_i`` / ``bwd_i``
+cells) are read the same way: vocabulary and embedding width from the
+embedding, the hidden width from a cell, the layers from the ``fwd_i``
+count, the tags from the head.
 
 Zoo weights drawn by ``download_by_name`` follow flax's initializers from
 ``torch.Generator().manual_seed(seed)``; they are not the JAX package's
@@ -56,14 +59,8 @@ class ModelSchema:
         return ModelSchema(**json.loads(s))
 
 
-def _bilstm(**_kw):
-    raise NotImplementedError(
-        "BiLSTM: models/bilstm.py is not ported yet (ROADMAP.md §1 item 8, "
-        "the rest of the DNN family)")
-
-
 def _zoo() -> Dict[str, Callable[..., Any]]:
-    from ..models import resnet
+    from ..models import bilstm, resnet
     return {
         "ResNet18": resnet.resnet18,
         "ResNet34": resnet.resnet34,
@@ -71,7 +68,9 @@ def _zoo() -> Dict[str, Callable[..., Any]]:
         "ResNet101": resnet.resnet101,
         "ShapesResNet20": lambda **kw: resnet.cifar_resnet20(
             num_classes=kw.pop("num_classes", 10), **kw),
-        "BiLSTM": _bilstm,
+        "BiLSTM": lambda **kw: bilstm.BiLSTMTagger(
+            vocab_size=kw.pop("vocab_size", 32768),
+            num_tags=kw.pop("num_tags", 32), **kw),
     }
 
 
@@ -116,6 +115,24 @@ def resnet_from_variables(variables: Mapping):
         num_classes=int(flat["params/head/kernel"].shape[1]),
         num_filters=num_filters, cifar_stem=int(stem.shape[0]) == 3)
     model.load_state_dict(resnet_state_dict_from_flax(flat, model))
+    return model
+
+
+def bilstm_from_variables(variables: Mapping):
+    """The port's float32 ``BiLSTMTagger`` holding a flax tagger's
+    variables, its sizes read from the shapes."""
+    from ..convert import bilstm_state_dict_from_flax, flatten_variables
+    from ..models.bilstm import BiLSTMTagger
+    flat = flatten_variables(variables)
+    vocab, embed = flat["params/Embed_0/embedding"].shape
+    layers = sum(1 for k in flat
+                 if re.match(r"^params/fwd_\d+/OptimizedLSTMCell_0/hi/bias$",
+                             k))
+    model = BiLSTMTagger(
+        vocab, int(flat["params/head/kernel"].shape[1]), embed_dim=embed,
+        hidden=int(flat["params/fwd_0/OptimizedLSTMCell_0/hi/bias"].shape[0]),
+        num_layers=layers)
+    model.load_state_dict(bilstm_state_dict_from_flax(flat, model))
     return model
 
 
@@ -165,7 +182,7 @@ class ModelRepo:
         """The payload of ``name``, on the host: an ``OnnxModelPayload``
         for an ONNX directory, else a ``FlaxModelPayload`` from the
         checkpoint (``module.json`` when the port wrote it, else the ResNet
-        inferred from ``variables.npz``)."""
+        or BiLSTM tagger inferred from ``variables.npz``)."""
         base = os.path.join(self.root, name)
         onnx_dir = os.path.join(base, "onnx")
         if os.path.exists(os.path.join(onnx_dir, "model.onnx")):
@@ -179,6 +196,8 @@ class ModelRepo:
         with np.load(os.path.join(path, "variables.npz"),
                      allow_pickle=False) as z:
             flat = {k: z[k] for k in z.files}
+        if "params/fwd_0/OptimizedLSTMCell_0/hi/bias" in flat:
+            return FlaxModelPayload(module=bilstm_from_variables(flat))
         return FlaxModelPayload(module=resnet_from_variables(flat))
 
 

@@ -27,13 +27,14 @@ from mmlspark_tpu.dl import JaxModel as JaxJaxModel
 from mmlspark_tpu.dl import ModelDownloader as JaxDownloader
 from mmlspark_tpu.dl.procedural_shapes import make_shapes as jax_make_shapes
 from mmlspark_tpu.models import resnet as jax_resnet
-from mmlspark_tpu_torch.convert import resnet_state_dict_from_flax
+from mmlspark_tpu_torch.convert import (bilstm_state_dict_from_flax,
+                                        resnet_state_dict_from_flax)
 from mmlspark_tpu_torch.core import DataFrame, load, save
 from mmlspark_tpu_torch.dl import (FlaxModelPayload, ImageFeaturizer,
                                    JaxModel, ModelDownloader, ModelRepo)
 from mmlspark_tpu_torch.dl.model_downloader import resnet_from_variables
 from mmlspark_tpu_torch.dl.procedural_shapes import make_shapes
-from mmlspark_tpu_torch.models import resnet
+from mmlspark_tpu_torch.models import TransformerEncoder, resnet
 from mmlspark_tpu_torch.models import runner as port_runner
 from mmlspark_tpu_torch.observability.metrics import MetricsRegistry
 from tests.test_torch_resnet import seeded_variables
@@ -175,14 +176,22 @@ def test_runner_books_the_reference_counters():
 
 
 @pytest.mark.parametrize("call", [
-    lambda r: r.scorer(), lambda r: r.decode(np.zeros((1, 2))),
-    lambda r: r.decode_stream(), lambda r: r.page_pool(),
-    lambda r: port_runner.PagePool(), lambda r: port_runner.ContinuousDecoder(r),
-    lambda r: port_runner.DecodeResult(), lambda r: port_runner.ShedReply("x"),
-], ids=["scorer", "decode", "decode_stream", "page_pool", "PagePool",
-        "ContinuousDecoder", "DecodeResult", "ShedReply"])
+    lambda r: r.scorer(),
+    lambda r: r.decode(np.zeros((1, 2), np.int32), kv_layout="paged",
+                       prefix_cache=True),
+    lambda r: r.decode_stream(), lambda r: r.prefix_cache(),
+    lambda r: r.stall_watchdog(1.0),
+    lambda r: port_runner.ContinuousDecoder(r),
+    lambda r: port_runner.StreamHandle(), lambda r: port_runner.ShedReply("x"),
+], ids=["scorer", "decode", "decode_stream", "prefix_cache",
+        "stall_watchdog", "ContinuousDecoder", "StreamHandle", "ShedReply"])
 def test_serving_and_decode_names_raise(call):
-    r = port_runner.ModelRunner(apply_fn=lambda s, x: x, device="cpu")
+    """The serving and continuous-decode side of the runner is not ported
+    (the batched decode is: ``tests/test_torch_decode.py``)."""
+    lm = TransformerEncoder(8, num_classes=8, embed_dim=8, num_heads=2,
+                            num_layers=1, mlp_dim=8, max_len=16,
+                            causal=True, pool="none")
+    r = port_runner.ModelRunner(module=lm, device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         call(r)
 
@@ -266,8 +275,14 @@ def test_zoo_names_and_shapes_equal_the_reference(tmp_path):
                                                device="cpu", num_classes=10)
     for k, v in fresh.module.state_dict().items():
         assert torch.equal(v, state[k]), k
-    with pytest.raises(NotImplementedError, match="bilstm"):
-        ModelDownloader().download_by_name("BiLSTM", device="cpu")
+    # the zoo's tagger has the reference's names and shapes too
+    tagger = ModelDownloader().download_by_name(
+        "BiLSTM", device="cpu", vocab_size=40, num_tags=3).module
+    jax_tagger = JaxDownloader().download_by_name(
+        "BiLSTM", vocab_size=40, num_tags=3)
+    ref = bilstm_state_dict_from_flax(jax_tagger.variables)
+    assert {k: tuple(v.shape) for k, v in tagger.state_dict().items()} == \
+        {k: tuple(v.shape) for k, v in ref.items()}
     with pytest.raises(KeyError, match="unknown model"):
         ModelDownloader().download_by_name("VGG", device="cpu")
 

@@ -134,6 +134,20 @@ def test_entry_points_need_the_card_unless_told_cpu(monkeypatch):
         assert len(out) == 2 and np.isfinite(np.stack(list(out))).all()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ModelDownloader().download_by_name("ResNet18")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelDownloader().download_by_name("BiLSTM", vocab_size=8,
+                                           num_tags=2)
+    # torch import scores on the card unless told otherwise
+    from mmlspark_tpu_torch.dl import torch_to_jax_model
+    rows = np.empty(2, dtype=object)
+    for i in range(2):
+        rows[i] = np.zeros(3, np.float32)
+    imported = torch_to_jax_model(torch.nn.Sequential(torch.nn.Linear(3, 2)),
+                                  input_col="x", output_col="y")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        imported.transform(DataFrame.from_dict({"x": rows}))
+    assert len(imported.set_params(device="cpu").transform(
+        DataFrame.from_dict({"x": rows})).collect()["y"]) == 2
     payload = ModelDownloader().download_by_name("ResNet18", device="cpu")
     assert payload.module.conv_init.weight.device == torch.device("cpu")
 
