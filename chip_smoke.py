@@ -157,11 +157,45 @@ Phases; any failure exits nonzero and prints no result line:
    1e-5; ``export_resnet`` of seeded ResNet-50 weights, imported, within
    1e-4 of the port's ResNet-50; a small torch CNN through
    ``torch_to_jax_model`` within 1e-5 of the module's own output.
-13. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+13. serve  — the decode/serving engine at the seq phase's LM (seeded
+   weights, float32), no JAX on the card.  (a) ``bench.py``'s continuous
+   trace (48 Poisson arrivals at 1.25x the capacity of 8 slots, prompts
+   of 4-16 tokens, budgets of 4-32, pages of 16, ``default_rng(17)``, on
+   the step clock) through the ticked drain (``decode`` per group, bound
+   by its longest budget) and through ``ContinuousDecoder``: every
+   request's tokens equal a one-shot paged ``decode`` of its prompt,
+   except from a step where the one-shot's top two logits lie within
+   1e-4 (a near-tie, reported); every page back after ``close()``;
+   useful tokens/s of each, prefills, steps, wall per forward, and the
+   continuous engine's device time and kernels per forward
+   (``torch.profiler``, the card's activity only).  (b) ``bench.py``'s
+   template trace (40 arrivals, 3 templates of 12 tokens + 4-token
+   suffixes, budget 16, pages of 4, ``default_rng(23)``) cold and with
+   the prefix cache: cached tokens = cold tokens bit for bit, every page
+   back after ``evict_pages``; hit rate, TTFT p50/p99, CoW splits.  (c)
+   ``PipelineServer`` on 127.0.0.1 in front of
+   ``runner.scorer(mode="decode", continuous=True, report_ttft=True,
+   slots=8, prompt_bucket=16, max_new_tokens=32, page_size=16)``: the 48
+   trace prompts answered 200 with one-shot tokens (near-tie rule);
+   ``mixed_load``'s decode class, 128 requests from 8 persistent
+   connections: p50, p99, TTFT p99, tokens/s; then ``drain()`` with 8
+   requests of 512 tokens in flight: none dropped, a newcomer 503 with
+   ``Retry-After``, every page back after ``stop()``; and a port
+   ``LightGBMClassificationModel`` behind a ``PipelineServer``
+   (``bench.py``'s phase_serving): single-row p50/p95 over one
+   persistent connection, ``sustained_load``'s rps and p99.  (d) The
+   stall drill: a continuous scorer with 2 live requests aborted as the
+   watchdog's monitor thread does (``_stall_abort``) while its engine
+   thread runs: both shed 503 ``shed_engine_stall``, the slabs dropped
+   and every page back, the rebuild refused inside its backoff
+   (``engine_restarting``), the rebuilt engine's first request = one-shot,
+   ``mmlspark_engine_restarts_total`` 1, no engine thread left alive.
+14. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
    fits, the two multiclass fits, the ranker fit and the two streamed
-   fits, split in ``launches_by_path``; the dnn and seq phases run no
-   kernel of this repository: the JAX package runs those paths in XLA,
+   fits, split in ``launches_by_path``; the dnn, seq and serve phases run
+   no kernel of this repository on their paths (the serve phase's
+   booster fit is set-up): the JAX package runs those paths in XLA,
    outside any Pallas kernel, and the port in cuDNN/cuBLAS and eager
    PyTorch), the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -2876,6 +2910,571 @@ def seq_phase(dev):
         f"{inter['torch_cnn_rel']:.1e}")
 
 
+# --------------------------------------------------------------------------
+# serve phase: the decode/serving engine at bench.py's decode LM
+# --------------------------------------------------------------------------
+
+SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW, SERVE_PAGE = 8, 16, 32, 16
+SERVE_REQUESTS = 48                     # bench.py's continuous trace
+PREFIX_PAGE, PREFIX_REQUESTS, PREFIX_BUDGET = 4, 40, 16
+HTTP_CLIENTS, HTTP_PER_CLIENT = 8, 16   # 128 decode requests
+DRAIN_NEW = 512                         # long budgets keep 8 in flight
+#: a greedy token may differ from the one-shot decode's only from a step
+#: where the one-shot's top two logits lie within this (a near-tie)
+NEAR_TIE = 1e-4
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def serve_trace(vocab: int):
+    """bench.py's continuous trace (``bench.py:529-545``): 48 requests,
+    prompts of 4-16 tokens, budgets of 4-32, Poisson arrivals at 1.25x
+    the engine's capacity on the step clock, from ``default_rng(17)``."""
+    rng = np.random.default_rng(17)
+    min_b = max(2, SERVE_NEW // 8)
+    rate = 1.25 * SERVE_SLOTS / ((min_b + SERVE_NEW) / 2.0)
+    reqs, arrive = [], 0.0
+    for _ in range(SERVE_REQUESTS):
+        arrive += rng.exponential(1.0 / rate)
+        plen = int(rng.integers(max(2, SERVE_PROMPT // 4), SERVE_PROMPT + 1))
+        reqs.append((rng.integers(0, vocab, plen).astype(np.int32), plen,
+                     int(rng.integers(min_b, SERVE_NEW + 1)), int(arrive)))
+    return reqs
+
+
+def template_trace(vocab: int):
+    """bench.py's template trace (``bench.py:703-719``): 40 requests, one
+    of 3 templates of 12 tokens plus a 4-token suffix each, budget 16,
+    Poisson arrivals at 1.25x capacity, from ``default_rng(23)``."""
+    rng = np.random.default_rng(23)
+    templates = [rng.integers(0, vocab, 12).astype(np.int32)
+                 for _ in range(3)]
+    rate = 1.25 * SERVE_SLOTS / PREFIX_BUDGET
+    reqs, arrive = [], 0.0
+    for i in range(PREFIX_REQUESTS):
+        arrive += rng.exponential(1.0 / rate)
+        p = np.concatenate([templates[i % 3],
+                            rng.integers(0, vocab, 4).astype(np.int32)])
+        reqs.append((p, PREFIX_BUDGET, int(arrive)))
+    return reqs
+
+
+class OneShot:
+    """One-shot paged decodes of single prompts, each run once at the
+    largest budget with its logits (a greedy prefix is the same for any
+    shorter budget): the reference every served request is held to."""
+
+    def __init__(self, runner, page_size: int):
+        self.runner, self.page_size = runner, page_size
+        self._memo = {}
+
+    def get(self, prompt, budget: int = SERVE_NEW):
+        key = (tuple(int(t) for t in prompt), self.page_size)
+        if key not in self._memo or len(self._memo[key][0]) < budget:
+            res = self.runner.decode(
+                np.asarray(prompt, np.int32)[None], max_new_tokens=budget,
+                kv_layout="paged", page_size=self.page_size,
+                collect_logits=True)
+            self._memo[key] = (list(res.tokens[0]), res.logits[0])
+        return self._memo[key]
+
+    def check(self, prompt, tokens, what: str, ties: list) -> None:
+        """Tokens equal the one-shot's, except from a near-tie step
+        (reported in ``ties``); a divergence anywhere else fails."""
+        ref, logits = self.get(prompt, max(len(tokens), 1))
+        tokens = [int(t) for t in tokens]
+        bad = [t for t, (a, b) in enumerate(zip(tokens, ref)) if a != b]
+        if not bad:
+            return
+        t = bad[0]
+        top2 = np.sort(logits[t])[-2:]
+        gap = float(top2[1] - top2[0])
+        if gap > NEAR_TIE:
+            raise AssertionError(f"{what}: tokens differ from one-shot at "
+                                 f"step {t} (top-two gap {gap})")
+        ties.append({"what": what, "step": t, "gap": gap})
+
+
+def drive_stream(decoder, reqs, submit_kw):
+    """Replay a trace on a stepped decoder, as bench.py drives it: arrivals
+    join once the step clock passes their time (idle stretches
+    fast-forwarded), a full engine holds them back."""
+    from collections import deque
+    from mmlspark_tpu_torch.models import SlotsExhausted
+    pend, handles, virtual = deque(reqs), [], 0
+    while pend or decoder._live or decoder._arrivals:
+        now = decoder.steps + virtual
+        while pend and pend[0][-1] <= now:
+            try:
+                handles.append(decoder.submit(pend[0][0],
+                                              **submit_kw(pend[0])))
+            except SlotsExhausted:
+                break
+            pend.popleft()
+        if decoder._live or decoder._arrivals:
+            decoder.step()
+        elif pend:
+            virtual = pend[0][-1] - decoder.steps
+    return handles
+
+
+def serve_continuous(runner, reqs, ref, ties):
+    """(a) the ticked drain against the continuous engine on the trace."""
+    useful = sum(r[2] for r in reqs)
+
+    def ticked():
+        t0, clock_steps, i = time.perf_counter(), 0, 0
+        prefills = steps = 0
+        out = []
+        while i < len(reqs):
+            clock_steps = max(clock_steps, reqs[i][3])
+            group = []
+            while i < len(reqs) and reqs[i][3] <= clock_steps \
+                    and len(group) < SERVE_SLOTS:
+                group.append(reqs[i])
+                i += 1
+            gmax = max(r[2] for r in group)
+            stacked = np.zeros((len(group), SERVE_PROMPT), np.int32)
+            for j, r in enumerate(group):
+                stacked[j, :r[1]] = r[0]
+            res = runner.decode(stacked, lengths=[r[1] for r in group],
+                                max_new_tokens=gmax, kv_layout="paged",
+                                page_size=SERVE_PAGE,
+                                batch_bucket=SERVE_SLOTS,
+                                prompt_bucket=SERVE_PROMPT)
+            out += [list(res.tokens[j, :r[2]]) for j, r in enumerate(group)]
+            prefills += 1
+            steps += res.steps
+            clock_steps += gmax
+        _sync()
+        wall = time.perf_counter() - t0
+        return {"tokens_per_s": useful / wall, "prefills": prefills,
+                "steps": steps,
+                "wall_ms_per_forward": wall * 1e3 / (prefills + steps)}, out
+
+    def continuous(profile=False):
+        dec = runner.decode_stream(slots=SERVE_SLOTS,
+                                   prompt_bucket=SERVE_PROMPT,
+                                   max_new_tokens=SERVE_NEW,
+                                   page_size=SERVE_PAGE)
+        dec.warmup()
+        b0 = runner._c_batches["decode"].value
+        ctx = contextlib.nullcontext()
+        if profile:
+            # the card's activity only: tracing every host op would cost
+            # the host loop more than it spends
+            from torch.profiler import ProfilerActivity
+            acts = [ProfilerActivity.CUDA] if torch.cuda.is_available() \
+                else [ProfilerActivity.CPU]
+            ctx = torch.profiler.profile(activities=acts)
+        _sync()
+        t0 = time.perf_counter()
+        with ctx as prof:
+            hs = drive_stream(dec, reqs, lambda r: {"max_new_tokens": r[2]})
+            _sync()
+        wall = time.perf_counter() - t0
+        rec = {"tokens_per_s": useful / wall,
+               "prefills": int(runner._c_batches["decode"].value - b0),
+               "steps": dec.steps}
+        rec["forwards"] = dec.steps + rec["prefills"]
+        rec["wall_ms_per_forward"] = wall * 1e3 / rec["forwards"]
+        if profile:
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+            rec = {"device_ms_per_forward": dev_ms / rec["forwards"],
+                   "kernels_per_forward": sum(e.count for e in kernels)
+                   / rec["forwards"],
+                   "busy_share": dev_ms / 1e3 / wall, **rec}
+        dec.close()
+        return rec, hs
+
+    # in turns after one warm run each: the host's pace drifts within a
+    # call by more than the two engines differ
+    ticked()
+    continuous()
+    runs = {"ticked": [], "continuous": []}
+    for name in ("ticked", "continuous", "continuous", "ticked"):
+        rec, out = ticked() if name == "ticked" else continuous()
+        runs[name].append(rec)
+        for r, got in zip(reqs, out):
+            toks = got if name == "ticked" else got.tokens
+            if name == "continuous" and (got.status != "ok"
+                                         or len(toks) != r[2]):
+                raise AssertionError(f"serve (a): request {got.status} "
+                                     f"with {len(toks)} of {r[2]} tokens")
+            ref.check(r[0], toks, name, ties)
+    prof, _ = continuous(profile=True)
+    pool = runner.page_pool(SERVE_PAGE)
+    if pool.pages_in_use():
+        raise AssertionError(f"serve (a): {pool.pages_in_use()} pages held "
+                             "after close()")
+    mean = {k: sum(r["tokens_per_s"] for r in v) / len(v)
+            for k, v in runs.items()}
+    return {"useful_tokens": useful, "runs": runs,
+            "ratio": mean["continuous"] / mean["ticked"],
+            "continuous_profile": prof}
+
+
+def serve_prefix(runner, reqs):
+    """(b) the template trace through the continuous engine, cold and
+    then with the prefix cache."""
+    cow = runner.registry.family("mmlspark_prefix_cow_splits_total")
+    out, tokens = {}, {}
+    for mode in ("cold", "cached"):
+        cow0 = cow.labels(runner=runner.name).value
+        dec = runner.decode_stream(slots=SERVE_SLOTS,
+                                   prompt_bucket=SERVE_PROMPT,
+                                   max_new_tokens=PREFIX_BUDGET,
+                                   page_size=PREFIX_PAGE,
+                                   prefix_cache=mode == "cached")
+        dec.warmup()
+        hs = drive_stream(dec, reqs, lambda r: {"max_new_tokens": r[1]})
+        ttfts = sorted(1e3 * h.ttft_s for h in hs)
+        out[mode] = {"ttft_p50_ms": ttfts[len(ttfts) // 2],
+                     "ttft_p99_ms": ttfts[int(len(ttfts) * 0.99)],
+                     "cow_splits": cow.labels(runner=runner.name).value
+                     - cow0}
+        if mode == "cached":
+            out[mode].update(dec.index.stats())
+        tokens[mode] = [list(h.tokens) for h in hs]
+        if any(h.status != "ok" for h in hs):
+            raise AssertionError(f"serve (b): a {mode} request failed")
+        dec.close()
+    if tokens["cached"] != tokens["cold"]:
+        bad = sum(a != b for a, b in zip(tokens["cached"], tokens["cold"]))
+        raise AssertionError(f"serve (b): {bad} cached requests' tokens "
+                             "differ from cold")
+    idx = runner.prefix_cache(PREFIX_PAGE)
+    idx.evict_pages(idx.retained_pages(), reason="pressure")
+    held = runner.page_pool(PREFIX_PAGE).pages_in_use()
+    if held:
+        raise AssertionError(f"serve (b): {held} pages held after eviction")
+    return out
+
+
+def _post(port: int, path: str, obj, timeout: float = 60.0):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", path, json.dumps(obj),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read().decode()), \
+            dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def _fire_all(port: int, path: str, bodies, clients: int):
+    """POST every body, ``clients`` threads at a time; returns the
+    (status, reply, headers) triples in order."""
+    import threading
+    out = [None] * len(bodies)
+
+    def worker(k):
+        for i in range(k, len(bodies), clients):
+            out[i] = _post(port, path, bodies[i])
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    return out
+
+
+def serve_http(runner, reqs, ref, ties):
+    """(c) ``PipelineServer`` over 127.0.0.1 in front of the continuous
+    scorer: every trace prompt answered 200 with one-shot tokens,
+    ``mixed_load``'s decode class (128 requests from 8 persistent
+    connections), then a zero-drop drain with 8 requests in flight."""
+    import threading
+    from mmlspark_tpu_torch.serving import PipelineServer, mixed_load
+    scorer = runner.scorer(mode="decode", continuous=True, report_ttft=True,
+                           slots=SERVE_SLOTS, prompt_bucket=SERVE_PROMPT,
+                           max_new_tokens=SERVE_NEW, page_size=SERVE_PAGE)
+    srv = PipelineServer(scorer, port=0, mode="continuous").start()
+    rec = {}
+    prompts = [r[0].tolist() for r in reqs]
+    try:
+        got = _fire_all(srv.port, srv.api_path, prompts, SERVE_SLOTS)
+        for p, (status, reply, _) in zip(prompts, got):
+            if status != 200:
+                raise AssertionError(f"serve (c): status {status}: {reply}")
+            ref.check(p, reply["tokens"], "http", ties)
+        load = mixed_load("127.0.0.1", srv.port, [{
+            "name": "decode", "path": srv.api_path,
+            "prompt_pool": {"prefixes": prompts},
+            "headers": {"Content-Type": "application/json"},
+            "n_clients": HTTP_CLIENTS, "per_client": HTTP_PER_CLIENT,
+            "ttft_key": "ttft_ms", "tokens_key": "tokens"}], warm=2)
+        d = load["decode"]
+        if d["errors"] or d["non_2xx"] or \
+                d["completed"] != HTTP_CLIENTS * HTTP_PER_CLIENT:
+            raise AssertionError(f"serve (c): mixed_load {d}")
+        rec["load"] = {k: d[k] for k in ("rps", "p50_ms", "p99_ms",
+                                         "ttft_p50_ms", "ttft_p99_ms",
+                                         "decode_tokens_per_sec",
+                                         "completed")}
+    finally:
+        srv.stop()
+    # the drain drill, on a scorer whose budgets keep 8 requests in flight
+    drainer = runner.scorer(mode="decode", continuous=True,
+                            slots=SERVE_SLOTS, prompt_bucket=SERVE_PROMPT,
+                            max_new_tokens=DRAIN_NEW, page_size=SERVE_PAGE)
+    srv = PipelineServer(drainer, port=0, mode="continuous").start()
+    results = [None] * SERVE_SLOTS
+
+    def fire(i):
+        results[i] = _post(srv.port, srv.api_path, prompts[i], timeout=300)
+
+    threads = [threading.Thread(target=fire, args=(i,))
+               for i in range(SERVE_SLOTS)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 60
+    while drainer._decoder is None or drainer._decoder._live < SERVE_SLOTS:
+        if time.monotonic() > deadline:
+            raise AssertionError("serve (c): the drain's requests never "
+                                 "all joined")
+        time.sleep(0.001)
+    verdict = {}
+    t_drain = threading.Thread(target=lambda: verdict.update(
+        ok=srv.drain(timeout_s=120.0)))
+    t0 = time.perf_counter()
+    t_drain.start()
+    while not srv.draining:
+        time.sleep(0.0005)
+    status, reply, headers = _post(srv.port, srv.api_path, prompts[0])
+    if status != 503 or int(headers.get("Retry-After", 0)) < 1:
+        raise AssertionError(f"serve (c): a newcomer during the drain got "
+                             f"{status} {headers}: {reply}")
+    for t in threads:
+        t.join(300)
+    t_drain.join(300)
+    drain_s = time.perf_counter() - t0
+    srv.stop()
+    dropped = sum(1 for r in results
+                  if r is None or r[0] != 200 or len(r[1]) != DRAIN_NEW)
+    if dropped or verdict.get("ok") is not True:
+        raise AssertionError(f"serve (c): the drain dropped {dropped} "
+                             f"requests (verdict {verdict})")
+    held = runner.page_pool(SERVE_PAGE).pages_in_use()
+    if held:
+        raise AssertionError(f"serve (c): {held} pages held after stop()")
+    rec["drain"] = {"in_flight": SERVE_SLOTS, "dropped": 0,
+                    "newcomer_status": status,
+                    "retry_after": int(headers["Retry-After"]),
+                    "drain_s": drain_s}
+    return rec
+
+
+def serve_gbdt(dev):
+    """(c) a port ``LightGBMClassificationModel`` behind a
+    ``PipelineServer``, single-row requests over one persistent
+    connection and then ``sustained_load``, as bench.py's phase_serving
+    (``bench.py:962-1018``)."""
+    import http.client
+    from mmlspark_tpu_torch.core import DataFrame, Transformer
+    from mmlspark_tpu_torch.core.schema import vector_column
+    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier
+    from mmlspark_tpu_torch.serving import PipelineServer, sustained_load
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(2000, 20))
+    y = (X[:, 0] > 0).astype(float)
+    df = DataFrame.from_dict({"features": vector_column(list(X)),
+                              "label": y})
+    model = LightGBMClassifier().set_params(num_iterations=30,
+                                            min_data_in_leaf=5,
+                                            device=str(dev)).fit(df)
+
+    class Scorer(Transformer):
+        def _transform(self, frame):
+            def per_part(p):
+                feats = vector_column([np.asarray(v, np.float32)
+                                       for v in p["request"]])
+                out = model.transform(DataFrame.from_dict(
+                    {"features": feats}))
+                return {**p, "reply": out.collect()["prediction"]}
+            return frame.map_partitions(per_part)
+
+        def transform_schema(self, schema):
+            return schema
+
+    srv = PipelineServer(Scorer(), port=0, mode="continuous").start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=10)
+        body = json.dumps(list(np.asarray(X[0], float)))
+        hdrs = {"Content-Type": "application/json"}
+        want = float(model.transform(DataFrame.from_dict(
+            {"features": vector_column([X[0].astype(np.float32)])}))
+            .collect()["prediction"][0])
+        for _ in range(50):
+            conn.request("POST", srv.api_path, body, hdrs)
+            got = json.loads(conn.getresponse().read().decode())
+        if float(got) != want:
+            raise AssertionError(f"serve gbdt: reply {got} != {want}")
+        lats = []
+        for _ in range(1000):
+            t0 = time.perf_counter()
+            conn.request("POST", srv.api_path, body, hdrs)
+            conn.getresponse().read()
+            lats.append(time.perf_counter() - t0)
+        conn.close()
+        lats.sort()
+        load = sustained_load("127.0.0.1", srv.port, srv.api_path, body,
+                              hdrs)
+    finally:
+        srv.stop()
+    if load["errors"] or load["non_2xx"]:
+        raise AssertionError(f"serve gbdt: sustained_load {load}")
+    return {"p50_ms": 1e3 * lats[500], "p95_ms": 1e3 * lats[950],
+            "sustained_rps": load["rps"], "sustained_p99_ms": load["p99_ms"]}
+
+
+def serve_stall(runner, ref, ties):
+    """(d) the stall drill: a continuous scorer with 2 live requests is
+    aborted as the watchdog's monitor thread would; both shed
+    ``shed_engine_stall``, the rebuild waits out its backoff
+    (``engine_restarting``), the slabs were dropped, and the first request
+    the rebuilt engine serves equals one-shot."""
+    import threading
+    from mmlspark_tpu_torch.models.runner import EngineUnavailable
+    from mmlspark_tpu_torch.utils.resilience import RestartSupervisor
+    sup = RestartSupervisor(initial_backoff_s=0.5)
+    scorer = runner.scorer(mode="decode", continuous=True,
+                           slots=SERVE_SLOTS, prompt_bucket=SERVE_PROMPT,
+                           max_new_tokens=DRAIN_NEW, page_size=SERVE_PAGE,
+                           supervisor=sup)
+    verdicts, lock = [], threading.Lock()
+
+    def resolve(**kw):
+        with lock:
+            verdicts.append((kw["status"], kw["verdict"]))
+
+    dec = scorer._ensure_decoder()
+    prompts = [np.arange(1, 9, dtype=np.int32), np.arange(9, 13,
+                                                          dtype=np.int32)]
+    for p in prompts:
+        scorer.continuous_submit(p, resolve)
+    deadline = time.monotonic() + 30
+    while dec._live < 2:
+        if time.monotonic() > deadline:
+            raise AssertionError("serve (d): the requests never joined")
+        time.sleep(0.0005)
+    pool = dec.pool
+    dec._stall_abort("dispatch", 99.0)
+    if verdicts != [(503, "shed_engine_stall")] * 2:
+        raise AssertionError(f"serve (d): verdicts {verdicts}")
+    if pool._cache is not None or pool.pages_in_use():
+        raise AssertionError("serve (d): the aborted engine's slabs or "
+                             "pages are still in the pool")
+    try:
+        scorer._ensure_decoder()
+        raise AssertionError("serve (d): the engine rebuilt inside its "
+                             "backoff")
+    except EngineUnavailable as e:
+        if e.shed_reason != "engine_restarting":
+            raise AssertionError(f"serve (d): {e.shed_reason}")
+        time.sleep(e.retry_after_s + 0.05)
+    dec2 = scorer._ensure_decoder()
+    h = dec2.submit(prompts[0], max_new_tokens=SERVE_NEW)
+    if not h.done.wait(60) or h.status != "ok":
+        raise AssertionError(f"serve (d): first rebuilt request {h.status}")
+    ref.check(prompts[0], h.tokens, "after_stall", ties)
+    restarts = runner.registry.family(
+        "mmlspark_engine_restarts_total").labels(runner=runner.name).value
+    if restarts != 1:
+        raise AssertionError(f"serve (d): {restarts} restarts booked")
+    scorer.continuous_close()
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("mmlspark-decode-stream")]
+    deadline = time.monotonic() + 30
+    while alive and time.monotonic() < deadline:
+        time.sleep(0.05)
+        alive = [t.name for t in threading.enumerate()
+                 if t.name.startswith("mmlspark-decode-stream")]
+    if alive:
+        raise AssertionError(f"serve (d): engine threads still alive: "
+                             f"{alive}")
+    return {"verdicts": verdicts, "restarts": restarts,
+            "backoff_s": sup.as_dict()}
+
+
+def serve_phase(dev, smi: str):
+    """The decode/serving engine at bench.py's decode LM: (a) continuous
+    vs ticked, (b) the prefix cache, (c) HTTP, (d) the stall drill."""
+    from mmlspark_tpu_torch.models import ModelRunner, TransformerEncoder
+    lm = TransformerEncoder(**SEQ_LM,
+                            generator=torch.Generator().manual_seed(60))
+    runner = ModelRunner(module=lm, name="serve", device=dev)
+    t0 = time.perf_counter()
+    ties: list = []
+    reqs = serve_trace(SEQ_LM["vocab_size"])
+    ref = OneShot(runner, SERVE_PAGE)
+    for r in reqs:
+        ref.get(r[0])
+    t_ref = time.perf_counter() - t0
+    cont = serve_continuous(runner, reqs, ref, ties)
+    t_a = time.perf_counter() - t0
+    prefix = serve_prefix(runner, template_trace(SEQ_LM["vocab_size"]))
+    t_b = time.perf_counter() - t0
+    http = serve_http(runner, reqs, ref, ties)
+    gbdt = serve_gbdt(dev)
+    t_c = time.perf_counter() - t0
+    stall = serve_stall(runner, ref, ties)
+    DETAIL["serve"] = {"card": smi, "continuous": cont, "prefix": prefix,
+                       "http": http, "gbdt": gbdt, "stall": stall,
+                       "near_ties": ties,
+                       "seconds": {"one_shot_refs": t_ref, "a": t_a - t_ref,
+                                   "b": t_b - t_a, "c": t_c - t_b,
+                                   "total": time.perf_counter() - t0}}
+    p = cont["continuous_profile"]
+
+    def runs(name):
+        rs = cont["runs"][name]
+        return (" / ".join(f"{r['tokens_per_s']:.0f}" for r in rs)
+                + f" tok/s ({rs[0]['prefills']} prefills, {rs[0]['steps']} "
+                f"steps; wall per forward "
+                + " / ".join(f"{r['wall_ms_per_forward']:.3f}" for r in rs)
+                + " ms)")
+
+    log(f"[serve] {smi} | (a) {SERVE_REQUESTS} requests, {SERVE_SLOTS} "
+        f"slots, useful {cont['useful_tokens']} tokens, in turns: ticked "
+        f"{runs('ticked')}, continuous {runs('continuous')}, ratio of "
+        f"means {cont['ratio']:.2f}; profiled continuous: "
+        f"{p['device_ms_per_forward']:.3f} device ms and "
+        f"{p['kernels_per_forward']:.0f} kernels per forward, busy "
+        f"{p['busy_share']:.3f}; tokens = one-shot (near-ties {len(ties)})")
+    log(f"[serve] {smi} | (b) template trace: hit rate "
+        f"{prefix['cached']['hit_rate_pct']:.1f}%, TTFT p50/p99 cold "
+        f"{prefix['cold']['ttft_p50_ms']:.2f}/"
+        f"{prefix['cold']['ttft_p99_ms']:.2f} ms, cached "
+        f"{prefix['cached']['ttft_p50_ms']:.2f}/"
+        f"{prefix['cached']['ttft_p99_ms']:.2f} ms, CoW splits "
+        f"{prefix['cached']['cow_splits']:.0f}; cached = cold tokens")
+    ld = http["load"]
+    log(f"[serve] {smi} | (c) HTTP: {SERVE_REQUESTS} trace prompts 200 = "
+        f"one-shot; mixed_load {ld['completed']:.0f} requests from "
+        f"{HTTP_CLIENTS} connections: p50 {ld['p50_ms']:.1f} ms, p99 "
+        f"{ld['p99_ms']:.1f} ms, TTFT p99 {ld['ttft_p99_ms']:.1f} ms, "
+        f"{ld['decode_tokens_per_sec']:.0f} tok/s, {ld['rps']:.1f} rps; "
+        f"drain with {http['drain']['in_flight']} in flight: 0 dropped, "
+        f"newcomer {http['drain']['newcomer_status']} Retry-After "
+        f"{http['drain']['retry_after']}, {http['drain']['drain_s']:.2f} s; "
+        f"GBDT single-row p50 {gbdt['p50_ms']:.3f} ms, p95 "
+        f"{gbdt['p95_ms']:.3f} ms, sustained {gbdt['sustained_rps']:.0f} "
+        f"rps p99 {gbdt['sustained_p99_ms']:.2f} ms")
+    log(f"[serve] {smi} | (d) stall drill: {stall['verdicts']}, rebuilt "
+        f"after backoff, first request = one-shot, restarts "
+        f"{stall['restarts']:.0f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2965,6 +3564,11 @@ def main() -> int:
     seq_phase(dev)
     torch.cuda.synchronize()
     log(f"[seq] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    serve_phase(dev, smi)
+    torch.cuda.synchronize()
+    log(f"[serve] phase done in {time.perf_counter() - t0:.1f} s")
 
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],

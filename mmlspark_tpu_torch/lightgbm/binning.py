@@ -29,12 +29,12 @@ reference's, whose reservoir draws come from the same
 from __future__ import annotations
 
 import multiprocessing
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Union
 
 import numpy as np
 import torch
 
-from .._device import DeviceLike
+from .._device import DeviceLike, resolve_device
 from ..ops import histogram as hist_ops
 
 #: the JAX package's threshold for its C++ plane, in cells
@@ -193,15 +193,21 @@ class BinMapper:
                                         side="left")
         return out
 
-    def transform(self, X: np.ndarray, device: DeviceLike = None
-                  ) -> np.ndarray:
+    def transform(self, X: np.ndarray,
+                  device: Union[bool, DeviceLike] = None) -> np.ndarray:
         """(n, F) raw -> (n, F) uint8 bins.  bin = #edges < x; NaN -> 0.
 
-        Host binning by default, by the reference's route for ``X.size``;
-        with ``device`` (the reference's ``device=True``) the bins are
-        digitized there by ``ops.histogram.bin_matrix`` and returned."""
+        Host binning by default (``None`` or ``False``, the reference's
+        ``device=False``), by the reference's route for ``X.size``.  With a
+        device the bins are digitized there by ``ops.histogram.bin_matrix``
+        and returned; ``True`` (the reference's ``device=True``) means the
+        card, and raises without one."""
         edges = self._fitted()
         X = np.asarray(X, np.float32)
+        if device is False:
+            device = None
+        elif device is True:
+            device = resolve_device(None)
         if device is not None:
             x = torch.from_numpy(X).to(device)
             out = hist_ops.bin_matrix(x, torch.from_numpy(edges).to(device),

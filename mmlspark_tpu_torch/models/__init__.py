@@ -1,7 +1,7 @@
 """Model artifacts of the port: the GBDT booster, the ResNet family, the
 BiLSTM tagger, the transformer encoder and the model runner (its batch
-front and its batched decode; the continuous/serving names raise, ROADMAP.md
-§1 item 9)."""
+front, its batched decode with the prefix cache, the continuous decode
+engine and the serving front)."""
 from .gbdt import GBDTBooster
 from .resnet import ResNet, resnet18, resnet34, resnet50, resnet101
 from .bilstm import BiLSTMTagger, LSTMLayer

@@ -8,7 +8,9 @@ predictions equal the JAX package's on the example's 64 test sequences.
 Tolerances: float32 logits within atol 1e-5 (measured ~1e-7: the same
 gates, summed in another order); the trained tagger's argmax exactly;
 bfloat16 within atol 0.05 of the JAX package's on logits of magnitude
-~1 (both round the embedding and the head to bfloat16).
+~1 (both round the embedding and the head to bfloat16); the port's
+bfloat16 logits are bfloat16 values, the head takes and gives bfloat16,
+and they lie more than 1e-4 from its float32 twin's on the same weights.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,9 @@ from mmlspark_tpu_torch.dl import JaxModel, ModelDownloader, ModelRepo
 from mmlspark_tpu_torch.models import bilstm
 
 ATOL = 1e-5
+#: the least max |bfloat16 - float32| the port's bfloat16 tagger must show
+#: on the bfloat16 test's input (5.4e-4 measured)
+BF16_FROM_F32 = 1e-4
 
 
 def pair(seed=0, jdtype=jnp.float32, tdtype=torch.float32, **kw):
@@ -62,10 +67,26 @@ def test_tagger_bfloat16_follows_flax():
     ref, variables, port = pair(jdtype=jnp.bfloat16, tdtype=torch.bfloat16)
     x = tokens((3, 9), seed=2)
     want = np.asarray(jax.jit(ref.apply)(variables, x))
+    seen = []
+    hook = port.head.register_forward_hook(
+        lambda m, i, o: seen.extend([i[0], o]))
     with torch.no_grad():
         got = port(torch.from_numpy(x))
+    hook.remove()
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=0.05)
+    # atol 0.05 is wider than bfloat16's own distance from float32 here
+    # (5.4e-4 measured), so it cannot tell the paths apart; these can
+    assert [t.dtype for t in seen] == [torch.bfloat16] * 2
+    got = got.numpy()
+    np.testing.assert_array_equal(
+        got, torch.from_numpy(got).bfloat16().float().numpy())
+    f32 = bilstm.BiLSTMTagger.from_config({**port.config(),
+                                           "dtype": "float32"})
+    f32.load_state_dict(port.state_dict())
+    with torch.no_grad():
+        ref32 = f32(torch.from_numpy(x)).numpy()
+    assert np.abs(got - ref32).max() > BF16_FROM_F32
 
 
 @pytest.mark.parametrize("reverse", [False, True])

@@ -18,7 +18,7 @@ import torch
 from mmlspark_tpu_torch.core import DataFrame
 from mmlspark_tpu_torch.dl import JaxModel
 from mmlspark_tpu_torch.models import (BiLSTMTagger, ModelRunner,
-                                       TransformerEncoder)
+                                       SlotsExhausted, TransformerEncoder)
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +127,57 @@ def test_a_module_on_the_card_is_placed_once_and_pools_share_it(dev):
     res = runner.decode(np.zeros((2, 5), np.int32) + 3, max_new_tokens=6,
                         pool=pool)
     assert res.tokens.shape == (2, 6) and pool.pages_in_use() == 0
+
+
+def test_the_continuous_engine_on_the_card_equals_one_shot(dev):
+    """The continuous engine's threads on the card: requests submitted to
+    a started engine equal one-shot paged decodes of their prompts on the
+    card (the near-tie rule above), a stall abort racing the engine thread
+    resolves every request and returns every page, and the rebuilt
+    engine's first request equals one-shot again."""
+    lm = TransformerEncoder(vocab_size=48, num_classes=48, embed_dim=32,
+                            num_heads=2, num_layers=2, mlp_dim=64,
+                            max_len=256, causal=True, pool="none",
+                            generator=torch.Generator().manual_seed(3))
+    runner = ModelRunner(module=lm, name="cuda.cont")
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 48, int(n)).astype(np.int32)
+               for n in rng.integers(2, 9, 12)]
+
+    def check(p, toks):
+        ref = runner.decode(p[None], max_new_tokens=len(toks),
+                            kv_layout="paged", page_size=4,
+                            collect_logits=True)
+        bad = np.nonzero(np.asarray(toks) != ref.tokens[0])[0]
+        if len(bad):
+            top2 = np.sort(ref.logits[0, bad[0]])[-2:]
+            assert top2[1] - top2[0] <= DECODE_ATOL, (p, toks, ref.tokens)
+
+    dec = runner.decode_stream(slots=4, prompt_bucket=8, max_new_tokens=9,
+                               page_size=4).start()
+    hs = []
+    for p in prompts:
+        while True:
+            try:
+                hs.append(dec.submit(p))
+                break
+            except SlotsExhausted:            # backpressure: next leave
+                assert hs[-4].done.wait(10)
+    for p, h in zip(prompts, hs):
+        assert h.done.wait(30) and h.status == "ok"
+        check(p, h.tokens)
+    dec.close()
+    race = runner.decode_stream(slots=4, prompt_bucket=8,
+                                max_new_tokens=200, page_size=4).start()
+    live = [race.submit(p) for p in prompts[:4]]
+    while race._live < 4:
+        live[0].done.wait(0.001)
+    race._stall_abort("dispatch", 99.0)
+    assert all(h.done.wait(30) for h in live)
+    assert race.pool.pages_in_use() == 0 and race.pool._cache is None
+    again = runner.decode_stream(slots=4, prompt_bucket=8, max_new_tokens=9,
+                                 page_size=4).start()
+    h = again.submit(prompts[0])
+    assert h.done.wait(30) and h.status == "ok"
+    check(prompts[0], h.tokens)
+    again.close()

@@ -208,3 +208,61 @@ def test_the_bindings_check_shapes_before_passing_pointers():
         native_loader.bin_apply_native(X, np.zeros((9, 10), np.float32), 255)
     with pytest.raises(ValueError, match="max_bin"):
         native_loader.bin_edges_native(X, 300)
+
+
+@pytest.mark.parametrize("device", [False, None, "cpu"])
+def test_transform_device_argument_equals_the_reference(route, device):
+    """Fault 3.6: ``False`` (the reference's default) and ``None`` take the
+    host route; a device digitizes with ``bin_matrix``, the reference's
+    ``device=True``.  No value casts X (``Tensor.to(False)`` would be a
+    cast to bool, every bin 0)."""
+    X, jm, tm = _fitted(route)
+    want = jm.transform(X, device=device == "cpu")
+    got = tm.transform(X, device=device)
+    assert got.dtype == np.uint8 and int(got.max()) > 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_transform_device_true_means_the_card(monkeypatch):
+    X, _, tm = _fitted("numpy")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="runs on a CUDA device"):
+        tm.transform(X, device=True)
+
+
+def test_bin_cache_reuses_the_bins_and_misses_on_a_changed_x(monkeypatch):
+    """Fault 3.7: ``train(bin_cache=)`` memoizes the mapper and the device
+    bins on X's identity and content, as the reference's does."""
+    X = _X(3_000, seed=7)
+    y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float32)
+    p = GBDTParams(num_iterations=2, max_depth=3)
+    fits = []
+    real_fit = BinMapper.fit
+
+    def counting_fit(self, *a, **kw):
+        fits.append(1)
+        return real_fit(self, *a, **kw)
+
+    monkeypatch.setattr(BinMapper, "fit", counting_fit)
+    cache = {}
+    a = train(X, y, p, bin_cache=cache, device="cpu")
+    b = train(X, 1.0 - y, p, bin_cache=cache, device="cpu")
+    c = train(X, y, p, bin_cache=cache, device="cpu")
+    assert len(fits) == 1 and cache["X"] is X
+    assert b.bin_mapper is a.bin_mapper and c.bin_mapper is a.bin_mapper
+    assert c.extras["binning_s"] == 0.0
+    for k in ("split_feature", "threshold_bin", "leaf_value"):
+        np.testing.assert_array_equal(getattr(c.booster, k),
+                                      getattr(a.booster, k))
+    X[::2, 0] += 1.0                              # mutated in place: miss
+    train(X, y, p, bin_cache=cache, device="cpu")
+    train(X.copy(), y, p, bin_cache=cache, device="cpu")   # a new array
+    assert len(fits) == 3
+
+
+def test_streaming_quantile_sketch_is_exported():
+    """Fault 3.8: the package exports it, as the reference's does."""
+    from mmlspark_tpu_torch.lightgbm import StreamingQuantileSketch
+    from mmlspark_tpu_torch.lightgbm.binning import \
+        StreamingQuantileSketch as where
+    assert StreamingQuantileSketch is where

@@ -161,14 +161,18 @@ def test_decode_rejects_cacheless_models_and_unported_options():
         mlp.decode(np.zeros((1, 4), np.int32))
     runner = _runner("t.args", layers=1)
     prompts = np.zeros((2, 4), np.int32) + 3
-    with pytest.raises(NotImplementedError, match="item 9"):
-        runner.decode(prompts, kv_layout="paged", prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        runner.decode(prompts, watchdog=object())
-    for name in ("scorer", "decode_stream", "prefix_cache",
-                 "stall_watchdog"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            getattr(runner, name)()
+    # the prefix cache shares pool pages and skips cached logits: paged
+    # and greedy only, as the reference refuses it
+    with pytest.raises(ValueError, match="kv_layout='paged'"):
+        runner.decode(prompts, prefix_cache=True)
+    with pytest.raises(ValueError, match="greedy fused path"):
+        runner.decode(prompts, kv_layout="paged", prefix_cache=True,
+                      sample_fn=lambda lg: np.argmax(lg, -1))
+    # what the port still lacks of the runner is its jit cache
+    for name in ("executable", "compile_stats"):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            getattr(runner, name)(*(() if name == "compile_stats"
+                                    else (1, (4,))))
 
 
 # ---------------------------------------------------------------------------

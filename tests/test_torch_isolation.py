@@ -169,3 +169,29 @@ def test_entry_points_need_the_card_unless_told_cpu(monkeypatch):
         ModelDownloader(local_cache=repo).download_by_name("DigitsMLP")
     assert ModelDownloader(local_cache=repo).download_by_name(
         "DigitsMLP", device="cpu").apply(digits).shape == (2, 10)
+
+    # the decode/serving engine: every entry point goes through a runner
+    # on the card unless it was built with device="cpu"
+    from mmlspark_tpu_torch.models import TransformerEncoder
+    from mmlspark_tpu_torch.serving import PipelineServer
+    lm = TransformerEncoder(8, num_classes=8, embed_dim=8, num_heads=2,
+                            num_layers=1, mlp_dim=8, max_len=32, causal=True,
+                            pool="none")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelRunner(module=lm).decode_stream()
+    cpu_runner = ModelRunner(module=lm, device="cpu")
+    index = cpu_runner.prefix_cache(4)
+    dec = cpu_runner.decode_stream(slots=2, prompt_bucket=4,
+                                   max_new_tokens=2, page_size=4,
+                                   prefix_cache=True)
+    assert dec.index is index
+    h = dec.submit(np.asarray([1, 2], np.int32))
+    while dec._live or dec._arrivals:
+        dec.step()
+    assert h.status == "ok" and len(h.tokens) == 2
+    dec.close()
+    srv = PipelineServer(cpu_runner.scorer(mode="decode", continuous=True,
+                                           slots=2, prompt_bucket=4,
+                                           max_new_tokens=2, page_size=4),
+                         port=0, mode="continuous").start()
+    srv.stop()

@@ -13,7 +13,9 @@ flax's one-pass LayerNorm variance); blockwise attention within 1e-5
 (measured ~3e-7); caches written by both packages within 1e-5 (the k/v
 are the same projections); bfloat16 within atol 0.1 of the JAX package's
 jitted bfloat16 on logits of magnitude ~2 (both round every layer's
-output to bfloat16, at places that differ where XLA fuses).
+output to bfloat16, at places that differ where XLA fuses); the port's
+bfloat16 logits are bfloat16 values, every block's output is bfloat16,
+and they lie more than 4e-3 from its float32 twin's on the same weights.
 """
 import jax
 import jax.numpy as jnp
@@ -28,6 +30,9 @@ from mmlspark_tpu_torch.models import transformer
 from mmlspark_tpu_torch.parallel import ring_attention as ra
 
 ATOL = 1e-5
+#: the least max |bfloat16 - float32| the port's bfloat16 encoder must show
+#: on the bfloat16 test's input (0.040 measured)
+BF16_FROM_F32 = 4e-3
 SMALL = dict(vocab_size=30, num_classes=5, embed_dim=16, num_heads=2,
              num_layers=2, mlp_dim=32, max_len=64)
 
@@ -111,10 +116,29 @@ def test_encoder_bfloat16_follows_flax():
                                 pool="none", causal=True)
     x = tokens((2, 12), seed=4)
     want = np.asarray(jax.jit(ref.apply)(variables, x))
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: seen.append(o[0] if isinstance(o, tuple) else o))
+        for m in (*port.blocks, port.head)]
     with torch.no_grad():
         got = port(torch.from_numpy(x))
+    for h in hooks:
+        h.remove()
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=0.1)
+    # atol 0.1 is wider than bfloat16's own distance from float32 here
+    # (0.040 measured), so it cannot tell the paths apart; these can
+    assert len(seen) == SMALL["num_layers"] + 1
+    assert all(t.dtype == torch.bfloat16 for t in seen)
+    got = got.numpy()
+    np.testing.assert_array_equal(
+        got, torch.from_numpy(got).bfloat16().float().numpy())
+    f32 = transformer.TransformerEncoder.from_config(
+        {**port.config(), "dtype": "float32"})
+    f32.load_state_dict(port.state_dict())
+    with torch.no_grad():
+        ref32 = f32(torch.from_numpy(x)).numpy()
+    assert np.abs(got - ref32).max() > BF16_FROM_F32
 
 
 def _jax_cached(ref, variables, toks, positions, cache, table=None):
