@@ -190,15 +190,56 @@ Phases; any failure exits nonzero and prints no result line:
    and every page back, the rebuild refused inside its backoff
    (``engine_restarting``), the rebuilt engine's first request = one-shot,
    ``mmlspark_engine_restarts_total`` 1, no engine thread left alive.
-14. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+14. fleet  — the training monitor on the kernels and a serving fleet on
+   one card, no JAX on the card.  (a) A ``TopologyService`` on 127.0.0.1;
+   ``train()`` leaf-wise with its defaults (31 leaves, 8 iterations,
+   quantized gradients) on the bench data at 1M x 200 with
+   ``monitor_port=0`` and ``monitor_stall_timeout_s=60``: a thread polls
+   ``/progress`` while the fit runs and registers the monitor with the
+   topology (iteration 3's callback waits until the thread has read
+   ``/fleet/metrics`` and ``/routing`` there); a reading with 0 < step <
+   8 and rows/s > 0, the last step 8, exactly 248 launches of each
+   kernel, the run's training series in ``/fleet/metrics`` and the
+   trainer never in ``/routing``, the booster equal to the unmonitored
+   fit's in every array; then unmonitored and monitored fits in turns
+   (``boosting_s`` printed, not gated); ``train_streamed()`` leaf-wise on
+   the first 262,144 rows in tiles of 131,072 with and without the
+   monitor (one launch per tile per pass, live progress, boosters
+   equal); one 31-leaf tree grown on the card inside
+   ``ambient_phase("lightgbm.histogram")`` with a live monitor ticking,
+   under ``torch.cuda.set_sync_debug_mode("error")``; ``saabas``
+   contributions of 1,000 rows on the card = the CPU's within 1e-9, rows
+   summing to the raw score within 1e-5.  (b) Two ``request_class=
+   "score"`` ``WorkerServer``s wrapping a ``LightGBMClassificationModel``
+   of (a)'s booster (the reply is the class-1 probability) and one
+   ``"decode"`` worker wrapping the serve phase's continuous scorer
+   (``report_ttft=True``, 8 slots, prompts of 16, 32 new tokens, pages of
+   16), each with its own registry; a ``RoutingClient`` per class (the
+   routing table carries every class): 2,000 single-row score requests
+   from 8 threads, half round robin and half by key (hedging on), each
+   within 1e-6 of the model's own transform on the card, beside the same
+   2,000 sent straight to one worker (rps, p50, p99); the serve phase's
+   48 trace prompts through the decode router, tokens = one-shot
+   (near-tie rule), TTFT p99; ``federation_tick`` timed, the federated
+   ``mmlspark_serving_requests_total{status="replied"}`` = the sum of the
+   workers' own ``/metrics``; ``/fleet/autoscale`` per class; a drain of
+   one score worker under load from 8 threads (no request fails, the
+   ``MembershipWatcher`` sees it leave) and its next generation joining;
+   the other score worker stopped hard (its breaker opens, every request
+   fails over, no request fails) and every ``/fleet/*`` endpoint
+   answering within its deadline; after ``stop()`` every page back and
+   no thread the phase started left alive.
+15. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
-   fits, the two multiclass fits, the ranker fit and the two streamed
-   fits, split in ``launches_by_path``; the dnn, seq and serve phases run
-   no kernel of this repository on their paths (the serve phase's
-   booster fit is set-up): the JAX package runs those paths in XLA,
-   outside any Pallas kernel, and the port in cuDNN/cuBLAS and eager
-   PyTorch), the card's name and power limit, and the last line
-   ``{"ok": true, "device": {...}}``.
+   fits, the two multiclass fits, the ranker fit, the two streamed fits
+   and the fleet phase's monitored ``train()`` and ``train_streamed()``
+   fits, split in ``launches_by_path``; the dnn, seq and serve phases and
+   the fleet phase's serving run no kernel of this repository on their
+   paths (the serve phase's booster fit, the fleet phase's unmonitored
+   fits and its one grown tree are set-up or references): the JAX
+   package runs those paths in XLA, outside any Pallas kernel, and the
+   port in cuDNN/cuBLAS and eager PyTorch), the card's name and power
+   limit, and the last line ``{"ok": true, "device": {...}}``.
 
 Details (per-level and per-step kernel times, every comparison) go to
 ``chiprun_out/chip_smoke_detail.json``.
@@ -3473,6 +3514,611 @@ def serve_phase(dev, smi: str):
     log(f"[serve] {smi} | (d) stall drill: {stall['verdicts']}, rebuilt "
         f"after backoff, first request = one-shot, restarts "
         f"{stall['restarts']:.0f}")
+    return runner, ref, reqs
+
+
+# --------------------------------------------------------------------------
+# fleet phase: the training monitor on the kernels, then a serving fleet
+# --------------------------------------------------------------------------
+
+FLEET_SCORE_REQUESTS = 2_000
+FLEET_CLIENTS = 8
+FLEET_STREAM_ROWS = 2 * STREAM_TILE     # train_streamed's 2 tiles
+FLEET_KEYS = 50                         # distinct routing keys
+MONITOR_STALL_S = 60.0
+
+
+class ProgressPoller:
+    """Polls the live ``/progress`` of a training run's monitor while the
+    fit runs on the main thread.  Once the monitor is up it registers it
+    with the fleet's ``TopologyService`` (as ``MonitorServer`` does when
+    built with ``topology_address``) and, with ``fleet_check``, reads
+    ``/fleet/metrics`` and ``/routing`` there before ``checked`` is set."""
+
+    def __init__(self, job: str, topo: str, fleet_check: bool = False):
+        import threading
+        self.job, self.topo, self.fleet_check = job, topo, fleet_check
+        self.readings, self.errors = [], []
+        self.checked = threading.Event()
+        self.fleet = {}
+        self.run = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="chip-smoke-poller")
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(30)
+
+    def _loop(self):
+        import urllib.request
+        from mmlspark_tpu_torch.observability import (active_monitors,
+                                                      get_registry)
+        from mmlspark_tpu_torch.observability.federation import \
+            parse_prometheus
+        from mmlspark_tpu_torch.serving.distributed import _http_json
+        mon = None
+        while not self._stop.is_set():
+            if mon is None:
+                mons = [m for m in active_monitors(get_registry())
+                        if m.run.job == self.job]
+                if not mons:
+                    time.sleep(0.0005)
+                    continue
+                mon, self.run = mons[0], mons[0].run
+                try:
+                    mon.topology_address = self.topo
+                    _http_json(f"{self.topo}/register", mon._registration())
+                    mon.registered = True
+                    if self.fleet_check:
+                        text = urllib.request.urlopen(
+                            f"{self.topo}/fleet/metrics?refresh=1",
+                            timeout=10).read().decode()
+                        values, _, _ = parse_prometheus(text)
+                        self.fleet["training_series"] = sorted(
+                            f"{n}{dict(ls)}" for (n, ls), _v in
+                            values.items() if n.startswith(
+                                "mmlspark_training_")
+                            and dict(ls).get("job") == self.job)
+                        self.fleet["in_routing"] = mon.server_id in \
+                            _http_json(f"{self.topo}/routing")
+                except Exception as e:  # noqa: BLE001 — reported, gated
+                    self.errors.append(f"{type(e).__name__}: {e}")
+                self.checked.set()
+            try:
+                with urllib.request.urlopen(f"{mon.address}/progress",
+                                            timeout=5) as r:
+                    self.readings.append(json.loads(r.read()))
+            except Exception:  # noqa: BLE001 — the monitor stopped
+                if self._stop.is_set():
+                    break
+            time.sleep(0.002)
+
+    def final(self):
+        """The last reading: the run's own snapshot (the body ``/progress``
+        serves) once the fit has returned."""
+        return self.run.progress() if self.run is not None else None
+
+
+def check_progress(label: str, poller, total: int) -> dict:
+    mid = [r for r in poller.readings if 0 < r["step"] < total
+           and (r["rows_per_second"] or 0) > 0]
+    final = poller.final()
+    if poller.errors:
+        raise AssertionError(f"fleet (a) {label}: {poller.errors}")
+    if not mid:
+        raise AssertionError(f"fleet (a) {label}: no /progress reading with "
+                             f"0 < step < {total} and rows/s > 0 in "
+                             f"{len(poller.readings)}")
+    if final is None or final["step"] != total:
+        raise AssertionError(f"fleet (a) {label}: last reading {final}")
+    return {"readings": len(poller.readings), "mid": mid[0],
+            "last_http_step": poller.readings[-1]["step"]
+            if poller.readings else None, "final": final}
+
+
+def fleet_monitored_fits(dev, topo: str):
+    """(a) ``train()`` and ``train_streamed()`` leaf-wise with the live
+    monitor, registered with the fleet: live progress, the kernels'
+    launches, boosters equal to the unmonitored fits'."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train, train_streamed
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    X, y = bench_data(N_ROWS, seed=0)
+    params = GBDTParams(num_iterations=8, num_leaves=31, objective="binary")
+    cache: dict = {}
+    plain = train(X, y, params, bin_cache=cache)      # bins the data once
+    rec = {"boosting_s": {"plain": [plain.extras["boosting_s"]]}}
+
+    with ProgressPoller("lightgbm.train", topo, fleet_check=True) as poll:
+        def hold(i, ev):
+            # iteration 3's callback waits for the poller's fleet reads,
+            # so they land while the run is live and mid-way
+            if i == 3 and not poll.checked.wait(60):
+                raise AssertionError("fleet (a): the monitor never showed "
+                                     "up in active_monitors")
+        torch.cuda.synchronize()
+        CH.reset_launch_counts()
+        mon = train(X, y, params, bin_cache=cache, callbacks=[hold],
+                    monitor_port=0, monitor_stall_timeout_s=MONITOR_STALL_S)
+        torch.cuda.synchronize()
+        launches = CH.launch_counts()
+    if launches != {"hist_accumulate": 248, "frontier_finish": 248}:
+        raise AssertionError(f"fleet (a): the monitored leaf-wise fit must "
+                             f"launch each kernel 248 times, got {launches}")
+    rec["progress"] = check_progress("train", poll, 8)
+    rec["fleet"] = dict(poll.fleet)
+    if not poll.fleet.get("training_series") or poll.fleet["in_routing"]:
+        raise AssertionError(f"fleet (a): the trainer must federate and "
+                             f"never route: {poll.fleet}")
+    booster_diff(mon.booster, plain.booster, "fleet (a) monitored train()")
+    # the pace with and without the monitor, in turns (printed, not gated:
+    # the host's noise is larger than the tick's cost)
+    rec["boosting_s"]["monitored"] = []
+    for kind in ("plain", "monitored", "plain", "monitored"):
+        kw = {} if kind == "plain" else dict(
+            monitor_port=0, monitor_stall_timeout_s=MONITOR_STALL_S)
+        res = train(X, y, params, bin_cache=cache, **kw)
+        booster_diff(res.booster, plain.booster, f"fleet (a) {kind} fit")
+        rec["boosting_s"][kind].append(res.extras["boosting_s"])
+    del cache
+
+    Xs, ys = X[:FLEET_STREAM_ROWS], y[:FLEET_STREAM_ROWS]
+    Xt, yt = bench_data(100_000, seed=1)
+    s_plain, _ = streamed_fit("fleet unmonitored", Xs, ys, Xt, yt, params)
+    with ProgressPoller("lightgbm.train_streamed", topo) as spoll:
+        s_mon, s_rec = streamed_fit(
+            "fleet monitored", Xs, ys, Xt, yt, params, monitor_port=0,
+            monitor_stall_timeout_s=MONITOR_STALL_S)
+    rec["streamed_progress"] = check_progress("train_streamed", spoll, 8)
+    booster_diff(s_mon.booster, s_plain.booster,
+                 "fleet (a) monitored train_streamed()")
+    # the pace in turns, with no poller (its GETs every 2 ms share the GIL
+    # with the prefetch worker and the consumer)
+    rec["streamed_boosting_s"] = {"plain": [], "monitored": []}
+    for kind in ("monitored", "plain", "plain", "monitored"):
+        kw = {} if kind == "plain" else dict(
+            monitor_port=0, monitor_stall_timeout_s=MONITOR_STALL_S)
+        res = train_streamed(Xs, ys, params, tile_rows=STREAM_TILE, **kw)
+        booster_diff(res.booster, s_plain.booster,
+                     f"fleet (a) streamed {kind} fit")
+        rec["streamed_boosting_s"][kind].append(res.extras["boosting_s"])
+    rec["sync_check"] = monitored_grow_sync_check(dev)
+    # saabas contributions walk on the card in float64: = the CPU's
+    rows = Xt[:1000]
+    card = mon.booster.predict_contrib(rows, method="saabas")
+    cpu = mon.booster.predict_contrib(rows, method="saabas", device="cpu")
+    raw = mon.booster.raw_scores(rows, device="cpu")[:, 0]
+    rec["saabas"] = {"card_vs_cpu": float(np.abs(card - cpu).max()),
+                     "sum_vs_raw": float(np.abs(cpu.sum(1) - raw).max())}
+    if rec["saabas"]["card_vs_cpu"] > 1e-9 or \
+            rec["saabas"]["sum_vs_raw"] > 1e-5:
+        raise AssertionError(f"fleet (a): saabas {rec['saabas']}")
+    return mon.booster, launches, s_rec["launches"], rec
+
+
+def monitored_grow_sync_check(dev) -> dict:
+    """One 31-leaf tree grown on the card inside the drivers' phase scope
+    and with a live training monitor ticking, under
+    ``torch.cuda.set_sync_debug_mode("error")``: the monitor and the
+    ``ambient_phase`` marks add no wait on the card."""
+    from mmlspark_tpu_torch.lightgbm import BinMapper, GBDTParams
+    from mmlspark_tpu_torch.lightgbm.core import make_leafwise_grower
+    from mmlspark_tpu_torch.observability import (ambient_phase,
+                                                  start_training_monitor)
+    rng = np.random.default_rng(6)
+    n, F = 50_000, 20
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    p = 1 / (1 + np.exp(-rng.normal(scale=0.5, size=n)))
+    y = (X[:, 0] - X[:, 1] * X[:, 2] > 0).astype(np.float32)
+    mapper = BinMapper(255).fit(X)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args = (t(mapper.transform(X)).t().contiguous().t(),
+            t((p - y).astype(np.float32)),
+            t((p * (1 - p)).astype(np.float32)),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.ones(F, dtype=torch.bool, device=dev), t(mapper.edges))
+    grow = make_leafwise_grower(31, 0, F, 255, GBDTParams(
+        num_leaves=31, use_quantized_grad=True).resolve())
+    noise = t(rng.random((2, 2, n), dtype=np.float32))
+    run, srv = start_training_monitor("chip_smoke.sync", total_steps=2,
+                                      rows_per_step=n, monitor_port=0)
+    try:
+        torch.cuda.synchronize()
+        for step in (1, 2):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with ambient_phase("lightgbm.histogram"):
+                    tree = grow(*args, noise=noise[step - 1])
+                run.tick(step=step)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        splits = int((tree.split_feature >= 0).sum())
+        step = run.progress()["step"]
+    finally:
+        srv.stop()
+        run.close()
+    if step != 2 or splits < 1:
+        raise AssertionError(f"fleet (a): sync check step {step}, "
+                             f"{splits} splits")
+    return {"splits": splits, "sync_debug_mode": "error"}
+
+
+def gbdt_reply_stage(model):
+    """A score worker's stage: the request (one row of features) through a
+    port ``LightGBMClassificationModel`` on the card; the reply is the
+    class-1 probability."""
+    from mmlspark_tpu_torch.core import DataFrame, Transformer
+    from mmlspark_tpu_torch.core.schema import vector_column
+
+    class GBDTReply(Transformer):
+        def _transform(self, frame):
+            def per_part(p):
+                feats = vector_column([np.asarray(v, np.float32)
+                                       for v in p["request"]])
+                out = model.transform(DataFrame.from_dict(
+                    {"features": feats})).collect()
+                return {**p, "reply": np.asarray(
+                    [float(q[1]) for q in out["probability"]])}
+            return frame.map_partitions(per_part)
+
+        def transform_schema(self, schema):
+            return schema
+
+    return GBDTReply()
+
+
+def class_router(topo: str, request_class: str, **kw):
+    """A ``RoutingClient`` over the workers of one request class: the
+    routing table carries every class, and score rows must not land on
+    the decode worker."""
+    from mmlspark_tpu_torch.serving import RoutingClient
+
+    class ClassRouter(RoutingClient):
+        def _refresh(self, force: bool = False):
+            super()._refresh(force)
+            with self._lock:
+                self._table = [w for w in self._table
+                               if w.get("request_class") == request_class]
+
+    return ClassRouter(topo, **kw)
+
+
+def _pct(lats, q):
+    s = sorted(lats)
+    return 1e3 * s[min(len(s) - 1, int(q * len(s)))]
+
+
+def fire_threads(fn, n: int, clients: int):
+    """``fn(i)`` for i in range(n) from ``clients`` threads; returns the
+    per-call (seconds, result or exception) and the wall seconds."""
+    import threading
+    out = [None] * n
+
+    def worker(k):
+        for i in range(k, n, clients):
+            t0 = time.perf_counter()
+            try:
+                r = fn(i)
+            except Exception as e:  # noqa: BLE001 — gated by the caller
+                r = e
+            out[i] = (time.perf_counter() - t0, r)
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    return out, time.perf_counter() - t0
+
+
+def worker_counts(worker) -> float:
+    """Requests a worker's own ``/metrics`` books as replied."""
+    import urllib.request
+    from mmlspark_tpu_torch.observability.federation import parse_prometheus
+    srv = worker.server
+    text = urllib.request.urlopen(f"http://{srv.host}:{srv.port}/metrics",
+                                  timeout=10).read().decode()
+    values, _, _ = parse_prometheus(text)
+    return sum(v for (n, ls), v in values.items()
+               if n == "mmlspark_serving_requests_total"
+               and dict(ls).get("status") == "replied")
+
+
+def fleet_serving(dev, svc, booster, runner, ref, reqs, ties):
+    """(b) three workers behind one ``TopologyService``: score and decode
+    through routers, a drain under load, a hard stop, the fleet plane."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.lightgbm import LightGBMClassificationModel
+    from mmlspark_tpu_torch.observability import MetricsRegistry
+    from mmlspark_tpu_torch.observability.federation import \
+        parse_prometheus
+    from mmlspark_tpu_torch.serving import MembershipWatcher, WorkerServer
+    from mmlspark_tpu_torch.serving.distributed import _http_json
+    topo = svc.address
+    model = LightGBMClassificationModel()
+    model.set("booster", booster)
+    model.set("classes", [0.0, 1.0])
+    rows, _ = bench_data(FLEET_SCORE_REQUESTS, seed=3)
+    want = np.asarray([float(q[1]) for q in model.transform(
+        DataFrame.from_dict({"features": rows})).collect()["probability"]])
+    bodies = [[float(v) for v in r] for r in rows]
+
+    def score_worker(i, gen=0):
+        return WorkerServer(gbdt_reply_stage(model), server_id=f"score-{i}",
+                            driver_address=topo, port=0,
+                            request_class="score", generation=gen,
+                            mode="continuous",
+                            registry=MetricsRegistry()).start()
+
+    scorer = runner.scorer(mode="decode", continuous=True, report_ttft=True,
+                           slots=SERVE_SLOTS, prompt_bucket=SERVE_PROMPT,
+                           max_new_tokens=SERVE_NEW, page_size=SERVE_PAGE)
+    workers = {"score-0": score_worker(0), "score-1": score_worker(1),
+               "decode-0": WorkerServer(
+                   scorer, server_id="decode-0", driver_address=topo,
+                   port=0, request_class="decode", mode="continuous",
+                   registry=MetricsRegistry()).start()}
+    shrinks = []
+    watcher = MembershipWatcher(topo, poll_s=0.02,
+                                on_shrink=shrinks.append)
+    watcher.poll_once()
+    watcher.start()
+    reg = MetricsRegistry()
+    score = class_router(topo, "score", registry=reg, hedge=True,
+                         refresh_s=0.05)
+    decode = class_router(topo, "decode", registry=reg)
+    rec = {}
+    try:
+        for i in range(16):                             # warm both paths
+            score.request(bodies[i])
+        # 2,000 single-row requests through the router: half round robin,
+        # half by key
+        def routed(i):
+            key = None if i < FLEET_SCORE_REQUESTS // 2 \
+                else f"user{i % FLEET_KEYS}"
+            return score.request(bodies[i], key=key)
+
+        got, wall = fire_threads(routed, FLEET_SCORE_REQUESTS, FLEET_CLIENTS)
+        bad = [r for _, r in got if isinstance(r, Exception)]
+        if bad:
+            raise AssertionError(f"fleet (b): {len(bad)} routed score "
+                                 f"requests failed: {bad[0]!r}")
+        err = float(np.abs(np.asarray([r for _, r in got]) - want).max())
+        if err > 1e-6:
+            raise AssertionError(f"fleet (b): routed replies differ from "
+                                 f"the model's transform by {err}")
+        lats = [t for t, _ in got]
+        rec["routed"] = {"rps": FLEET_SCORE_REQUESTS / wall,
+                         "p50_ms": _pct(lats, 0.5),
+                         "p99_ms": _pct(lats, 0.99), "max_abs_err": err}
+        direct_url = workers["score-0"].address
+        got, wall = fire_threads(lambda i: _http_json(direct_url, bodies[i]),
+                                 FLEET_SCORE_REQUESTS, FLEET_CLIENTS)
+        if any(isinstance(r, Exception) for _, r in got):
+            raise AssertionError("fleet (b): a direct score request failed")
+        lats = [t for t, _ in got]
+        rec["direct"] = {"rps": FLEET_SCORE_REQUESTS / wall,
+                         "p50_ms": _pct(lats, 0.5),
+                         "p99_ms": _pct(lats, 0.99), "max_abs_err": float(
+                             np.abs(np.asarray([r for _, r in got])
+                                    - want).max())}
+        # the serve phase's 48 trace prompts through the decode router,
+        # after one request that starts the worker's engine
+        prompts = [r[0].tolist() for r in reqs]
+        ref.check(prompts[0], decode.request(prompts[0], timeout=120)[
+            "tokens"], "fleet", ties)
+        got, wall = fire_threads(lambda i: decode.request(prompts[i],
+                                                          timeout=120),
+                                 len(prompts), FLEET_CLIENTS)
+        for p, (_, r) in zip(prompts, got):
+            if isinstance(r, Exception):
+                raise AssertionError(f"fleet (b): decode request {r!r}")
+            ref.check(p, r["tokens"], "fleet", ties)
+        rec["decode"] = {"requests": len(prompts), "wall_s": wall,
+                         "ttft_p99_ms": sorted(r["ttft_ms"] for _, r in got)[
+                             int(0.99 * len(got))]}
+        # federated request counters = the sum of the workers' own
+        t0 = time.perf_counter()
+        svc.federation_tick()
+        rec["federation_tick_ms"] = 1e3 * (time.perf_counter() - t0)
+        text = urllib.request.urlopen(f"{topo}/fleet/metrics?refresh=1",
+                                      timeout=10).read().decode()
+        values, _, _ = parse_prometheus(text)
+        fleet_replied = sum(v for (n, ls), v in values.items()
+                            if n == "mmlspark_serving_requests_total"
+                            and dict(ls).get("status") == "replied")
+        own = {sid: worker_counts(w) for sid, w in workers.items()}
+        rec["counters"] = {"fleet_replied": fleet_replied, "workers": own}
+        if fleet_replied != sum(own.values()) or fleet_replied < \
+                2 * FLEET_SCORE_REQUESTS + len(prompts):
+            raise AssertionError(f"fleet (b): federated {fleet_replied} != "
+                                 f"the workers' own {own}")
+        rec["autoscale"] = _http_json(f"{topo}/fleet/autoscale?refresh=1")[
+            "classes"]
+
+        # drain score-0 under load: no request fails, the watcher sees it
+        # leave, and a new generation takes its place
+        stop_load = threading.Event()
+        load_out = []
+
+        def load(k):
+            i = k
+            while not stop_load.is_set():
+                try:
+                    r = score.request(bodies[i % FLEET_SCORE_REQUESTS])
+                    load_out.append(abs(r - want[i % FLEET_SCORE_REQUESTS]))
+                except Exception as e:  # noqa: BLE001 — gated below
+                    load_out.append(e)
+                i += FLEET_CLIENTS
+
+        loaders = [threading.Thread(target=load, args=(k,))
+                   for k in range(FLEET_CLIENTS)]
+        for t in loaders:
+            t.start()
+        time.sleep(0.5)
+        ok = workers["score-0"].drain(timeout_s=30.0)
+        deadline = time.monotonic() + 10
+        while not shrinks and time.monotonic() < deadline:
+            time.sleep(0.01)
+        workers["score-0"] = score_worker(0, gen=1)
+        time.sleep(0.5)
+        stop_load.set()
+        for t in loaders:
+            t.join(60)
+        failed = [r for r in load_out if isinstance(r, Exception)]
+        rec["drain"] = {"verdict": ok, "requests": len(load_out),
+                        "failed": len(failed), "shrinks": list(shrinks)}
+        if not ok or failed or not shrinks or \
+                shrinks[0]["lost"] != ["score-0"] or \
+                max(load_out) > 1e-6:
+            raise AssertionError(f"fleet (b): drain {rec['drain']} "
+                                 f"{failed[:1]}")
+
+        # stop score-1 hard (socket gone, still registered): its breaker
+        # opens, every request fails over, the fleet plane still answers
+        workers["score-1"].server.stop()
+        got, _ = fire_threads(lambda i: score.request(bodies[i]), 200,
+                              FLEET_CLIENTS)
+        bad = [r for _, r in got if isinstance(r, Exception)]
+        state = score.breakers["score-1"].state \
+            if "score-1" in score.breakers else None
+        failovers = sum(v for (n, ls), v in parse_prometheus(
+            reg.to_prometheus())[0].items()
+            if n == "mmlspark_routing_failovers_total")
+        rec["hard_stop"] = {"failed": len(bad), "breaker": state,
+                            "failovers": failovers}
+        if bad or state != "open" or failovers < 1:
+            raise AssertionError(f"fleet (b): hard stop {rec['hard_stop']}")
+        ends = {}
+        for path, limit in (("/fleet/slow?k=5&deadline_ms=2000", 2.0),
+                            ("/fleet/metrics?refresh=1&deadline_ms=3000",
+                             3.0),
+                            ("/fleet/slo?refresh=1", 3.0),
+                            ("/fleet/autoscale?refresh=1", 3.0),
+                            ("/fleet/capacity?refresh=1&deadline_ms=3000",
+                             3.0),
+                            ("/fleet/trace/" + "0" * 32 + "?deadline_ms=2000",
+                             2.0),
+                            ("/fleet/dump", 5.0),
+                            ("/fleet/membership", 1.0)):
+            t0 = time.perf_counter()
+            try:
+                status = urllib.request.urlopen(f"{topo}{path}",
+                                                timeout=30).status
+            except urllib.error.HTTPError as e:
+                status = e.code
+            s = time.perf_counter() - t0
+            ends[path.split("?")[0]] = {"status": status, "s": s}
+            ok_status = (200, 404) if path.startswith("/fleet/trace") \
+                else (200,)
+            if status not in ok_status or s > limit + 1.0:
+                raise AssertionError(f"fleet (b): {path} -> {status} in "
+                                     f"{s:.2f} s")
+        rec["endpoints"] = ends
+        rec["hedges"] = {dict(ls).get("outcome"): v for (n, ls), v in
+                         parse_prometheus(reg.to_prometheus())[0].items()
+                         if n == "mmlspark_hedges_total"}
+    finally:
+        watcher.stop()
+        for w in workers.values():
+            w.stop()
+        scorer.continuous_close()
+    held = runner.page_pool(SERVE_PAGE).pages_in_use()
+    if held:
+        raise AssertionError(f"fleet (b): {held} pages held after stop()")
+    return rec
+
+
+def fleet_phase(dev, smi: str, served=None):
+    """(a) the training monitor on the kernels, (b) a fleet on one card;
+    ``served`` is the serve phase's (runner, one-shot reference, trace)."""
+    import threading
+    from mmlspark_tpu_torch.observability import MetricsRegistry
+    from mmlspark_tpu_torch.serving import TopologyService
+    before = {t.ident for t in threading.enumerate()}
+    t0 = time.perf_counter()
+    if served is None:
+        from mmlspark_tpu_torch.models import ModelRunner, TransformerEncoder
+        lm = TransformerEncoder(**SEQ_LM,
+                                generator=torch.Generator().manual_seed(60))
+        runner = ModelRunner(module=lm, name="serve", device=dev)
+        served = (runner, OneShot(runner, SERVE_PAGE),
+                  serve_trace(SEQ_LM["vocab_size"]))
+    runner, ref, reqs = served
+    ties: list = []
+    svc = TopologyService(registry=MetricsRegistry()).start()
+    try:
+        booster, leaf, streamed, mon = fleet_monitored_fits(dev,
+                                                            svc.address)
+        t_a = time.perf_counter() - t0
+        serving = fleet_serving(dev, svc, booster, runner, ref, reqs, ties)
+    finally:
+        svc.stop()
+    deadline = time.monotonic() + 30
+    alive = [t for t in threading.enumerate() if t.ident not in before]
+    while alive and time.monotonic() < deadline:
+        time.sleep(0.05)
+        alive = [t for t in threading.enumerate() if t.ident not in before]
+    if alive:
+        raise AssertionError(f"fleet: threads left alive after stop(): "
+                             f"{sorted(t.name for t in alive)}")
+    DETAIL["fleet"] = {"card": smi, "monitored": mon, "serving": serving,
+                       "near_ties": ties,
+                       "seconds": {"a": t_a,
+                                   "total": time.perf_counter() - t0}}
+    bs = mon["boosting_s"]
+    p = mon["progress"]
+    log(f"[fleet] {smi} | (a) monitored train() leaf-wise 1M x 200: "
+        f"launches {leaf}; /progress {p['readings']} readings, first "
+        f"mid-run step {p['mid']['step']} at "
+        f"{p['mid']['rows_per_second']:.0f} rows/s, last step "
+        f"{p['final']['step']}; federated "
+        f"{len(mon['fleet']['training_series'])} training series, in "
+        f"/routing {mon['fleet']['in_routing']}; booster = unmonitored; "
+        f"boosting_s plain "
+        + " / ".join(f"{v:.3f}" for v in bs["plain"]) + ", monitored "
+        + " / ".join(f"{v:.3f}" for v in bs["monitored"])
+        + f"; streamed 262,144 rows in 2 tiles: launches {streamed}, "
+        f"booster = unmonitored, boosting_s in turns plain "
+        + " / ".join(f"{v:.3f}" for v in mon["streamed_boosting_s"]["plain"])
+        + ", monitored "
+        + " / ".join(f"{v:.3f}"
+                     for v in mon["streamed_boosting_s"]["monitored"])
+        + f"; saabas card = CPU "
+        f"within {mon['saabas']['card_vs_cpu']:.1e}")
+    r, d = serving["routed"], serving["direct"]
+    log(f"[fleet] {smi} | (b) {FLEET_SCORE_REQUESTS} score requests from "
+        f"{FLEET_CLIENTS} threads: routed {r['rps']:.0f} rps p50 "
+        f"{r['p50_ms']:.2f} ms p99 {r['p99_ms']:.2f} ms (max |err| "
+        f"{r['max_abs_err']:.1e}), direct {d['rps']:.0f} rps p50 "
+        f"{d['p50_ms']:.2f} ms p99 {d['p99_ms']:.2f} ms; decode "
+        f"{serving['decode']['requests']} prompts = one-shot (near-ties "
+        f"{len(ties)}), TTFT p99 {serving['decode']['ttft_p99_ms']:.1f} ms; "
+        f"federation_tick {serving['federation_tick_ms']:.1f} ms, "
+        f"federated replied {serving['counters']['fleet_replied']:.0f} = "
+        f"the workers' own; drain {serving['drain']['requests']} requests "
+        f"under load, {serving['drain']['failed']} failed, watcher saw "
+        f"{serving['drain']['shrinks'][0]['lost']} leave; hard stop: "
+        f"breaker {serving['hard_stop']['breaker']}, "
+        f"{serving['hard_stop']['failovers']:.0f} failovers, 0 failed; "
+        f"hedges {serving['hedges']}; autoscale "
+        + ", ".join(f"{c}: {v.get('current')} -> {v.get('desired')} "
+                    f"({v.get('reason')})"
+                    for c, v in serving['autoscale'].items()))
+    return {"monitored_leaf": leaf, "monitored_streamed": streamed}
 
 
 def main() -> int:
@@ -3566,9 +4212,15 @@ def main() -> int:
     log(f"[seq] phase done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    serve_phase(dev, smi)
+    served = serve_phase(dev, smi)
     torch.cuda.synchronize()
     log(f"[serve] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    fleet_launches = fleet_phase(dev, smi, served)
+    del served
+    torch.cuda.synchronize()
+    log(f"[fleet] phase done in {time.perf_counter() - t0:.1f} s")
 
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
@@ -3577,7 +4229,8 @@ def main() -> int:
              "multiclass_level": mc_launches["level"],
              "ranker": rank_launches,
              "streamed_level": stream_launches["level"],
-             "streamed_leaf": stream_launches["leaf"]}
+             "streamed_leaf": stream_launches["leaf"],
+             **fleet_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in paths.values()),

@@ -7,7 +7,8 @@ never ``jax`` or ``mmlspark_tpu``; what it needs from the JAX package's
 jax-free modules (``core/``, ``io/``, ``utils/``, ``observability/metrics``)
 it keeps as its own copy.
 
-Ported so far (the GBDT main path, then deep-learning scoring):
+Ported so far (the GBDT main path, deep-learning scoring, the sequence
+models, serving and the serving fleet):
 
 - ``core``      — DataFrame, Params, Pipeline, persistence (copies)
 - ``ops``       — quantized histogram ops and the card's binning
@@ -24,14 +25,21 @@ Ported so far (the GBDT main path, then deep-learning scoring):
   host-RAM tiles through pinned memory on a copy stream (both growers);
   LightGBMClassifier/Regressor/Ranker (the estimators and ``train_streamed``
   also exported here)
-- ``io``        — out-of-core tiles (``chunked``) and atomic booster
-  snapshots (``checkpoint``), copies
+- ``io``        — HTTP requests and responses as columns behind a
+  breaker- and deadline-aware client (``http``), out-of-core tiles
+  (``chunked``) and atomic booster snapshots (``checkpoint``), copies
+- ``stages``    — the minibatch transformers and their batchers (copies)
 - ``utils``     — ``resilience`` (deadlines, preemption scopes),
   ``concurrency``, ``pickling`` (copies) and the native loader
-- ``observability`` — ``metrics``, the registry (a copy)
+- ``observability`` — the registry, spans, the span collector, SLOs,
+  cost attribution, the flight recorder, the fleet plane
+  (``federation``, ``autoscale``) and the live training monitor
+  (``trainwatch``), copies; the profiler and compute twins
+- ``serving``   — ``PipelineServer`` and the fleet (``TopologyService``,
+  ``WorkerServer``, ``RoutingClient``, ``MembershipWatcher``), copies
 - ``models``    — the GBDT booster artifact and its scoring walk; the
-  ResNet family as ``nn.Module``s (NHWC, flax's padding); the model
-  runner's batch front
+  ResNet family as ``nn.Module``s (NHWC, flax's padding); the sequence
+  models; the model runner (batch front, decode, the continuous engine)
 - ``dl``        — ``JaxModel`` (the CNTKModel twin), ``ImageFeaturizer``,
   the model repository (``ModelDownloader``) and ONNX import
 - ``opencv``    — ``ImageTransformer`` and ``ImageSetAugmenter``

@@ -28,9 +28,12 @@ arrays stay on the device until the end.  ``train()`` checkpoints,
 honours preemption and resumes (``io.checkpoint``, the JAX package's file
 format).  ``train_streamed()`` is the out-of-core driver: host-RAM tiles
 through pinned memory on a copy stream into ``build_quantized``, both
-growers, with the same checkpoints and an elastic (re-tiled) resume.  Not
-ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md entry: row sharding and voting, and the live monitor.
+growers, with the same checkpoints and an elastic (re-tiled) resume.
+Both drivers serve the live training monitor (``monitor_port``,
+``monitor_stall_timeout_s``: ``observability.trainwatch``) and mark their
+phases with ``ambient_phase`` as the JAX package's do.  Not ported yet,
+raising ``NotImplementedError`` that names its ROADMAP.md entry: row
+sharding and voting.
 The JAX package's scan-chunked multi-iteration path exists to amortize a
 device relay's per-dispatch latency; the port launches per iteration and
 has no counterpart.
@@ -54,6 +57,7 @@ from ..io.checkpoint import (CheckpointManager, book_reshard,
 from ..models.gbdt import GBDTBooster, children_depth_bound, \
     perfect_tree_children
 from ..ops import cuda_histogram
+from ..observability.tracing import ambient_phase
 from ..ops import histogram as hist_ops
 from ..utils.resilience import PreemptionToken, preemption_scope
 from .binning import BinMapper
@@ -1224,13 +1228,50 @@ _TREE_KEYS = ("left_child", "right_child", "split_feature", "threshold",
               "internal_count", "leaf_value", "leaf_count")
 
 
-def _check_ported(p: GBDTParams, *, shard_rows, monitor_port,
-                  monitor_stall_timeout_s) -> None:
+def _check_ported(p: GBDTParams, *, shard_rows) -> None:
     if shard_rows or p.voting_k:
         raise _not_ported("row sharding and voting",
                           "the sharded GBDT over NCCL")
-    if monitor_port is not None or monitor_stall_timeout_s is not None:
-        raise _not_ported("the training monitor", "compute-plane telemetry")
+
+
+def _start_monitor(job: str, p: GBDTParams, n: int, monitor_port,
+                   monitor_stall_timeout_s, callbacks, prefetch_fn=None):
+    """The live training monitor both drivers wire as the JAX package's
+    do: a ``TrainingRun`` (heartbeat and stall watchdog) and, with a
+    ``monitor_port``, its HTTP sidecar.  Ticks ride the callbacks seam the
+    loop already calls, with the eval value as the loss.  Returns ``(run,
+    server, callbacks)``; ``run`` is None when no monitor was asked for.
+    The caller stops the server, then closes the run."""
+    if monitor_port is None and monitor_stall_timeout_s is None:
+        return None, None, callbacks
+    from ..observability.trainwatch import start_training_monitor
+    run, server = start_training_monitor(
+        job, total_steps=p.num_iterations, rows_per_step=n,
+        monitor_port=monitor_port, stall_timeout_s=monitor_stall_timeout_s,
+        driver=job)
+    run.set_phase("boosting")
+    if prefetch_fn is not None:
+        run.set_prefetch_fn(prefetch_fn)
+
+    def watch_cb(i, ev):
+        # the eval entry (when present) carries {metric_name: value,
+        # "iteration": it}: the metric value feeds the loss tail
+        val = None
+        if isinstance(ev, dict):
+            for k, v in ev.items():
+                if k != "iteration" and isinstance(v, (int, float)):
+                    val = float(v)
+                    break
+        run.tick(step=i + 1, loss=val)
+
+    return run, server, list(callbacks or []) + [watch_cb]
+
+
+def _stop_monitor(run, server) -> None:
+    if server is not None:
+        server.stop()
+    if run is not None:
+        run.close()
 
 
 def _params_sig(p: GBDTParams) -> tuple:
@@ -1437,8 +1478,7 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     p = params.resolve()
     p = dataclasses.replace(
         p, use_quantized_grad=default_quantized(dev, p.use_quantized_grad))
-    _check_ported(p, shard_rows=shard_rows, monitor_port=monitor_port,
-                  monitor_stall_timeout_s=monitor_stall_timeout_s)
+    _check_ported(p, shard_rows=shard_rows)
     check_resume_arg(resume, checkpoint_dir=checkpoint_dir)
     is_rank = p.objective == "lambdarank"
     if is_rank and group_ptr is None:
@@ -1462,11 +1502,14 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         mapper, binned = bin_cache["mapper"], bin_cache["binned_dev"]
     else:
         t0 = time.perf_counter()
-        mapper = BinMapper(p.max_bin,
-                           categorical_features=p.categorical_features).fit(X)
+        with ambient_phase("lightgbm.binning"):
+            mapper = BinMapper(
+                p.max_bin,
+                categorical_features=p.categorical_features).fit(X)
         t_edges = time.perf_counter() - t0
         t0 = time.perf_counter()
-        with torch.profiler.record_function("train.bin_apply"):
+        with torch.profiler.record_function("train.bin_apply"), \
+                ambient_phase("lightgbm.binning"):
             binned = _bin(mapper, X, dev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -1635,10 +1678,21 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     # snapshot to write, a SIGTERM keeps its default behaviour
     scope = preemption_scope() if mgr is not None \
         else contextlib.nullcontext(PreemptionToken())
+    # the live training monitor: opt-in heartbeat, stall watchdog and HTTP
+    # sidecar, ticked from the callbacks seam
+    watch, watch_srv, callbacks = _start_monitor(
+        "lightgbm.train", p, n, monitor_port, monitor_stall_timeout_s,
+        callbacks)
     t0 = time.perf_counter()
     # a profiler range (a no-op unless a profiler runs) that lets a trace
     # tell the loop's device work from the binning kernels before it
-    with torch.profiler.record_function("train.boosting"), scope as token:
+    with contextlib.ExitStack() as stack:
+        stack.callback(_stop_monitor, watch, watch_srv)
+        stack.enter_context(
+            torch.profiler.record_function("train.boosting"))
+        token = stack.enter_context(scope)
+        if watch is not None:
+            watch.set_preemption_token(token)
         for it in range(start_iter, end_iter):
             if token.requested:
                 # one last snapshot at this iteration boundary, then a
@@ -1707,8 +1761,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
             new_w = 1.0 / (1.0 + len(dropped)) if dropped else 1.0
             # one tree per class, from the class's (strided) gradient column
             for c in range(K):
-                tree = grow(binned, g[:, c], h[:, c], hist_mask, feat_mask,
-                            edges, generator=gen)
+                with ambient_phase("lightgbm.histogram"):
+                    tree = grow(binned, g[:, c], h[:, c], hist_mask,
+                                feat_mask, edges, generator=gen)
                 lv_s = tree.leaf_value * shrink
                 scores[:, c] += lv_s[tree.leaf_of_row] * new_w
                 for k in tree_keys:
@@ -1734,7 +1789,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                             walk_tree(binned_v, t)] * scale
                     tree_weights[t] *= factor
             if has_valid:
-                m = metric_fn(yv, scores_v.cpu().numpy().astype(np.float64))
+                with ambient_phase("lightgbm.eval"):
+                    m = metric_fn(yv,
+                                  scores_v.cpu().numpy().astype(np.float64))
                 evals.append({metric_name: m, "iteration": it})
                 improved = m > best_metric if larger_better \
                     else m < best_metric
@@ -1759,7 +1816,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         # one sync, after the loop
         trees_np = {k: np.stack([t.cpu().numpy() for t in v])
                     for k, v in trees.items()}
-    t_boost = time.perf_counter() - t0
+        # before the monitor stops: its server's shutdown waits up to one
+        # poll interval of the serving loop
+        t_boost = time.perf_counter() - t0
     if p.growth == "leaf":
         # the tight walk bound: leaf-wise trees are usually far shallower
         # than the num_leaves - 1 chain (warm-start trees included)
@@ -2097,10 +2156,15 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     copy stream's time (``h2d_s``, 0 on the CPU) and the pass counts.
 
     Not streamed (``ValueError``, as in the JAX package): multiclass,
-    lambdarank, dart/goss/rf and categorical features.  The reference's
-    spans, phase attribution and live monitor wait for the port's
-    observability layer (ROADMAP.md §1 item 13): ``monitor_port`` and
-    ``monitor_stall_timeout_s`` raise ``NotImplementedError``.
+    lambdarank, dart/goss/rf and categorical features.
+
+    Live monitoring, as in the JAX package: ``monitor_port`` (0 =
+    ephemeral) serves ``/progress`` (the prefetcher's overlap totals and
+    live state included), ``/metrics``, ``/stats``, ``/health`` and
+    ``/debug/{dump,profile}`` for the duration of the loop; either
+    monitor arg arms a stall watchdog that books
+    ``mmlspark_training_stalls_total`` and a ``train_stall`` flight dump
+    when no iteration completes in time (a hung tile load included).
     """
     from ..io.chunked import ChunkedDataset, TilePrefetcher
 
@@ -2117,8 +2181,7 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     if p.categorical_features:
         raise ValueError("streamed training does not support categorical "
                          "features yet (see docs/out_of_core.md)")
-    _check_ported(p, shard_rows=False, monitor_port=monitor_port,
-                  monitor_stall_timeout_s=monitor_stall_timeout_s)
+    _check_ported(p, shard_rows=False)
 
     # ---- dataset geometry
     if isinstance(X, ChunkedDataset):
@@ -2184,7 +2247,8 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     check_resume_arg(resume, checkpoint_dir=checkpoint_dir)
 
     t0 = time.perf_counter()
-    mapper, binned_fm = _stream_bins(cd, p.max_bin)
+    with ambient_phase("ooc.binning"):
+        mapper, binned_fm = _stream_bins(cd, p.max_bin)
     B = mapper.num_bins
     binned_h = binned_fm.T                 # (n, F) view for the host walks
     t_binning = time.perf_counter() - t0
@@ -2230,12 +2294,34 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     stager = _TileStager(dev, T)
     totals = {"wait_s": 0.0, "compute_s": 0.0, "tiles": 0.0,
               "grad_passes": 0, "hist_passes": 0, "hist_bytes": 0}
+    live_pf: Dict[str, Optional[TilePrefetcher]] = {"pf": None}
 
     def stream(make_tile):
         def load(i):
-            lo, hi = cd.tile_slice(i)
-            return i, lo, hi, stager.load(make_tile(i, lo, hi))
-        return TilePrefetcher(range(cd.num_tiles), load, site=OOC_SITE)
+            # the prefetch worker's samples go to tile load, apart from the
+            # consumer's accumulate launches
+            with ambient_phase("ooc.tile_load"):
+                lo, hi = cd.tile_slice(i)
+                return i, lo, hi, stager.load(make_tile(i, lo, hi))
+        pf = TilePrefetcher(range(cd.num_tiles), load, site=OOC_SITE)
+        live_pf["pf"] = pf
+        return pf
+
+    def prefetch_state() -> Dict[str, object]:
+        """The monitor's view: cumulative overlap totals and the live
+        pass."""
+        busy = totals["wait_s"] + totals["compute_s"]
+        d: Dict[str, object] = {
+            "wait_s": round(totals["wait_s"], 6),
+            "compute_s": round(totals["compute_s"], 6),
+            "tiles": totals["tiles"],
+            "overlap_pct": round(100.0 * totals["compute_s"] / busy, 2)
+            if busy > 0 else 100.0,
+        }
+        pf = live_pf["pf"]
+        if pf is not None:
+            d["live"] = pf.snapshot()
+        return d
 
     def finish_stream(pf):
         st = pf.overlap_stats()
@@ -2406,12 +2492,13 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
             return torch.stack([g_t[:m, 0], h_t[:m, 0]]).to(f32).cpu() \
                 .numpy()
 
-        for i, lo, hi, tile in pf:
-            gh = grads(hi - lo, *stager.ready(tile))
-            del tile                    # see hist_pass
-            g_host[lo:hi], h_host[lo:hi] = gh
-            gmax = max(gmax, float(np.abs(gh[0]).max()))
-            hmax = max(hmax, float(gh[1].max()))
+        with ambient_phase("ooc.gradients"):
+            for i, lo, hi, tile in pf:
+                gh = grads(hi - lo, *stager.ready(tile))
+                del tile                    # see hist_pass
+                g_host[lo:hi], h_host[lo:hi] = gh
+                gmax = max(gmax, float(np.abs(gh[0]).max()))
+                hmax = max(hmax, float(gh[1].max()))
         finish_stream(pf)
         stager.drain()
         totals["grad_passes"] += 1
@@ -2462,22 +2549,35 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
 
         bytes0 = stager.bytes
         pf = stream(make_tile)
-        for i, lo, hi, tile in pf:
-            acc += partial(*stager.ready(tile))
-            # taking tile k + 1 lets the worker stage k + 2 at once: the
-            # loop holds nothing of tile k by then, so two tiles are live
-            del tile
+        with ambient_phase("ooc.histogram"):
+            for i, lo, hi, tile in pf:
+                acc += partial(*stager.ready(tile))
+                # taking tile k + 1 lets the worker stage k + 2 at once:
+                # the loop holds nothing of tile k by then, so two tiles
+                # are live
+                del tile
         finish_stream(pf)
         totals["hist_passes"] += 1
         totals["hist_bytes"] = stager.bytes - bytes0
         return acc
 
+    # the live monitor: one tick per boosting iteration.  The stall
+    # watchdog covers the streamed passes too: a hung tile load freezes
+    # the ticks and trips as ``train_stall`` with the live prefetcher in
+    # the dump
+    watch, watch_srv, callbacks = _start_monitor(
+        "lightgbm.train_streamed", p, n, monitor_port,
+        monitor_stall_timeout_s, callbacks, prefetch_fn=prefetch_state)
     scope = preemption_scope() if manager is not None \
         else contextlib.nullcontext(PreemptionToken())
     last_ckpt_iter = start_iter
     trees_at_loop_start = len(tree_weights)
     t0 = time.perf_counter()
-    with scope as token:
+    with contextlib.ExitStack() as stack:
+        stack.callback(_stop_monitor, watch, watch_srv)
+        token = stack.enter_context(scope)
+        if watch is not None:
+            watch.set_preemption_token(token)
         for it in range(start_iter, p.num_iterations):
             if token.requested:
                 save_ckpt(finished=False, block=True)
@@ -2558,14 +2658,15 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
             tree_weights.append(1.0)
 
             if has_valid:
-                leaf_v = walker(
-                    binned_v, torch.from_numpy(sf).to(dev),
-                    torch.from_numpy(tb).to(dev),
-                    torch.from_numpy(np.asarray(lch, np.int32)).to(dev),
-                    torch.from_numpy(np.asarray(rch, np.int32)).to(dev)
-                ).cpu().numpy()
-                scores_v[:, 0] += lv_s[leaf_v]
-                m = metric_fn(yv, scores_v.astype(np.float64))
+                with ambient_phase("ooc.eval"):
+                    leaf_v = walker(
+                        binned_v, torch.from_numpy(sf).to(dev),
+                        torch.from_numpy(tb).to(dev),
+                        torch.from_numpy(np.asarray(lch, np.int32)).to(dev),
+                        torch.from_numpy(np.asarray(rch, np.int32)).to(dev)
+                    ).cpu().numpy()
+                    scores_v[:, 0] += lv_s[leaf_v]
+                    m = metric_fn(yv, scores_v.astype(np.float64))
                 evals.append({metric_name: m, "iteration": it})
                 improved = m > best_metric if larger_better \
                     else m < best_metric
@@ -2583,7 +2684,8 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
                     and it + 1 - last_ckpt_iter >= checkpoint_every:
                 save_ckpt(finished=False)
                 last_ckpt_iter = it + 1
-    t_boost = time.perf_counter() - t0
+        # before the monitor stops (see train())
+        t_boost = time.perf_counter() - t0
 
     if manager is not None:
         if not preempted and (len(tree_weights) > trees_at_loop_start

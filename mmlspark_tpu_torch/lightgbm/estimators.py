@@ -14,11 +14,12 @@ sequential batches with warm start between them (the reference's
 trains in one batch whatever it says.  ``checkpoint_dir`` and
 ``checkpoint_every`` reach ``train()`` (periodic snapshots, preemption and
 resume; with ``num_batches > 1`` each batch checkpoints into its own
-``batch_{i:04d}`` directory, as in the reference).  The distributed and
-monitor params (``parallelism="voting_parallel"``, ``shard_rows``,
-``monitor_port``, ``monitor_stall_timeout_s``) reach ``train()``, which
-raises ``NotImplementedError`` naming their ROADMAP.md entry for any value
-other than the default.  ``device`` picks where
+``batch_{i:04d}`` directory, as in the reference).  ``monitor_port`` and
+``monitor_stall_timeout_s`` reach ``train()``, which serves the live
+training monitor (``observability.trainwatch``) while ``fit`` runs.  The
+distributed params (``parallelism="voting_parallel"``, ``shard_rows``)
+reach ``train()``, which raises ``NotImplementedError`` naming their
+ROADMAP.md entry for any value other than the default.  ``device`` picks where
 training and scoring run: the card by default, ``"cpu"`` for the plain
 PyTorch versions.
 """
@@ -99,14 +100,23 @@ def _shared_params(cls):
          "(on for the card, off on the CPU)", "bool", None),
         ("num_grad_quant_bins", "quantization levels for grad/hess under "
          "quantized training (4-128)", "int", 16),
-        ("checkpoint_dir", "directory for periodic booster checkpoints "
-         "(not ported: raises)", "string", None),
+        ("checkpoint_dir", "directory for periodic atomic booster "
+         "checkpoints: the run snapshots booster + iteration + PRNG state "
+         "every checkpoint_every iterations and auto-resumes from the "
+         "newest valid snapshot (docs/RESILIENCE.md: training fault "
+         "tolerance)", "string", None),
         ("checkpoint_every", "checkpoint cadence in boosting iterations "
-         "(0 = off; not ported: raises)", "int", 0),
+         "(0 = off; requires checkpoint_dir)", "int", 0),
         ("monitor_port", "serve live training telemetry over HTTP while "
-         "fit() runs (not ported: raises)", "int", None),
-        ("monitor_stall_timeout_s", "arm the training stall watchdog "
-         "(not ported: raises)", "double", None),
+         "fit() runs: GET /progress (step, rows/sec, ETA, loss tail), "
+         "/metrics, /debug/dump, /debug/profile (0 = ephemeral port; "
+         "unset = no server; docs/OBSERVABILITY.md: training plane)",
+         "int", None),
+        ("monitor_stall_timeout_s", "arm the training stall watchdog with "
+         "a FIXED timeout in seconds instead of the EWMA-scaled default "
+         "(a trip books mmlspark_training_stalls_total and writes a "
+         "train_stall flight dump); setting this alone enables the "
+         "watchdog without the HTTP server", "double", None),
         ("device", "where training and scoring run: unset = the CUDA card "
          "(an error without one), 'cpu' = the plain PyTorch versions",
          "string", None),
@@ -253,6 +263,23 @@ class _LightGBMModelBase(Model, HasFeaturesCol, HasPredictionCol):
             for i in range(len(leaves)):
                 col[i] = leaves[i].astype(np.float64)
             return {**p, "leaf_prediction": col}
+        return df.map_partitions(per_part)
+
+    def predict_contrib(self, df: DataFrame,
+                        method: str = "tree_shap") -> DataFrame:
+        """Per-row feature contributions in a ``features_shap`` column
+        (the booster's ``predict_contrib``; ``saabas`` walks on the
+        model's ``device``)."""
+        fc = self.get("features_col")
+
+        def per_part(p):
+            X = stack_vector_column(p[fc])
+            contrib = self.booster.predict_contrib(
+                X, method=method, device=self.get("device"))
+            col = np.empty(len(contrib), dtype=object)
+            for i in range(len(contrib)):
+                col[i] = contrib[i]
+            return {**p, "features_shap": col}
         return df.map_partitions(per_part)
 
 

@@ -14,8 +14,10 @@ Categorical nodes route as the JAX package's walk does: with a
 ``cat_bitset`` a code in the node's set goes left, without one the code
 ``threshold`` alone goes left; NaN and codes outside the set go right.
 
-Not ported yet: ``predict_contrib``, TreeSHAP and ``merge`` (ROADMAP, port
-queue).
+Feature contributions (``predict_contrib``): exact path-dependent
+TreeSHAP on the host (an own copy of the JAX package's numpy recursion)
+or the Saabas path deltas, walked on ``device`` in float64.  ``merge``
+concatenates two boosters' trees, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -271,6 +273,78 @@ class GBDTBooster(Saveable):
             return np.exp(np.clip(raw[:, 0], -30, 30))
         return raw[:, 0]
 
+    def predict_contrib(self, X: np.ndarray, method: str = "tree_shap",
+                        device: DeviceLike = None) -> np.ndarray:
+        """Per-feature contributions (n, F+1), last col = expected value.
+
+        method="tree_shap": exact path-dependent TreeSHAP (reference
+        ``featuresShap:414`` parity), host numpy, additive (rows sum to the
+        raw score).  method="saabas": the fast path-delta attribution,
+        walked on ``device`` (the card unless ``device="cpu"``) with float64
+        sums; additive too, except that, as in the JAX package, a node that
+        does not split (a level-wise pass-through) attributes nothing, so a
+        row crossing one loses that step's delta (ROADMAP.md §3.11).
+        """
+        if method == "tree_shap":
+            return tree_shap(self, X)
+        X = np.asarray(X, np.float32)
+        n, F = X.shape
+        k = self.num_class if self.objective == "multiclass" else 1
+        if k > 1:
+            raise ValueError("predict_contrib supports single-score models; "
+                             "slice trees per class for multiclass")
+        dev = resolve_device(device)
+        D = max(1, self.max_depth)
+        M = self.split_feature.shape[1]
+        L = self.num_leaves
+        f64 = torch.float64
+        sf_a, th_a, lc_a, rc_a = self._tree_tensors(dev, slice(None))
+        iv_a = torch.from_numpy(self.internal_value).to(dev)
+        lv_a = torch.from_numpy(self.leaf_value).to(dev)
+        w_a = torch.from_numpy(self.tree_weight).to(dev)
+        is_cat = torch.from_numpy(self._is_cat).to(dev)
+        bits = None if self.cat_bitset is None \
+            else torch.from_numpy(self.cat_bitset).to(dev)
+        Xn = torch.nan_to_num(torch.from_numpy(X).to(dev), nan=-torch.inf)
+        out = torch.zeros((n, F + 1), dtype=f64, device=dev)
+        out[:, F] = self.init_score
+        for t in range(self.num_trees):
+            w = w_a[t]
+            node = torch.zeros((n,), dtype=torch.int64, device=dev)
+            # float32 products widened to float64, as numpy rounds them
+            cur_val = iv_a[t, 0].to(f64).expand(n)
+            out[:, F] += (w * iv_a[t, 0]).to(f64)
+            for _ in range(D):
+                active = node >= 0
+                j = node.clamp(min=0)
+                f = sf_a[t, j]
+                fc = f.clamp(min=0)
+                thr = th_a[t, j]
+                xv = torch.gather(Xn, 1, fc[:, None])[:, 0]
+                isc = is_cat[fc]
+                if bits is not None:
+                    Bb = bits.shape[-1]
+                    code = torch.where(torch.isfinite(xv), torch.round(xv),
+                                       -1.0)
+                    memb = (code >= 0) & (code < Bb) & bits[
+                        t, j, code.clamp(0, Bb - 1).to(torch.int64)]
+                    go_right = (f >= 0) & torch.where(isc, ~memb, xv > thr)
+                else:
+                    go_right = (f >= 0) & torch.where(
+                        isc, torch.round(xv) != thr, xv > thr)
+                nxt = torch.where(go_right, rc_a[t, j], lc_a[t, j])
+                nxt_val = torch.where(
+                    nxt >= 0, iv_a[t, nxt.clamp(0, M - 1)],
+                    lv_a[t, (~nxt).clamp(0, L - 1)]).to(f64)
+                attributed = active & (f >= 0)
+                delta = torch.where(attributed,
+                                    w.to(f64) * (nxt_val - cur_val), 0.0)
+                col = torch.where(attributed, f, F)
+                out.scatter_add_(1, col[:, None], delta[:, None])
+                cur_val = torch.where(attributed, nxt_val, cur_val)
+                node = torch.where(active, nxt, node)
+        return out.cpu().numpy()
+
     # ------------------------------------------------------------------ utils
     def feature_importance(self, importance_type: str = "split") -> np.ndarray:
         """Reference ``getFeatureImportances:491``: 'split' counts or 'gain'."""
@@ -284,6 +358,37 @@ class GBDTBooster(Saveable):
         else:
             raise ValueError("importance_type must be 'split' or 'gain'")
         return out
+
+    def merge(self, other: "GBDTBooster") -> "GBDTBooster":
+        """Concatenate trees (reference ``mergeBooster:252`` batch training)."""
+        assert self.num_leaves == other.num_leaves and self.num_class == other.num_class
+        assert self.categorical_features == other.categorical_features
+        cat = lambda a, b: np.concatenate([a, b], axis=0)
+        merged_bitset = None
+        if self.cat_bitset is not None or other.cat_bitset is not None:
+            W = max(b.cat_bitset.shape[-1] for b in (self, other)
+                    if b.cat_bitset is not None)
+            merged_bitset = cat(self.resolve_cat_bitset(W),
+                                other.resolve_cat_bitset(W))
+        return GBDTBooster(
+            cat(self.split_feature, other.split_feature),
+            cat(self.threshold, other.threshold),
+            cat(self.threshold_bin, other.threshold_bin),
+            cat(self.split_gain, other.split_gain),
+            cat(self.internal_value, other.internal_value),
+            cat(self.internal_count, other.internal_count),
+            cat(self.leaf_value, other.leaf_value),
+            cat(self.leaf_count, other.leaf_count),
+            cat(self.tree_weight, other.tree_weight),
+            left_child=cat(self.left_child, other.left_child),
+            right_child=cat(self.right_child, other.right_child),
+            max_depth=max(self.max_depth, other.max_depth),
+            num_features=self.num_features,
+            objective=self.objective, num_class=self.num_class,
+            init_score=self.init_score, average_output=self.average_output,
+            feature_names=self.feature_names, sigmoid=self.sigmoid,
+            categorical_features=self.categorical_features,
+            cat_bitset=merged_bitset)
 
     # ------------------------------------------------------------------ serde
     _META = ("max_depth", "num_features", "objective", "num_class",
@@ -336,3 +441,137 @@ class GBDTBooster(Saveable):
             arrays = {k: z[k]
                       for k in cls._ARRAYS + cls._OPT_ARRAYS if k in z.files}
         return cls(**arrays, **meta)
+
+
+# ---------------------------------------------------------------------------
+# Path-dependent TreeSHAP (Lundberg Algorithm 2) over array-of-nodes trees
+# ---------------------------------------------------------------------------
+
+class _ShapPath:
+    __slots__ = ("d", "z", "o", "w")
+
+    def __init__(self, d, z, o, w):
+        self.d, self.z, self.o, self.w = d, z, o, w
+
+
+def _extend(path, pz, po, pi):
+    # value-copy the elements: the recursion branches share parent paths
+    path = [_ShapPath(p.d, p.z, p.o, p.w) for p in path] + \
+        [_ShapPath(pi, pz, po, 1.0 if len(path) == 0 else 0.0)]
+    l = len(path) - 1
+    for i in range(l - 1, -1, -1):
+        path[i + 1].w += po * path[i].w * (i + 1) / (l + 1)
+        path[i].w = pz * path[i].w * (l - i) / (l + 1)
+    return path
+
+
+def _unwind(path, i):
+    l = len(path) - 1
+    path = [(_ShapPath(p.d, p.z, p.o, p.w)) for p in path]
+    o, z = path[i].o, path[i].z
+    nxt = path[l].w
+    for j in range(l - 1, -1, -1):
+        if o != 0:
+            tmp = path[j].w
+            path[j].w = nxt * (l + 1) / ((j + 1) * o)
+            nxt = tmp - path[j].w * z * (l - j) / (l + 1)
+        else:
+            path[j].w = path[j].w * (l + 1) / (z * (l - j))
+    for j in range(i, l):
+        path[j].d, path[j].z, path[j].o = path[j + 1].d, path[j + 1].z, path[j + 1].o
+    path.pop()
+    return path
+
+
+def _unwound_sum(path, i):
+    l = len(path) - 1
+    o, z = path[i].o, path[i].z
+    total = 0.0
+    if o != 0:
+        nxt = path[l].w
+        for j in range(l - 1, -1, -1):
+            tmp = nxt / ((j + 1) * o)
+            total += tmp
+            nxt = path[j].w - tmp * z * (l - j)
+    else:
+        for j in range(l - 1, -1, -1):
+            total += path[j].w / (z * (l - j))
+    return total * (l + 1)
+
+
+def _tree_shap_one(x, phi, t, booster: "GBDTBooster"):
+    """Accumulate SHAP values of tree t for instance x into phi (F+1,).
+    Nodes: j >= 0 internal (children via left/right_child), j < 0 leaf ~j."""
+    sf = booster.split_feature[t]
+    th = booster.threshold[t]
+    lca = booster.left_child[t]
+    rca = booster.right_child[t]
+    ic = booster.internal_count[t]
+    lv = booster.leaf_value[t]
+    lc = booster.leaf_count[t]
+    w = float(booster.tree_weight[t])
+
+    def cover(j):
+        return float(ic[j]) if j >= 0 else float(lc[~j])
+
+    def value(j):
+        return float(lv[~j])  # only leaves are valued in the recursion
+
+    total_cover = max(float(lc.sum()), 1e-12)
+    phi[-1] += w * float((lv * lc).sum()) / total_cover  # E[f] under covers
+
+    def recurse(j, path, pz, po, pi):
+        path = _extend(path, pz, po, pi)
+        if j < 0:  # leaf
+            for i in range(1, len(path)):
+                phi[path[i].d] += w * _unwound_sum(path, i) * \
+                    (path[i].o - path[i].z) * value(j)
+            return
+        f = int(sf[j])
+        left, right = int(lca[j]), int(rca[j])
+        if f < 0:
+            # pass-through node: everything goes left
+            recurse(left, path, 1.0, 1.0, -2)
+            return
+        xv = x[f]
+        if booster._is_cat[f]:
+            if not np.isfinite(xv):
+                goes_left = False
+            elif booster.cat_bitset is not None:
+                code = int(round(xv))
+                Bb = booster.cat_bitset.shape[-1]
+                goes_left = bool(0 <= code < Bb
+                                 and booster.cat_bitset[t, j, code])
+            else:
+                goes_left = round(xv) == th[j]
+        else:
+            goes_left = not (xv > th[j])    # NaN compares False -> left
+        hot, cold = (left, right) if goes_left else (right, left)
+        rj = max(cover(j), 1e-12)
+        hz, cz = cover(hot) / rj, cover(cold) / rj
+        iz, io = 1.0, 1.0
+        # undo previous occurrence of this feature on the path
+        for k in range(1, len(path)):
+            if path[k].d == f:
+                iz, io = path[k].z, path[k].o
+                path = _unwind(path, k)
+                break
+        recurse(hot, path, iz * hz, io, f)
+        recurse(cold, path, iz * cz, 0.0, f)
+
+    recurse(0, [], 1.0, 1.0, -1)
+
+
+def tree_shap(booster: "GBDTBooster", X: np.ndarray) -> np.ndarray:
+    """(n, F+1) exact path-dependent SHAP values (last col = expected value).
+    Reference parity: ``featuresShap`` (LightGBMBooster.scala:414)."""
+    X = np.asarray(X, np.float64)
+    n, F = X.shape
+    if booster.num_class > 1 and booster.objective == "multiclass":
+        raise ValueError("slice trees per class for multiclass SHAP")
+    out = np.zeros((n, F + 1), np.float64)
+    out[:, F] += booster.init_score
+    for i in range(n):
+        for t in range(booster.num_trees):
+            _tree_shap_one(X[i], out[i], t, booster)
+    return out

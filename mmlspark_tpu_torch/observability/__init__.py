@@ -4,13 +4,12 @@ recorder and the compute-plane gauges the serving front reads.
 
 Own copies of the JAX package's jax-free modules, verbatim apart from
 module paths: ``metrics``, ``tracing``, ``instruments``, ``collector``
-(its HTTP sink raises until ``io/http.py`` is ported, ROADMAP.md §1 item
-12), ``slo``, ``attribution`` and ``flightrecorder``.  Twins with a
+(a file sink, or an OTLP POST through ``io/http.py``'s client), ``slo``,
+``attribution``, ``flightrecorder``, the fleet plane (``federation``,
+``autoscale``) and the training monitor (``trainwatch``).  Twins with a
 PyTorch body: ``profiling`` (a ``torch.profiler`` capture hatch) and
 ``compute`` (``compile_report``, ``torch.cuda`` memory gauges and build
-info; its jit and transfer wrappers raise, item 13).  Not ported yet:
-``federation`` and ``autoscale`` (the fleet plane, item 9(c)) and
-``trainwatch`` (item 13).
+info; its jit and transfer wrappers raise, ROADMAP.md §1 item 13).
 """
 from .metrics import (Counter, DEFAULT_LATENCY_BUCKETS, Gauge, Histogram,
                       MetricsRegistry, get_registry, set_registry)
@@ -21,7 +20,9 @@ from .tracing import (Span, TRACE_HEADER, TRACEPARENT_HEADER, ambient_phase,
 from .instruments import (BREAKER_STATE_CODES, instrument_breaker,
                           instrument_collector)
 from .collector import OTLP_ENDPOINT_ENV, SpanCollector, get_collector
+from .federation import FleetView, MetricsFederator, parse_prometheus
 from .slo import SLO, SLOEngine, parse_slo
+from .autoscale import AutoscaleAdvisor
 from .compute import (InstrumentedJit, compile_report, device_put,
                       ensure_build_info, ensure_device_memory_gauges,
                       instrumented_jit, transfer_nbytes)
@@ -29,6 +30,9 @@ from .profiling import (SamplingProfiler, ProfilerBusy, profile_window,
                         profiler_instruments)
 from .flightrecorder import (FlightRecorder, flightrecorder_instruments,
                              get_flight_recorder)
+from .trainwatch import (MonitorServer, TrainingRun, active_monitors,
+                         active_runs, start_training_monitor,
+                         training_instruments)
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "DEFAULT_LATENCY_BUCKETS", "get_registry", "set_registry",
@@ -41,7 +45,10 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "InstrumentedJit", "instrumented_jit", "compile_report",
            "device_put", "transfer_nbytes", "ensure_build_info",
            "ensure_device_memory_gauges",
-           "SLO", "SLOEngine", "parse_slo",
+           "FleetView", "MetricsFederator", "parse_prometheus",
+           "SLO", "SLOEngine", "parse_slo", "AutoscaleAdvisor",
            "SamplingProfiler", "ProfilerBusy", "profile_window",
            "profiler_instruments", "FlightRecorder",
-           "flightrecorder_instruments", "get_flight_recorder"]
+           "flightrecorder_instruments", "get_flight_recorder",
+           "TrainingRun", "MonitorServer", "start_training_monitor",
+           "training_instruments", "active_runs", "active_monitors"]

@@ -1,12 +1,9 @@
 """SpanCollector — bounded in-process span buffer with OTLP-shaped export.
 
 An own copy of the JAX package's ``observability/collector.py``, verbatim
-apart from module paths and the HTTP sink, which needs ``io/http.py``'s
-client (not ported yet, ROADMAP.md §1 item 12): an ``http(s)://``
-endpoint raises ``NotImplementedError`` at construction instead of
-dropping spans.  Spans that only land in the ``core/logging.py`` event
-ring cannot be traced from aggregate percentiles on ``/metrics`` back to
-the request that caused them.  This module closes the loop:
+apart from module paths.  Spans that only land in the ``core/logging.py``
+event ring cannot be traced from aggregate percentiles on ``/metrics``
+back to the request that caused them.  This module closes the loop:
 
 - every finished span lands in a **bounded, drop-counting ring**
   (``record()`` is one deque append under a short lock — it NEVER blocks
@@ -17,8 +14,11 @@ the request that caused them.  This module closes the loop:
 - a background **flusher** (off by default; enabled by the
   ``MMLSPARK_TPU_OTLP_ENDPOINT`` env knob or explicit construction)
   batches spans into OTLP/JSON-shaped payloads and writes them to a file
-  sink (``file://<path>`` — one JSON payload per line); failed batches
-  are dropped and counted, the scoring path is untouched.
+  sink (``file://<path>`` — one JSON payload per line) or POSTs them
+  through the breaker/deadline-aware ``io/http.py`` client.  A dead
+  collector endpoint costs one probe per breaker cooldown, never
+  backpressure: failed batches are dropped and counted, the scoring path
+  is untouched.
 
 Export telemetry (registered by ``instruments.instrument_collector``):
 ring drops, export spans/batches by result, flush latency, live queue
@@ -97,6 +97,7 @@ class SpanCollector:
         self.service_name = service_name
         self.http_timeout_s = float(http_timeout_s)
         self._transport = transport
+        self._client = None  # lazily built io/http client (HTTP sinks only)
         if endpoint is None:
             endpoint = os.environ.get(OTLP_ENDPOINT_ENV, "")
         self.endpoint = endpoint or ""
@@ -113,14 +114,6 @@ class SpanCollector:
         self.slow_threshold_s = float(slow_threshold_s)
         self._file_sink = self.endpoint[len("file://"):] \
             if self.endpoint.startswith("file://") else None
-        if self.exporting and self._file_sink is None:
-            # the HTTP sink rides io/http.py's breaker/deadline-aware
-            # client, which the port does not have yet: refuse rather
-            # than drop the spans
-            raise NotImplementedError(
-                f"OTLP export to {self.endpoint!r} needs io/http.py's "
-                "client, not ported yet (ROADMAP.md §1 item 12); use a "
-                "file:// endpoint")
         if epoch_offset_s is None:
             # one wall-clock anchor per collector (module-level-style
             # amortization): exact when spans ride time.monotonic, a
@@ -134,6 +127,10 @@ class SpanCollector:
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._flusher: Optional[threading.Thread] = None
+        if breaker is None and self.exporting and self._file_sink is None:
+            from ..utils.resilience import CircuitBreaker
+            breaker = CircuitBreaker(failure_threshold=3, window_s=60.0,
+                                     cooldown_s=30.0, name="otlp-export")
         self.breaker = breaker
         from .instruments import instrument_collector
         self._m = instrument_collector(self, self.registry)
@@ -288,12 +285,22 @@ class SpanCollector:
         return drained
 
     def _send(self, payload: Dict[str, Any]) -> bool:
-        # only the file sink exists in the port (the constructor refuses
-        # an HTTP endpoint)
-        line = json.dumps(payload, default=str)
-        with open(self._file_sink, "a", encoding="utf-8") as fh:
-            fh.write(line + "\n")
-        return True
+        if self._file_sink is not None:
+            line = json.dumps(payload, default=str)
+            with open(self._file_sink, "a", encoding="utf-8") as fh:
+                fh.write(line + "\n")
+            return True
+        # HTTP sink rides the resilient client: breaker short-circuits a
+        # dead endpoint to a synthetic 503 (one probe per cooldown), the
+        # timeout bounds a hung one.  Lazy import: io/http imports tracing.
+        from ..io.http import HTTPClient
+        client = self._client
+        if client is None:
+            client = self._client = HTTPClient(
+                retries=0, timeout_s=self.http_timeout_s,
+                breaker=self.breaker, transport=self._transport)
+        resp = client.send_json(self.endpoint, payload)
+        return resp is not None and 200 <= resp.status_code < 300
 
     def to_otlp(self, spans) -> Dict[str, Any]:
         """OTLP/JSON-shaped ExportTraceServiceRequest for a span batch."""

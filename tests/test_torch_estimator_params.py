@@ -102,11 +102,9 @@ def test_regressor_trains_in_one_batch_as_the_reference():
     (dict(parallelism="voting_parallel", top_k=5), "NCCL"),
     (dict(shard_rows=True), "NCCL"),
     (dict(checkpoint_dir="ckpt"), None),
-    (dict(checkpoint_every=5), None),
-    (dict(monitor_port=0), "telemetry"),
-    (dict(monitor_stall_timeout_s=30.0), "telemetry")],
+    (dict(checkpoint_every=5), None)],
     ids=["voting", "voting_top_k", "shard_rows", "checkpoint_dir",
-         "checkpoint_every", "monitor_port", "monitor_stall_timeout_s"])
+         "checkpoint_every"])
 def test_unported_params_raise_their_queue(kw, queue, tmp_path):
     """Params whose queue is still open raise it; the checkpoint params
     (``queue`` None) are ported: the fit trains and, with a directory,
@@ -132,6 +130,55 @@ def test_unported_params_raise_their_queue(kw, queue, tmp_path):
     with pytest.raises(NotImplementedError, match=queue):
         port_est.LightGBMRegressor().set_params(
             device="cpu", num_iterations=1, num_leaves=4, **kw).fit(df)
+
+
+@pytest.mark.parametrize("kw", [dict(monitor_port=0),
+                                dict(monitor_stall_timeout_s=30.0)],
+                         ids=["monitor_port", "monitor_stall_timeout_s"])
+def test_the_estimators_fit_serves_the_monitor(kw):
+    """The monitor params reach ``train()``: ``monitor_port`` serves live
+    ``/progress`` while ``fit`` runs, the stall timeout alone arms the
+    watchdog without a server, and the model is the unmonitored fit's."""
+    import json
+    import urllib.request
+    from mmlspark_tpu_torch.observability import (active_monitors,
+                                                  active_runs, get_registry)
+    X, y = _data(n=300, f=4, seed=2)
+    df = DataFrame.from_dict({"features": X, "label": y})
+    for est in (port_est.LightGBMClassifier, port_est.LightGBMRegressor):
+        seen = []
+
+        def probe(i, ev):
+            runs = [r for r in active_runs(get_registry())
+                    if r.job == "lightgbm.train"]
+            mons = [m for m in active_monitors(get_registry())
+                    if m.run.job == "lightgbm.train"]
+            step = None
+            if mons:
+                with urllib.request.urlopen(mons[0].address + "/progress",
+                                            timeout=10) as r:
+                    step = json.loads(r.read())["step"]
+            seen.append((len(runs), len(mons), step))
+
+        base = dict(device="cpu", num_iterations=2, num_leaves=4)
+        orig = port_est.gbdt_core.train
+
+        def with_probe(*a, **k):
+            return orig(*a, **dict(k, callbacks=[probe]))
+
+        port_est.gbdt_core.train = with_probe
+        try:
+            model = est().set_params(**base, **kw).fit(df)
+        finally:
+            port_est.gbdt_core.train = orig
+        plain = est().set_params(**base).fit(df)
+        served = "monitor_port" in kw
+        assert seen == [(1, int(served), 0 if served else None),
+                        (1, int(served), 1 if served else None)]
+        np.testing.assert_array_equal(model.booster.leaf_value,
+                                      plain.booster.leaf_value)
+        assert not [r for r in active_runs(get_registry())
+                    if r.job == "lightgbm.train"]
 
 
 def test_serial_and_data_parallel_train_alike():

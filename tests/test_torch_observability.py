@@ -204,21 +204,50 @@ def test_spans_nest_propagate_and_land_in_the_collector():
     both(scenario)
 
 
-def test_collector_file_sink_exports_and_http_endpoints_refuse(tmp_path):
-    for name, col in (("jax", jax_col), ("port", port_col)):
-        path = tmp_path / f"{name}.jsonl"
-        c = col.SpanCollector(registry=PKGS[name]["obs"].MetricsRegistry(),
-                              endpoint=f"file://{path}")
-        s = PKGS[name]["tr"].Span("x", trace_id="b" * 32, start_s=0.0)
-        s.finish(1.0)
-        c.record(s)
-        assert c.flush_now() == 1
-        spans = json.loads(path.read_text())["resourceSpans"][0][
-            "scopeSpans"][0]["spans"]
-        assert [sp["name"] for sp in spans] == ["x"]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        port_col.SpanCollector(registry=port_obs.MetricsRegistry(),
-                               endpoint="http://127.0.0.1:9/v1/traces")
+def test_collector_file_and_http_sinks_export(tmp_path):
+    """Both sinks export on both packages: a ``file://`` endpoint appends
+    one payload per line, an ``http://`` endpoint POSTs it through
+    ``io/http.py``'s client to a local receiver (the payload parity suite
+    is ``tests/test_torch_http.py``)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    posts = []
+
+    class Receiver(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            posts.append(json.loads(self.rfile.read(
+                int(self.headers["Content-Length"]))))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Receiver)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        for name, col in (("jax", jax_col), ("port", port_col)):
+            path = tmp_path / f"{name}.jsonl"
+            for endpoint in (f"file://{path}",
+                             f"http://127.0.0.1:{httpd.server_port}/v1"):
+                c = col.SpanCollector(
+                    registry=PKGS[name]["obs"].MetricsRegistry(),
+                    endpoint=endpoint, flush_interval_s=3600.0)
+                s = PKGS[name]["tr"].Span("x", trace_id="b" * 32,
+                                          start_s=0.0)
+                s.finish(1.0)
+                c.record(s)
+                assert c.flush_now() == 1
+            spans = json.loads(path.read_text())["resourceSpans"][0][
+                "scopeSpans"][0]["spans"]
+            assert [sp["name"] for sp in spans] == ["x"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(5)
+    assert [[sp["name"] for sp in p["resourceSpans"][0]["scopeSpans"][0][
+        "spans"]] for p in posts] == [["x"], ["x"]]
 
 
 def _lat_view(obs, values):

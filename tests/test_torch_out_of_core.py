@@ -650,11 +650,33 @@ def test_train_streamed_refuses_what_the_reference_refuses(call, match):
         call(X, y)
 
 
-def test_train_streamed_monitor_waits_for_its_queue():
+def test_train_streamed_serves_the_monitor():
+    """``monitor_port`` serves the live monitor for the streamed loop (the
+    parity suite is ``tests/test_torch_trainwatch.py``) and the booster is
+    the unmonitored fit's."""
+    import json
+    import urllib.request
+    from mmlspark_tpu_torch.observability import (active_monitors,
+                                                  get_registry)
     X, y = _parity_data(n=200)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        train_streamed(X, y, GBDTParams(num_iterations=1), monitor_port=0,
-                       device="cpu")
+    seen = []
+
+    def probe(i, ev):
+        mon = [m for m in active_monitors(get_registry())
+               if m.run.job == "lightgbm.train_streamed"][0]
+        with urllib.request.urlopen(mon.address + "/progress",
+                                    timeout=10) as r:
+            seen.append(json.loads(r.read())["step"])
+
+    p = GBDTParams(num_iterations=2)
+    mon = train_streamed(X, y, p, monitor_port=0, callbacks=[probe],
+                         tile_rows=64, device="cpu")
+    plain = train_streamed(X, y, p, tile_rows=64, device="cpu")
+    assert seen == [0, 1]
+    np.testing.assert_array_equal(mon.booster.leaf_value,
+                                  plain.booster.leaf_value)
+    np.testing.assert_array_equal(mon.booster.split_feature,
+                                  plain.booster.split_feature)
 
 
 def test_train_streamed_books_the_prefetch_seam():

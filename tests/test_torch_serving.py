@@ -338,6 +338,49 @@ def test_mixed_load_and_sustained_load_gate_a_continuous_server():
 
 @pytest.mark.parametrize("name", ["TopologyService", "WorkerServer",
                                   "RoutingClient", "MembershipWatcher"])
-def test_the_serving_fleet_is_not_ported_yet(name):
-    with pytest.raises(NotImplementedError, match=r"item 9\(c\)"):
-        getattr(port_serving, name)()
+def test_the_serving_fleet_serves(name):
+    """Each fleet name of ``mmlspark_tpu_torch.serving`` does its job (the
+    full parity suite is ``tests/test_torch_fleet.py``): the topology
+    routes, the worker replies on its own socket, the router reaches it,
+    the watcher sees it leave."""
+    from mmlspark_tpu_torch.observability import MetricsRegistry
+
+    class Doubler(Transformer):
+        def _transform(self, df):
+            def per_part(p):
+                return {**p, "reply": np.asarray(
+                    [2 * float(v) for v in p["request"]], float)}
+            return df.map_partitions(per_part)
+
+        def transform_schema(self, schema):
+            return schema
+
+    svc = port_serving.TopologyService(registry=MetricsRegistry(),
+                                       probe_interval_s=None).start()
+    w = port_serving.WorkerServer(Doubler(), server_id="w0",
+                                  driver_address=svc.address, port=0,
+                                  registry=MetricsRegistry()).start()
+    try:
+        if name == "TopologyService":
+            with urllib.request.urlopen(svc.address + "/routing",
+                                        timeout=10) as r:
+                table = json.loads(r.read())
+            assert list(table) == ["w0"] and table["w0"]["port"] == \
+                w.server.port
+        elif name == "WorkerServer":
+            status, reply, _ = post_json(w.server.port, w.server.api_path,
+                                         21)
+            assert (status, reply) == (200, 42.0)
+        elif name == "RoutingClient":
+            client = port_serving.RoutingClient(svc.address,
+                                                registry=MetricsRegistry())
+            assert [client.request(i) for i in range(3)] == [0.0, 2.0, 4.0]
+        else:
+            watcher = port_serving.MembershipWatcher(
+                svc.address, poll_s=600.0, on_shrink=lambda info: None)
+            assert watcher.poll_once() is None
+            w.stop()
+            assert watcher.poll_once()["lost"] == ["w0"]
+    finally:
+        w.stop()
+        svc.stop()
