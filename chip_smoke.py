@@ -6,7 +6,8 @@ Phases; any failure exits nonzero and prints no result line:
 
 1. card   — ``nvidia-smi`` name and power limit, the torch device name.
 2. build  — compile ``mmlspark_tpu_torch/csrc``: the kernels with nvcc,
-   the host binning plane ``binning.cpp`` with g++ (each timed).
+   the host plane (``binning.cpp``, ``murmur.cpp``) with g++ (each
+   timed).
 3. kernels against their plain PyTorch versions on the card, at the GBDT
    bench shapes (1M rows x 200 features, 255 bins): ``hist_accumulate`` at
    N = 1, 8, 16, 64 nodes in every lane layout and at its edges (128-bin
@@ -229,17 +230,66 @@ Phases; any failure exits nonzero and prints no result line:
    fails over, no request fails) and every ``/fleet/*`` endpoint
    answering within its deadline; after ``stop()`` every page back and
    no thread the phase started left alive.
-15. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+15. backends — the rest of the histogram dispatcher and the streamed
+   tiles' transfer bytes.  (a) At the bench shape's level-4 step (1M x 200
+   x 255, 16 gradient levels, 8 parents, the smaller children's 500,000
+   rows): ``build_histograms_matmul_quantized`` on the card bit-identical
+   to ``hist_accumulate``'s decoded lanes and to the plain scatter build;
+   the float ``build_histograms_matmul`` within 1e-5 of the float scatter
+   build relative to each cell's sum of (|g|, |h|, count), called with
+   TF32 on (the build turns it off and restores it); both matmul builds,
+   the scatter builds and the kernels timed with CUDA events (printed,
+   not gated).  (b) ``train()`` at 200k x 200 for 4 iterations,
+   leaf-wise and ``max_depth=5``, under ``MMLSPARK_TPU_HIST_BACKEND``
+   unset, ``pallas``, ``matmul`` and ``scatter``: 4 x 31 and 4 x 5
+   launches of each kernel under the first two, none under the others,
+   every booster the unset one's in every array (or parted first at a
+   reported f32 near-tie); ``MMLSPARK_TPU_HIST_QUANT=off`` runs the float
+   path (no quantizer call, no launch); the environment put back after
+   each fit.  (c) ``train_streamed()`` leaf-wise on the first 262,144
+   rows in 2 tiles books ``mmlspark_device_transfer_bytes_total{site=
+   "lightgbm.ooc_tile"}``: at least 262,144 x 200 bytes a histogram pass
+   and the
+   stager's own ``h2d_bytes``; its booster equals the same fit's with the
+   tiles copied as before the booking, in every array; ``device_put`` of
+   a pinned tile runs under sync debug mode "error".
+16. vw — VowpalWabbit, BASELINE config 4, no JAX on the card: 400,000
+   synthetic tweets and 100,000 held out (5-30 tokens over a 100,000-word
+   Zipf(1.1) vocabulary; labels from a logistic model of 2,000 planted
+   word weights, so the Bayes AUC is known).  (a) ``murmur3_batch_native``
+   = ``murmur3_bytes`` on every word; ``VowpalWabbitFeaturizer(string_
+   split_cols=["text"], num_bits=18)`` on every tweet, rows/s (the same
+   tweets featurized at 24 bits in a child process meanwhile, for (c)).
+   (b) ``VowpalWabbitClassifier()`` defaults on the card and on the CPU:
+   weights within 1e-4 x max|w|, held-out AUC (``ComputeModelStatistics``)
+   card = CPU within 1e-4 and within 0.02 of the Bayes AUC; fit rows/s,
+   learn rows/s and steps/s of the step alone, host enqueue ms beside
+   device ms a step (CUDA events), device ops a step (``torch.profiler``
+   over 50 steps), peak device memory.  (c) The same at 24 bits (16.7M
+   weights, 201 MB of state): the same gates, the step's time and its
+   share of HBM bandwidth.  (d) ``optimizer="bfgs"`` (20 iterations) on
+   the first 100,000 tweets, card and CPU: objectives within 1e-4
+   relative, AUC within 1e-3.  (e) ``VowpalWabbitRegressor(interactions=
+   ["ab"])`` on 100,000 rows of two namespaces and
+   ``VowpalWabbitContextualBandit()`` (4 actions, ips) on 100,000 logged
+   rows: card = CPU as in (b); the learned policy's true cost on held-out
+   rows below the uniform logging policy's.  (f) ``model_bytes()``
+   round-trips bit for bit; a saved model reloads and scores identically.
+   No Hopper kernel of this repository runs in this phase.
+17. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
-   fits, the two multiclass fits, the ranker fit, the two streamed fits
-   and the fleet phase's monitored ``train()`` and ``train_streamed()``
-   fits, split in ``launches_by_path``; the dnn, seq and serve phases and
-   the fleet phase's serving run no kernel of this repository on their
-   paths (the serve phase's booster fit, the fleet phase's unmonitored
-   fits and its one grown tree are set-up or references): the JAX
-   package runs those paths in XLA, outside any Pallas kernel, and the
-   port in cuDNN/cuBLAS and eager PyTorch), the card's name and power
-   limit, and the last line ``{"ok": true, "device": {...}}``.
+   fits, the two multiclass fits, the ranker fit, the two streamed fits,
+   the fleet phase's monitored ``train()`` and ``train_streamed()`` fits
+   and the backends phase's unset and ``pallas`` fits and its booked
+   streamed fit, split in ``launches_by_path``; the vw path's 0 has its
+   own key; the dnn, seq and serve phases and the fleet phase's serving
+   run no kernel of this repository on their paths (the serve phase's
+   booster fit, the fleet phase's unmonitored fits and its one grown tree,
+   and the backends phase's ``matmul``, ``scatter``, float and bare-copy
+   fits are set-up, references or checks): the JAX package runs those
+   paths in XLA, outside any Pallas kernel, and the port in cuDNN/cuBLAS
+   and eager PyTorch), the card's name and power limit, and the last line
+   ``{"ok": true, "device": {...}}``.
 
 Details (per-level and per-step kernel times, every comparison) go to
 ``chiprun_out/chip_smoke_detail.json``.
@@ -4121,6 +4171,793 @@ def fleet_phase(dev, smi: str, served=None):
     return {"monitored_leaf": leaf, "monitored_streamed": streamed}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the histogram backends and the streamed tiles' transfer bytes
+# ---------------------------------------------------------------------------
+
+BACKEND_ROWS = 200_000          # train() under each backend: 200k x 200
+BACKEND_ITERS = 4
+BACKEND_ENV = ("MMLSPARK_TPU_HIST_BACKEND", "MMLSPARK_TPU_HIST_QUANT")
+OOC_SITE = "lightgbm.ooc_tile"
+
+
+@contextlib.contextmanager
+def hist_env(**values):
+    """Set the ``MMLSPARK_TPU_HIST_<KEY>`` variables given (None: unset)
+    for the body and put every one back as it was after."""
+    saved = {k: os.environ.get(k) for k in BACKEND_ENV}
+    try:
+        for key, v in values.items():
+            name = f"MMLSPARK_TPU_HIST_{key}"
+            if v is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def backend_builds(dev) -> dict:
+    """(a) The builds at the bench shape's level-4 step (1M x 200 x 255,
+    16 gradient levels, 8 parents, the smaller children's 500,000 rows):
+    the quantized matmul build bit-identical to ``hist_accumulate``'s
+    decoded lanes and to the scatter build; the float matmul build within
+    1e-5 of the float scatter build relative to each cell's sum of
+    magnitudes, TF32 left on by the caller; each timed (CUDA events)."""
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    from mmlspark_tpu_torch.ops import histogram as TH
+    n, F, B, P = N_ROWS, N_FEAT, N_BINS, 8
+    gen = torch.Generator(device=dev).manual_seed(150)
+    binned = torch.randint(0, B, (F, n), generator=gen, device=dev,
+                           dtype=torch.uint8).t()         # feature-major
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev) * 0.25 + 1e-3
+    qg, qh, _, _ = TH.quantize_gradients(g, h, QUANT_BINS, generator=gen)
+    small = torch.randperm(n, generator=gen, device=dev)[: n // 2]
+    ids = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    ids[small] = torch.randint(0, P, (n // 2,), generator=gen, device=dev,
+                               dtype=torch.int32)
+    bound = n // 2 + 2 * P                  # the grower's level-4 max_rows
+    qg8, qh8 = CH.to_int8(qg), CH.to_int8(qh)
+    lay = CH.lane_layout(n, bound, QUANT_BINS)
+
+    def kernel():
+        return CH.frontier_finish(CH.hist_accumulate(
+            binned, qg8, qh8, ids, P, B, lay), *lay)[0]
+
+    def scatter():
+        return TH.build_histograms_quantized(binned, qg, qh, ids, P, B,
+                                             QUANT_BINS, bound, bound)
+
+    def matmul():
+        return TH.build_histograms_matmul_quantized(binned, qg, qh, ids, P,
+                                                    B, QUANT_BINS,
+                                                    max_rows=bound)
+
+    hk, hs, hm = kernel(), scatter(), matmul()
+    torch.cuda.synchronize()
+    if not (torch.equal(hm, hk) and torch.equal(hm, hs)):
+        raise AssertionError("backends (a): the quantized matmul build is "
+                             "not bit-identical to hist_accumulate's lanes "
+                             "and the scatter build")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True   # the build turns it off
+    try:
+        fm = TH.build_histograms_matmul(binned, g, h, ids, P, B,
+                                        max_rows=bound)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if torch.backends.cuda.matmul.allow_tf32 != tf32:
+        raise AssertionError("backends (a): the TF32 flag was not restored")
+    fs = TH.build_histograms(binned, g, h, ids, P, B)
+    mag = TH.build_histograms(binned, g.abs(), h.abs(), ids, P, B)
+    rel = ((fm - fs).abs() / mag.clamp_min(1e-30)).amax(dim=(0, 1, 2))
+    rel = [float(v) for v in rel.cpu()]
+    if max(rel) > 1e-5:
+        raise AssertionError(f"backends (a): float matmul vs scatter "
+                             f"{rel} of the cells' magnitudes (> 1e-5)")
+    del fm, fs, mag
+
+    def accumulate():
+        return CH.hist_accumulate(binned, qg8, qh8, ids, P, B, lay)
+
+    def float_matmul():
+        return TH.build_histograms_matmul(binned, g, h, ids, P, B,
+                                          max_rows=bound)
+
+    def float_scatter():
+        return TH.build_histograms(binned, g, h, ids, P, B)
+
+    times = {"hist_accumulate": time_ms(accumulate, 20),
+             "kernels_build": time_ms(kernel, 20),
+             "matmul_quantized": time_ms(matmul, 3),
+             "scatter_quantized": time_ms(scatter, 3),
+             "matmul_float": time_ms(float_matmul, 3),
+             "scatter_float": time_ms(float_scatter, 3)}
+    rec = {"shape": [n, F, B, P], "active_rows": n // 2,
+           "quantized_bit_identical": True,
+           "float_matmul_vs_scatter_rel": rel, "ms": times}
+    log("[backends] (a) level-4 step at 1M x 200 x 255, 8 parents, "
+        f"500,000 rows: matmul_quantized = hist_accumulate's lanes = "
+        f"scatter, bit for bit; float matmul vs scatter "
+        + "/".join(f"{v:.2e}" for v in rel)
+        + " of the cells' (|g|, |h|, count) sums (TF32 off inside); ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return rec
+
+
+def backend_boosters(a, b, what: str) -> str:
+    """``b`` against the reference ``a``: the tree structure equal, or
+    parted first at a node whose two split gains lie within 1e-6 relative
+    (an f32 near-tie, reported; the trees after it are not compared);
+    where the structure is equal, the float arrays within rtol 1e-6.
+    Returns "k/n arrays bit-identical" or the near-tie."""
+    struct = ("split_feature", "threshold_bin", "left_child", "right_child")
+    diff = np.zeros_like(a.split_feature, dtype=bool)
+    for k in struct:
+        diff |= getattr(a, k) != getattr(b, k)
+    if diff.any():
+        t, i = np.argwhere(diff)[0]
+        ga, gb = float(a.split_gain[t, i]), float(b.split_gain[t, i])
+        if abs(ga - gb) > 1e-6 * abs(ga):
+            raise AssertionError(f"{what}: trees part at tree {t} node {i} "
+                                 f"with gains {ga} / {gb}, not a near-tie")
+        return f"near-tie at tree {t} node {i} (gains {ga} / {gb})"
+    same = 0
+    for k in BOOSTER_ARRAYS:
+        x, y = getattr(a, k), getattr(b, k)
+        np.testing.assert_allclose(y, x, rtol=1e-6, atol=0,
+                                   err_msg=f"{what}: {k}")
+        same += bool(np.array_equal(x, y))
+    return f"{same}/{len(BOOSTER_ARRAYS)} arrays bit-identical"
+
+
+def backend_fits(dev):
+    """(b) ``train()`` at 200k x 200, 4 iterations, leaf-wise and
+    ``max_depth=5``, under ``MMLSPARK_TPU_HIST_BACKEND`` unset, ``pallas``,
+    ``matmul`` and ``scatter``: the kernels launched 4 x 31 and 4 x 5 times
+    under the first two and never under the others, every booster the
+    unset one's (near-tie rule); ``MMLSPARK_TPU_HIST_QUANT=off`` the float
+    path (no quantizer call, no launch).  Returns the launches of the
+    main-path fits (unset and ``pallas``) and the record."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, core as LC, train
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    X, y = bench_data(BACKEND_ROWS, seed=150)
+    cache: dict = {}
+    train(X, y, GBDTParams(num_iterations=1, max_depth=2,
+                           objective="binary"), bin_cache=cache)
+    main = {"hist_accumulate": 0, "frontier_finish": 0}
+    rec = {}
+    for growth, shape, steps in (("leaf", {"num_leaves": 31}, 31),
+                                 ("level", {"max_depth": 5}, 5)):
+        params = GBDTParams(num_iterations=BACKEND_ITERS,
+                            objective="binary", **shape)
+        fits = {}
+        for env in ("unset", "pallas", "matmul", "scatter"):
+            with hist_env(BACKEND=None if env == "unset" else env):
+                torch.cuda.synchronize()
+                CH.reset_launch_counts()
+                t0 = time.perf_counter()
+                res = train(X, y, params, bin_cache=cache)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = CH.launch_counts()
+            want = BACKEND_ITERS * steps if env in ("unset", "pallas") else 0
+            if launches != {"hist_accumulate": want, "frontier_finish": want}:
+                raise AssertionError(f"backends (b) {growth} {env}: "
+                                     f"launches {launches}, want {want}")
+            if want:
+                for k in main:
+                    main[k] += launches[k]
+            fits[env] = res
+            rec[f"{growth}_{env}"] = {
+                "launches": launches, "wall_s": wall,
+                "boosting_s": res.extras["boosting_s"],
+                "vs_unset": "reference" if env == "unset" else
+                backend_boosters(fits["unset"].booster, res.booster,
+                                 f"backends (b) {growth} {env}")}
+        calls = []
+        real = LC.hist_ops.quantize_gradients
+        LC.hist_ops.quantize_gradients = \
+            lambda *a, **k: calls.append(1) or real(*a, **k)
+        try:
+            with hist_env(QUANT="off", BACKEND=None):
+                CH.reset_launch_counts()
+                res = train(X, y, params, bin_cache=cache)
+                torch.cuda.synchronize()
+                launches = CH.launch_counts()
+        finally:
+            LC.hist_ops.quantize_gradients = real
+        if calls or any(launches.values()):
+            raise AssertionError(f"backends (b) {growth} QUANT=off: "
+                                 f"{len(calls)} quantizer calls, launches "
+                                 f"{launches}")
+        rec[f"{growth}_quant_off"] = {"launches": launches,
+                                      "quantizer_calls": 0,
+                                      "boosting_s": res.extras["boosting_s"]}
+        log(f"[backends] (b) {growth}-wise train() 200k x 200, "
+            f"{BACKEND_ITERS} iterations: "
+            + "; ".join(f"{env} {rec[f'{growth}_{env}']['launches']['hist_accumulate']} "
+                        f"launches, boosting_s "
+                        f"{rec[f'{growth}_{env}']['boosting_s']:.3f}, "
+                        f"{rec[f'{growth}_{env}']['vs_unset']}"
+                        for env in ("unset", "pallas", "matmul", "scatter"))
+            + f"; QUANT=off: float path, 0 launches, boosting_s "
+            f"{rec[f'{growth}_quant_off']['boosting_s']:.3f}")
+    if any(os.environ.get(k) is not None for k in BACKEND_ENV):
+        raise AssertionError("backends (b): the environment was not "
+                             "restored")
+    return main, rec
+
+
+def backend_streamed(dev):
+    """(c) The leaf-wise streamed fit on the bench data's first 262,144
+    rows in 2 tiles books ``mmlspark_device_transfer_bytes_total
+    {site="lightgbm.ooc_tile"}``: at least 262,144 x 200 bytes per
+    histogram pass,
+    the stager's own count; its booster equals the same fit's with the
+    tiles copied as before the booking (``device_put`` replaced by the
+    bare copy); ``device_put`` of a pinned tile runs under sync debug
+    mode "error"."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, core as LC, \
+        train_streamed
+    from mmlspark_tpu_torch.observability import get_registry
+    from mmlspark_tpu_torch.observability.compute import device_put
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    X, y = bench_data(N_ROWS, seed=0)
+    Xs, ys = X[:FLEET_STREAM_ROWS], y[:FLEET_STREAM_ROWS]
+    del X, y
+    params = GBDTParams(num_iterations=BACKEND_ITERS, num_leaves=31,
+                        objective="binary")
+
+    def booked() -> float:
+        fam = get_registry().family("mmlspark_device_transfer_bytes_total")
+        if fam is None:
+            return 0.0
+        return {k[0]: c.value for k, c in fam._snapshot()}.get(OOC_SITE, 0.0)
+
+    def bare(x, device=None, *, site=None, registry=None,
+             non_blocking=False):
+        return [t.to(device, non_blocking=non_blocking) for t in x]
+
+    LC.device_put = bare
+    try:
+        b0 = booked()
+        ref = train_streamed(Xs, ys, params, tile_rows=STREAM_TILE)
+        if booked() != b0:
+            raise AssertionError("backends (c): the bare copy booked bytes")
+    finally:
+        LC.device_put = device_put
+    b0 = booked()
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    res = train_streamed(Xs, ys, params, tile_rows=STREAM_TILE)
+    torch.cuda.synchronize()
+    launches = CH.launch_counts()
+    moved = booked() - b0
+    ex = res.extras
+    # every histogram pass stages the binned tiles (and what rides with
+    # them); the gradient passes stage no bins
+    passes = ex["hist_passes"]
+    per_pass = moved / passes
+    if per_pass < FLEET_STREAM_ROWS * N_FEAT or moved != ex["h2d_bytes"]:
+        raise AssertionError(f"backends (c): {moved} bytes booked under "
+                             f"{OOC_SITE} over {passes:.0f} histogram "
+                             f"passes, the stager moved {ex['h2d_bytes']}")
+    want = ex["hist_passes"] * ex["num_tiles"]
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"backends (c): launches {launches}, want "
+                             f"{want}")
+    booster_diff(res.booster, ref.booster, "backends (c) booked vs bare")
+    pinned = [torch.empty((N_FEAT, STREAM_TILE), dtype=torch.uint8,
+                          pin_memory=True),
+              torch.empty(STREAM_TILE, dtype=torch.int32, pin_memory=True)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = device_put(pinned, dev, site="chip_smoke.sync_check",
+                         non_blocking=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    del out, pinned
+    rec = {"rows": FLEET_STREAM_ROWS, "tiles": ex["num_tiles"],
+           "hist_passes": passes, "grad_passes": ex["grad_passes"],
+           "booked_bytes": moved,
+           "booked_per_pass": per_pass,
+           "booked_per_row_pass": per_pass / FLEET_STREAM_ROWS,
+           "launches": launches, "vs_bare_copy": "bit-identical",
+           "device_put_sync_debug": "error"}
+    log(f"[backends] (c) streamed leaf-wise 262,144 x 200 in "
+        f"{ex['num_tiles']:.0f} tiles: {moved / 1e6:.1f} MB booked under "
+        f"{OOC_SITE} over {passes:.0f} histogram passes (and "
+        f"{ex['grad_passes']:.0f} gradient passes) = {per_pass / 1e6:.2f} MB "
+        f"a pass ({per_pass / FLEET_STREAM_ROWS:.1f} bytes a row), = the "
+        f"stager's h2d_bytes; launches {launches}; booster = the bare "
+        f"copy's in every array; device_put under sync debug \"error\"")
+    return launches, rec
+
+
+def backends_phase(dev, smi: str):
+    t0 = time.perf_counter()
+    builds = backend_builds(dev)
+    main, fits = backend_fits(dev)
+    s_launches, streamed = backend_streamed(dev)
+    for k in main:
+        main[k] += s_launches[k]
+    DETAIL["backends"] = {"card": smi, "builds": builds, "fits": fits,
+                          "streamed": streamed,
+                          "seconds": time.perf_counter() - t0}
+    return main
+
+
+# ---------------------------------------------------------------------------
+# phase 16: VowpalWabbit (BASELINE config 4)
+# ---------------------------------------------------------------------------
+
+VW_VOCAB = 100_000               # Zipf(1.1) vocabulary of the tweets
+VW_TRAIN, VW_HELD = 400_000, 100_000   # a quarter of Sentiment140's 1.6M
+VW_PLANTED = 2_000               # planted sentiment words (label model)
+VW_PLANTED_FROM = 10             # ... among ranks 10-2,009 (the 10 most
+VW_PLANTED_SCALE = 1.5           # frequent are stopwords), weights N(0, 1.5^2)
+VW_BITS, VW_WIDE_BITS = 18, 24
+VW_SIDE_ROWS = 100_000           # --bfgs, the -q regressor, the bandit
+VW_PROFILE_STEPS = 50
+VW_ACTIONS = 4
+
+
+def vw_vocab() -> np.ndarray:
+    return np.asarray([f"w{i}" for i in range(VW_VOCAB)], dtype=object)
+
+
+def vw_tweets(n: int, seed: int):
+    """``n`` synthetic tweets: 5-30 whitespace tokens drawn from the
+    Zipf(1.1) vocabulary; the label drawn from a logistic model whose
+    logit sums the planted words' weights (the token counts' dot), so
+    ``p`` is each tweet's true probability.  Returns (text, label, p)."""
+    rng = np.random.default_rng(seed)
+    pz = np.arange(1, VW_VOCAB + 1, dtype=np.float64) ** -1.1
+    pz /= pz.sum()
+    prng = np.random.default_rng(160)
+    w_true = np.zeros(VW_VOCAB)
+    planted = prng.choice(np.arange(VW_PLANTED_FROM,
+                                    VW_PLANTED_FROM + VW_PLANTED),
+                          VW_PLANTED, replace=False)
+    w_true[planted] = prng.normal(scale=VW_PLANTED_SCALE, size=VW_PLANTED)
+    lengths = rng.integers(5, 31, size=n)
+    tok = rng.choice(VW_VOCAB, size=int(lengths.sum()), p=pz)
+    off = np.concatenate([[0], np.cumsum(lengths)])
+    logit = np.add.reduceat(w_true[tok], off[:-1])
+    logit -= np.median(logit)
+    p = 1.0 / (1.0 + np.exp(-logit))
+    y = (rng.random(n) < p).astype(np.float64)
+    words = vw_vocab()[tok]
+    text = np.empty(n, dtype=object)
+    for i in range(n):
+        text[i] = " ".join(words[off[i]:off[i + 1]])
+    return text, y, p
+
+
+def vw_featurize(text: np.ndarray, bits: int):
+    """The port's ``VowpalWabbitFeaturizer`` on the tweets (the ``text``
+    column split on whitespace, ``num_bits`` = ``bits``): the features
+    column and the seconds it took."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.vw import VowpalWabbitFeaturizer
+    feat = VowpalWabbitFeaturizer(input_cols=["text"], output_col="features",
+                                  string_split_cols=["text"], num_bits=bits)
+    t0 = time.perf_counter()
+    col = feat.transform(DataFrame.from_dict({"text": text})) \
+        .collect()["features"]
+    return col, time.perf_counter() - t0
+
+
+def _wide_features(conn) -> None:
+    """A child process: the same tweets featurized at 24 bits, sent back as
+    CSR arrays (the parent featurizes at 18 bits meanwhile)."""
+    out = []
+    for n, seed in ((VW_TRAIN, 161), (VW_HELD, 162)):
+        col, _ = vw_featurize(vw_tweets(n, seed)[0], VW_WIDE_BITS)
+        lens = np.fromiter((len(v["indices"]) for v in col), np.int64, n)
+        out.append((np.concatenate([[0], np.cumsum(lens)]),
+                    np.concatenate([v["indices"] for v in col]),
+                    np.concatenate([v["values"] for v in col])))
+    conn.send(out)
+    conn.close()
+
+
+def _csr_column(csr) -> np.ndarray:
+    off, idx, val = csr
+    col = np.empty(len(off) - 1, dtype=object)
+    for i in range(len(col)):
+        col[i] = {"indices": idx[off[i]:off[i + 1]],
+                  "values": val[off[i]:off[i + 1]]}
+    return col
+
+
+def vw_frames(col_tr, y_tr, col_ho, y_ho):
+    from mmlspark_tpu_torch.core import DataFrame
+    return (DataFrame.from_dict({"features": col_tr, "label": y_tr}),
+            DataFrame.from_dict({"features": col_ho, "label": y_ho}))
+
+
+def vw_auc(model, df_ho) -> float:
+    """Held-out AUC through the port's ``ComputeModelStatistics``."""
+    from mmlspark_tpu_torch.train import ComputeModelStatistics
+    stats = ComputeModelStatistics().set_params(
+        label_col="label", scored_probabilities_col="probability",
+        evaluation_metric="classification").transform(
+            model.transform(df_ho)).collect()
+    return float(stats["AUC"][0])
+
+
+def vw_card_vs_cpu(card, cpu, what: str, gate: bool = True) -> dict:
+    """max |w_card - w_cpu| <= 1e-4 max |w_cpu| (``gate``; else only
+    reported)."""
+    wc, wh = card.weights, cpu.weights
+    dw = float(np.abs(wc - wh).max())
+    scale = float(np.abs(wh).max())
+    if not np.isfinite(wc).all() or (gate and dw > 1e-4 * scale):
+        raise AssertionError(f"vw {what}: card vs CPU max |dw| {dw} > "
+                             f"1e-4 x {scale}")
+    return {"max_abs_dw": dw, "max_abs_w": scale,
+            "rel": dw / max(scale, 1e-30)}
+
+
+def vw_fit_pair(est_cls, df, what: str, weights_gate: bool = True,
+                **params):
+    """One fit on the card (its wall, peak memory, the Hopper kernels'
+    launches) and the same on the CPU, the weights held as
+    ``vw_card_vs_cpu`` holds them."""
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    card = est_cls().set_params(**params).fit(df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    cpu = est_cls().set_params(device="cpu", **params).fit(df)
+    cpu_wall = time.perf_counter() - t0
+    if any(CH.launch_counts().values()):
+        raise AssertionError(f"vw {what}: a Hopper kernel was launched")
+    return card, cpu, {"card_fit_s": wall, "cpu_fit_s": cpu_wall,
+                       "peak_bytes": peak,
+                       **vw_card_vs_cpu(card, cpu, what, weights_gate)}
+
+
+def vw_step_profile(dev, df, bits: int) -> dict:
+    """The SGD step alone over the fit's own minibatches (the estimator's
+    ``_make_trainer`` and staging): host enqueue ms a step beside device
+    ms a step (CUDA events), steps/s and learn rows/s, and from a
+    ``torch.profiler`` window over 50 steps the kernels and device busy
+    ms a step; the bytes a step must move (the batch's indices and values
+    read once, and read + write of weights, gsq and xmax at the batch's
+    distinct indices) against the step's time."""
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+    from mmlspark_tpu_torch.vw.learners import _Staged, pack_sparse_column
+    est = VowpalWabbitClassifier().set_params(num_bits=bits)
+    step, D = est._make_trainer("logistic")
+    data = df.collect()
+    idx, val = pack_sparse_column(data["features"], mask=D - 1)
+    y = np.where(data["label"] > 0, 1.0, -1.0).astype(np.float32)
+    bs = est.get("batch_size")
+    sp = _Staged(idx, val, y, np.ones(len(y), np.float32), bs, dev)
+    state = tuple(torch.zeros(D, device=dev) for _ in range(3))
+    batches = list(sp.batches(bs))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    for _, bi, bv, by, bw in batches:
+        step(state, bi, bv, by, bw, None)
+    end.record()
+    host_s = time.perf_counter() - h0
+    torch.cuda.synchronize()
+    dev_s = start.elapsed_time(end) / 1e3
+    steps = len(batches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _, bi, bv, by, bw in batches[:VW_PROFILE_STEPS]:
+            step(state, bi, bv, by, bw, None)
+        torch.cuda.synchronize()
+    kernels, busy_us = 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += evt.count
+            busy_us += evt.self_device_time_total
+    k = idx.shape[1]
+    uniq = np.mean([len(np.unique(idx[s:s + bs]))
+                    for s in range(0, len(y), bs)])
+    step_bytes = bs * k * (8 + 4) + bs * 8 + uniq * 3 * 8
+    step_ms = dev_s / steps * 1e3
+    return {"steps": steps, "rows": len(y), "nnz_width": k,
+            "host_enqueue_ms_per_step": host_s / steps * 1e3,
+            "device_ms_per_step": step_ms, "steps_per_s": steps / dev_s,
+            "learn_rows_per_s": len(y) / dev_s,
+            "kernels_per_step": kernels / VW_PROFILE_STEPS,
+            "device_busy_ms_per_step": busy_us / 1e3 / VW_PROFILE_STEPS,
+            "distinct_indices_per_step": float(uniq),
+            "step_bytes": float(step_bytes),
+            "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+            "hbm_share": step_bytes / (step_ms / 1e3) / HBM_BYTES_PER_S}
+
+
+def vw_objective(weights, df, l1=0.0, l2=0.0) -> float:
+    """The --bfgs objective of ``weights`` in float64 on the host."""
+    from mmlspark_tpu_torch.vw.learners import pack_sparse_column
+    data = df.collect()
+    idx, val = pack_sparse_column(data["features"], mask=len(weights) - 1)
+    pred = (weights[idx].astype(np.float64) * val).sum(1)
+    ysgn = np.where(data["label"] > 0, 1.0, -1.0)
+    w64 = weights.astype(np.float64)
+    return float(np.mean(np.logaddexp(0.0, -ysgn * pred))
+                 + 0.5 * l2 * (w64 ** 2).sum() + l1 * np.abs(w64).sum())
+
+
+def vw_namespaces(n: int, seed: int):
+    """Two namespace columns (``a_user``: 3 of 50 user ids; ``b_item``: 3
+    of 50 item ids) and a base column, with a target that is the sum of
+    planted (user, item) pair effects plus noise: the -q ab regressor's
+    data."""
+    from mmlspark_tpu_torch.core import DataFrame
+    rng = np.random.default_rng(seed)
+    pair = np.random.default_rng(163).normal(size=(50, 50))
+    ua = rng.integers(0, 50, size=(n, 3))
+    ib = rng.integers(0, 50, size=(n, 3))
+    y = pair[ua[:, :, None], ib[:, None, :]].sum(axis=(1, 2)) \
+        + rng.normal(scale=0.1, size=n)
+    cols = {"a_user": np.empty(n, dtype=object),
+            "b_item": np.empty(n, dtype=object),
+            "features": np.empty(n, dtype=object)}
+    ones = np.ones(3, np.float32)
+    for i in range(n):
+        cols["a_user"][i] = {"indices": (ua[i] * 7919 + 1).astype(np.int32),
+                             "values": ones}
+        cols["b_item"][i] = {"indices": (ib[i] * 104729 + 3)
+                             .astype(np.int32), "values": ones}
+        cols["features"][i] = {"indices": np.array([5], np.int32),
+                               "values": np.ones(1, np.float32)}
+    return DataFrame.from_dict({**cols, "label": y})
+
+
+def vw_bandit_rows(n: int, seed: int):
+    """Logged contextual-bandit rows: 5 shared context features (of 200
+    ids, values N(0, 1)), per action its own copy of them (hashed by
+    action) and an action-id feature; the true cost of action ``a`` is
+    the context's dot with planted per-action weights; the logging policy
+    is uniform.  Returns the frame and the true costs (n, actions)."""
+    from mmlspark_tpu_torch.core import DataFrame
+    rng = np.random.default_rng(seed)
+    w_true = np.random.default_rng(164).normal(size=(200, VW_ACTIONS))
+    ctx = rng.integers(0, 200, size=(n, 5))
+    xv = rng.normal(size=(n, 5)).astype(np.float32)
+    costs = (w_true[ctx] * xv[:, :, None]).sum(axis=1)       # (n, A)
+    chosen = rng.integers(0, VW_ACTIONS, size=n)
+    shared = np.empty(n, dtype=object)
+    acts = np.empty(n, dtype=object)
+    for i in range(n):
+        shared[i] = {"indices": ctx[i].astype(np.int32) + 50_000,
+                     "values": xv[i]}
+        acts[i] = [{"indices": np.concatenate([
+                        ctx[i] * VW_ACTIONS + a, [90_000 + a]])
+                    .astype(np.int32),
+                    "values": np.concatenate([xv[i], [1.0]])
+                    .astype(np.float32)} for a in range(VW_ACTIONS)]
+    df = DataFrame.from_dict({
+        "shared_features": shared, "action_features": acts,
+        "chosen_action": chosen + 1.0,
+        "cost": costs[np.arange(n), chosen] + rng.normal(scale=0.1, size=n),
+        "probability": np.full(n, 1.0 / VW_ACTIONS)})
+    return df, costs
+
+
+def vw_phase(dev, smi: str):
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    from mmlspark_tpu_torch.core import DataFrame, load, save
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    from mmlspark_tpu_torch.train.metrics import _auc
+    from mmlspark_tpu_torch.utils.native_loader import murmur3_batch_native
+    from mmlspark_tpu_torch.vw import (
+        VowpalWabbitClassificationModel, VowpalWabbitClassifier,
+        VowpalWabbitContextualBandit, VowpalWabbitRegressor, murmur3_bytes)
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    rec = {"card": smi}
+    # the 24-bit featurization runs in a child process meanwhile
+    ctx = mp.get_context("spawn")
+    parent, child = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_wide_features, args=(child,), daemon=True)
+    proc.start()
+    child.close()
+    try:
+        # (a) hashing: the C++ batch = the scalar hash on every word
+        words = list(vw_vocab())
+        t0 = time.perf_counter()
+        native = murmur3_batch_native(words, 0)
+        t_native = time.perf_counter() - t0
+        scalar = [murmur3_bytes(w.encode(), 0) for w in words]
+        if native.tolist() != scalar:
+            raise AssertionError("vw (a): murmur3_batch_native differs from "
+                                 "murmur3_bytes")
+        tr_text, y_tr, _ = vw_tweets(VW_TRAIN, 161)
+        ho_text, y_ho, p_ho = vw_tweets(VW_HELD, 162)
+        col_tr, s_tr = vw_featurize(tr_text, VW_BITS)
+        col_ho, s_ho = vw_featurize(ho_text, VW_BITS)
+        feat_rps = (VW_TRAIN + VW_HELD) / (s_tr + s_ho)
+        nnz = float(np.mean([len(v["indices"]) for v in col_tr]))
+        bayes = _auc(y_ho, p_ho)
+        rec["hashing"] = {"vocab": VW_VOCAB, "native_s": t_native,
+                          "native_words_per_s": VW_VOCAB / t_native,
+                          "featurize_rows_per_s": feat_rps,
+                          "featurize_s": s_tr + s_ho,
+                          "features_per_tweet": nnz, "bayes_auc": bayes}
+        log(f"[vw] (a) murmur3_batch_native = murmur3_bytes on all "
+            f"{VW_VOCAB:,} words ({VW_VOCAB / t_native:,.0f} words/s); "
+            f"featurizer {feat_rps:,.0f} rows/s over "
+            f"{VW_TRAIN + VW_HELD:,} tweets ({nnz:.2f} features a tweet); "
+            f"Bayes AUC of the held-out rows {bayes:.4f}")
+        df_tr, df_ho = vw_frames(col_tr, y_tr, col_ho, y_ho)
+        del tr_text, ho_text, col_tr, col_ho
+
+        # (b) defaults on the card and on the CPU
+        card, cpu, fit = vw_fit_pair(VowpalWabbitClassifier, df_tr,
+                                     "defaults")
+        auc_card, auc_cpu = vw_auc(card, df_ho), vw_auc(cpu, df_ho)
+        if abs(auc_card - auc_cpu) > 1e-4 or abs(auc_card - bayes) > 0.02:
+            raise AssertionError(f"vw (b): held-out AUC card {auc_card}, "
+                                 f"CPU {auc_cpu}, Bayes {bayes}")
+        prof = vw_step_profile(dev, df_tr, VW_BITS)
+        stats = card.get("stats")[0]
+        rec["defaults"] = {**fit, "auc_card": auc_card, "auc_cpu": auc_cpu,
+                           "fit_rows_per_s": VW_TRAIN / fit["card_fit_s"],
+                           "ingest_s": stats["ingest_time_s"],
+                           "learn_s": stats["learn_time_s"], "step": prof}
+        log(f"[vw] (b) VowpalWabbitClassifier() defaults at {VW_BITS} bits "
+            f"on {VW_TRAIN:,} tweets: card = CPU within "
+            f"{fit['rel']:.2e} x max|w|; held-out AUC card {auc_card:.5f}, "
+            f"CPU {auc_cpu:.5f}, Bayes {bayes:.5f}; fit "
+            f"{fit['card_fit_s']:.2f} s ({VW_TRAIN / fit['card_fit_s']:,.0f} "
+            f"rows/s; ingest {stats['ingest_time_s']:.2f} s, learn "
+            f"{stats['learn_time_s']:.2f} s), CPU fit {fit['cpu_fit_s']:.2f}"
+            f" s; peak device memory {fit['peak_bytes'] / 1e6:.1f} MB; the "
+            f"step: {prof['steps']} steps, learn "
+            f"{prof['learn_rows_per_s']:,.0f} rows/s, "
+            f"{prof['steps_per_s']:,.0f} steps/s, host enqueue "
+            f"{prof['host_enqueue_ms_per_step']:.3f} ms beside device "
+            f"{prof['device_ms_per_step']:.3f} ms a step (busy "
+            f"{prof['device_busy_ms_per_step']:.3f} ms in "
+            f"{prof['kernels_per_step']:.1f} device ops a step)")
+        # (f) interchange
+        b = card.model_bytes()
+        if VowpalWabbitClassificationModel.bytes_to_weights(
+                b, 1 << VW_BITS).tobytes() != b:
+            raise AssertionError("vw (f): model bytes do not round-trip")
+        tmp = tempfile.mkdtemp(prefix="vw_model_")
+        try:
+            save(card, os.path.join(tmp, "m"))
+            back = load(os.path.join(tmp, "m"))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        a = card.transform(df_ho).collect()["raw_prediction"]
+        b2 = back.transform(df_ho).collect()["raw_prediction"]
+        if not all(np.array_equal(u, v) for u, v in zip(a, b2)):
+            raise AssertionError("vw (f): the reloaded model scores "
+                                 "differently")
+        rec["interchange"] = {"bytes": len(b), "bit_identical": True}
+        del card, cpu, back
+
+        # (d) --bfgs on the first 100,000 rows
+        df_bf = DataFrame.from_dict({
+            "features": df_tr.collect()["features"][:VW_SIDE_ROWS],
+            "label": y_tr[:VW_SIDE_ROWS]})
+        # L-BFGS is held by its objective and AUC: the card's gradients sum
+        # duplicated indices in another order, and the line search can
+        # take another step from there
+        bcard, bcpu, bfit = vw_fit_pair(VowpalWabbitClassifier, df_bf,
+                                        "bfgs", weights_gate=False,
+                                        optimizer="bfgs")
+        oc, oh = vw_objective(bcard.weights, df_bf), \
+            vw_objective(bcpu.weights, df_bf)
+        ac, ah = vw_auc(bcard, df_ho), vw_auc(bcpu, df_ho)
+        if abs(oc - oh) > 1e-4 * abs(oh) or abs(ac - ah) > 1e-3:
+            raise AssertionError(f"vw (d): bfgs objective card {oc} CPU "
+                                 f"{oh}, AUC {ac} / {ah}")
+        rec["bfgs"] = {**bfit, "objective_card": oc, "objective_cpu": oh,
+                       "auc_card": ac, "auc_cpu": ah}
+        log(f"[vw] (d) optimizer='bfgs', 20 iterations on "
+            f"{VW_SIDE_ROWS:,} tweets: objective card {oc:.7f}, CPU "
+            f"{oh:.7f} (rel {abs(oc - oh) / abs(oh):.1e}); AUC card "
+            f"{ac:.5f}, CPU {ah:.5f}; weights card - CPU {bfit['rel']:.2e} x "
+            f"max|w| (not gated); fit {bfit['card_fit_s']:.2f} s card, "
+            f"{bfit['cpu_fit_s']:.2f} s CPU")
+        del bcard, bcpu, df_bf
+
+        # (e) -q ab regressor and the contextual bandit
+        df_q = vw_namespaces(VW_SIDE_ROWS, 165)
+        qcard, qcpu, qfit = vw_fit_pair(VowpalWabbitRegressor, df_q, "-q ab",
+                                        interactions=["ab"])
+        q_ho = vw_namespaces(20_000, 166)
+        pred = qcard.transform(q_ho).collect()["prediction"]
+        yq = q_ho.collect()["label"]
+        r2 = 1.0 - float(np.mean((pred - yq) ** 2) / np.var(yq))
+        df_cb, _ = vw_bandit_rows(VW_SIDE_ROWS, 167)
+        cb_card, cb_cpu, cbfit = vw_fit_pair(VowpalWabbitContextualBandit,
+                                             df_cb, "bandit")
+        df_cb_ho, costs_ho = vw_bandit_rows(20_000, 168)
+        scores = np.stack(cb_card.transform(df_cb_ho).collect()["prediction"])
+        picked = scores.argmin(axis=1)
+        v_policy = float(costs_ho[np.arange(len(picked)), picked].mean())
+        v_uniform = float(costs_ho.mean())
+        if not v_policy < v_uniform:
+            raise AssertionError(f"vw (e): the learned policy's cost "
+                                 f"{v_policy} does not beat the uniform "
+                                 f"logging policy's {v_uniform}")
+        rec["interactions"] = {**qfit, "held_out_r2": r2}
+        rec["bandit"] = {**cbfit, "policy_cost": v_policy,
+                         "uniform_cost": v_uniform}
+        log(f"[vw] (e) VowpalWabbitRegressor(interactions=['ab']) on "
+            f"{VW_SIDE_ROWS:,} rows: card = CPU within {qfit['rel']:.2e} x "
+            f"max|w|, held-out R^2 {r2:.3f}; VowpalWabbitContextualBandit() "
+            f"({VW_ACTIONS} actions, ips) on {VW_SIDE_ROWS:,} logged rows: "
+            f"card = CPU within {cbfit['rel']:.2e} x max|w|; held-out cost "
+            f"of the learned policy {v_policy:.4f} against the uniform "
+            f"logging policy's {v_uniform:.4f}")
+        del qcard, qcpu, cb_card, cb_cpu, df_q, df_cb
+
+        # (c) the same fit at 24 bits, on the child's features
+        tr24, ho24 = parent.recv()
+        proc.join(120)
+    finally:
+        parent.close()
+        if proc.is_alive():
+            proc.terminate()
+        proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"vw (c): the 24-bit featurizer exited "
+                             f"{proc.exitcode}")
+    df_tr, df_ho = vw_frames(_csr_column(tr24), y_tr, _csr_column(ho24),
+                             y_ho)
+    wcard, wcpu, wfit = vw_fit_pair(VowpalWabbitClassifier, df_tr,
+                                    "24 bits", num_bits=VW_WIDE_BITS)
+    auc_c, auc_h = vw_auc(wcard, df_ho), vw_auc(wcpu, df_ho)
+    if abs(auc_c - auc_h) > 1e-4 or abs(auc_c - bayes) > 0.02:
+        raise AssertionError(f"vw (c): held-out AUC card {auc_c}, CPU "
+                             f"{auc_h}, Bayes {bayes}")
+    wprof = vw_step_profile(dev, df_tr, VW_WIDE_BITS)
+    rec["wide"] = {**wfit, "auc_card": auc_c, "auc_cpu": auc_h,
+                   "state_bytes": 3 * 4 << VW_WIDE_BITS, "step": wprof}
+    log(f"[vw] (c) the same fit at {VW_WIDE_BITS} bits "
+        f"({1 << VW_WIDE_BITS:,} weights, {(3 * 4 << VW_WIDE_BITS) / 1e6:.0f}"
+        f" MB of state): card = CPU within {wfit['rel']:.2e} x max|w|; AUC "
+        f"card {auc_c:.5f}, CPU {auc_h:.5f}; step {wprof['device_ms_per_step']:.3f}"
+        f" ms device ({wprof['host_enqueue_ms_per_step']:.3f} ms host), "
+        f"{wprof['step_bytes'] / 1e3:.0f} kB a step = "
+        f"{100 * wprof['hbm_share']:.3f}% of HBM bandwidth; peak device "
+        f"memory {wfit['peak_bytes'] / 1e6:.1f} MB")
+    launches = CH.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"vw: Hopper kernels launched {launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    DETAIL["vw"] = rec
+    log(f"[vw] launches of the repository's Hopper kernels in the VW phase: "
+        f"{launches} (VW runs no TPU kernel: its step is eager PyTorch)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4222,6 +5059,16 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[fleet] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    backend_launches = backends_phase(dev, smi)
+    torch.cuda.synchronize()
+    log(f"[backends] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    vw_launches = vw_phase(dev, smi)
+    torch.cuda.synchronize()
+    log(f"[vw] phase done in {time.perf_counter() - t0:.1f} s")
+
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
              "cat_level": cat_launches["level"],
@@ -4230,7 +5077,8 @@ def main() -> int:
              "ranker": rank_launches,
              "streamed_level": stream_launches["level"],
              "streamed_leaf": stream_launches["leaf"],
-             **fleet_launches}
+             **fleet_launches, "backends": backend_launches,
+             "vw": vw_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in paths.values()),

@@ -8,11 +8,12 @@ jax-free modules (``core/``, ``io/``, ``utils/``, ``observability/metrics``)
 it keeps as its own copy.
 
 Ported so far (the GBDT main path, deep-learning scoring, the sequence
-models, serving and the serving fleet):
+models, serving, the serving fleet and VowpalWabbit):
 
 - ``core``      — DataFrame, Params, Pipeline, persistence (copies)
-- ``ops``       — quantized histogram ops and the card's binning
-  (``bin_matrix``); ``ops.cuda_histogram`` holds the two hand-written
+- ``ops``       — histogram builds and their dispatcher (``cuda``,
+  ``matmul``, ``scatter``) and the card's binning (``bin_matrix``);
+  ``ops.cuda_histogram`` holds the two hand-written
   Hopper kernels (``csrc/frontier.cu``) that replace the fused Pallas
   frontier kernel, each beside its plain PyTorch version; ``ops.image``,
   the NHWC image ops
@@ -30,11 +31,13 @@ models, serving and the serving fleet):
   (``chunked``) and atomic booster snapshots (``checkpoint``), copies
 - ``stages``    — the minibatch transformers and their batchers (copies)
 - ``utils``     — ``resilience`` (deadlines, preemption scopes),
-  ``concurrency``, ``pickling`` (copies) and the native loader
+  ``concurrency``, ``pickling``, ``stopwatch`` (copies) and the native
+  loader (binning and VW's batch murmur hash)
 - ``observability`` — the registry, spans, the span collector, SLOs,
   cost attribution, the flight recorder, the fleet plane
   (``federation``, ``autoscale``) and the live training monitor
-  (``trainwatch``), copies; the profiler and compute twins
+  (``trainwatch``), copies; the profiler and compute twins (with
+  host -> device transfer booking)
 - ``serving``   — ``PipelineServer`` and the fleet (``TopologyService``,
   ``WorkerServer``, ``RoutingClient``, ``MembershipWatcher``), copies
 - ``models``    — the GBDT booster artifact and its scoring walk; the
@@ -43,6 +46,11 @@ models, serving and the serving fleet):
 - ``dl``        — ``JaxModel`` (the CNTKModel twin), ``ImageFeaturizer``,
   the model repository (``ModelDownloader``) and ONNX import
 - ``opencv``    — ``ImageTransformer`` and ``ImageSetAugmenter``
+- ``vw``        — VowpalWabbit: the murmur featurizer and interactions
+  (host), the SGD/AdaGrad classifier and regressor, ``--bfgs`` and the
+  contextual bandit on the card
+- ``train``     — ``ComputeModelStatistics`` and
+  ``ComputePerInstanceStatistics`` (copies)
 - ``convert``   — state carried across from the JAX package (GBDT params,
   boosters, bin edges; flax ResNet variables -> ``state_dict``)
 

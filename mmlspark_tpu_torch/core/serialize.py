@@ -11,6 +11,9 @@ Layout on disk::
 
 Every complex payload kind gets a tagged directory so load() can dispatch
 without pickle-by-default; arbitrary objects fall back to pickle (stdlib).
+The JAX package writes the same layout: a class it names
+(``mmlspark_tpu.<path>``) loads here as the twin at the same path under
+``mmlspark_tpu_torch``.
 
 .. warning:: **Security.** ``load()`` imports the class named in
    ``metadata.json`` and, for closure-typed params (UDFs, Lambda stages),
@@ -66,7 +69,16 @@ def _default_safe() -> bool:
     return os.environ.get("MMLSPARK_TPU_SAFE_LOAD", "0") not in ("0", "", "false")
 
 
+#: the JAX package's module prefix: a class path saved by it names the twin
+#: of that class in this package (same relative path, same name), so an
+#: artifact the JAX package saved loads as this package's object — and
+#: this package never imports the JAX package
+_REFERENCE_PREFIX = "mmlspark_tpu."
+
+
 def _import_qual(qual: str, safe: bool = False):
+    if qual.startswith(_REFERENCE_PREFIX):
+        qual = "mmlspark_tpu_torch." + qual[len(_REFERENCE_PREFIX):]
     if safe and not any(qual.startswith(p) for p in _TRUSTED_PREFIXES):
         raise PermissionError(
             f"safe load: class {qual!r} is outside the trusted prefixes "

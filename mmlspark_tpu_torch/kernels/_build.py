@@ -5,10 +5,11 @@
   interface (``load_library``).  Each C entry point launches on the stream
   it is given and returns ``cudaGetLastError()``; the wrappers in
   ``ops.cuda_histogram`` raise when it is not 0.
-- ``csrc/binning.cpp``, the host binning data plane, is compiled by the
-  system ``g++`` with the JAX package's own Makefile flags
-  (``native/Makefile``), so its float arithmetic is the reference's
-  (``load_host_library``).
+- ``csrc/binning.cpp``, the host binning data plane, and
+  ``csrc/murmur.cpp``, the VW featurizer's batch hash, are compiled by the
+  system ``g++`` into one host library with the JAX package's own
+  Makefile flags (``native/Makefile``), so its float arithmetic is the
+  reference's (``load_host_library``).
 
 Each build runs at first use, into ``mmlspark_tpu_torch/_build/<hash>/``
 (listed in ``.gitignore``), where the hash covers the sources and the
@@ -40,7 +41,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: the JAX package's native/Makefile flags: no -march, so no FMA
 #: contraction, and the edges' double arithmetic rounds as the reference's
 GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
-HOST_SOURCE = os.path.join(CSRC, "binning.cpp")
+HOST_SOURCES = [os.path.join(CSRC, "binning.cpp"),
+                os.path.join(CSRC, "murmur.cpp")]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -56,6 +58,7 @@ _SIGNATURES = {
 _HOST_SIGNATURES = {
     "mm_bin_edges": [_P, ctypes.c_int64, ctypes.c_int64, _I, _P, _I],
     "mm_bin_apply": [_P, ctypes.c_int64, ctypes.c_int64, _P, _I, _P, _I],
+    "mm_murmur3_batch": [_P, _P, ctypes.c_int64, ctypes.c_uint32, _P],
 }
 
 _lock = threading.Lock()
@@ -82,8 +85,8 @@ def _gxx() -> str:
     cxx = shutil.which(os.environ.get("CXX") or "g++")
     if not cxx:
         raise RuntimeError("g++ not found: set CXX or put g++ on PATH to "
-                           "build the port's host binning plane "
-                           "(csrc/binning.cpp)")
+                           "build the port's host plane (csrc/binning.cpp, "
+                           "csrc/murmur.cpp)")
     return cxx
 
 
@@ -129,12 +132,12 @@ def build() -> str:
 
 
 def build_host() -> str:
-    """Compile ``csrc/binning.cpp`` with g++ unless a library for its hash
+    """Compile the host sources with g++ unless a library for their hash
     exists; returns the library path."""
-    return _compile(_gxx(), GXX_FLAGS, [HOST_SOURCE],
+    return _compile(_gxx(), GXX_FLAGS, HOST_SOURCES,
                     os.path.join(BUILD_ROOT, "host-" + _digest(
-                        [HOST_SOURCE], GXX_FLAGS)),
-                    "libmmlspark_binning.so")
+                        HOST_SOURCES, GXX_FLAGS)),
+                    "libmmlspark_host.so")
 
 
 def load_library() -> ctypes.CDLL:
@@ -154,7 +157,8 @@ def load_library() -> ctypes.CDLL:
 
 
 def load_host_library() -> ctypes.CDLL:
-    """The host binning library, built at first use and loaded once."""
+    """The host library (binning, batch murmur), built at first use and
+    loaded once."""
     global _host_lib
     with _lock:
         if _host_lib is None:

@@ -31,9 +31,14 @@ through pinned memory on a copy stream into ``build_quantized``, both
 growers, with the same checkpoints and an elastic (re-tiled) resume.
 Both drivers serve the live training monitor (``monitor_port``,
 ``monitor_stall_timeout_s``: ``observability.trainwatch``) and mark their
-phases with ``ambient_phase`` as the JAX package's do.  Not ported yet,
-raising ``NotImplementedError`` that names its ROADMAP.md entry: row
-sharding and voting.
+phases with ``ambient_phase`` as the JAX package's do.  Both read the
+histogram knobs once per call (``MMLSPARK_TPU_HIST_BACKEND`` picks
+``cuda``, ``matmul`` or ``scatter`` for the growers and the tile builds,
+``MMLSPARK_TPU_HIST_QUANT`` overrides ``use_quantized_grad``), and the
+streamed driver books every staged tile's bytes under
+``mmlspark_device_transfer_bytes_total{site="lightgbm.ooc_tile"}``.  Not
+ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
+entry: row sharding and voting.
 The JAX package's scan-chunked multi-iteration path exists to amortize a
 device relay's per-dispatch latency; the port launches per iteration and
 has no counterpart.
@@ -57,6 +62,7 @@ from ..io.checkpoint import (CheckpointManager, book_reshard,
 from ..models.gbdt import GBDTBooster, children_depth_bound, \
     perfect_tree_children
 from ..ops import cuda_histogram
+from ..observability.compute import device_put
 from ..observability.tracing import ambient_phase
 from ..ops import histogram as hist_ops
 from ..utils.resilience import PreemptionToken, preemption_scope
@@ -390,13 +396,27 @@ def check_labels(p: GBDTParams, y: np.ndarray, F: int) -> None:
 # ---------------------------------------------------------------------------
 
 def _use_fused_frontier(use_quant: bool, has_cat: bool, num_bins: int,
-                        quant_bins: int) -> bool:
+                        quant_bins: int, backend: str = "cuda") -> bool:
     """One eligibility predicate for the fused frontier step: the quantized
-    numerical-split path.  The ``cuda`` backend plays the part of the JAX
-    package's ``pallas``: the Hopper kernels for a CUDA tensor, their plain
-    PyTorch versions for a CPU tensor."""
-    return (use_quant and not has_cat
+    numerical-split path, with the histogram backend resolved to ``cuda``
+    (the JAX package's ``pallas``: the Hopper kernels for a CUDA tensor,
+    their plain PyTorch versions for a CPU tensor)."""
+    return (use_quant and not has_cat and backend == "cuda"
             and cuda_histogram.supported(num_bins, quant_bins))
+
+
+def _grow_backend(backend: str, use_quant: bool, has_cat: bool,
+                  num_bins: int, quant_bins: int, device):
+    """``(backend, fused, kernel_scan)`` for one tree on ``device``: the
+    resolved histogram backend, whether the fused frontier step runs, and
+    whether a step the ``cuda`` backend would have fused instead builds
+    through ``backend`` and scans its gains in the finish kernel's op
+    order (so every backend grows the ``cuda`` backend's tree)."""
+    bk = hist_ops.resolve_quantized_backend(backend, device)
+    fused = _use_fused_frontier(use_quant, has_cat, num_bins, quant_bins, bk)
+    kernel_scan = not fused and _use_fused_frontier(
+        use_quant, has_cat, num_bins, quant_bins)
+    return bk, fused, kernel_scan
 
 
 class Tree(NamedTuple):
@@ -560,14 +580,19 @@ def _split_math(params: GBDTParams, ct: _CatTools, float_prefix=None):
             v = torch.clamp(v, -max_delta, max_delta)
         return v
 
-    def split_gains(hist, feat_mask, edge_ok, depth_ok=None, scales=None):
+    def split_gains(hist, feat_mask, edge_ok, depth_ok=None, scales=None,
+                    kernel_scan: bool = False):
         """(nodes, F, B, 3) histograms -> (gain, left stats, node totals).
         ``hist`` holds float sums, or with ``scales = (g_scale, h_scale)``
         the quantized int32 sums: those are summed over bins in int32,
         which is exact in any order, and only then rescaled, so the card
-        and the CPU get the same floats.  LEFT stats: a numerical split at
-        bin t takes bins <= t; a categorical one-vs-rest at code c takes
-        bin c alone; a sorted-subset candidate k takes the best k+1
+        and the CPU get the same floats.  ``kernel_scan`` (quantized,
+        numerical) takes the finish kernel's op order instead: dequantize
+        each bin, scan in float32 from bin 0, node totals from the exact
+        integer sums of feature 0, so the gains and stats equal
+        ``frontier_finish``'s bit for bit.  LEFT stats: a numerical split
+        at bin t takes bins <= t; a categorical one-vs-rest at code c
+        takes bin c alone; a sorted-subset candidate k takes the best k+1
         ratio-sorted categories.  A ``depth_ok`` of False gates every
         candidate."""
         if scales is None:
@@ -580,9 +605,14 @@ def _split_math(params: GBDTParams, ct: _CatTools, float_prefix=None):
                 return hist_ops.dequantize_histogram(h, *scales)
 
             def prefix(h):
+                if kernel_scan:
+                    return cuda_histogram._cumsum_bins(deq(h))
                 return deq(torch.cumsum(h, dim=-2, dtype=torch.int32))
         cum = prefix(hist)
-        tot = cum[:, :1, -1, :]                    # (nodes, 1, 3)
+        if kernel_scan:
+            tot = deq(hist[:, :1].sum(dim=2, dtype=torch.int32))
+        else:
+            tot = cum[:, :1, -1, :]                # (nodes, 1, 3)
         left3, edge3 = cum, edge_ok[None]
         if ct.has_cat:
             cat_b, sub_b = ct.masks(hist.device)
@@ -623,24 +653,28 @@ def _kernel_gains(params: GBDTParams, g_scale, h_scale, feat_mask,
 
 
 def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
-                     params: GBDTParams):
+                     params: GBDTParams, backend: str = "auto"):
     """Level-wise grower.  Returns ``grow(binned, grad, hess, hist_mask,
     feat_mask, edges, *, generator=None, noise=None) -> Tree``.
 
     ``binned`` is ``(n, F)`` uint8 (the trainer passes the transposed view
     of a feature-major matrix); ``noise`` (``(2, n)`` uniforms) or
-    ``generator`` feeds the quantizer's stochastic rounding.  Levels whose
-    frontier has at most ``cuda_histogram.FUSED_MAX_NODES`` parents take
-    the fused frontier step (read per call, so a test can lower it); deeper
-    levels, and every level of a tree with categorical features, build the
-    smaller child's histogram and scan gains in torch."""
+    ``generator`` feeds the quantizer's stochastic rounding.  ``backend``
+    is the histogram backend (``ops.histogram.resolve_quantized_backend``,
+    resolved on ``binned``'s device per tree).  With ``cuda`` (auto on the
+    card), levels whose frontier has at most
+    ``cuda_histogram.FUSED_MAX_NODES`` parents take the fused frontier step
+    (read per call, so a test can lower it); deeper levels, every level of
+    a tree with categorical features, and every level under ``matmul`` or
+    ``scatter`` build the smaller child's histogram through
+    ``build_quantized`` and scan gains in torch — in the finish kernel's op
+    order where ``cuda`` would have fused, so the trees are the same."""
     use_quant = bool(params.use_quantized_grad)
     quant_bins = params.num_grad_quant_bins
     D, F, B = max_depth, num_features, num_bins
     I, L = 2 ** D - 1, 2 ** D
     ct = _CatTools(params, F, B)
     has_cat = ct.has_cat
-    use_fused = _use_fused_frontier(use_quant, has_cat, B, quant_bins)
     min_gain = params.min_gain_to_split
     leaf_output, split_gains = _split_math(params, ct)
     lc_np, rc_np = perfect_tree_children(D)
@@ -651,6 +685,8 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
         dev = binned.device
         n = binned.shape[0]
         rows = torch.arange(n, device=dev)
+        bk, use_fused, kernel_scan = _grow_backend(
+            backend, use_quant, has_cat, B, quant_bins, dev)
         scales = None
         if use_quant:
             # quantize once per tree: every level's histogram is an exact
@@ -664,10 +700,10 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
             if use_quant:
                 return hist_ops.build_quantized(
                     binned, qg, qh, node_a, num_nodes, B,
-                    quant_bins=quant_bins, max_rows=max_rows,
+                    quant_bins=quant_bins, backend=bk, max_rows=max_rows,
                     node_rows_bound=max_rows)
-            return hist_ops.build_histograms(binned, grad, hess, node_a,
-                                             num_nodes, B)
+            return hist_ops.build(binned, grad, hess, node_a, num_nodes, B,
+                                  backend=bk, max_rows=max_rows)
 
         def dehist(h_):
             if not use_quant:
@@ -702,8 +738,8 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
                 is_left = node % 2 == 0
                 in_small = is_left == small_left[node // 2]
                 small_node = torch.where(hist_mask & in_small, node // 2, -1)
-            if use_fused and max(1, nodes_d // 2) <= \
-                    cuda_histogram.FUSED_MAX_NODES:
+            fusable = max(1, nodes_d // 2) <= cuda_histogram.FUSED_MAX_NODES
+            if use_fused and fusable:
                 if d == 0:
                     hist_d, fused_best = cuda_histogram.frontier_step(
                         binned, qg8, qh8,
@@ -725,14 +761,16 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
                     # at most floor(n/2) rows are in smaller children
                     hist_small = hist(small_node, nodes_d // 2,
                                       max_rows=n // 2 + nodes_d)
-                    hist_sib = prev_hist - hist_small
+                    hist_sib = hist_ops.histogram_subtraction(prev_hist,
+                                                              hist_small)
                     sl4 = small_left[:, None, None, None]
                     hist_d = torch.stack(
                         [torch.where(sl4, hist_small, hist_sib),
                          torch.where(sl4, hist_sib, hist_small)],
                         dim=1).reshape(nodes_d, F, B, 3)
                 gain, pick, (Gp0, Hp0, Cp0) = split_gains(
-                    hist_d, feat_mask, edge_ok2, scales=scales)
+                    hist_d, feat_mask, edge_ok2, scales=scales,
+                    kernel_scan=kernel_scan and fusable)
                 flat = gain.reshape(nodes_d, F * B)
                 best = torch.argmax(flat, dim=1)
                 best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
@@ -811,7 +849,7 @@ def leafwise_store_dtype(n_bound, use_quant: bool, quant_bins: int,
 
 def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
                          num_bins: int, params: GBDTParams, *,
-                         store16: bool = True):
+                         store16: bool = True, backend: str = "auto"):
     """Leaf-wise (best-first) grower, LightGBM's default growth: one tree is
     ``num_leaves - 1`` split steps.  Each step splits the live leaf with the
     global best stored gain (the left child keeps the leaf's slot, the right
@@ -827,15 +865,19 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
     The step loop never waits for the card: the chosen leaf, the gate and
     every index stay device tensors, and a gated write goes to a trash slot
     one past the end of its array.  ``depth_cap`` > 0 forbids splits at
-    that depth; ``store16`` allows the int16 histogram carry.  Returns
-    ``grow(...)`` with the level-wise grower's signature; the ``Tree`` holds
-    array-of-nodes children with leaves encoded ``~leaf``."""
+    that depth; ``store16`` allows the int16 histogram carry.  ``backend``
+    is the histogram backend, resolved per tree as the level-wise grower
+    resolves it: under ``matmul`` or ``scatter`` a step builds the left
+    child through ``build_quantized`` and scans both children in the finish
+    kernel's op order, launching neither kernel and growing the ``cuda``
+    backend's tree.  Returns ``grow(...)`` with the level-wise grower's
+    signature; the ``Tree`` holds array-of-nodes children with leaves
+    encoded ``~leaf``."""
     use_quant = bool(params.use_quantized_grad)
     quant_bins = params.num_grad_quant_bins
     L, M, F, B = num_leaves, num_leaves - 1, num_features, num_bins
     ct = _CatTools(params, F, B)
     has_cat = ct.has_cat
-    use_fused = _use_fused_frontier(use_quant, has_cat, B, quant_bins)
     min_gain = params.min_gain_to_split
     leaf_output, split_gains = _split_math(params, ct)
 
@@ -844,6 +886,8 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
              noise: Optional[torch.Tensor] = None) -> Tree:
         dev = binned.device
         n = binned.shape[0]
+        bk, use_fused, kernel_scan = _grow_backend(
+            backend, use_quant, has_cat, B, quant_bins, dev)
         edge_ok = ct.edge_ok(edges)
         # depth_ok of every depth a child can reach, looked up per step
         depth_ok = torch.arange(L + 1, device=dev) < depth_cap \
@@ -874,8 +918,9 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
             ids = torch.where(mask, 0, -1)
             if use_quant:
                 return hist_ops.build_quantized(binned, qg, qh, ids, 1, B,
-                                                quant_bins=quant_bins)
-            return hist_ops.build_histograms(binned, grad, hess, ids, 1, B)
+                                                quant_bins=quant_bins,
+                                                backend=bk)
+            return hist_ops.build(binned, grad, hess, ids, 1, B, backend=bk)
 
         def leaf_best(hist_1f3, dok):
             """Best split of one leaf from its ``(1, F, B, 3)`` histogram:
@@ -883,7 +928,8 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
             a leading axis of 1 (``member``, the winner's ``(1, B)``
             category set, only with categorical features)."""
             gain, left3, tot = split_gains(hist_1f3, feat_mask, edge_ok, dok,
-                                           scales=scales)
+                                           scales=scales,
+                                           kernel_scan=kernel_scan)
             flat = gain.reshape(-1)
             best = torch.argmax(flat).reshape(1)
             bf, bb = best // B, best % B
@@ -1020,7 +1066,8 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
                       carry, (at_j, at_new), parent_slot=j)
                 continue
             hl = local_hist(in_left)
-            hr = hists.index_select(0, j).to(hl.dtype) - hl
+            hr = hist_ops.histogram_subtraction(
+                hists.index_select(0, j).to(hl.dtype), hl)
             for at, h_child in ((at_j, hl), (at_new, hr)):
                 g_c, f_c, b_c, lp_c, _, m_c = leaf_best(h_child, dok)
                 put(hists, at, h_child)
@@ -1043,11 +1090,35 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
     return grow
 
 
-def _make_grower(p: GBDTParams, F: int, B: int):
+def _make_grower(p: GBDTParams, F: int, B: int, backend: str = "auto"):
     """Growth-mode dispatch (call with resolved params)."""
     if p.growth == "leaf":
-        return make_leafwise_grower(p.num_leaves, p.max_depth, F, B, p)
-    return make_tree_grower(p.max_depth, F, B, p)
+        return make_leafwise_grower(p.num_leaves, p.max_depth, F, B, p,
+                                    backend=backend)
+    return make_tree_grower(p.max_depth, F, B, p, backend=backend)
+
+
+def _resolve_hist_backend() -> Tuple[str, str]:
+    """``(MMLSPARK_TPU_HIST_BACKEND, MMLSPARK_TPU_HIST_QUANT)``, read once
+    per ``train()`` / ``train_streamed()`` call, where the JAX package
+    reads its histogram knobs (the matmul build's own knobs are read where
+    it runs, as there)."""
+    import os
+    return (os.environ.get("MMLSPARK_TPU_HIST_BACKEND", "auto"),
+            os.environ.get("MMLSPARK_TPU_HIST_QUANT", ""))
+
+
+def _resolve_quantized(dev: torch.device, use_quantized_grad,
+                       quant_env: str) -> bool:
+    """``use_quantized_grad`` after the ``MMLSPARK_TPU_HIST_QUANT``
+    override, then the device's default.  The override reads as the JAX
+    package's does: case-insensitive, 0/false/off/no turn quantization
+    off (an operator's QUANT=OFF never fails open into forcing it on) and
+    any other value turns it on."""
+    uq = use_quantized_grad
+    if quant_env.strip():
+        uq = quant_env.strip().lower() not in ("0", "false", "off", "no")
+    return default_quantized(dev, uq)
 
 
 # ---------------------------------------------------------------------------
@@ -1442,7 +1513,10 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     GOSS sample, no DART drop (nor its ``skip_drop`` draw), no RF gradient
     scale and no sample weights.
     Runs on the card unless ``device="cpu"``; ``use_quantized_grad=None``
-    turns quantized histograms on for the card and off on the CPU.  Edges
+    turns quantized histograms on for the card and off on the CPU, and
+    ``MMLSPARK_TPU_HIST_QUANT`` overrides it; ``MMLSPARK_TPU_HIST_BACKEND``
+    picks the histogram backend of an ``auto`` grower (both read once per
+    call: ``_resolve_hist_backend``).  Edges
     are found on the host; on the card the bins are applied there
     (``BinMapper.bin_on_device``).  Per iteration the GOSS draw and the
     quantizer's noise come from a ``torch.Generator`` seeded with ``seed *
@@ -1476,8 +1550,10 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     so one package does not resume the other's run."""
     dev = resolve_device(device)
     p = params.resolve()
-    p = dataclasses.replace(
-        p, use_quantized_grad=default_quantized(dev, p.use_quantized_grad))
+    # the histogram backend and quantization, read once per call
+    hist_backend, quant_env = _resolve_hist_backend()
+    p = dataclasses.replace(p, use_quantized_grad=_resolve_quantized(
+        dev, p.use_quantized_grad, quant_env))
     _check_ported(p, shard_rows=shard_rows)
     check_resume_arg(resume, checkpoint_dir=checkpoint_dir)
     is_rank = p.objective == "lambdarank"
@@ -1556,7 +1632,7 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         torch.cuda.synchronize(dev)
     t_transfer = time.perf_counter() - t0
 
-    grow = _make_grower(p, F, B)
+    grow = _make_grower(p, F, B, backend=hist_backend)
     D = p.depth_bound
     L = p.num_leaves
 
@@ -1932,6 +2008,11 @@ def _np_leaf_output(G, H, l1: float, l2: float, max_delta: float):
     return v
 
 
+#: the transfer-bytes site of the streamed tiles (the reference's
+#: ``OOC_SITE``): every staged tile is booked there by ``device_put``
+OOC_SITE = "lightgbm.ooc_tile"
+
+
 class _TileStager:
     """The host -> device leg of one tile.  A payload is a list of
     ``(host slice, fill)`` pairs whose last axis is the tile's real rows;
@@ -1944,8 +2025,11 @@ class _TileStager:
     ties each device tensor to that stream (``record_stream``), so the
     caching allocator does not hand a tile's memory to the next tile while
     a kernel still reads it.  On the CPU the padded host arrays are handed
-    over as tensors.  Books the bytes copied and, on the card, the copy
-    stream's time (CUDA events, read at the consumer's sync points)."""
+    over as tensors.  Books the bytes copied (``self.bytes``, and through
+    ``device_put`` under ``mmlspark_device_transfer_bytes_total{site=
+    OOC_SITE}``: the padded tile as it is staged) and, on the card, the
+    copy stream's time (CUDA events, read at the consumer's sync
+    points)."""
 
     def __init__(self, dev: torch.device, T: int):
         self.dev, self.T = dev, T
@@ -1976,8 +2060,9 @@ class _TileStager:
     def load(self, parts):
         """Runs on the prefetch worker thread."""
         if not self.cuda:
-            out = [self._padded(None, k, src, fill)
-                   for k, (src, fill) in enumerate(parts)]
+            out = device_put([self._padded(None, k, src, fill)
+                              for k, (src, fill) in enumerate(parts)],
+                             self.dev, site=OOC_SITE)
             self.bytes += sum(t.nbytes for t in out)
             return out, None
         slot = self._slot
@@ -1990,7 +2075,8 @@ class _TileStager:
         with torch.cuda.stream(self.stream):
             start = torch.cuda.Event(enable_timing=True)
             start.record(self.stream)
-            out = [h.to(self.dev, non_blocking=True) for h in host]
+            out = device_put(host, self.dev, site=OOC_SITE,
+                             non_blocking=True)
             done = torch.cuda.Event(enable_timing=True)
             done.record(self.stream)
         self._done[slot] = done
@@ -2237,8 +2323,9 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
                 f"init_booster was trained on {init_booster.num_features} "
                 f"features, dataset has {F}")
 
-    p = dataclasses.replace(
-        p, use_quantized_grad=default_quantized(dev, p.use_quantized_grad))
+    hist_backend, quant_env = _resolve_hist_backend()   # as in train()
+    p = dataclasses.replace(p, use_quantized_grad=_resolve_quantized(
+        dev, p.use_quantized_grad, quant_env))
     use_quant = p.use_quantized_grad
     qb = p.num_grad_quant_bins
     qg_cap = max(1, qb // 2)
@@ -2290,7 +2377,6 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     # ---- prefetch plumbing: payloads built AND staged on the worker
     # thread (routing for the next tile rides there too, overlapped with
     # the consumer's histogram launches on the current tile)
-    OOC_SITE = "lightgbm.ooc_tile"
     stager = _TileStager(dev, T)
     totals = {"wait_s": 0.0, "compute_s": 0.0, "tiles": 0.0,
               "grad_passes": 0, "hist_passes": 0, "hist_bytes": 0}
@@ -2543,9 +2629,9 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
             if use_quant:
                 return hist_ops.build_quantized(
                     bins_t, g_t, h_t, n_t, nodes_d, B, quant_bins=qb,
-                    node_rows_bound=T)
-            return hist_ops.build_histograms(bins_t, g_t, h_t, n_t,
-                                             nodes_d, B)
+                    backend=hist_backend, node_rows_bound=T)
+            return hist_ops.build(bins_t, g_t, h_t, n_t, nodes_d, B,
+                                  backend=hist_backend)
 
         bytes0 = stager.bytes
         pf = stream(make_tile)

@@ -17,10 +17,13 @@ under the reference's metric names.
 - :func:`ensure_build_info` — ``mmlspark_build_info``, constant 1,
   labelled with the torch version, the CUDA version, the device kind and
   the local device count.
+- :func:`transfer_nbytes` and :func:`device_put` — host -> device
+  transfer accounting: ``mmlspark_device_transfer_bytes_total{site}``,
+  booked on the host before the copy, with no sync.
 
-``InstrumentedJit``, ``instrumented_jit``, ``device_put`` and
-``transfer_nbytes`` describe ``jax.jit`` and ``jax.device_put``; they
-raise ``NotImplementedError`` naming ROADMAP.md §1 item 13.  ``torch`` is
+``InstrumentedJit`` and ``instrumented_jit`` describe ``jax.jit``; they
+raise ``NotImplementedError`` naming ROADMAP.md §1 item 13 (their torch
+meaning is CUDA-graph capture, ROADMAP.md §2 item 6).  ``torch`` is
 imported lazily inside functions, as the reference imports jax.
 """
 from __future__ import annotations
@@ -41,9 +44,9 @@ __all__ = ["InstrumentedJit", "instrumented_jit", "device_put",
 STORM_SIGNATURES_ENV = "MMLSPARK_TPU_JIT_STORM_SIGS"
 DEFAULT_STORM_SIGNATURES = 8
 
-_NOT_PORTED = ("{} instruments jax.jit / jax.device_put, which the port "
-               "does not use; the compute plane's compile and transfer "
-               "booking is not ported yet (ROADMAP.md §1 item 13)")
+_NOT_PORTED = ("{} instruments jax.jit, which the port does not use; "
+               "the compute plane's compile booking is not ported yet "
+               "(ROADMAP.md §1 item 13)")
 
 
 def _storm_threshold() -> int:
@@ -64,16 +67,6 @@ class InstrumentedJit:
 def instrumented_jit(*args, **kwargs):
     """Not ported: raises (ROADMAP.md §1 item 13)."""
     raise NotImplementedError(_NOT_PORTED.format("instrumented_jit"))
-
-
-def device_put(*args, **kwargs):
-    """Not ported: raises (ROADMAP.md §1 item 13)."""
-    raise NotImplementedError(_NOT_PORTED.format("device_put"))
-
-
-def transfer_nbytes(*args, **kwargs):
-    """Not ported: raises (ROADMAP.md §1 item 13)."""
-    raise NotImplementedError(_NOT_PORTED.format("transfer_nbytes"))
 
 
 def compile_report(registry: Optional[MetricsRegistry] = None
@@ -155,6 +148,75 @@ def ensure_device_memory_gauges(registry: Optional[MetricsRegistry] = None,
             _mem_stat, d, "allocated_bytes.all.peak"), device=label)
     reg._device_mem_gauges = True
     return True
+
+
+# ---------------------------------------------------------------------------
+# host->device transfer accounting
+# ---------------------------------------------------------------------------
+
+def _leaves(x):
+    """The leaves of a nest of dicts, lists and tuples, in the order
+    ``jax.tree_util`` flattens them (dict keys sorted); ``None`` is an
+    empty nest."""
+    if x is None:
+        return
+    if isinstance(x, dict):
+        for k in sorted(x):
+            yield from _leaves(x[k])
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _leaves(v)
+    else:
+        yield x
+
+
+def transfer_nbytes(x) -> int:
+    """Total buffer bytes in a nest of tensors and numpy arrays (what a
+    device_put will move or, for already-resident tensors, re-place)."""
+    return sum(int(getattr(leaf, "nbytes", 0)) for leaf in _leaves(x))
+
+
+def _transfer_child(site: str, reg: MetricsRegistry):
+    cache = getattr(reg, "_transfer_children", None)
+    if cache is None:
+        cache = reg._transfer_children = {}
+    child = cache.get(site)
+    if child is None:
+        child = cache[site] = reg.counter(
+            "mmlspark_device_transfer_bytes_total",
+            "bytes offered to device_put by call site (host->device feed; "
+            "already-resident arrays count as placement)",
+            labels=("site",)).labels(site=site)
+    return child
+
+
+def _place(x, device, non_blocking: bool):
+    import torch
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _place(v, device, non_blocking) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_place(v, device, non_blocking) for v in x)
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x)
+    return x.to(device, non_blocking=non_blocking)
+
+
+def device_put(x, device=None, *, site: str = "unlabeled",
+               registry: Optional[MetricsRegistry] = None,
+               non_blocking: bool = False):
+    """The port's ``jax.device_put``: books
+    ``mmlspark_device_transfer_bytes_total{site}`` before the transfer,
+    then moves every leaf of the nest to ``device`` (``None``: the card)
+    with ``.to(device, non_blocking=...)``; numpy leaves become tensors.
+    The byte count is computed on the host from the input leaves, so the
+    booking adds no device sync."""
+    from .._device import resolve_device
+    dev = resolve_device(device)
+    reg = registry if registry is not None else get_registry()
+    _transfer_child(site, reg).inc(transfer_nbytes(x))
+    return _place(x, dev, non_blocking)
 
 
 # ---------------------------------------------------------------------------

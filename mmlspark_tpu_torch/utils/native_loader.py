@@ -1,6 +1,7 @@
-"""The host binning plane's ctypes bindings — the port's copy of
-``mmlspark_tpu/utils/native_loader.py::bin_edges_native`` and
-``bin_apply_native``, over ``csrc/binning.cpp`` (built by
+"""The host plane's ctypes bindings — the port's copy of
+``mmlspark_tpu/utils/native_loader.py::bin_edges_native``,
+``bin_apply_native`` and ``murmur3_batch_native``, over
+``csrc/binning.cpp`` and ``csrc/murmur.cpp`` (built by
 ``kernels._build.build_host``).
 
 Unlike the JAX package's loader, these never return None: when the caller
@@ -55,4 +56,21 @@ def bin_apply_native(X, edges, max_bin: int, n_threads: int = 0
                      ctypes.c_int(max_bin),
                      out.ctypes.data_as(ctypes.c_void_p),
                      ctypes.c_int(n_threads))
+    return out
+
+
+def murmur3_batch_native(strings, seed: int = 0) -> np.ndarray:
+    """Hash a list of str/bytes through the C++ batch loop -> ``(n,)``
+    uint32, equal to ``vw.murmur.murmur3_bytes`` of each, bit for bit."""
+    lib = _lib()
+    blobs = [s.encode("utf-8") if isinstance(s, str) else bytes(s)
+             for s in strings]
+    offsets = np.zeros(len(blobs) + 1, np.int64)
+    np.cumsum([len(b) for b in blobs], out=offsets[1:])
+    data = np.frombuffer(b"".join(blobs) or b"\0", np.uint8)
+    out = np.zeros(len(blobs), np.uint32)
+    lib.mm_murmur3_batch(data.ctypes.data_as(ctypes.c_void_p),
+                         offsets.ctypes.data_as(ctypes.c_void_p),
+                         ctypes.c_int64(len(blobs)), ctypes.c_uint32(seed),
+                         out.ctypes.data_as(ctypes.c_void_p))
     return out

@@ -75,7 +75,7 @@ def _grow_both(num_leaves, max_depth=0, max_bin=63, seed=0, quant=True,
                  jnp.asarray(mapper.edges))
     pgrow = port_core.make_leafwise_grower(
         num_leaves, max_depth, F, max_bin, GBDTParams(**params).resolve(),
-        store16=store16)
+        store16=store16, backend=backend)
     tout = pgrow(torch.from_numpy(binned), torch.from_numpy(g),
                  torch.from_numpy(h), torch.from_numpy(mask),
                  torch.from_numpy(fmask), torch.from_numpy(mapper.edges),

@@ -60,7 +60,8 @@ def _grow_both(depth, max_bin=63, seed=0, **kw):
                  jnp.asarray(mapper.edges))
     u = _jax_uniforms(g, h, seed)
     pgrow = port_core.make_tree_grower(depth, F, max_bin,
-                                       GBDTParams(**params).resolve())
+                                       GBDTParams(**params).resolve(),
+                                       backend="pallas")
     tout = pgrow(torch.from_numpy(binned), torch.from_numpy(g),
                  torch.from_numpy(h), torch.from_numpy(mask),
                  torch.from_numpy(fmask), torch.from_numpy(mapper.edges),

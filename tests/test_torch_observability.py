@@ -420,8 +420,7 @@ def test_compute_twin_keeps_the_reference_names_and_raises_the_rest(
     reg2 = port_obs.MetricsRegistry()
     assert port_compute.ensure_device_memory_gauges(reg2) is False
     assert "mmlspark_device_bytes_in_use" not in reg2.to_dict()
-    for fn in (port_compute.instrumented_jit, port_compute.device_put,
-               port_compute.transfer_nbytes, port_compute.InstrumentedJit):
+    for fn in (port_compute.instrumented_jit, port_compute.InstrumentedJit):
         with pytest.raises(NotImplementedError, match="item 13"):
             fn(lambda x: x)
     assert sorted(port_compute.__all__) == sorted(
@@ -429,6 +428,39 @@ def test_compute_twin_keeps_the_reference_names_and_raises_the_rest(
                    fromlist=["x"]).__all__)
     assert time.monotonic() > 0
 
+
+
+def test_device_put_books_transfer_bytes_by_site_in_both_packages():
+    """The twin of ``tests/test_compute_telemetry.py::test_device_put_books_
+    transfer_bytes_by_site``: the same array and nest booked by both
+    packages' ``device_put`` under one site read the same bytes, and
+    ``transfer_nbytes`` agrees over a nest of arrays and tensors."""
+    import torch
+    import mmlspark_tpu.observability.compute as jax_compute
+    x = np.ones((10, 10), np.float32)
+    got = {}
+    for name, mod, reg, kw in (
+            ("jax", jax_compute, jax_obs.MetricsRegistry(), {}),
+            ("port", port_compute, port_obs.MetricsRegistry(),
+             {"device": "cpu"})):
+        out = mod.device_put(x, site="test.site", registry=reg, **kw)
+        assert np.allclose(np.asarray(out), x)
+        fam = reg.counter("mmlspark_device_transfer_bytes_total",
+                          labels=("site",))
+        assert fam.value(site="test.site") == 400.0
+        nest = mod.device_put({"a": x, "b": x}, site="test.site",
+                              registry=reg, **kw)
+        assert sorted(nest) == ["a", "b"]
+        got[name] = fam.value(site="test.site")
+        assert mod.transfer_nbytes([x, x]) == 800
+    assert got == {"jax": 1200.0, "port": 1200.0}
+    # the port's leaves: tensors count their bytes, a tuple keeps its type
+    t = torch.ones(5, dtype=torch.int16)
+    assert port_compute.transfer_nbytes((x, [t, None], {"k": t})) == 420
+    moved = port_compute.device_put((x, [t]), "cpu", site="s",
+                                    registry=port_obs.MetricsRegistry())
+    assert isinstance(moved, tuple) and isinstance(moved[0], torch.Tensor)
+    assert torch.equal(moved[1][0], t)
 
 def test_runner_stall_watchdog_books_the_stall_and_dumps(tmp_path,
                                                           monkeypatch):

@@ -335,6 +335,43 @@ def test_streamed_loops_hold_at_most_two_tiles(growth, monkeypatch):
     assert most[0] == 2
 
 
+def test_dataset_larger_than_device_budget_trains():
+    """The twin of ``tests/test_out_of_core.py::test_dataset_larger_than_
+    device_budget_trains``: forced small tiles train, and the staged tiles'
+    bytes land on the global registry under
+    ``mmlspark_device_transfer_bytes_total{site="lightgbm.ooc_tile"}``
+    (binned tiles and what rides with them, every pass), with the prefetch
+    seam booked beside them."""
+    from mmlspark_tpu_torch.observability import get_registry
+    rng = np.random.default_rng(9)
+    n = 20_000
+    X = rng.normal(size=(n, 12)).astype(np.float32)
+    y = (X[:, 0] - 0.5 * X[:, 1] > 0).astype(np.float32)
+    def booked():
+        f = get_registry().family("mmlspark_device_transfer_bytes_total")
+        if f is None:
+            return 0.0
+        return {k[0]: c.value for k, c in f._snapshot()}.get(
+            "lightgbm.ooc_tile", 0.0)
+
+    before = booked()
+    budget = 2 * 2500 * 64
+    res = train_streamed(X, y, GBDTParams(num_iterations=8, max_depth=4,
+                                          objective="binary", seed=1),
+                         memory_budget_bytes=budget, device="cpu")
+    assert res.extras["num_tiles"] == 8.0
+    assert res.extras["tile_rows"] == 2500.0
+    assert res.extras["prefetch_overlap_pct"] > 0.0
+    acc = ((res.booster.predict(X, device="cpu") > 0.5) == (y > 0)).mean()
+    assert acc > 0.8
+    moved = booked() - before
+    assert moved > n * 12                    # binned tiles moved
+    assert moved == res.extras["h2d_bytes"]  # the stager's own count
+    for metric in ("mmlspark_prefetch_wait_seconds",
+                   "mmlspark_tile_compute_seconds"):
+        assert get_registry().family(metric) is not None, metric
+
+
 # ------------------------------------------------ tiles and the quantizer
 
 def _tile_inputs(n=1_000, F=5, B=31, seed=4):
