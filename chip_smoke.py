@@ -276,17 +276,58 @@ Phases; any failure exits nonzero and prints no result line:
    rows below the uniform logging policy's.  (f) ``model_bytes()``
    round-trips bit for bit; a saved model reloads and scores identically.
    No Hopper kernel of this repository runs in this phase.
-17. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+17. featurize — featurization, the auto-trainers, Word2Vec and tuning.
+   (a) UCI Adult's shape, seeded (32,561 rows to train, 16,281 to test; 6
+   numeric columns with 1% NaN, 8 string columns at the published
+   cardinalities; the label from a planted logistic model, so the Bayes
+   accuracy is known): ``TrainClassifier(LightGBMClassifier())`` at the
+   estimator's defaults, one-hot and with ``one_hot_encode_categoricals=
+   False`` (the index-encoded slots wired as ``categorical_features``).
+   Gates: the featurized matrix uploaded to the card = the port's CPU
+   featurization bit for bit, and its bins on the card = the host's; the
+   wired slots = ``FeaturizeModel.categorical_slots()``; the booster =
+   a plain ``LightGBMClassifier`` fitted on the card on the same frame in
+   every array; test accuracy within 0.02 of the Bayes accuracy.  (b)
+   ``Word2Vec()`` at its defaults on 100,000 of the vw phase's tweets,
+   each epoch under sync debug mode "error"; card = CPU within 1e-4 x
+   max|v| on 2,000 tweets with the same uniforms; a profile of 50 steps;
+   the document vectors through ``TrainClassifier(LightGBMClassifier(
+   num_iterations=30))`` (held-out AUC >= a floor calibrated on the CPU,
+   beside the Bayes AUC; trained on 20,000 tweets with the same uniforms
+   on the card and on the CPU, held-out AUCs within 0.02);
+   ``TuneHyperparameters(parallelism=2)`` over a grid on the learner
+   (``num_leaves`` x ``learning_rate``): ``all_metrics`` = the candidates
+   fitted alone, ``best_model``'s booster = its candidate's bit for bit,
+   ``FindBestModel`` the same pick; a timed fit at ``vector_size=300``.
+   Each ``TrainClassifier`` and the tuning fits launch both kernels.
+18. neighbours — (a) ``KNN`` (k = 5) over 100,000 clustered items x 512
+   (ResNet-18's pooled width), every item querying the index: card = CPU
+   on 2,000 queries (scores within 1e-4 relative, indices equal apart
+   from near-ties, a gap < 1e-5 x |score|), = the ball tree's exact MIPS
+   on 200; queries/s and a chunk's matmul.  (b) ``SAR`` (jaccard, support
+   4, 30-day half-life) at MovieLens-1M's shape (6,040 users x 3,706
+   items, 1,000,209 ratings): co-occurrence and similarity card = CPU bit
+   for bit, scores within 1e-5 relative, top-10 lists equal apart from
+   near-ties, ``RankingTrainValidationSplit(train_ratio=0.75)`` over
+   ``RankingAdapter(SAR, k=10)`` with ndcgAt, map, precisionAtk and
+   recallAtK card = CPU.  (c) ``IsolationForest()`` (100 trees of 256,
+   contamination 0.01) on 1,000,000 x 20 float64 rows with 1% planted
+   outliers: scores card = CPU within 1e-12 on 200,000 rows, labels
+   equal, the planted outliers' AUC >= 0.9; rows/s of the walk.  No Hopper
+   kernel of this repository runs in this phase.
+19. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
    fits, the two multiclass fits, the ranker fit, the two streamed fits,
    the fleet phase's monitored ``train()`` and ``train_streamed()`` fits
    and the backends phase's unset and ``pallas`` fits and its booked
-   streamed fit, split in ``launches_by_path``; the vw path's 0 has its
-   own key; the dnn, seq and serve phases and the fleet phase's serving
+   streamed fit, and the featurize phase's ``TrainClassifier`` and tuning
+   fits, split in ``launches_by_path``; the vw and neighbours paths' 0 have
+   their own keys; the dnn, seq and serve phases and the fleet phase's serving
    run no kernel of this repository on their paths (the serve phase's
    booster fit, the fleet phase's unmonitored fits and its one grown tree,
    and the backends phase's ``matmul``, ``scatter``, float and bare-copy
-   fits are set-up, references or checks): the JAX package runs those
+   fits, and the featurize phase's plain fits, subset fits and candidates
+   fitted alone are set-up, references or checks): the JAX package runs those
    paths in XLA, outside any Pallas kernel, and the port in cuDNN/cuBLAS
    and eager PyTorch), the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -4958,6 +4999,777 @@ def vw_phase(dev, smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: featurization, the auto-trainers, Word2Vec and tuning
+# ---------------------------------------------------------------------------
+
+ADULT_TRAIN, ADULT_TEST = 32_561, 16_281         # UCI Adult's split
+ADULT_NUMERIC = ("age", "fnlwgt", "education_num", "capital_gain",
+                 "capital_loss", "hours_per_week")
+ADULT_CATEGORICAL = {"workclass": 9, "education": 16, "marital_status": 7,
+                     "occupation": 15, "relationship": 6, "race": 5,
+                     "sex": 2, "native_country": 42}
+ADULT_NAN = 0.01                                 # per numeric column
+W2V_TWEETS = 100_000                             # of vw_tweets' generator
+W2V_SUBSET = 20_000                              # card vs CPU downstream
+W2V_SMALL = 2_000                                # card = CPU vectors
+W2V_HELD = 20_000                                # held out of W2V_TWEETS
+W2V_AUC_FLOOR = 0.60      # the port's CPU: 0.6229 (float), 0.6245 (quantized)
+W2V_PROFILE_STEPS = 50
+TUNE_GRID = {"num_leaves": [15, 31], "learning_rate": [0.05, 0.1]}
+
+
+def adult_frame(n: int, seed: int):
+    """``n`` rows of UCI Adult's shape: 6 numeric columns (1% NaN each) and
+    8 string columns at the published cardinalities, each level's
+    frequency Zipf-like; the label (``>50K`` / ``<=50K``) drawn from a
+    planted logistic model of the standardized numerics and one effect per
+    level, the model seeing a NaN as its column's mean, so ``p`` is each
+    row's true probability given what the row shows.  Returns (columns,
+    p)."""
+    rng = np.random.default_rng(seed)
+    prng = np.random.default_rng(172)           # the planted model
+    num = {"age": np.clip(rng.normal(38.6, 13.6, n), 17, 90).round(),
+           "fnlwgt": rng.lognormal(12.0, 0.5, n).round(),
+           "education_num": rng.integers(1, 17, n).astype(np.float64),
+           "capital_gain": np.where(rng.random(n) < 0.08,
+                                    rng.lognormal(8.5, 1.0, n).round(), 0.0),
+           "capital_loss": np.where(rng.random(n) < 0.05,
+                                    rng.lognormal(7.5, 0.3, n).round(), 0.0),
+           "hours_per_week": np.clip(rng.normal(40.4, 12.3, n), 1,
+                                     99).round()}
+    weights = {"age": 0.55, "fnlwgt": 0.0, "education_num": 0.8,
+               "capital_gain": 0.6, "capital_loss": 0.25,
+               "hours_per_week": 0.45}
+    logit = np.full(n, -1.6)
+    cols = {}
+    for name in ADULT_NUMERIC:
+        v = num[name].copy()
+        v[rng.random(n) < ADULT_NAN] = np.nan
+        z = np.log1p(v) if name.startswith("capital") else v
+        mu, sd = np.nanmean(z), np.nanstd(z)
+        logit += weights[name] * np.nan_to_num((z - mu) / sd, nan=0.0)
+        cols[name] = v
+    for name, card in ADULT_CATEGORICAL.items():
+        freq = np.arange(1, card + 1, dtype=np.float64) ** -1.2
+        codes = rng.choice(card, n, p=freq / freq.sum())
+        effect = prng.normal(scale=0.6, size=card)
+        logit += effect[codes]
+        levels = np.asarray([f"{name}_{i}" for i in range(card)],
+                            dtype=object)
+        cols[name] = levels[codes]
+    p = 1.0 / (1.0 + np.exp(-logit))
+    y = rng.random(n) < p
+    cols["income"] = np.asarray(np.where(y, ">50K", "<=50K"), dtype=object)
+    return cols, p
+
+
+def _split_cols(cols, n: int):
+    return ({k: v[:n] for k, v in cols.items()},
+            {k: v[n:] for k, v in cols.items()})
+
+
+def same_booster(a, b, what: str) -> None:
+    """Raise unless two boosters are equal in every array and meta field."""
+    for k in a._present_arrays():
+        if not np.array_equal(getattr(a, k), getattr(b, k)):
+            raise AssertionError(f"{what}: {k} differs")
+    if list(a.categorical_features or []) != \
+            list(b.categorical_features or []):
+        raise AssertionError(f"{what}: categorical_features differ")
+
+
+def counted(fn):
+    """``fn()`` with the kernels' counts zeroed just before and read just
+    after: (result, launches)."""
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, CH.launch_counts()
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {k: total.get(k, 0) + more[k] for k in more}
+
+
+def featurize_census(dev) -> dict:
+    """(a) ``TrainClassifier(LightGBMClassifier())`` at the estimator's
+    defaults on Adult's shape, one-hot and index-encoded (the categorical
+    slots wired)."""
+    from mmlspark_tpu_torch.core import DataFrame, stack_vector_column
+    from mmlspark_tpu_torch.featurize import Featurize
+    from mmlspark_tpu_torch.lightgbm import BinMapper, LightGBMClassifier
+    from mmlspark_tpu_torch.train import TrainClassifier
+    cols, p = adult_frame(ADULT_TRAIN + ADULT_TEST, 173)
+    tr_cols, te_cols = _split_cols(cols, ADULT_TRAIN)
+    bayes = float(np.maximum(p[ADULT_TRAIN:], 1 - p[ADULT_TRAIN:]).mean())
+    df_tr, df_te = DataFrame.from_dict(tr_cols), DataFrame.from_dict(te_cols)
+    truth = te_cols["income"]
+    rec = {"rows": [ADULT_TRAIN, ADULT_TEST], "bayes_accuracy": bayes}
+    launches = {}
+    for one_hot in (True, False):
+        label = "one_hot" if one_hot else "index"
+        tc = TrainClassifier(LightGBMClassifier()).set_params(
+            label_col="income", one_hot_encode_categoricals=one_hot)
+        t0 = time.perf_counter()
+        model, fit_launches = counted(lambda: tc.fit(df_tr))
+        fit_s = time.perf_counter() - t0
+        launches = add_counts(launches, fit_launches)
+        t0 = time.perf_counter()
+        pred = model.transform(df_te).collect()["predicted_income"]
+        score_s = time.perf_counter() - t0
+        acc = float(np.mean(pred == truth))
+        feat = model.get("featurizer")
+        inner = model.get("inner_model")
+        fc = model.get("features_col")
+        # the port's CPU featurization, and the matrix the card trains on
+        cpu_feat = Featurize().set_params(
+            input_cols=[c for c in tr_cols if c != "income"], output_col=fc,
+            one_hot_encode_categoricals=one_hot).fit(df_tr)
+        X_cpu = stack_vector_column(cpu_feat.transform(df_tr).collect()[fc])
+        X = stack_vector_column(feat.transform(df_tr).collect()[fc])
+        X_card = torch.from_numpy(X.astype(np.float32)).to(dev)
+        if not np.array_equal(X_card.cpu().numpy(),
+                              X_cpu.astype(np.float32), equal_nan=True):
+            raise AssertionError(f"featurize (a) {label}: the card's "
+                                 f"matrix differs from the CPU's")
+        if cpu_feat.get("plan") != feat.get("plan"):
+            raise AssertionError(f"featurize (a) {label}: plans differ")
+        slots = feat.categorical_slots()
+        wired = inner.get("booster").categorical_features or []
+        if list(wired) != slots or (not one_hot) != bool(slots):
+            raise AssertionError(f"featurize (a) {label}: wired slots "
+                                 f"{wired} != categorical_slots {slots}")
+        mapper = BinMapper(255, categorical_features=slots).fit(X)
+        if not torch.equal(mapper.bin_on_device(X, dev).t().cpu(),
+                           torch.from_numpy(mapper.transform(X))):
+            raise AssertionError(f"featurize (a) {label}: the card's bins "
+                                 f"differ from the host's")
+        # the wrapper adds nothing to the fit
+        work = feat.transform(model.get("label_model").transform(df_tr))
+        plain = LightGBMClassifier().set_params(
+            features_col=fc, label_col="income_idx",
+            categorical_features=slots).fit(work)
+        same_booster(inner.get("booster"), plain.get("booster"),
+                     f"featurize (a) {label}: TrainClassifier vs plain")
+        if abs(acc - bayes) > 0.02:
+            raise AssertionError(f"featurize (a) {label}: test accuracy "
+                                 f"{acc} not within 0.02 of the Bayes "
+                                 f"accuracy {bayes}")
+        rec[label] = {"width": int(X.shape[1]), "categorical_slots": slots,
+                      "fit_s": fit_s, "transform_s": score_s,
+                      "fit_rows_per_s": ADULT_TRAIN / fit_s,
+                      "accuracy": acc, "launches": fit_launches,
+                      "trees": int(inner.get("booster").num_trees)}
+        log(f"[featurize] (a) TrainClassifier(LightGBMClassifier()) "
+            f"{label}: {X.shape[1]} features ({len(slots)} categorical "
+            f"slots wired), fit {fit_s:.2f} s on the card "
+            f"({ADULT_TRAIN / fit_s:,.0f} rows/s), {fit_launches} launches;"
+            f" booster = plain LightGBMClassifier's in every array; test "
+            f"accuracy {acc:.4f} (Bayes {bayes:.4f}); transform "
+            f"{score_s:.2f} s")
+    rec["launches"] = launches
+    return rec
+
+
+def _w2v_class():
+    """The port's ``Word2Vec`` with each epoch run under sync debug mode
+    "error" (any call in it that waits for the card raises), keeping the
+    last epoch's inputs for the step profile."""
+    from mmlspark_tpu_torch.featurize import Word2Vec
+
+    class SyncCheckedWord2Vec(Word2Vec):
+        def _epoch(self, ep, W_in, W_out, centers, contexts, cum, gen, K,
+                   lr):
+            self.last_epoch = (W_in.clone(), W_out.clone(), centers,
+                               contexts, cum, K, lr)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super()._epoch(ep, W_in, W_out, centers, contexts, cum, gen,
+                               K, lr)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+    return SyncCheckedWord2Vec
+
+
+def w2v_step_profile(dev, est) -> dict:
+    """The SGD step alone over the first steps of the fit's last epoch
+    (its pairs, a draw of its negatives, its tables as the epoch began):
+    host enqueue ms a step beside device ms a step (CUDA events), and from
+    a ``torch.profiler`` window over 50 steps the device ops and busy ms a
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch.featurize.word2vec import draw_negatives, \
+        sgns_step
+    W_in, W_out, centers, contexts, cum, K, lr = est.last_epoch
+    S = min(len(centers), 400)
+    B = centers.shape[1]
+    cen = torch.from_numpy(centers[:S].astype(np.int64)).to(dev)
+    ctx = torch.from_numpy(contexts[:S].astype(np.int64)).to(dev)
+    negs = draw_negatives(cum, torch.rand((S, B, K), device=dev))
+    ones_b = torch.ones(B, device=dev)
+    ones_bk = torch.ones(B * K, device=dev)
+
+    def run(n):
+        for s in range(n):
+            sgns_step(W_in, W_out, cen[s], ctx[s], negs[s], lr, ones_b,
+                      ones_bk)
+
+    run(10)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    run(S)
+    end.record()
+    host_s = time.perf_counter() - h0
+    torch.cuda.synchronize()
+    dev_s = start.elapsed_time(end) / 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(W2V_PROFILE_STEPS)
+        torch.cuda.synchronize()
+    ops, busy_us = 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            ops += evt.count
+            busy_us += evt.self_device_time_total
+    V, D = W_in.shape
+    # a step must read the B centre, B context and B*K negative rows and
+    # write them back, and read its ids
+    step_bytes = (B * (2 + K) * D * 4) * 2 + B * (2 + K) * 8
+    return {"steps": S, "batch": B, "vocab": V, "width": D,
+            "host_enqueue_ms_per_step": host_s / S * 1e3,
+            "device_ms_per_step": dev_s / S * 1e3,
+            "steps_per_s": S / dev_s,
+            "device_ops_per_step": ops / W2V_PROFILE_STEPS,
+            "device_busy_ms_per_step": busy_us / 1e3 / W2V_PROFILE_STEPS,
+            "step_bytes": float(step_bytes),
+            "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def w2v_frame(n: int, seed: int):
+    from mmlspark_tpu_torch.core import DataFrame
+    text, y, p = vw_tweets(n, seed)
+    return DataFrame.from_dict({"text": text}), y, p
+
+
+def doc_vectors(model, df, y):
+    """The model's document vectors beside the label, as a frame."""
+    from mmlspark_tpu_torch.core import DataFrame
+    vec = model.transform(df).collect()["vec"]
+    return DataFrame.from_dict({"vec": vec, "label": y})
+
+
+def _rows(df, lo: int, hi: int):
+    from mmlspark_tpu_torch.core import DataFrame
+    return DataFrame.from_dict({k: v[lo:hi] for k, v in df.collect().items()})
+
+
+def held_auc(model, df) -> float:
+    from mmlspark_tpu_torch.train.metrics import _auc
+    out = model.transform(df).collect()
+    return _auc(np.asarray(out["label"]),
+                np.stack(out["probability"])[:, 1])
+
+
+def featurize_word2vec(dev) -> dict:
+    """(b) Word2Vec at its defaults on the synthetic tweets, then
+    ``TrainClassifier`` on the document vectors, ``TuneHyperparameters``
+    over a grid on the learner and ``FindBestModel`` over the same
+    candidates fitted alone."""
+    from mmlspark_tpu_torch.automl import (DiscreteHyperParam, FindBestModel,
+                                           GridSpace, HyperparamBuilder,
+                                           TuneHyperparameters)
+    from mmlspark_tpu_torch.automl.tune import _metric_value
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.featurize import Word2Vec
+    from mmlspark_tpu_torch.lightgbm import LightGBMClassifier
+    from mmlspark_tpu_torch.train import TrainClassifier
+    from mmlspark_tpu_torch.train.metrics import _auc
+    SyncChecked = _w2v_class()
+    rec = {}
+    launches = {}
+    df, y, p = w2v_frame(W2V_TWEETS, 171)
+    n_tr = W2V_TWEETS - W2V_HELD
+    kw = dict(input_col="text", output_col="vec")
+    est = SyncChecked(**kw)
+    t0 = time.perf_counter()
+    w2v = est.fit(df)
+    fit_s = time.perf_counter() - t0
+    st = w2v.fit_stats
+    prof = w2v_step_profile(dev, est)
+    rec["fit"] = {**st, "fit_s": fit_s, "pairs_per_s": st["pairs"] /
+                  st["train_s"], "steps_per_s": st["steps"] / st["train_s"],
+                  "sync_debug": "error", "step": prof}
+    log(f"[featurize] (b) Word2Vec() defaults on {W2V_TWEETS:,} tweets "
+        f"(vocabulary {st['vocab']:,}, {st['pairs']:,} pairs, "
+        f"{st['steps']:,} steps of {st['pairs'] // st['steps']}): host "
+        f"pairs {st['pairs_s']:.2f} s, the epoch {st['train_s']:.2f} s "
+        f"under sync debug 'error' ({st['pairs'] / st['train_s']:,.0f} "
+        f"pairs/s, {st['steps'] / st['train_s']:,.0f} steps/s); a step: "
+        f"host enqueue {prof['host_enqueue_ms_per_step']:.3f} ms beside "
+        f"device {prof['device_ms_per_step']:.3f} ms (busy "
+        f"{prof['device_busy_ms_per_step']:.3f} ms in "
+        f"{prof['device_ops_per_step']:.1f} device ops)")
+    del est
+
+    # card = CPU on the same uniforms
+    small, _, _ = w2v_frame(W2V_SMALL, 174)
+    probe = Word2Vec(device="cpu", max_iter=0, **kw).fit(small).fit_stats
+    S, B = probe["steps"], probe["pairs"] // probe["steps"]
+    us = [np.random.default_rng(175).random((S, B, 5), dtype=np.float32)]
+    card = Word2Vec(negative_uniforms=us, **kw).fit(small)
+    cpu = Word2Vec(negative_uniforms=us, device="cpu", **kw).fit(small)
+    a, b = np.asarray(card.get("vectors")), np.asarray(cpu.get("vectors"))
+    dv, vmax = float(np.abs(a - b).max()), float(np.abs(b).max())
+    if card.get("vocab") != cpu.get("vocab") or dv > 1e-4 * vmax:
+        raise AssertionError(f"featurize (b): Word2Vec card vs CPU max |dv| "
+                             f"{dv} > 1e-4 x {vmax}")
+    rec["card_vs_cpu"] = {"tweets": W2V_SMALL, "max_abs_dv": dv,
+                          "max_abs_v": vmax, "rel": dv / vmax}
+    log(f"[featurize] (b) Word2Vec card = CPU on {W2V_SMALL:,} tweets with "
+        f"the same uniforms: max |dv| {dv:.2e} = {dv / vmax:.2e} x max|v|")
+
+    # downstream: TrainClassifier on the document vectors
+    vec_df = doc_vectors(w2v, df, y)
+    tr, ho = _rows(vec_df, 0, n_tr), _rows(vec_df, n_tr, W2V_TWEETS)
+    tc = TrainClassifier(LightGBMClassifier().set_params(
+        num_iterations=30)).set_params(label_col="label")
+    t0 = time.perf_counter()
+    clf, c_launches = counted(lambda: tc.fit(tr))
+    clf_s = time.perf_counter() - t0
+    launches = add_counts(launches, c_launches)
+    auc = held_auc(clf, ho)
+    bayes = _auc(y[n_tr:], p[n_tr:])
+    if auc < W2V_AUC_FLOOR:
+        raise AssertionError(f"featurize (b): held-out AUC {auc} below the "
+                             f"floor {W2V_AUC_FLOOR}")
+
+    # card vs CPU end to end on a subset, on the same uniforms (the AUC of
+    # two fits on other draws spread 0.667-0.686 over five CPU seeds)
+    sub_df, y_sub = _rows(df, 0, W2V_SUBSET), y[:W2V_SUBSET]
+    ho_df, y_ho = _rows(df, n_tr, W2V_TWEETS), y[n_tr:]
+    probe = Word2Vec(device="cpu", max_iter=0, **kw).fit(sub_df).fit_stats
+    S, B = probe["steps"], probe["pairs"] // probe["steps"]
+    us = [np.random.default_rng(176).random((S, B, 5), dtype=np.float32)]
+    aucs = {}
+    for where in ("card", "cpu"):
+        extra = {"device": "cpu"} if where == "cpu" else {}
+        m = Word2Vec(negative_uniforms=us, **kw, **extra).fit(sub_df)
+        c = TrainClassifier(LightGBMClassifier().set_params(
+            num_iterations=30, **extra)).set_params(label_col="label") \
+            .fit(doc_vectors(m, sub_df, y_sub))
+        aucs[where] = held_auc(c, doc_vectors(m, ho_df, y_ho))
+    if abs(aucs["card"] - aucs["cpu"]) > 0.02:
+        raise AssertionError(f"featurize (b): subset AUC card "
+                             f"{aucs['card']} vs CPU {aucs['cpu']}")
+    rec["downstream"] = {"fit_s": clf_s, "launches": c_launches,
+                         "auc": auc, "auc_floor": W2V_AUC_FLOOR,
+                         "bayes_auc": bayes, "subset_auc": aucs}
+    log(f"[featurize] (b) TrainClassifier(LightGBMClassifier("
+        f"num_iterations=30)) on the vectors: fit {clf_s:.2f} s, "
+        f"{c_launches} launches; held-out AUC {auc:.4f} (floor "
+        f"{W2V_AUC_FLOOR}, Bayes {bayes:.4f}); trained on {W2V_SUBSET:,} "
+        f"tweets with the same uniforms: card {aucs['card']:.4f}, CPU "
+        f"{aucs['cpu']:.4f}")
+
+    # TuneHyperparameters on the vector column, the grid on the learner
+    feats = DataFrame.from_dict({"features": vec_df.collect()["vec"],
+                                 "label": y})
+    space = HyperparamBuilder()
+    for name, values in TUNE_GRID.items():
+        space.add_hyperparam(name, DiscreteHyperParam(values))
+    tuner = TuneHyperparameters().set_params(
+        evaluation_metric="accuracy", parallelism=2, label_col="label")
+    tuner.set("models", [LightGBMClassifier().set_params(num_iterations=30)])
+    tuner.set("param_space", GridSpace(space.build()))
+    t0 = time.perf_counter()
+    tuned, t_launches = counted(lambda: tuner.fit(feats))
+    tune_s = time.perf_counter() - t0
+    launches = add_counts(launches, t_launches)
+    # the same candidates, one at a time
+    train, valid = feats.random_split([0.8, 0.2], seed=0)
+    alone, metrics, params = [], [], []
+    for pm in GridSpace(space.build()).param_maps():
+        m = LightGBMClassifier().set_params(num_iterations=30, **pm) \
+            .fit(train)
+        alone.append(m)
+        params.append(pm)
+        metrics.append(_metric_value(m.transform(valid), "label",
+                                     "accuracy")[0])
+    if tuned.get("all_metrics") != metrics:
+        raise AssertionError(f"featurize (b): tuned metrics "
+                             f"{tuned.get('all_metrics')} != alone "
+                             f"{metrics}")
+    best = params.index(tuned.get("best_params"))
+    same_booster(tuned.get("best_model").get("booster"),
+                 alone[best].get("booster"),
+                 "featurize (b): the tuned best model vs alone")
+    fb = FindBestModel().set_params(evaluation_metric="accuracy")
+    fb.set("models", alone)
+    picked = fb.fit(valid)
+    if picked.get("all_model_metrics") != metrics or \
+            picked.get("best_model") is not alone[best]:
+        raise AssertionError("featurize (b): FindBestModel picked another "
+                             "candidate")
+    t0 = time.perf_counter()
+    wide = Word2Vec(vector_size=300, **kw).fit(df)
+    wide_s = time.perf_counter() - t0
+    rec["tune"] = {"seconds": tune_s, "launches": t_launches,
+                   "all_metrics": metrics, "best_params": params[best],
+                   "candidates": len(metrics)}
+    rec["wide"] = {"vector_size": 300, "fit_s": wide_s,
+                   **wide.fit_stats}
+    log(f"[featurize] (b) TuneHyperparameters(parallelism=2) over "
+        f"{len(metrics)} candidates in {tune_s:.2f} s, {t_launches} "
+        f"launches: all_metrics = the candidates fitted alone "
+        f"({', '.join(f'{m:.4f}' for m in metrics)}), best "
+        f"{params[best]} bit-identical to its candidate alone, "
+        f"FindBestModel the same pick; Word2Vec(vector_size=300) fit "
+        f"{wide_s:.2f} s (epoch {wide.fit_stats['train_s']:.2f} s)")
+    rec["launches"] = launches
+    return rec
+
+
+def featurize_phase(dev, smi: str):
+    t0 = time.perf_counter()
+    rec = {"card": smi, "census": featurize_census(dev)}
+    rec["census"]["seconds"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    rec["word2vec"] = featurize_word2vec(dev)
+    rec["word2vec"]["seconds"] = time.perf_counter() - t1
+    launches = add_counts(rec["census"]["launches"],
+                          rec["word2vec"]["launches"])
+    for name, n in launches.items():
+        if not n:
+            raise AssertionError(f"featurize: {name} never launched")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    DETAIL["featurize"] = rec
+    log(f"[featurize] launches of the repository's Hopper kernels on the "
+        f"path: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: KNN, SAR and the isolation forest
+# ---------------------------------------------------------------------------
+
+KNN_ITEMS, KNN_DIM, KNN_K = 100_000, 512, 5      # ResNet-18's pooled width
+KNN_CLUSTERS = 100
+KNN_CPU_QUERIES, KNN_TREE_QUERIES = 2_000, 200
+ML_USERS, ML_ITEMS, ML_RATINGS = 6_040, 3_706, 1_000_209   # MovieLens-1M
+ML_YEARS = 3
+SAR_K = 10
+IF_ROWS, IF_FEAT, IF_OUTLIERS = 1_000_000, 20, 0.01
+IF_CPU_ROWS = 200_000
+
+
+def knn_items(n: int, d: int, seed: int) -> np.ndarray:
+    """Clustered non-negative float32 rows, as pooled ReLU features are:
+    |center + noise| around ``KNN_CLUSTERS`` centers."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(KNN_CLUSTERS, d)).astype(np.float32)
+    X = centers[rng.integers(0, KNN_CLUSTERS, n)] + 0.5 * rng.normal(
+        size=(n, d)).astype(np.float32)
+    return np.abs(X).astype(np.float32)
+
+
+def same_but_near_ties(idx_a, sc_a, idx_b, sc_b, rtol: float = 1e-4,
+                       tie: float = 1e-5) -> int:
+    """Two top-k lists of one query, each sorted by score: the scores agree
+    position by position within ``rtol``, and where the indices differ the
+    two scores at that place are a near-tie (a gap < ``tie`` x |score|):
+    tied items in another order or, at the k-th place, another tied item.
+    Raises otherwise; returns the positions that differ (the reported
+    near-ties)."""
+    sc_a, sc_b = np.asarray(sc_a, np.float64), np.asarray(sc_b, np.float64)
+    np.testing.assert_allclose(sc_a, sc_b, rtol=rtol, atol=0)
+    moved = np.nonzero(np.asarray(idx_a) != np.asarray(idx_b))[0]
+    for i in moved:
+        if abs(sc_a[i] - sc_b[i]) > tie * abs(sc_b[i]):
+            raise AssertionError(f"lists differ at {i} without a near-tie: "
+                                 f"{idx_a} {idx_b} {sc_a} {sc_b}")
+    return len(moved)
+
+
+def neighbours_knn(dev) -> dict:
+    """(a) KNN over 100,000 items x 512, every item querying the index."""
+    from mmlspark_tpu_torch.core import DataFrame, vector_column
+    from mmlspark_tpu_torch.nn import KNN
+    from mmlspark_tpu_torch.nn.knn import _device_topk
+    X = knn_items(KNN_ITEMS, KNN_DIM, 176)
+    df = DataFrame.from_dict({"features": vector_column(list(X)),
+                              "values": np.arange(KNN_ITEMS)})
+    t0 = time.perf_counter()
+    model = KNN().set_params(output_col="m", k=KNN_K).fit(df)
+    build_s = time.perf_counter() - t0
+    tree = model.get("ball_tree")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = model.transform(df).collect()["m"]
+    query_s = time.perf_counter() - t0
+    idx_card = np.asarray([[r["value"] for r in row] for row in card])
+    sc_card = np.asarray([[r["distance"] for r in row] for row in card])
+    # the matmul of one 1,024-query chunk, and one chunk's whole top-k
+    Xd = torch.from_numpy(X).to(dev)
+    Q = Xd[:1024]
+    from mmlspark_tpu_torch._device import float32_exact
+    with float32_exact():
+        mm_ms = time_ms(lambda: Q @ Xd.T, 20)
+    topk_ms = time_ms(lambda: _device_topk(Xd, X[:1024], KNN_K), 5)
+    # card vs the port's CPU on 2,000 queries
+    qdf = DataFrame.from_dict({"features": vector_column(
+        list(X[:KNN_CPU_QUERIES]))})
+    cpu = model.copy().set_params(device="cpu").transform(qdf) \
+        .collect()["m"]
+    moved = 0
+    for i, row in enumerate(cpu):
+        moved += same_but_near_ties(
+            idx_card[i], sc_card[i], np.asarray([r["value"] for r in row]),
+            np.asarray([r["distance"] for r in row]))
+    # the ball tree's exact MIPS on 200 queries (a query walks nearly every
+    # leaf at 512 dimensions: ~0.27 s of host Python each; eight spawned
+    # workers, each sent the tree, took longer than this loop on the card's
+    # host)
+    tree_moved = 0
+    t0 = time.perf_counter()
+    for i in range(KNN_TREE_QUERIES):
+        exact = tree.find_maximum_inner_products(X[i], KNN_K)
+        tree_moved += same_but_near_ties(
+            idx_card[i], sc_card[i], np.asarray([j for j, _ in exact]),
+            np.asarray([s for _, s in exact]))
+    tree_s = time.perf_counter() - t0
+    flops = 2.0 * 1024 * KNN_DIM * KNN_ITEMS
+    rec = {"items": KNN_ITEMS, "dim": KNN_DIM, "k": KNN_K,
+           "tree_build_s": build_s, "query_s": query_s,
+           "queries_per_s": KNN_ITEMS / query_s,
+           "matmul_ms_per_1024": mm_ms, "topk_ms_per_1024": topk_ms,
+           "matmul_tflops": flops / (mm_ms / 1e3) / 1e12,
+           "near_ties_cpu": moved, "near_ties_tree": tree_moved,
+           "tree_query_s": tree_s}
+    log(f"[neighbours] (a) KNN over {KNN_ITEMS:,} x {KNN_DIM}, k = {KNN_K}:"
+        f" ball tree built once on the host in {build_s:.1f} s; every item "
+        f"queried in {query_s:.2f} s ({KNN_ITEMS / query_s:,.0f} "
+        f"queries/s); a 1,024-query chunk: matmul {mm_ms:.3f} ms "
+        f"({rec['matmul_tflops']:.1f} TFLOP/s float32), with top-k and "
+        f"sort {topk_ms:.3f} ms; card = CPU on {KNN_CPU_QUERIES:,} queries "
+        f"({moved} near-tie positions), = the ball tree's exact MIPS on "
+        f"{KNN_TREE_QUERIES} ({tree_moved} near-tie positions; the tree's "
+        f"queries {tree_s:.1f} s)")
+    return rec
+
+
+def movielens_frame(seed: int):
+    """MovieLens-1M's shape: 6,040 users with at least 20 ratings each
+    (a long tail above), 1,000,209 ratings of 1-5 over 3,706 items drawn
+    without replacement by Zipf popularity, timestamps uniform over three
+    years."""
+    from mmlspark_tpu_torch.core import DataFrame
+    rng = np.random.default_rng(seed)
+    extra = rng.pareto(1.2, ML_USERS)
+    counts = 20 + np.floor(extra / extra.sum() * (ML_RATINGS - 20 * ML_USERS))
+    counts = np.minimum(counts, ML_ITEMS).astype(np.int64)
+    while counts.sum() < ML_RATINGS:
+        room = np.nonzero(counts < ML_ITEMS)[0]
+        short = min(ML_RATINGS - int(counts.sum()), len(room))
+        counts[rng.choice(room, short, replace=False)] += 1
+    logp = -0.9 * np.log(np.arange(1, ML_ITEMS + 1, dtype=np.float64))
+    users = np.repeat(np.arange(ML_USERS), counts)
+    items = np.empty(ML_RATINGS, np.int64)
+    off = 0
+    for u, c in enumerate(counts):
+        g = logp + rng.gumbel(size=ML_ITEMS)
+        items[off:off + c] = np.argpartition(-g, c - 1)[:c]
+        off += c
+    ratings = rng.choice(5, ML_RATINGS, p=[0.056, 0.108, 0.261, 0.349,
+                                           0.226]) + 1.0
+    t = 9.6e8 + rng.uniform(0, ML_YEARS * 365 * 86400, ML_RATINGS)
+    uid = np.asarray([f"u{i}" for i in range(ML_USERS)], dtype=object)
+    iid = np.asarray([f"i{i}" for i in range(ML_ITEMS)], dtype=object)
+    return DataFrame.from_dict({"user": uid[users], "item": iid[items],
+                                "rating": ratings, "t": t})
+
+
+class _AllRankingMetrics:
+    """An evaluator for ``RankingTrainValidationSplit`` that keeps all four
+    ranking metrics of the frame it is handed, and each user's list."""
+
+    def __init__(self, k: int):
+        self.k, self.values, self.lists = k, {}, None
+
+    def evaluate(self, df) -> float:
+        from mmlspark_tpu_torch.recommendation import RankingEvaluator
+        for name in ("ndcgAt", "map", "precisionAtk", "recallAtK"):
+            self.values[name] = RankingEvaluator().set_params(
+                k=self.k, metric_name=name).evaluate(df)
+        data = df.collect()
+        self.lists = dict(zip(data["user"], data["prediction"]))
+        return self.values["ndcgAt"]
+
+
+def neighbours_sar(dev) -> dict:
+    """(b) SAR at MovieLens-1M's shape."""
+    from mmlspark_tpu_torch.recommendation import (RankingAdapter,
+                                                   RankingTrainValidationSplit,
+                                                   SAR)
+    from mmlspark_tpu_torch.recommendation.sar import _matmul
+    df = movielens_frame(177)
+    kw = dict(similarity_function="jaccard", support_threshold=4,
+              time_col="t", time_decay_coeff=30.0)
+    t0 = time.perf_counter()
+    card = SAR().set_params(**kw).fit(df)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = SAR().set_params(device="cpu", **kw).fit(df)
+    cpu_fit_s = time.perf_counter() - t0
+    seen = card.get("seen")
+    cooc_card = _matmul(seen, None, dev)
+    if not np.array_equal(cooc_card, _matmul(seen, None, "cpu")):
+        raise AssertionError("neighbours (b): co-occurrence card != CPU")
+    for name in ("similarity", "affinity", "seen"):
+        if not np.array_equal(card.get(name), cpu.get(name)):
+            raise AssertionError(f"neighbours (b): {name} card != CPU")
+    t0 = time.perf_counter()
+    s_card = card._scores()
+    score_s = time.perf_counter() - t0
+    s_cpu = cpu._scores()
+    np.testing.assert_allclose(s_card, s_cpu, rtol=1e-5,
+                               atol=1e-7 * float(np.abs(s_cpu).max()))
+    t0 = time.perf_counter()
+    rc = card.recommend_for_all_users(SAR_K).collect()
+    rec_s = time.perf_counter() - t0
+    rh = cpu.recommend_for_all_users(SAR_K).collect()
+    item_ix = {v: i for i, v in enumerate(card.get("item_ids"))}
+    moved = 0
+    for u, (a, b) in enumerate(zip(rc["recommendations"],
+                                   rh["recommendations"])):
+        ia = np.asarray([item_ix[x] for x in a], np.int64)
+        ib = np.asarray([item_ix[x] for x in b], np.int64)
+        moved += same_but_near_ties(ia, s_card[u, ia], ib, s_card[u, ib])
+    # the ranking split over the adapter, card and CPU
+    split = {}
+    for where, extra in (("card", {}), ("cpu", {"device": "cpu"})):
+        ev = _AllRankingMetrics(SAR_K)
+        rtvs = RankingTrainValidationSplit().set_params(train_ratio=0.75)
+        rtvs.set("estimator", RankingAdapter(SAR().set_params(**kw, **extra),
+                                             k=SAR_K))
+        rtvs.set("evaluator", ev)
+        t0 = time.perf_counter()
+        fitted = rtvs.fit(df)
+        split[where] = (ev, fitted.get("fitted"), time.perf_counter() - t0)
+    ev_c, sar_c, split_s = split["card"]
+    ev_h = split["cpu"][0]
+    differ = [u for u in ev_c.lists
+              if list(ev_c.lists[u]) != list(ev_h.lists[u])]
+    if differ:
+        sc = sar_c._scores()
+        u_ix = {v: i for i, v in enumerate(sar_c.get("user_ids"))}
+        i_ix = {v: i for i, v in enumerate(sar_c.get("item_ids"))}
+        for u in differ:
+            ia = np.asarray([i_ix[x] for x in ev_c.lists[u]], np.int64)
+            ib = np.asarray([i_ix[x] for x in ev_h.lists[u]], np.int64)
+            same_but_near_ties(ia, sc[u_ix[u], ia], ib, sc[u_ix[u], ib])
+    bound = len(differ) / max(len(ev_c.lists), 1)
+    for name, v in ev_c.values.items():
+        if abs(v - ev_h.values[name]) > bound:
+            raise AssertionError(f"neighbours (b): {name} card {v} vs CPU "
+                                 f"{ev_h.values[name]}")
+    rec = {"users": ML_USERS, "items": ML_ITEMS, "ratings": ML_RATINGS,
+           "fit_s": fit_s, "cpu_fit_s": cpu_fit_s, "score_s": score_s,
+           "recommend_s": rec_s, "near_ties_top10": moved,
+           "split_s": split_s, "metrics_card": ev_c.values,
+           "metrics_cpu": ev_h.values, "split_users_differing": len(differ)}
+    log(f"[neighbours] (b) SAR (jaccard, support 4, 30-day half-life) at "
+        f"MovieLens-1M's shape ({ML_USERS:,} x {ML_ITEMS:,}, "
+        f"{ML_RATINGS:,} ratings): fit {fit_s:.2f} s (CPU {cpu_fit_s:.2f} "
+        f"s), co-occurrence and similarity card = CPU bit for bit; score "
+        f"{score_s:.3f} s, recommend top-{SAR_K} for every user "
+        f"{rec_s:.2f} s ({moved} near-tie positions); split at 0.75: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in ev_c.values.items())
+        + f" (card = CPU, {len(differ)} users' lists differ at near-ties)")
+    return rec
+
+
+def neighbours_iforest(dev) -> dict:
+    """(c) ``IsolationForest`` at its defaults (contamination 0.01) on
+    1,000,000 x 20 float64 rows with 1% planted outliers."""
+    from mmlspark_tpu_torch.core import DataFrame, vector_column
+    from mmlspark_tpu_torch.isolationforest import IsolationForest
+    from mmlspark_tpu_torch.train.metrics import _auc
+    rng = np.random.default_rng(178)
+    X = rng.normal(size=(IF_ROWS, IF_FEAT))
+    planted = rng.random(IF_ROWS) < IF_OUTLIERS
+    X[planted] = rng.normal(size=(int(planted.sum()), IF_FEAT)) * 3.0 + \
+        rng.choice([-4.0, 4.0], size=(int(planted.sum()), IF_FEAT))
+    df = DataFrame.from_dict({"features": vector_column(list(X))})
+    t0 = time.perf_counter()
+    model = IsolationForest().set_params(contamination=0.01).fit(df)
+    fit_s = time.perf_counter() - t0
+    forest = model.get("forest")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forest.mean_path_length(X, dev)
+    walk_s = time.perf_counter() - t0
+    out = model.transform(df).collect()
+    scores, labels = out["outlier_score"], out["predicted_label"]
+    sub = DataFrame.from_dict({"features": vector_column(
+        list(X[:IF_CPU_ROWS]))})
+    t0 = time.perf_counter()
+    cpu = model.copy().set_params(device="cpu").transform(sub).collect()
+    cpu_s = time.perf_counter() - t0
+    d = float(np.abs(cpu["outlier_score"] - scores[:IF_CPU_ROWS]).max())
+    if d > 1e-12 or not np.array_equal(cpu["predicted_label"],
+                                       labels[:IF_CPU_ROWS]):
+        raise AssertionError(f"neighbours (c): forest card vs CPU max "
+                             f"|ds| {d}, or labels differ")
+    auc = _auc(planted.astype(np.float64), scores)
+    if auc < 0.9:
+        raise AssertionError(f"neighbours (c): planted outliers' AUC {auc}")
+    rec = {"rows": IF_ROWS, "features": IF_FEAT, "fit_s": fit_s,
+           "walk_s": walk_s, "walk_rows_per_s": IF_ROWS / walk_s,
+           "cpu_walk_rows_per_s": IF_CPU_ROWS / cpu_s,
+           "max_abs_ds": d, "threshold": model.get("threshold"),
+           "flagged": float(labels.mean()), "auc": auc}
+    log(f"[neighbours] (c) IsolationForest() (100 trees of 256, "
+        f"contamination 0.01) on {IF_ROWS:,} x {IF_FEAT} float64: fit "
+        f"{fit_s:.2f} s (the threshold's walk included); the walk "
+        f"{walk_s:.2f} s ({IF_ROWS / walk_s:,.0f} rows/s; the CPU "
+        f"{IF_CPU_ROWS / cpu_s:,.0f}); card = CPU within {d:.1e} on "
+        f"{IF_CPU_ROWS:,} rows, labels equal; {100 * labels.mean():.2f}% "
+        f"flagged; planted outliers' AUC {auc:.4f}")
+    return rec
+
+
+def neighbours_phase(dev, smi: str):
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    CH.reset_launch_counts()
+    rec = {"card": smi}
+    for name, part in (("knn", neighbours_knn), ("sar", neighbours_sar),
+                       ("iforest", neighbours_iforest)):
+        t1 = time.perf_counter()
+        rec[name] = part(dev)
+        rec[name]["seconds"] = time.perf_counter() - t1
+    launches = CH.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"neighbours: Hopper kernels launched "
+                             f"{launches}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    DETAIL["neighbours"] = rec
+    log(f"[neighbours] launches of the repository's Hopper kernels: "
+        f"{launches} (KNN, SAR and the forest run no TPU kernel)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5069,6 +5881,16 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[vw] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    featurize_launches = featurize_phase(dev, smi)
+    torch.cuda.synchronize()
+    log(f"[featurize] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    neighbours_launches = neighbours_phase(dev, smi)
+    torch.cuda.synchronize()
+    log(f"[neighbours] phase done in {time.perf_counter() - t0:.1f} s")
+
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
              "cat_level": cat_launches["level"],
@@ -5078,7 +5900,8 @@ def main() -> int:
              "streamed_level": stream_launches["level"],
              "streamed_leaf": stream_launches["leaf"],
              **fleet_launches, "backends": backend_launches,
-             "vw": vw_launches}
+             "vw": vw_launches, "featurize": featurize_launches,
+             "neighbours": neighbours_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in paths.values()),

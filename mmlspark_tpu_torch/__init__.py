@@ -8,7 +8,9 @@ jax-free modules (``core/``, ``io/``, ``utils/``, ``observability/metrics``)
 it keeps as its own copy.
 
 Ported so far (the GBDT main path, deep-learning scoring, the sequence
-models, serving, the serving fleet and VowpalWabbit):
+models, serving, the serving fleet, VowpalWabbit, featurization and
+Word2Vec, the auto-trainers and tuning, the isolation forest, KNN and
+SAR):
 
 - ``core``      — DataFrame, Params, Pipeline, persistence (copies)
 - ``ops``       — histogram builds and their dispatcher (``cuda``,
@@ -29,10 +31,12 @@ models, serving, the serving fleet and VowpalWabbit):
 - ``io``        — HTTP requests and responses as columns behind a
   breaker- and deadline-aware client (``http``), out-of-core tiles
   (``chunked``) and atomic booster snapshots (``checkpoint``), copies
-- ``stages``    — the minibatch transformers and their batchers (copies)
+- ``stages``    — the minibatch transformers and their batchers, and the
+  plumbing transformers (``transforms``), copies
 - ``utils``     — ``resilience`` (deadlines, preemption scopes),
-  ``concurrency``, ``pickling``, ``stopwatch`` (copies) and the native
-  loader (binning and VW's batch murmur hash)
+  ``concurrency``, ``stopwatch`` (copies), ``pickling`` (its unpickler
+  finds a JAX-pickled class's twin here) and the native loader (binning
+  and VW's batch murmur hash)
 - ``observability`` — the registry, spans, the span collector, SLOs,
   cost attribution, the flight recorder, the fleet plane
   (``federation``, ``autoscale``) and the live training monitor
@@ -49,8 +53,17 @@ models, serving, the serving fleet and VowpalWabbit):
 - ``vw``        — VowpalWabbit: the murmur featurizer and interactions
   (host), the SGD/AdaGrad classifier and regressor, ``--bfgs`` and the
   contextual bandit on the card
-- ``train``     — ``ComputeModelStatistics`` and
+- ``train``     — ``TrainClassifier``/``TrainRegressor`` (``Featurize`` in
+  front of any learner), ``ComputeModelStatistics`` and
   ``ComputePerInstanceStatistics`` (copies)
+- ``featurize`` — ``Featurize`` and the column and text stages (host
+  copies); ``Word2Vec``, trained on the card
+- ``automl``    — ``TuneHyperparameters`` (candidates fitted on threads
+  that share the card) and ``FindBestModel`` (copies)
+- ``isolationforest`` — trees grown on the host, walked on the card
+- ``nn``        — ball trees (host) and the KNN matmul query on the card
+- ``recommendation`` — SAR's co-occurrence and scoring matmuls on the card;
+  the indexer and the ranking stages (host)
 - ``convert``   — state carried across from the JAX package (GBDT params,
   boosters, bin edges; flax ResNet variables -> ``state_dict``)
 

@@ -15,6 +15,15 @@ and numpy arrays), so this module imports nothing of ``mmlspark_tpu``.
   ``state_dict`` of ``models.transformer.TransformerEncoder`` /
   ``models.bilstm.BiLSTMTagger`` (``lstm_weights_from_flax`` maps one
   ``OptimizedLSTMCell``).
+
+The featurization, Word2Vec, tuning, isolation-forest, KNN and SAR models
+need nothing here: a directory the JAX package saved loads through
+``core.serialize.load`` as the port's twin.  Their state is params
+(``FeaturizeModel``'s plan, Word2Vec's vocabulary and vectors, SAR's
+affinity, similarity and seen arrays, as JSON or ``.npy``), nested stages
+(``TrainClassifier``'s, ``TuneHyperparametersModel``'s, ``BestModel``'s
+inner models) or pickled payloads (the ``_Forest`` and the ball trees),
+which ``utils.pickling`` unpickles as the port's classes.
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ Every complex payload kind gets a tagged directory so load() can dispatch
 without pickle-by-default; arbitrary objects fall back to pickle (stdlib).
 The JAX package writes the same layout: a class it names
 (``mmlspark_tpu.<path>``) loads here as the twin at the same path under
-``mmlspark_tpu_torch``.
+``mmlspark_tpu_torch``, in ``metadata.json`` and inside pickled payloads
+alike (``utils.pickling.load`` finds each pickled class's twin).
 
 .. warning:: **Security.** ``load()`` imports the class named in
    ``metadata.json`` and, for closure-typed params (UDFs, Lambda stages),
@@ -24,7 +25,8 @@ The JAX package writes the same layout: a class it names
    untrusted sources, pass ``safe=True`` (or set env
    ``MMLSPARK_TPU_SAFE_LOAD=1``): class imports are then restricted to
    registered trusted prefixes (``mmlspark_tpu_torch.`` plus
-   ``register_loadable_prefix(...)``) and pickle payloads refuse to load.
+   ``register_loadable_prefix(...)``) and pickle payloads refuse to load,
+   ``Saveable`` payloads that pickle themselves too.
 """
 from __future__ import annotations
 
@@ -69,16 +71,13 @@ def _default_safe() -> bool:
     return os.environ.get("MMLSPARK_TPU_SAFE_LOAD", "0") not in ("0", "", "false")
 
 
-#: the JAX package's module prefix: a class path saved by it names the twin
-#: of that class in this package (same relative path, same name), so an
-#: artifact the JAX package saved loads as this package's object — and
-#: this package never imports the JAX package
-_REFERENCE_PREFIX = "mmlspark_tpu."
-
-
 def _import_qual(qual: str, safe: bool = False):
-    if qual.startswith(_REFERENCE_PREFIX):
-        qual = "mmlspark_tpu_torch." + qual[len(_REFERENCE_PREFIX):]
+    # a class path the JAX package saved names the twin of that class in
+    # this package (same relative path, same name), so an artifact the JAX
+    # package saved loads as this package's object, and this package never
+    # imports the JAX package; pickled payloads cross the same way
+    # (``utils.pickling``)
+    qual = pickle.port_module(qual)
     if safe and not any(qual.startswith(p) for p in _TRUSTED_PREFIXES):
         raise PermissionError(
             f"safe load: class {qual!r} is outside the trusted prefixes "
@@ -190,6 +189,11 @@ def load_stage(path: str, safe: bool = None) -> Params:
     and refuses pickle payloads — see the module security warning."""
     if safe is None:
         safe = _default_safe()
+    with pickle.refusing(safe):
+        return _load_stage(path, safe)
+
+
+def _load_stage(path: str, safe: bool) -> Params:
     with open(os.path.join(path, "metadata.json")) as f:
         meta = json.load(f)
     cls = _import_qual(meta["class"], safe=safe)

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -388,7 +389,7 @@ def hist_accumulate(binned: torch.Tensor, qg: torch.Tensor, qh: torch.Tensor,
         _MODE_CODE[layout.mode], layout.cbits, layout.hbits,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hist_accumulate", lib)
-    hist_accumulate.launches += 1
+    _count(hist_accumulate)
     return acc
 
 
@@ -544,7 +545,7 @@ def frontier_finish(acc: torch.Tensor, mode: str, cbits: int, hbits: int,
     if err != 0:
         _finish_state.pop((dev.index, stream), None)
     _raise_on(err, "frontier_finish", lib)
-    frontier_finish.launches += 1
+    _count(frontier_finish)
     if record:
         return hist, _record(out)
     return (hist, None) if out is None else None
@@ -552,6 +553,14 @@ def frontier_finish(acc: torch.Tensor, mode: str, cbits: int, hbits: int,
 
 hist_accumulate.launches = 0
 frontier_finish.launches = 0
+#: fits on several threads (``TuneHyperparameters(parallelism=...)``)
+#: launch on one card: each count is a read-modify-write under this lock
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(kernel) -> None:
+    with _COUNT_LOCK:
+        kernel.launches += 1
 
 
 def launch_counts() -> dict:
@@ -561,8 +570,9 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    hist_accumulate.launches = 0
-    frontier_finish.launches = 0
+    with _COUNT_LOCK:
+        hist_accumulate.launches = 0
+        frontier_finish.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,19 @@
-"""Row-batching stages of the port: own copies of the JAX package's
-``stages/batchers.py`` and ``stages/minibatch.py`` (the minibatch
-transformers ``io/http.py`` batches requests with).  The rest of the
-reference's ``stages`` package (``transforms``) is not ported."""
+"""Plumbing stages of the port: own copies of the JAX package's
+``stages/batchers.py``, ``stages/minibatch.py`` (the minibatch transformers
+``io/http.py`` batches requests with) and ``stages/transforms.py``."""
 from .minibatch import (FixedMiniBatchTransformer, DynamicMiniBatchTransformer,
                         TimeIntervalMiniBatchTransformer, FlattenBatch)
+from .transforms import (Lambda, UDFTransformer, Timer, Cacher, DropColumns,
+                         SelectColumns, RenameColumn, Repartition,
+                         PartitionConsolidator, Explode, EnsembleByKey,
+                         ClassBalancer, ClassBalancerModel,
+                         StratifiedRepartition, TextPreprocessor,
+                         UnicodeNormalize, SummarizeData)
 
 __all__ = ["FixedMiniBatchTransformer", "DynamicMiniBatchTransformer",
-           "TimeIntervalMiniBatchTransformer", "FlattenBatch"]
+           "TimeIntervalMiniBatchTransformer", "FlattenBatch", "Lambda",
+           "UDFTransformer", "Timer", "Cacher", "DropColumns", "SelectColumns",
+           "RenameColumn", "Repartition", "PartitionConsolidator", "Explode",
+           "EnsembleByKey", "ClassBalancer", "ClassBalancerModel",
+           "StratifiedRepartition", "TextPreprocessor", "UnicodeNormalize",
+           "SummarizeData"]

@@ -13,7 +13,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "mmlspark_tpu_torch")
 
-_BLOCKED_IMPORT = r"""
+#: the prelude of a child script: ``jax``, ``jaxlib`` and the JAX package
+#: unimportable (tests that load JAX-saved artifacts in the port reuse it)
+BLOCKER = r"""
 import importlib, pkgutil, sys
 
 BLOCKED = ("jax", "jaxlib", "mmlspark_tpu")
@@ -31,6 +33,9 @@ class Block:
         return None
 
 sys.meta_path.insert(0, Block())
+"""
+
+_BLOCKED_IMPORT = BLOCKER + r"""
 import mmlspark_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mmlspark_tpu_torch.__path__,
                                                 "mmlspark_tpu_torch.")]
@@ -39,6 +44,16 @@ for name in names:
 assert not [m for m in sys.modules if blocked(m)]
 print(len(names))
 """
+
+
+def run_blocked(code: str, timeout: float = 120):
+    """Run ``code`` in a child Python after ``BLOCKER``; raises with the
+    child's stderr unless it exits 0.  Returns its stdout."""
+    proc = subprocess.run([sys.executable, "-c", BLOCKER + code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc.stdout
 
 
 def test_package_imports_with_jax_and_the_jax_package_blocked():
