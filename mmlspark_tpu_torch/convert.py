@@ -14,7 +14,10 @@ and numpy arrays), so this module imports nothing of ``mmlspark_tpu``.
   — a flax ``TransformerEncoder``'s / ``BiLSTMTagger``'s variables -> the
   ``state_dict`` of ``models.transformer.TransformerEncoder`` /
   ``models.bilstm.BiLSTMTagger`` (``lstm_weights_from_flax`` maps one
-  ``OptimizedLSTMCell``).
+  ``OptimizedLSTMCell``);
+- ``streaming_encoder_state_dict_from_flax`` — the streaming speech
+  recognizer's flax encoder variables -> the ``state_dict`` of
+  ``cognitive.speech.StreamingEncoder``.
 
 The featurization, Word2Vec, tuning, isolation-forest, KNN and SAR models
 need nothing here: a directory the JAX package saved loads through
@@ -22,8 +25,9 @@ need nothing here: a directory the JAX package saved loads through
 (``FeaturizeModel``'s plan, Word2Vec's vocabulary and vectors, SAR's
 affinity, similarity and seen arrays, as JSON or ``.npy``), nested stages
 (``TrainClassifier``'s, ``TuneHyperparametersModel``'s, ``BestModel``'s
-inner models) or pickled payloads (the ``_Forest`` and the ball trees),
-which ``utils.pickling`` unpickles as the port's classes.
+and an explainer's inner models) or pickled payloads (the ``_Forest``, the
+ball trees and ``AccessAnomalyModel``'s per-tenant factors), which
+``utils.pickling`` unpickles as the port's classes.
 """
 from __future__ import annotations
 
@@ -281,6 +285,35 @@ def bilstm_state_dict_from_flax(variables: Mapping,
             for k, v in lstm_weights_from_flax(
                     sub["OptimizedLSTMCell_0"]).items():
                 out[f"lstm.{k}{sfx}"] = v
+        else:
+            raise KeyError(f"params/{scope}")
+    return _check_fits(out, model)
+
+
+def streaming_encoder_state_dict_from_flax(
+        variables: Mapping, model: Optional[torch.nn.Module] = None
+) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``cognitive.speech.StreamingEncoder`` holding
+    the JAX package's streaming encoder's weights
+    (``mmlspark_tpu/cognitive/speech.py::streaming_encoder``).
+
+    ``lstm_{i}`` (a scanned ``OptimizedLSTMCell``) -> ``lstm.*_l{i}`` by
+    ``lstm_weights_from_flax``; ``head`` -> ``head.weight`` (the kernel
+    transposed) and ``head.bias``.  A scope that names nothing of the port
+    raises ``KeyError``; ``model`` given, a missing or misshapen name raises
+    ``ValueError``."""
+    params = _nested(variables)
+    if set(params) != {"params"}:
+        raise KeyError(f"not a params tree: {sorted(params)}")
+    out: Dict[str, torch.Tensor] = {}
+    for scope, sub in params["params"].items():
+        m = re.match(r"^lstm_(\d+)$", scope)
+        if scope == "head":
+            out["head.weight"] = _tensor(np.asarray(sub["kernel"]).T)
+            out["head.bias"] = _tensor(sub["bias"])
+        elif m:
+            for k, v in lstm_weights_from_flax(sub).items():
+                out[f"lstm.{k}_l{m.group(1)}"] = v
         else:
             raise KeyError(f"params/{scope}")
     return _check_fits(out, model)

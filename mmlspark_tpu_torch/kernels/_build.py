@@ -5,11 +5,12 @@
   interface (``load_library``).  Each C entry point launches on the stream
   it is given and returns ``cudaGetLastError()``; the wrappers in
   ``ops.cuda_histogram`` raise when it is not 0.
-- ``csrc/binning.cpp``, the host binning data plane, and
-  ``csrc/murmur.cpp``, the VW featurizer's batch hash, are compiled by the
-  system ``g++`` into one host library with the JAX package's own
-  Makefile flags (``native/Makefile``), so its float arithmetic is the
-  reference's (``load_host_library``).
+- ``csrc/binning.cpp``, the host binning data plane, ``csrc/murmur.cpp``,
+  the VW featurizer's batch hash, and ``csrc/csv.cpp``, the CSV parser and
+  the chunked float32 appender, are compiled by the system ``g++`` into
+  one host library with the JAX package's own Makefile flags
+  (``native/Makefile``), so its float arithmetic is the reference's
+  (``load_host_library``).
 
 Each build runs at first use, into ``mmlspark_tpu_torch/_build/<hash>/``
 (listed in ``.gitignore``), where the hash covers the sources and the
@@ -42,7 +43,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: contraction, and the edges' double arithmetic rounds as the reference's
 GXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]
 HOST_SOURCES = [os.path.join(CSRC, "binning.cpp"),
-                os.path.join(CSRC, "murmur.cpp")]
+                os.path.join(CSRC, "murmur.cpp"),
+                os.path.join(CSRC, "csv.cpp")]
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -55,10 +57,19 @@ _SIGNATURES = {
                                _P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
+_I64 = ctypes.c_int64
+#: name -> (argument types, result type)
 _HOST_SIGNATURES = {
-    "mm_bin_edges": [_P, ctypes.c_int64, ctypes.c_int64, _I, _P, _I],
-    "mm_bin_apply": [_P, ctypes.c_int64, ctypes.c_int64, _P, _I, _P, _I],
-    "mm_murmur3_batch": [_P, _P, ctypes.c_int64, ctypes.c_uint32, _P],
+    "mm_bin_edges": ([_P, _I64, _I64, _I, _P, _I], None),
+    "mm_bin_apply": ([_P, _I64, _I64, _P, _I, _P, _I], None),
+    "mm_murmur3_batch": ([_P, _P, _I64, ctypes.c_uint32, _P], None),
+    "mm_csv_shape": ([_P, _I64, _P, _P], None),
+    "mm_csv_parse_f32": ([_P, _I64, _I64, _P, _I64, _I], _I64),
+    "mm_chunked_new": ([_I64], _P),
+    "mm_chunked_add": ([_P, _P, _I64], None),
+    "mm_chunked_size": ([_P], _I64),
+    "mm_chunked_coalesce": ([_P, _P], None),
+    "mm_chunked_free": ([_P], None),
 }
 
 _lock = threading.Lock()
@@ -86,7 +97,7 @@ def _gxx() -> str:
     if not cxx:
         raise RuntimeError("g++ not found: set CXX or put g++ on PATH to "
                            "build the port's host plane (csrc/binning.cpp, "
-                           "csrc/murmur.cpp)")
+                           "csrc/murmur.cpp, csrc/csv.cpp)")
     return cxx
 
 
@@ -157,15 +168,15 @@ def load_library() -> ctypes.CDLL:
 
 
 def load_host_library() -> ctypes.CDLL:
-    """The host library (binning, batch murmur), built at first use and
-    loaded once."""
+    """The host library (binning, batch murmur, CSV, chunked arrays), built
+    at first use and loaded once."""
     global _host_lib
     with _lock:
         if _host_lib is None:
             lib = ctypes.CDLL(build_host())
-            for name, argtypes in _HOST_SIGNATURES.items():
+            for name, (argtypes, restype) in _HOST_SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = None
+                fn.restype = restype
             _host_lib = lib
         return _host_lib

@@ -1,13 +1,15 @@
 """The host plane's ctypes bindings — the port's copy of
 ``mmlspark_tpu/utils/native_loader.py::bin_edges_native``,
-``bin_apply_native`` and ``murmur3_batch_native``, over
-``csrc/binning.cpp`` and ``csrc/murmur.cpp`` (built by
-``kernels._build.build_host``).
+``bin_apply_native``, ``murmur3_batch_native``, ``csv_to_matrix_native``
+and ``ChunkedArray``, over ``csrc/binning.cpp``, ``csrc/murmur.cpp`` and
+``csrc/csv.cpp`` (built by ``kernels._build.build_host``).
 
 Unlike the JAX package's loader, these never return None: when the caller
 has chosen the C++ route, a missing ``g++`` or a failed build raises with
 the compiler's message.  Falling back to numpy would give edges that can
-differ from the reference's by one ulp (``csrc/binning.cpp``'s note).
+differ from the reference's by one ulp (``csrc/binning.cpp``'s note); a
+CSV too large for its counted shape raises too, where the reference's
+parser returns None.
 """
 from __future__ import annotations
 
@@ -74,3 +76,59 @@ def murmur3_batch_native(strings, seed: int = 0) -> np.ndarray:
                          ctypes.c_int64(len(blobs)), ctypes.c_uint32(seed),
                          out.ctypes.data_as(ctypes.c_void_p))
     return out
+
+
+def csv_to_matrix_native(text: bytes, skip_header: bool = True
+                         ) -> np.ndarray:
+    """CSV bytes -> ``(n, F)`` float32 matrix via the C++ parser (NaN for an
+    empty or unparsable cell; no quoting)."""
+    lib = _lib()
+    text = bytes(text)
+    nrows, ncols = ctypes.c_int64(), ctypes.c_int64()
+    lib.mm_csv_shape(text, len(text), ctypes.byref(nrows),
+                     ctypes.byref(ncols))
+    cap = nrows.value
+    out = np.empty((max(cap, 1), ncols.value), np.float32)
+    got = lib.mm_csv_parse_f32(text, len(text), ncols.value,
+                               out.ctypes.data_as(ctypes.c_void_p), cap,
+                               1 if skip_header else 0)
+    if got < 0:
+        raise ValueError(f"CSV holds more rows than the {cap} counted")
+    return out[:got]
+
+
+class ChunkedArray:
+    """Growable native float32 buffer (reference SWIG ChunkedArray analogue,
+    ``swig/SwigUtils.scala:23-100``), over ``csrc/csv.cpp``'s
+    ``mm_chunked_*``."""
+
+    def __init__(self, initial_cap: int = 1 << 16):
+        self._lib = _lib()
+        self._handle = ctypes.c_void_p(self._lib.mm_chunked_new(initial_cap))
+
+    def add(self, values) -> None:
+        arr = np.ascontiguousarray(values, np.float32)
+        self._lib.mm_chunked_add(self._handle,
+                                 arr.ctypes.data_as(ctypes.c_void_p),
+                                 arr.size)
+
+    @property
+    def size(self) -> int:
+        return int(self._lib.mm_chunked_size(self._handle))
+
+    def coalesce(self) -> np.ndarray:
+        out = np.empty(self.size, np.float32)
+        self._lib.mm_chunked_coalesce(self._handle,
+                                      out.ctypes.data_as(ctypes.c_void_p))
+        return out
+
+    def close(self) -> None:
+        if self._handle is not None:
+            self._lib.mm_chunked_free(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass

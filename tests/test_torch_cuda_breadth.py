@@ -1,9 +1,11 @@
-"""Word2Vec, KNN, SAR and the isolation forest's walk on the card against
-the port on the CPU.  Marked ``cuda``: without a CUDA device every test
-skips (the CPU tier-1 run holds the same modules against the JAX package
-in ``test_torch_word2vec.py``, ``test_torch_knn.py``,
-``test_torch_recommendation.py`` and ``test_torch_iforest.py``).  On the
-card:
+"""Word2Vec, KNN, SAR, the isolation forest's walk, the explainers'
+lasso, AccessAnomaly's ALS and the streaming speech encoder on the card
+against the port on the CPU.  Marked ``cuda``: without a CUDA device every
+test skips (the CPU tier-1 run holds the same modules against the JAX
+package in ``test_torch_word2vec.py``, ``test_torch_knn.py``,
+``test_torch_recommendation.py``, ``test_torch_iforest.py``,
+``test_torch_explainers.py``, ``test_torch_cyber.py`` and
+``test_torch_speech.py``).  On the card:
 
     python -m pytest tests/test_torch_cuda_breadth.py -q -m cuda --noconftest
 
@@ -12,8 +14,12 @@ max|v| (``index_add_`` on the card adds in atomic order); KNN scores
 within 1e-5 relative with equal indices apart from near-ties (two scores
 within 1e-5 relative); SAR co-occurrence and similarity bit for bit,
 scores within 1e-5 relative; the forest's scores within 1e-12 and equal
-labels.  A Word2Vec epoch runs under ``torch.cuda.set_sync_debug_mode
-("error")``: nothing in it waits for the card.
+labels; the ISTA lasso within 1e-5 x max|coef| (its loop under sync debug
+mode "error": nothing in the 200 steps waits for the card); the ALS
+factors and scores within 1e-4 x max (``index_add_`` in atomic order);
+the streaming encoder's logits within 1e-4 and its text equal.  A
+Word2Vec epoch runs under ``torch.cuda.set_sync_debug_mode("error")``:
+nothing in it waits for the card.
 """
 import numpy as np
 import pytest
@@ -131,3 +137,82 @@ def test_forest_walk_card_equals_cpu(dev):
                                rtol=0, atol=1e-12)
     np.testing.assert_array_equal(oc["predicted_label"],
                                   oh["predicted_label"])
+
+
+def test_lasso_card_equals_cpu_and_never_syncs_inside_the_loop(dev):
+    from mmlspark_tpu_torch.explainers import regression
+    rng = np.random.default_rng(3)
+    X = rng.integers(0, 2, (512, 40)).astype(np.float64)
+    y = X @ (rng.normal(size=40) * (rng.random(40) < 0.3)) + 0.1
+    w = rng.uniform(0.1, 1.0, 512)
+    cpu, cpu_b = regression.lasso_regression(X, y, w, device="cpu")
+    card, card_b = regression.lasso_regression(X, y, w, device=dev)
+    scale = np.abs(cpu).max()
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5 * scale)
+    assert abs(card_b - cpu_b) <= 1e-5 * max(scale, abs(cpu_b))
+    A = torch.eye(40, device=dev) * 2.0
+    b = torch.ones(40, device=dev)
+    L = torch.trace(A)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        beta = regression._ista(A, b, L, 0.01, 200)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.isfinite(beta).all()
+
+
+def test_access_anomaly_card_equals_cpu(dev):
+    from mmlspark_tpu_torch.cyber import AccessAnomaly, anomaly
+    rng = np.random.default_rng(4)
+    n = 40_000
+    u = rng.integers(0, 3_000, n)
+    r = (u % 3) * 1_000 + rng.integers(0, 1_000, n)
+    df = DataFrame.from_dict({
+        "tenant": np.full(n, "t", dtype=object),
+        "user": np.asarray([f"u{i}" for i in u], dtype=object),
+        "res": np.asarray([f"r{i}" for i in r], dtype=object)})
+    old = anomaly._CHUNK_NNZ
+    anomaly._CHUNK_NNZ = 7_000
+    try:
+        for kw in ({}, {"implicit_cf": False}):
+            card = AccessAnomaly().set_params(**kw).fit(df)
+            cpu = AccessAnomaly().set_params(device="cpu", **kw).fit(df)
+            for key in ("U", "V"):
+                a = card.get("factors")["t"][key]
+                b = cpu.get("factors")["t"][key]
+                np.testing.assert_allclose(a, b, rtol=0,
+                                           atol=1e-4 * np.abs(b).max())
+            sa = card.transform(df).collect()["anomaly_score"]
+            sb = cpu.transform(df).collect()["anomaly_score"]
+            np.testing.assert_allclose(sa, sb, rtol=0,
+                                       atol=1e-4 * np.abs(sb).max())
+    finally:
+        anomaly._CHUNK_NNZ = old
+
+
+def test_speech_encoder_card_equals_cpu(dev):
+    from mmlspark_tpu_torch.cognitive import StreamingRecognizer
+    from mmlspark_tpu_torch.io.audio import PullAudioStream, log_mel
+    rng = np.random.default_rng(5)
+    t = np.arange(64_000) / 16_000
+    audio = (0.3 * np.sin(2 * np.pi * (200 + 800 * t) * t)
+             + 0.02 * rng.normal(size=len(t))).astype(np.float32)
+    card = StreamingRecognizer(seed=7)
+    cpu = StreamingRecognizer(device="cpu")
+    cpu.variables = card.variables
+    feats = torch.from_numpy(log_mel(audio)[None])
+    with torch.inference_mode():
+        lc = card.module(card.init_carry(1), feats.to(dev))[1].cpu()
+        lh = cpu.module(cpu.init_carry(1), feats)[1]
+    np.testing.assert_allclose(lc.numpy(), lh.numpy(), rtol=0, atol=1e-4)
+    texts = []
+    for rec in (card, cpu):
+        state = rec.new_state()
+        for chunk in PullAudioStream(audio, 16_000).chunks(
+                rec.chunk_samples):
+            rec.process_chunk(state, chunk)
+        texts.append(rec.finish(state)["text"])
+    top2 = torch.topk(lh[0], 2).values
+    if (top2[:, 0] - top2[:, 1]).min() > 1e-5:      # no near-tie frame
+        assert texts[0] == texts[1]

@@ -1,8 +1,9 @@
 """VowpalWabbit in the port (``mmlspark_tpu_torch.vw``, ``train.metrics``)
 against the JAX package on the same seeded inputs, on the CPU.
 
-Twins of ``tests/test_vw.py``'s tests (each runs both packages; the two
-that need ``io/`` wait for it), then the learners held to the JAX
+Twins of ``tests/test_vw.py``'s tests (each runs both packages; the
+native data plane and the CSV reader on the port's host library
+``csrc/csv.cpp``), then the learners held to the JAX
 package's weights (rtol 1e-5, atol 1e-6) in every variant: l1, l2, the
 non-adaptive rate with ``initial_t``, ``-q``, hinge and quantile losses,
 partitions of different widths with l2 (the padding semantics), the
@@ -80,6 +81,69 @@ def test_murmur3_batch_native_equals_the_scalar_hash():
     arr = np.asarray(words * 2, dtype=object)
     np.testing.assert_array_equal(tvw.StringHashCache(7).hash_array(arr),
                                   jvw.StringHashCache(7).hash_array(arr))
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_native_data_plane(pkg):
+    """The C++ data plane: batch murmur = the scalar hash, the CSV parser
+    (NaN for an empty or unparsable cell) and the chunked array.  The
+    port's binds ``csrc/murmur.cpp`` and ``csrc/csv.cpp`` (raising if they
+    cannot build); the JAX package's builds ``native/`` and skips without
+    a toolchain."""
+    if pkg == "jax":
+        from mmlspark_tpu.utils import native_loader as nl
+        if nl.load_native() is None:
+            pytest.skip("no C++ toolchain available")
+    else:
+        from mmlspark_tpu_torch.utils import native_loader as nl
+    strings = ["hello", "world", "", "The quick brown fox", "a" * 100]
+    got = nl.murmur3_batch_native(strings, seed=7)
+    assert got.tolist() == [jvw.murmur3_bytes(w.encode(), 7)
+                            for w in strings]
+    csv_text = b"a,b,c\n1,2.5,3\n4,,6\n7,8,bad\n"
+    mat = nl.csv_to_matrix_native(csv_text)
+    assert mat.dtype == np.float32 and mat.shape == (3, 3)
+    assert mat[0, 1] == 2.5 and np.isnan(mat[1, 1]) and np.isnan(mat[2, 2])
+    ca = nl.ChunkedArray(initial_cap=4)
+    ca.add([1.0, 2.0, 3.0])
+    ca.add(np.arange(100, dtype=np.float32))
+    assert ca.size == 103
+    out = ca.coalesce()
+    assert out[2] == 3.0 and out[-1] == 99.0
+    ca.close()
+
+
+def test_native_csv_parser_equals_jax():
+    from mmlspark_tpu.utils import native_loader as jnl
+    from mmlspark_tpu_torch.utils import native_loader as tnl
+    if jnl.load_native() is None:
+        pytest.skip("no C++ toolchain available")
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(500, 7)) * 10.0 ** rng.integers(-3, 4, (500, 7))
+    lines = [",".join("" if rng.random() < 0.02 else repr(v) for v in row)
+             for row in X]
+    text = ("h0,h1,h2,h3,h4,h5,h6\r\n" + "\r\n".join(lines)).encode()
+    for header in (True, False):
+        np.testing.assert_array_equal(
+            tnl.csv_to_matrix_native(text, skip_header=header),
+            jnl.csv_to_matrix_native(text, skip_header=header))
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_csv_reader(pkg, tmp_path):
+    read_csv = (__import__("mmlspark_tpu.io.csv", fromlist=["read_csv"])
+                if pkg == "jax" else __import__(
+                    "mmlspark_tpu_torch.io.csv", fromlist=["read_csv"])
+                ).read_csv
+    p = tmp_path / "data.csv"
+    p.write_text("x,y,name\n1,2.5,alpha\n3,4.5,beta\n")
+    got = read_csv(str(p)).collect()
+    assert got["x"].tolist() == [1.0, 3.0]
+    assert got["name"][1] == "beta"
+    p2 = tmp_path / "num.csv"
+    p2.write_text("a,b\n1,2\n3,4\n")
+    df2 = read_csv(str(p2), numeric_only=True)
+    assert df2.collect()["b"].tolist() == [2.0, 4.0]
 
 
 def _feature_frame(core):
