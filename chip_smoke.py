@@ -354,20 +354,33 @@ Phases; any failure exits nonzero and prints no result line:
    127.0.0.1 sends the requests recorded from the JAX package
    (``tests/resources/cognitive_requests.json``), and a 500 fills the
    error column.
-20. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+20. harness — the test harness, codegen and the small utilities (budget
+   60 s): (a) ``ClusterUtil.get_topology()`` reports the visible cards and
+   platform ``gpu``, and ``default_parallelism`` follows them; (b) every
+   ``testing.seeds.seed_objects()`` entry left on the default device (the
+   card) passes ``ExperimentFuzzing`` and ``SerializationFuzzing``
+   (reloaded = fitted within atol 1e-5), each of the three LightGBM seeds'
+   fits launching both kernels; (c) ``train(callbacks=[
+   LightGBMDelegate().as_callback()])`` at 200,000 x 200 calls the
+   delegate once per iteration and grows the plain fit's booster bit for
+   bit; (d) ``python -m mmlspark_tpu_torch codegen`` in a child process
+   writes a manifest of the in-process registry's 144 stages.
+21. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
    fits, the two multiclass fits, the ranker fit, the two streamed fits,
    the fleet phase's monitored ``train()`` and ``train_streamed()`` fits
    and the backends phase's unset and ``pallas`` fits and its booked
    streamed fit, the featurize phase's ``TrainClassifier`` and tuning
-   fits, and the explain phase's LightGBM fit, split in
+   fits, the explain phase's LightGBM fit, and the harness phase's seed
+   sweep and delegated fit, split in
    ``launches_by_path``; the vw and neighbours paths' 0 have
    their own keys; the dnn, seq and serve phases and the fleet phase's serving
    run no kernel of this repository on their paths (the serve phase's
    booster fit, the fleet phase's unmonitored fits and its one grown tree,
    and the backends phase's ``matmul``, ``scatter``, float and bare-copy
-   fits, and the featurize phase's plain fits, subset fits and candidates
-   fitted alone are set-up, references or checks): the JAX package runs those
+   fits, the featurize phase's plain fits, subset fits and candidates
+   fitted alone, and the harness phase's plain fit are set-up, references
+   or checks): the JAX package runs those
    paths in XLA, outside any Pallas kernel, and the port in cuDNN/cuBLAS
    and eager PyTorch), the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -6652,6 +6665,122 @@ def explain_phase(dev, smi: str):
     return launches
 
 
+def harness_seeds(dev) -> dict:
+    """(b) Every ``seed_objects()`` entry on the default device (the card):
+    ``ExperimentFuzzing`` and ``SerializationFuzzing`` (reloaded = fitted
+    within the reference's atol 1e-5); the sweep's launches are the path's,
+    and each LightGBM seed's own must reach both kernels."""
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    from mmlspark_tpu_torch.testing import (ExperimentFuzzing,
+                                            SerializationFuzzing)
+    from mmlspark_tpu_torch.testing.seeds import seed_objects
+    objs = seed_objects()
+    if len(objs) != 17:
+        raise AssertionError(f"harness (b): {len(objs)} seeds, not 17")
+    per, total = {}, {}
+    for name, obj in objs.items():
+        if "device" in obj.stage._params and obj.stage.is_set("device"):
+            raise AssertionError(f"harness (b): {name} is not on the card")
+        t1 = time.perf_counter()
+
+        def sweep():
+            _, out = ExperimentFuzzing.run(obj)
+            if out.count() <= 0:
+                raise AssertionError(f"harness (b): {name} gave no rows")
+            SerializationFuzzing.run(obj)
+        _, counts = counted(sweep)
+        if name.startswith("LightGBM") and min(counts.values()) <= 0:
+            raise AssertionError(f"harness (b): {name}'s fits launched "
+                                 f"{counts}")
+        per[name] = {"seconds": time.perf_counter() - t1, **counts}
+        total = add_counts(total, counts)
+    log(f"[harness] (b) {len(objs)} seeds on the card: experiment and "
+        f"save/load fuzzing pass; launches {total} (the three LightGBM "
+        f"seeds; " + ", ".join(f"{k} {v['seconds']:.2f} s"
+                               for k, v in per.items()) + ")")
+    return {"seeds": per, "launches": total}
+
+
+def harness_delegate(dev) -> dict:
+    """(c) ``LightGBMDelegate`` on ``train()`` on the card: called once per
+    iteration, and the booster = the undelegated fit's, bit for bit."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    from mmlspark_tpu_torch.lightgbm.delegate import LightGBMDelegate
+    X, y = bench_data(200_000, 31)
+    params = GBDTParams(num_iterations=8, num_leaves=31, objective="binary")
+    seen = []
+
+    class Recorder(LightGBMDelegate):
+        def after_training_iteration(self, iteration, eval_result=None):
+            seen.append(iteration)
+
+    plain = train(X, y, params).booster
+    hooked, counts = counted(lambda: train(
+        X, y, params, callbacks=[Recorder().as_callback()]).booster)
+    if seen != list(range(8)):
+        raise AssertionError(f"harness (c): the delegate saw {seen}")
+    same_booster(plain, hooked, "harness (c) delegated vs plain")
+    log(f"[harness] (c) delegate on train() at 200,000 x {N_FEAT}: called "
+        f"once per iteration (8), booster = the plain fit's bit for bit; "
+        f"launches {counts}")
+    return {"launches": counts, "iterations": len(seen)}
+
+
+def harness_codegen() -> dict:
+    """(d) ``python -m mmlspark_tpu_torch codegen <tmp>`` in a child: its
+    manifest lists the in-process registry's 144 stages."""
+    import tempfile
+    from mmlspark_tpu_torch.codegen import all_stage_classes
+    want = sorted(f"{c.__module__}.{c.__qualname__}"
+                  for c in all_stage_classes())
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mmlspark_tpu_torch", "codegen", d],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": ROOT})
+        if proc.returncode != 0:
+            raise AssertionError("harness (d): codegen failed: "
+                                 + proc.stderr[-2000:])
+        seconds = time.perf_counter() - t1
+        with open(os.path.join(d, "params_manifest.json")) as f:
+            got = sorted(json.load(f))
+    if got != want or len(want) != 144:
+        raise AssertionError(f"harness (d): the child's manifest lists "
+                             f"{len(got)} stages, the registry {len(want)}")
+    log(f"[harness] (d) codegen in a child process in {seconds:.1f} s: "
+        f"{len(got)} stages = the in-process registry")
+    return {"stages": len(got), "seconds": seconds}
+
+
+def harness_phase(dev, smi: str):
+    """The test harness, codegen and the small utilities on the card."""
+    from mmlspark_tpu_torch.utils import ClusterUtil
+    t0 = time.perf_counter()
+    topo = ClusterUtil.get_topology()
+    count = torch.cuda.device_count()
+    if (topo.num_devices, topo.platform) != (count, "gpu") or \
+            ClusterUtil.default_parallelism(64) != min(64, count):
+        raise AssertionError(f"harness (a): topology {topo} on {count} "
+                             f"card(s)")
+    log(f"[harness] (a) ClusterUtil: {topo.num_devices} device(s), "
+        f"platform {topo.platform}, default_parallelism(64) = "
+        f"{ClusterUtil.default_parallelism(64)}")
+    rec = {"card": smi, "topology": dataclasses.asdict(topo)}
+    rec["seeds"] = harness_seeds(dev)
+    rec["delegate"] = harness_delegate(dev)
+    rec["codegen"] = harness_codegen()
+    launches = add_counts(rec["seeds"]["launches"],
+                          rec["delegate"]["launches"])
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    DETAIL["harness"] = rec
+    log(f"[harness] launches of the repository's Hopper kernels on the "
+        f"path: {launches} (the LightGBM seeds' fits and the delegated fit; "
+        f"the plain fit is the reference)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6778,6 +6907,11 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[explain] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    harness_launches = harness_phase(dev, smi)
+    torch.cuda.synchronize()
+    log(f"[harness] phase done in {time.perf_counter() - t0:.1f} s")
+
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
              "cat_level": cat_launches["level"],
@@ -6788,7 +6922,8 @@ def main() -> int:
              "streamed_leaf": stream_launches["leaf"],
              **fleet_launches, "backends": backend_launches,
              "vw": vw_launches, "featurize": featurize_launches,
-             "neighbours": neighbours_launches, "explain": explain_launches}
+             "neighbours": neighbours_launches, "explain": explain_launches,
+             "harness": harness_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in paths.values()),

@@ -9,8 +9,9 @@ it keeps as its own copy.
 
 Ported so far (the GBDT main path, deep-learning scoring, the sequence
 models, serving, the serving fleet, VowpalWabbit, featurization and
-Word2Vec, the auto-trainers and tuning, the isolation forest, KNN and
-SAR):
+Word2Vec, the auto-trainers and tuning, the isolation forest, KNN,
+SAR, the explainers, the cognitive services, the test harness and
+codegen):
 
 - ``core``      — DataFrame, Params, Pipeline, persistence (copies)
 - ``ops``       — histogram builds and their dispatcher (``cuda``,
@@ -34,9 +35,15 @@ SAR):
 - ``stages``    — the minibatch transformers and their batchers, and the
   plumbing transformers (``transforms``), copies
 - ``utils``     — ``resilience`` (deadlines, preemption scopes),
-  ``concurrency``, ``stopwatch`` (copies), ``pickling`` (its unpickler
+  ``concurrency``, ``stopwatch``, ``streams``, ``fault`` (copies),
+  ``cluster`` (the visible CUDA cards), ``pickling`` (its unpickler
   finds a JAX-pickled class's twin here) and the native loader (binning
   and VW's batch murmur hash)
+- ``testing``   — the fuzzing harness, benchmark gates, test modifiers and
+  chaos injectors (copies) and the seeded stages (``seeds``)
+- ``codegen``   — the stage registry, stubs, docs, params manifest, R
+  package and generated per-stage tests (``python -m mmlspark_tpu_torch
+  codegen``)
 - ``observability`` — the registry, spans, the span collector, SLOs,
   cost attribution, the flight recorder, the fleet plane
   (``federation``, ``autoscale``) and the live training monitor

@@ -11,9 +11,9 @@ it is that the checkpoint is GENUINELY TRAINED end to end and that its
 frozen features transfer: the eval protocol probes them on the REAL UCI
 digits scans (sklearn's bundled load_digits) against a raw-pixel baseline.
 
-The port's own copy (numpy only) of ``mmlspark_tpu/dl/procedural_shapes.py``;
-its ``digits_as_images`` (sklearn's digits) stays with the JAX package and
-its tests.
+The port's own copy (numpy only) of ``mmlspark_tpu/dl/procedural_shapes.py``,
+verbatim; ``digits_as_images`` imports scikit-learn (its bundled digits)
+only when called.
 
 Classes: 0 circle, 1 ring, 2 square, 3 triangle, 4 cross, 5 horizontal
 stripes, 6 vertical stripes, 7 checkerboard, 8 dot grid, 9 two-bar glyph.
@@ -100,3 +100,33 @@ def make_shapes(n: int, seed: int = 0, batch: int = 4096):
         b = min(a + batch, n)
         X[a:b] = _sample_batch(rng, labels[a:b])
     return X, labels
+
+
+def digits_as_images(jitter: bool = True, seed: int = 11):
+    """REAL transfer-eval data: sklearn's bundled UCI digits scans (8x8),
+    rendered onto a 32x32 canvas and replicated to 3 channels.
+
+    With ``jitter`` (the committed eval protocol) each digit is placed at a
+    random position and scale (2x or 3x nearest upsample, uniform offset) —
+    the standard translation-robustness probe: a raw-pixel linear model is
+    tied to pixel alignment, while a conv backbone's pooled features are
+    not, so the frozen-feature-vs-raw-pixel gap measures exactly what
+    transfer is supposed to buy.  ``jitter=False`` gives centered 4x digits."""
+    from sklearn.datasets import load_digits
+    d = load_digits()
+    digits = (d.data.reshape(-1, 8, 8) / 16.0).astype(np.float32)
+    n = len(digits)
+    if not jitter:
+        X = np.kron(digits, np.ones((1, 4, 4), np.float32))
+        X = np.repeat(X[..., None], 3, axis=-1)
+        return X, d.target.astype(np.int32)
+    rng = np.random.default_rng(seed)
+    X = np.zeros((n, HW, HW), np.float32)
+    for i in range(n):
+        s = int(rng.integers(2, 4))                  # upsample 2x or 3x
+        g = np.kron(digits[i], np.ones((s, s), np.float32))
+        oy = int(rng.integers(0, HW - 8 * s + 1))
+        ox = int(rng.integers(0, HW - 8 * s + 1))
+        X[i, oy:oy + 8 * s, ox:ox + 8 * s] = g
+    X = np.repeat(X[..., None], 3, axis=-1)
+    return X, d.target.astype(np.int32)

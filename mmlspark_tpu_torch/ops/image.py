@@ -7,19 +7,28 @@ tensor ops on ``(N, H, W, C)`` batches, the JAX package's column layout,
 on whatever device the batch lies on.  Decode (png/jpg bytes -> array)
 stays on the host.
 
-``resize`` matches ``jax.image.resize``: its ``"linear"`` method
-antialiases when it shrinks (a triangle kernel widened by the scale), so a
-shrinking dimension goes through ``F.interpolate(..., antialias=True)``,
-which computes the same filter; growing, both are plain bilinear with
-half-pixel centres.  ``"nearest"`` is ``"nearest-exact"`` (half-pixel
-centres, as JAX samples).
+``resize`` matches ``jax.image.resize`` for every method it accepts.  Its
+``"linear"`` method antialiases when it shrinks (a triangle kernel widened
+by the scale), so a shrinking dimension goes through
+``F.interpolate(..., antialias=True)``, which computes the same filter;
+growing, both are plain bilinear with half-pixel centres.  ``"nearest"`` is
+``"nearest-exact"`` (half-pixel centres, as JAX samples).  ``"cubic"`` (the
+Keys kernel with a = -0.5; torch's bicubic has a = -0.75) and
+``"lanczos3"`` / ``"lanczos5"`` have no ``F.interpolate`` mode: they build
+the separable weight matrices of ``jax.image.scale_and_translate`` (the
+kernel widened by the scale when shrinking, half-pixel centres, each
+output pixel's weights normalised to sum to one) and apply them as two
+small products on the batch's device.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from .._device import float32_exact
 
 _GRAY = (0.299, 0.587, 0.114)
 
@@ -32,17 +41,75 @@ def resize(images: torch.Tensor, height: int, width: int,
     if (h, w) == (height, width):
         return x.clone() if x is images else x
     nchw = x.permute(0, 3, 1, 2)
-    if method in ("linear", "bilinear"):
+    if method in ("linear", "bilinear", "trilinear", "triangle"):
         out = F.interpolate(nchw, size=(height, width), mode="bilinear",
                             align_corners=False,
                             antialias=height < h or width < w)
     elif method == "nearest":
         out = F.interpolate(nchw, size=(height, width), mode="nearest-exact")
     else:
-        raise NotImplementedError(
-            f"resize method {method!r}: the port has 'linear' and "
-            "'nearest' (jax.image.resize's other kernels have no torch twin)")
+        kernel = _KERNELS.get(method)
+        if kernel is None:
+            raise ValueError(f'Unknown resize method "{method}"')
+        return _scale_resize(x, height, width, kernel)
     return out.permute(0, 2, 3, 1)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    out = ((1.5 * x - 2.5) * x) * x + 1.
+    out = torch.where(x >= 1., ((-0.5 * x + 2.5) * x - 4.) * x + 2., out)
+    return torch.where(x >= 2., torch.zeros_like(x), out)
+
+
+def _lanczos(radius: float) -> Callable[[torch.Tensor], torch.Tensor]:
+    def kernel(x: torch.Tensor) -> torch.Tensor:
+        y = radius * torch.sin(math.pi * x) * torch.sin(math.pi * x / radius)
+        safe = torch.where(x != 0, math.pi ** 2 * x ** 2,
+                           torch.ones_like(x))
+        out = torch.where(x > 1e-3, y / safe, torch.ones_like(x))
+        return torch.where(x > radius, torch.zeros_like(x), out)
+    return kernel
+
+
+#: the weighted methods by ``jax.image.ResizeMethod.from_string``'s names
+_KERNELS = {"cubic": _keys_cubic, "bicubic": _keys_cubic,
+            "tricubic": _keys_cubic, "lanczos3": _lanczos(3.),
+            "lanczos5": _lanczos(5.)}
+
+
+def _weights(in_size: int, out_size: int, kernel, device) -> torch.Tensor:
+    """``(in_size, out_size)`` float32 weights of
+    ``jax.image.scale_and_translate``'s ``compute_weight_mat`` at scale
+    out/in, translation 0 and antialiasing on."""
+    f32 = torch.float32
+    inv_scale = torch.tensor(in_size / out_size, dtype=f32, device=device)
+    kernel_scale = torch.clamp(inv_scale, min=1.)
+    sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) \
+        * inv_scale - 0.5
+    x = torch.abs(sample_f[None, :] - torch.arange(
+        in_size, dtype=f32, device=device)[:, None]) / kernel_scale
+    w = kernel(x)
+    total = torch.sum(w, dim=0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000. * float(torch.finfo(f32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _scale_resize(x: torch.Tensor, height: int, width: int, kernel
+                  ) -> torch.Tensor:
+    """Separable resize of a float32 NHWC batch: one product per dimension
+    whose size changes (float32 throughout, TF32 off on the card)."""
+    _, h, w, _ = x.shape
+    with float32_exact(x.is_cuda):
+        if h != height:
+            x = torch.einsum("nhwc,hH->nHwc", x,
+                             _weights(h, height, kernel, x.device))
+        if w != width:
+            x = torch.einsum("nhwc,wW->nhWc", x,
+                             _weights(w, width, kernel, x.device))
+    return x.contiguous()
 
 
 def center_crop(images: torch.Tensor, height: int, width: int

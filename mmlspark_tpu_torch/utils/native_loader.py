@@ -18,7 +18,10 @@ import ctypes
 import numpy as np
 
 
-def _lib():
+def load_native() -> ctypes.CDLL:
+    """The host plane's library, built at first use (the reference's
+    ``load_native``).  Never None: a missing ``g++`` or a failed build
+    raises."""
     from ..kernels._build import load_host_library
     return load_host_library()
 
@@ -30,7 +33,7 @@ def bin_edges_native(X, max_bin: int, n_threads: int = 0) -> np.ndarray:
     n, F = X.shape
     if not 2 <= max_bin <= 256:
         raise ValueError(f"max_bin must be in [2, 256], got {max_bin}")
-    lib = _lib()
+    lib = load_native()
     edges = np.empty((F, max_bin - 1), np.float32)
     lib.mm_bin_edges(X.ctypes.data_as(ctypes.c_void_p),
                      ctypes.c_int64(n), ctypes.c_int64(F),
@@ -50,7 +53,7 @@ def bin_apply_native(X, edges, max_bin: int, n_threads: int = 0
     if edges.shape != (F, max_bin - 1):
         raise ValueError(f"edges must be ({F}, {max_bin - 1}), got "
                          f"{edges.shape}")
-    lib = _lib()
+    lib = load_native()
     out = np.empty((n, F), np.uint8)
     lib.mm_bin_apply(X.ctypes.data_as(ctypes.c_void_p),
                      ctypes.c_int64(n), ctypes.c_int64(F),
@@ -64,7 +67,7 @@ def bin_apply_native(X, edges, max_bin: int, n_threads: int = 0
 def murmur3_batch_native(strings, seed: int = 0) -> np.ndarray:
     """Hash a list of str/bytes through the C++ batch loop -> ``(n,)``
     uint32, equal to ``vw.murmur.murmur3_bytes`` of each, bit for bit."""
-    lib = _lib()
+    lib = load_native()
     blobs = [s.encode("utf-8") if isinstance(s, str) else bytes(s)
              for s in strings]
     offsets = np.zeros(len(blobs) + 1, np.int64)
@@ -82,7 +85,7 @@ def csv_to_matrix_native(text: bytes, skip_header: bool = True
                          ) -> np.ndarray:
     """CSV bytes -> ``(n, F)`` float32 matrix via the C++ parser (NaN for an
     empty or unparsable cell; no quoting)."""
-    lib = _lib()
+    lib = load_native()
     text = bytes(text)
     nrows, ncols = ctypes.c_int64(), ctypes.c_int64()
     lib.mm_csv_shape(text, len(text), ctypes.byref(nrows),
@@ -103,7 +106,7 @@ class ChunkedArray:
     ``mm_chunked_*``."""
 
     def __init__(self, initial_cap: int = 1 << 16):
-        self._lib = _lib()
+        self._lib = load_native()
         self._handle = ctypes.c_void_p(self._lib.mm_chunked_new(initial_cap))
 
     def add(self, values) -> None:

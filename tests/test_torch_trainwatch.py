@@ -33,7 +33,7 @@ import mmlspark_tpu_torch.observability.tracing as port_tr
 import mmlspark_tpu_torch.observability.trainwatch as port_tw
 import mmlspark_tpu_torch.serving.distributed as port_dist
 import mmlspark_tpu_torch.utils.resilience as port_res
-from mmlspark_tpu.testing.chaos import HungLoadInjector
+from mmlspark_tpu_torch.testing.chaos import HungLoadInjector
 from mmlspark_tpu_torch.lightgbm import GBDTParams, train, train_streamed
 from mmlspark_tpu_torch.observability import (active_monitors, active_runs,
                                               get_registry)
