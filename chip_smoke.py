@@ -46,16 +46,17 @@ Phases; any failure exits nonzero and prints no result line:
    its defaults (leaf-wise, 31 leaves) fits 8 iterations on the bench data
    with exactly 8 x 31 = 248 launches of each kernel, reaches accuracy 0.9
    on 100k fresh rows, and its card and CPU leaf walks agree; ``train()``
-   phases and a profiled fit give the busy share, the top kernels, the
-   ``cudaLaunchKernel`` calls per tree and the per-step kernel times of one
-   tree beside each step's bound.  Bagging,
+   phases and a profiled fit (2 of the 8 iterations) give the busy share,
+   the top kernels, the ``cudaLaunchKernel`` calls per tree and the
+   per-step kernel times of one tree beside each step's bound.  Bagging,
    GOSS, RF and DART each fit leaf-wise at 200k x 200 for 4 iterations and
    reach accuracy 0.85 on 50k fresh rows.
 6. data   — edges on the host and bins on the card at 1M x 208 (the bench
    features plus NaN, +inf, -inf, integer codes, the leading -inf edge,
    a mix, ±inf alone and a constant): the card's train-route bins
    bit-identical to the port's host route, the numpy route's semantics on
-   the card bit-identical to numpy's, ``bin_matrix`` on the card
+   the card bit-identical to numpy's (on the first 250,000 rows: the
+   numpy route's host apply is the slow one), ``bin_matrix`` on the card
    bit-identical to its CPU run; the edges, the transfer, the card apply
    and the C++ and numpy host applies timed.  (Every fit above already
    bins this way; ``fit_phases`` prints ``binning_s`` and its parts.)
@@ -68,7 +69,8 @@ Phases; any failure exits nonzero and prints no result line:
    ``max_depth=5``, 8 iterations each: 248 and 40 launches of each kernel
    (one histogram build per step or level), accuracy 0.9 on 100k fresh
    rows, card walk = CPU walk, then each fit's ``train()`` phases and
-   profile as in the leaf phase; one fit per new regression objective at
+   profile (2 iterations) as in the leaf phase; one fit per new regression
+   objective at
    200k x 200 for 4 iterations, its default metric finite and falling.
 8. multiclass — K = 3 trees per iteration at 50k x 20 grown from the
    columns of the (n, 3) gradients equal the CPU trees in every array
@@ -78,7 +80,8 @@ Phases; any failure exits nonzero and prints no result line:
    plus noise) at 1M x 200, leaf-wise defaults and then ``max_depth=5``, 8
    iterations each: 8 x 7 x 31 = 1,736 and 8 x 7 x 5 = 280 launches of
    each kernel, accuracy 0.8 on 100k fresh rows, ``multi_logloss`` on them
-   falling at every iteration, card walk = CPU walk; both fits profiled.
+   falling at every iteration, card walk = CPU walk; both fits profiled
+   (1 iteration leaf-wise, 2 level-wise).
 9. ranker — LambdaRank at 1M x 136 (MSLR-WEB30K's width) in ragged queries
    of 16-256 rows (~7,400), relevance 0-4 planted from two features: the
    lambdas on the card equal the CPU's within rtol 1e-5, atol 1e-6 at
@@ -90,7 +93,7 @@ Phases; any failure exits nonzero and prints no result line:
    queries at 136 features on the card (sync debug mode "error") equal to
    the CPU tree in every array; ``LightGBMRanker()`` defaults for 8 iterations:
    248 launches of each kernel, NDCG@10 0.9 on 200 held-out queries, above
-   a random ranking's; the fit profiled.
+   a random ranking's; the fit profiled (2 iterations).
 10. streamed — out-of-core ``train_streamed`` and checkpoints.  One tile
    (131,072 x 200 uint8) staged host -> card in three layouts, each
    timed with the kernel on it (PERF.md says which the driver keeps);
@@ -365,14 +368,36 @@ Phases; any failure exits nonzero and prints no result line:
    delegate once per iteration and grows the plain fit's booster bit for
    bit; (d) ``python -m mmlspark_tpu_torch codegen`` in a child process
    writes a manifest of the in-process registry's 144 stages.
-21. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+21. sharded — the sharded GBDT on ``torch.distributed`` (budget 90 s): a
+   world of two ranks on the one card over gloo (``parallel.world.World``;
+   NCCL refuses two ranks on one device, gloo takes CUDA tensors in
+   ``all_reduce``, the only collective the path needs).  Each rank makes
+   the bench data from its seed and fits ``train(shard_rows=True)`` for 8
+   iterations: (i) level-wise ``max_depth=5``, (ii) leaf-wise defaults,
+   (iii) leaf-wise ``voting_k=20`` (``parallelism="voting_parallel"``'s
+   default ``top_k``; 2k = 40 < 200 features, so the vote engages).  Rank
+   0's first tree of (i) runs once more with every ``hist_accumulate``
+   call held bit-identical to its plain version at the shard's 500,000 x
+   200 x 255 (``kernels_held_to_plain``).  Gates: both ranks' boosters
+   equal bit for bit in each fit; (i) and (ii) equal a world-1
+   ``shard_rows=True`` fit in this process bit for bit; accuracy 0.9 on
+   100k fresh rows each; both kernels launched in every fit of every rank
+   (the sharded path sums the histograms before the gain scan, so it does
+   not fuse: its builds go through ``build_quantized``, ``hist_accumulate``
+   and ``frontier_finish`` decoding the lanes with its gains off, and the
+   gains are scanned in torch on the summed histograms).  Printed: each
+   rank's fit
+   seconds, the bytes all-reduced per tree and the seconds in
+   ``all_reduce`` (timed between device syncs), world 1 against world 2.
+22. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
    fits, the two multiclass fits, the ranker fit, the two streamed fits,
    the fleet phase's monitored ``train()`` and ``train_streamed()`` fits
    and the backends phase's unset and ``pallas`` fits and its booked
    streamed fit, the featurize phase's ``TrainClassifier`` and tuning
-   fits, the explain phase's LightGBM fit, and the harness phase's seed
-   sweep and delegated fit, split in
+   fits, the explain phase's LightGBM fit, the harness phase's seed
+   sweep and delegated fit, and both ranks' fits of the sharded phase,
+   split in
    ``launches_by_path``; the vw and neighbours paths' 0 have
    their own keys; the dnn, seq and serve phases and the fleet phase's serving
    run no kernel of this repository on their paths (the serve phase's
@@ -380,7 +405,8 @@ Phases; any failure exits nonzero and prints no result line:
    and the backends phase's ``matmul``, ``scatter``, float and bare-copy
    fits, the featurize phase's plain fits, subset fits and candidates
    fitted alone, and the harness phase's plain fit are set-up, references
-   or checks): the JAX package runs those
+   or checks, as are the sharded phase's world-1 fits): the JAX package
+   runs those
    paths in XLA, outside any Pallas kernel, and the port in cuDNN/cuBLAS
    and eager PyTorch), the card's name and power limit, and the last line
    ``{"ok": true, "device": {...}}``.
@@ -1408,14 +1434,17 @@ def data_phase(dev):
     host_s = time.perf_counter() - t0
     if not torch.equal(card.t().cpu(), torch.from_numpy(host)):
         raise AssertionError("card bins differ from the host route's")
+    # the numpy route on the first quarter of the rows (its bins are
+    # elementwise; the whole 1M took 23.4 s on the host)
+    m = n // 4
     t0 = time.perf_counter()
-    numpy_bins = mapper._host_bins(X, "numpy", mapper.edges)
+    numpy_bins = mapper._host_bins(X[:m], "numpy", mapper.edges)
     numpy_s = time.perf_counter() - t0
-    card_np = H.apply_bins(torch.from_numpy(X).to(dev), tables["numpy"],
+    card_np = H.apply_bins(torch.from_numpy(X[:m]).to(dev), tables["numpy"],
                            nan_to_num=True)
     if not torch.equal(card_np.t().cpu(), torch.from_numpy(numpy_bins)):
         raise AssertionError("the numpy route on the card differs")
-    differ = int((numpy_bins != host).any(axis=0).sum())
+    differ = int((numpy_bins != host[:m]).any(axis=0).sum())
     del card_np, numpy_bins
     e_dev = torch.from_numpy(mapper.edges).to(dev)
     bm_card = H.bin_matrix(torch.from_numpy(X).to(dev), e_dev, N_BINS)
@@ -1432,19 +1461,21 @@ def data_phase(dev):
            "bin_on_device_s": bin_on_device_s,
            "train_route_binning_s": edges_s + bin_on_device_s,
            "host_apply_s": {route: host_s, "numpy": numpy_s},
+           "numpy_route_rows": m,
            "bin_matrix_ms_with_transfer": t_bm,
            "features_where_the_routes_differ": differ}
     log(f"[data] {n} x {F} ({route} route): edges {edges_s:.3f} s, X to "
         f"the card {transfer_s:.3f} s, card apply {t_apply[route]:.2f} ms "
         f"(numpy route {t_apply['numpy']:.2f} ms), bin_on_device "
         f"{bin_on_device_s:.3f} s; host apply {route} {host_s:.3f} s, "
-        f"numpy {numpy_s:.3f} s; bin_matrix with transfer {t_bm:.2f} ms")
+        f"numpy {numpy_s:.3f} s on {m:,} rows; bin_matrix with transfer "
+        f"{t_bm:.2f} ms")
     log(f"[data] train-route binning {edges_s + bin_on_device_s:.3f} s "
         f"(host numpy binning of a 1M x 200 fit before the card applied "
         f"the bins: 19.1-29.9 s, PERF.md); card bins "
-        f"bit-identical to the host route, numpy route and bin_matrix "
-        f"bit-identical on the card; the routes differ on {differ} "
-        f"features")
+        f"bit-identical to the host route, numpy route ({m:,} rows) and "
+        f"bin_matrix bit-identical on the card; the routes differ on "
+        f"{differ} features")
     DETAIL["data"] = rec
 
 
@@ -1599,11 +1630,13 @@ def cat_phase(dev):
                           "launches": launches,
                           "categorical_splits": cat_nodes}
     DETAIL["cat"] = results
+    # the profiles hold 2 of the 8 iterations: a profile's cost grows with
+    # its launches (the leaf-wise one took 53.7 s at 8)
     for label, kw in (("cat_leaf", dict(num_leaves=31)),
                       ("cat_level", dict(max_depth=5))):
         fit_phases(GBDTParams(num_iterations=8, objective="binary",
                               categorical_features=tuple(cols), **kw),
-                   label, (X, y))
+                   label, (X, y), profile_iterations=2)
     return out_launches
 
 
@@ -1792,10 +1825,11 @@ def multiclass_phase(dev):
                           "transform_s": transform_s, "accuracy": acc,
                           "launches": launches, "multi_logloss": ll}
     DETAIL["multiclass"] = results
-    # the leaf-wise profile holds 2 of the 8 iterations (14 trees, ~41k
-    # launches): a profile's cost grows with its launches
-    for label, kw, prof_it in (("multiclass_leaf", dict(num_leaves=31), 2),
-                               ("multiclass_level", dict(max_depth=5), 8)):
+    # the leaf-wise profile holds 1 of the 8 iterations (7 trees, ~20k
+    # launches), the level-wise one 2: a profile's cost grows with its
+    # launches
+    for label, kw, prof_it in (("multiclass_leaf", dict(num_leaves=31), 1),
+                               ("multiclass_level", dict(max_depth=5), 2)):
         t0 = time.perf_counter()
         fit_phases(GBDTParams(num_iterations=8, objective="multiclass",
                               num_class=N_CLASSES, **kw), label, (X, y),
@@ -2084,7 +2118,7 @@ def ranker_phase(dev):
     t0 = time.perf_counter()
     fit_phases(GBDTParams(num_iterations=8, num_leaves=31,
                           objective="lambdarank"), "ranker", (X, rel),
-               group_ptr=gp)
+               group_ptr=gp, profile_iterations=2)
     DETAIL["ranker"]["fit_phases_s"] = time.perf_counter() - t0
     return launches
 
@@ -6781,6 +6815,150 @@ def harness_phase(dev, smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the sharded GBDT, two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+SHARDED_WIDTH = 2
+SHARDED_FITS = (("level", dict(max_depth=5)), ("leaf", dict(num_leaves=31)),
+                ("voting", dict(num_leaves=31, voting_k=20)))
+
+
+def sharded_rank(fits=SHARDED_FITS, held: bool = True) -> dict:
+    """One rank of a sharded world (run by ``parallel.world.World``): the
+    bench data from its seed, optionally rank 0's first level-wise tree
+    with every kernel call held to its plain version, then each fit of
+    ``fits`` with ``shard_rows=True``, its launches and its all_reduce
+    book read around it.  Returns the boosters' arrays, fit seconds,
+    launches, all_reduce calls, bytes and seconds, accuracy on 100k fresh
+    rows."""
+    from mmlspark_tpu_torch._device import resolve_device
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    from mmlspark_tpu_torch.parallel import collectives as PC
+    from mmlspark_tpu_torch.parallel.mesh import world_rank, world_size
+    dev = resolve_device(None)          # the rank's card
+    t0 = time.perf_counter()
+    X, y = bench_data(N_ROWS, seed=0)
+    Xt, yt = bench_data(100_000, seed=1)
+    out = {"rank": world_rank(), "world": world_size(), "device": str(dev),
+           "data_s": time.perf_counter() - t0, "fits": {}}
+    if held:
+        checked = {"hist_accumulate": 0, "frontier_finish": 0}
+        held_ctx = kernels_held_to_plain(CH, checked) if world_rank() == 0 \
+            else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with held_ctx:
+            train(X, y, GBDTParams(num_iterations=1, objective="binary",
+                                   max_depth=5, use_quantized_grad=True),
+                  shard_rows=True, device=dev)
+        torch.cuda.synchronize()
+        out["held"] = {"checked": checked, "s": time.perf_counter() - t0}
+    for label, kw in fits:
+        params = GBDTParams(num_iterations=8, objective="binary",
+                            use_quantized_grad=True, **kw)
+        torch.cuda.synchronize()
+        PC.reset_collective_stats(timed=True)
+        CH.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train(X, y, params, shard_rows=True, device=dev)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = CH.launch_counts()
+        book = PC.collective_stats()
+        acc = float(((res.booster.predict(Xt, device=dev) > 0.5)
+                     == yt).mean())
+        out["fits"][label] = {
+            "arrays": {k: np.asarray(getattr(res.booster, k))
+                       for k in BOOSTER_ARRAYS},
+            "fit_s": fit_s, "launches": launches, "allreduce": book,
+            "accuracy": acc, "extras": res.extras,
+            "trees": int(res.booster.num_trees)}
+    return out
+
+
+def same_arrays(a: dict, b: dict, what: str) -> None:
+    """Raise unless two boosters' arrays are equal bit for bit."""
+    for k in BOOSTER_ARRAYS:
+        if not np.array_equal(a[k], b[k]):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def sharded_phase(dev, smi: str):
+    """The sharded GBDT: two ranks on the one card, world 1 beside them."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    from mmlspark_tpu_torch.parallel.world import World
+    t_phase = time.perf_counter()
+    with World(SHARDED_WIDTH, backend="gloo", timeout_s=600) as w:
+        ranks = w.run(sharded_rank)
+    world_s = time.perf_counter() - t_phase
+    held = ranks[0]["held"]["checked"]
+    if held != {"hist_accumulate": 5, "frontier_finish": 5}:
+        raise AssertionError(f"sharded: rank 0's held tree checked {held}")
+    log(f"[sharded] {smi} | rank 0's first level-wise tree at "
+        f"{N_ROWS // SHARDED_WIDTH:,} x {N_FEAT} x {N_BINS} a shard: each of "
+        f"its 5 hist_accumulate and 5 frontier_finish (lane decode) calls "
+        f"bit-identical to the plain version on the same inputs "
+        f"({ranks[0]['held']['s']:.1f} s)")
+    X, y = bench_data(N_ROWS, seed=0)
+    rec = {"card": smi, "width": SHARDED_WIDTH, "world_s": world_s,
+           "ranks": [{k: v for k, v in r.items() if k != "fits"}
+                     for r in ranks], "fits": {}}
+    launches = {"hist_accumulate": 0, "frontier_finish": 0}
+    for label, kw in SHARDED_FITS:
+        fits = [r["fits"][label] for r in ranks]
+        for r, f in enumerate(fits[1:], 1):
+            same_arrays(fits[0]["arrays"], f["arrays"],
+                        f"sharded ({label}) rank 0 vs rank {r}")
+        for r, f in enumerate(fits):
+            if min(f["launches"].values()) <= 0:
+                raise AssertionError(f"sharded ({label}) rank {r} launched "
+                                     f"{f['launches']}")
+            if f["accuracy"] < 0.9:
+                raise AssertionError(f"sharded ({label}) rank {r}: accuracy "
+                                     f"{f['accuracy']}")
+            launches = add_counts(launches, f["launches"])
+        one = None
+        if label != "voting":
+            params = GBDTParams(num_iterations=8, objective="binary",
+                                use_quantized_grad=True, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res1 = train(X, y, params, shard_rows=True, device=dev)
+            torch.cuda.synchronize()
+            one = {"fit_s": time.perf_counter() - t0,
+                   "extras": res1.extras}
+            arrays1 = {k: np.asarray(getattr(res1.booster, k))
+                       for k in BOOSTER_ARRAYS}
+            same_arrays(arrays1, fits[0]["arrays"],
+                        f"sharded ({label}) world 1 vs world 2")
+        trees = fits[0]["trees"]
+        per_tree = [f["allreduce"]["all_reduce_bytes"] / trees for f in fits]
+        ar_s = [f["allreduce"]["all_reduce_s"] for f in fits]
+        rec["fits"][label] = {
+            "ranks": [{k: v for k, v in f.items() if k != "arrays"}
+                      for f in fits], "world_1": one,
+            "allreduce_bytes_per_tree": per_tree, "allreduce_s": ar_s}
+        log(f"[sharded] {smi} | ({label}) {dict(kw)}: fit "
+            + ", ".join(f"rank {r} {f['fit_s']:.2f} s" for r, f in
+                        enumerate(fits))
+            + f"; boosters equal on both ranks"
+            + (f" and = world 1 bit for bit (world 1 {one['fit_s']:.2f} s)"
+               if one else "")
+            + f"; accuracy {fits[0]['accuracy']:.4f}; all_reduce "
+            f"{fits[0]['allreduce']['all_reduce_calls']} calls, "
+            f"{per_tree[0] / 1e6:.3f} MB a tree a rank, "
+            + ", ".join(f"rank {r} {s:.3f} s" for r, s in enumerate(ar_s))
+            + f"; launches {[f['launches'] for f in fits]}")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    DETAIL["sharded"] = rec
+    log(f"[sharded] launches of the repository's Hopper kernels on the "
+        f"path (both ranks): {launches}; the world of {SHARDED_WIDTH} "
+        f"(start, data, held tree, 3 fits) {world_s:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6827,7 +7005,8 @@ def main() -> int:
     leafwise_grower_check(dev)
     leaf_launches = leaf_slice_phase(dev)
     leaf_step_times(*fit_phases(GBDTParams(num_iterations=8, num_leaves=31,
-                                           objective="binary"), "leaf"))
+                                           objective="binary"), "leaf",
+                                profile_iterations=2))
     modes_phase(dev)
     torch.cuda.synchronize()
     log(f"[leaf] phase done in {time.perf_counter() - t0:.1f} s")
@@ -6912,6 +7091,11 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[harness] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    sharded_launches = sharded_phase(dev, smi)
+    torch.cuda.synchronize()
+    log(f"[sharded] phase done in {time.perf_counter() - t0:.1f} s")
+
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
              "cat_level": cat_launches["level"],
@@ -6923,7 +7107,7 @@ def main() -> int:
              **fleet_launches, "backends": backend_launches,
              "vw": vw_launches, "featurize": featurize_launches,
              "neighbours": neighbours_launches, "explain": explain_launches,
-             "harness": harness_launches}
+             "harness": harness_launches, "sharded": sharded_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in paths.values()),

@@ -155,12 +155,6 @@ class GBDTParams:
         return max(1, min(cap, (self.num_leaves or 31) - 1))
 
 
-def _not_ported(what: str, entry: str):
-    return NotImplementedError(
-        f"{what} is not ported to mmlspark_tpu_torch yet (ROADMAP.md, "
-        f"port queue: {entry})")
-
-
 # ---------------------------------------------------------------------------
 # objectives: (scores (n, K), y, w) -> grad, hess (n, K)
 # ---------------------------------------------------------------------------
@@ -395,28 +389,93 @@ def check_labels(p: GBDTParams, y: np.ndarray, F: int) -> None:
 # tree grower
 # ---------------------------------------------------------------------------
 
+def _check_quant_psum_bound(use_quant: bool, quant_bins: int,
+                            axis_name, psum_row_bound) -> None:
+    """Sharded overflow guard: the quantized builds check int32 overflow
+    against their LOCAL shard's rows, but the psum accumulates GLOBAL sums
+    — a root-level cell can hold up to the total row count, so the grower,
+    which knows the global bound, checks it (the JAX package's guard)."""
+    if not use_quant or axis_name is None or psum_row_bound is None:
+        return
+    qh_cap = max(1, quant_bins - 1)
+    if int(psum_row_bound) * qh_cap >= (1 << 31):
+        raise ValueError(
+            "quantized histograms overflow int32 after the cross-shard "
+            f"psum above {(1 << 31) // qh_cap} total rows at "
+            f"{quant_bins} quantization bins — lower num_grad_quant_bins "
+            "or disable use_quantized_grad")
+
+
 def _use_fused_frontier(use_quant: bool, has_cat: bool, num_bins: int,
-                        quant_bins: int, backend: str = "cuda") -> bool:
+                        quant_bins: int, backend: str = "cuda",
+                        axis_name=None) -> bool:
     """One eligibility predicate for the fused frontier step: the quantized
-    numerical-split path, with the histogram backend resolved to ``cuda``
-    (the JAX package's ``pallas``: the Hopper kernels for a CUDA tensor,
-    their plain PyTorch versions for a CPU tensor)."""
-    return (use_quant and not has_cat and backend == "cuda"
+    numerical-split path on one shard, with the histogram backend resolved
+    to ``cuda`` (the JAX package's ``pallas``: the Hopper kernels for a
+    CUDA tensor, their plain PyTorch versions for a CPU tensor).  Sharded,
+    the gains must run on the summed (global) histogram, so the step's
+    builds go through ``build_quantized`` and the scan runs in torch, as
+    in the JAX package."""
+    return (use_quant and axis_name is None and not has_cat
+            and backend == "cuda"
             and cuda_histogram.supported(num_bins, quant_bins))
 
 
 def _grow_backend(backend: str, use_quant: bool, has_cat: bool,
-                  num_bins: int, quant_bins: int, device):
+                  num_bins: int, quant_bins: int, device, axis_name=None):
     """``(backend, fused, kernel_scan)`` for one tree on ``device``: the
     resolved histogram backend, whether the fused frontier step runs, and
     whether a step the ``cuda`` backend would have fused instead builds
     through ``backend`` and scans its gains in the finish kernel's op
     order (so every backend grows the ``cuda`` backend's tree)."""
     bk = hist_ops.resolve_quantized_backend(backend, device)
-    fused = _use_fused_frontier(use_quant, has_cat, num_bins, quant_bins, bk)
+    fused = _use_fused_frontier(use_quant, has_cat, num_bins, quant_bins, bk,
+                                axis_name)
     kernel_scan = not fused and _use_fused_frontier(
-        use_quant, has_cat, num_bins, quant_bins)
+        use_quant, has_cat, num_bins, quant_bins, axis_name=axis_name)
     return bk, fused, kernel_scan
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last dim: the k largest, the lower index
+    first among equals (a stable descending sort; ``torch.topk`` promises
+    no order for ties, and votes tie all the time)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _sharded_ops(use_quant: bool, quant_bins: int, axis_name, psum_row_bound,
+                 mesh):
+    """The growers' two sums over the axis: ``psum_hist`` (a histogram:
+    the packed integer allreduce, or a float sum) and ``psum`` (ballots,
+    anything else)."""
+    from ..parallel.collectives import histogram_psum, psum
+
+    def psum_hist(h):
+        if use_quant:
+            return histogram_psum(h, axis_name, row_bound=psum_row_bound,
+                                  quant_bins=quant_bins, mesh=mesh)
+        return psum(h, axis_name, mesh)
+
+    def psum_any(x):
+        return psum(x, axis_name, mesh)
+
+    return psum_hist, psum_any
+
+
+def _votes(per_feat: torch.Tensor, voting_k: int, k2: int, psum_any):
+    """Voting-parallel's feature pick per node from ``(nodes, F)`` LOCAL
+    best gains: each rank ballots its top ``voting_k`` (a rank with fewer
+    valid candidates casts no ballot for the tie-broken rest), ballots sum
+    over the axis, and the global top ``k2`` win.  Returns ``(nodes, k2)``
+    feature ids, the same on every rank."""
+    top_gain, top_idx = _top_k(per_feat, voting_k)
+    ballot = (top_gain > -math.inf).to(torch.float32)
+    votes = torch.zeros(per_feat.shape, dtype=torch.float32,
+                        device=per_feat.device).scatter_add_(1, top_idx,
+                                                             ballot)
+    _, sel = _top_k(psum_any(votes), k2)
+    return sel
 
 
 class Tree(NamedTuple):
@@ -581,7 +640,7 @@ def _split_math(params: GBDTParams, ct: _CatTools, float_prefix=None):
         return v
 
     def split_gains(hist, feat_mask, edge_ok, depth_ok=None, scales=None,
-                    kernel_scan: bool = False):
+                    kernel_scan: bool = False, feats=None, tot_raw=None):
         """(nodes, F, B, 3) histograms -> (gain, left stats, node totals).
         ``hist`` holds float sums, or with ``scales = (g_scale, h_scale)``
         the quantized int32 sums: those are summed over bins in int32,
@@ -594,7 +653,10 @@ def _split_math(params: GBDTParams, ct: _CatTools, float_prefix=None):
         at bin t takes bins <= t; a categorical one-vs-rest at code c
         takes bin c alone; a sorted-subset candidate k takes the best k+1
         ratio-sorted categories.  A ``depth_ok`` of False gates every
-        candidate."""
+        candidate.  ``feats`` (voting-parallel: ``(nodes, Fs)`` feature ids)
+        says which features ``hist``'s dim 1 holds, default all of them in
+        order; ``tot_raw`` (``(nodes, 1, 3)``, in ``hist``'s units) gives
+        the node totals instead of feature 0's sums."""
         if scales is None:
             def deq(h):
                 return h
@@ -609,19 +671,27 @@ def _split_math(params: GBDTParams, ct: _CatTools, float_prefix=None):
                     return cuda_histogram._cumsum_bins(deq(h))
                 return deq(torch.cumsum(h, dim=-2, dtype=torch.int32))
         cum = prefix(hist)
-        if kernel_scan:
+        if tot_raw is not None:
+            tot = deq(tot_raw)
+        elif kernel_scan:
             tot = deq(hist[:, :1].sum(dim=2, dtype=torch.int32))
         else:
             tot = cum[:, :1, -1, :]                # (nodes, 1, 3)
-        left3, edge3 = cum, edge_ok[None]
+        if feats is None:
+            fmask3, edge3 = feat_mask[None, :, None], edge_ok[None]
+        else:
+            fmask3, edge3 = feat_mask[feats][..., None], edge_ok[feats]
+        left3 = cum
         if ct.has_cat:
             cat_b, sub_b = ct.masks(hist.device)
+            if feats is not None:
+                cat_b, sub_b = cat_b[feats], sub_b[feats]
             hist_d = deq(hist)
-            left3 = torch.where(cat_b[:, None, None], hist_d, cum)
+            left3 = torch.where(cat_b[..., None, None], hist_d, cum)
             if ct.has_subset:
                 subcum, sub_ok = ct.sorted_prefix(hist, hist_d, prefix)
-                left3 = torch.where(sub_b[:, None, None], subcum, left3)
-                edge3 = torch.where(sub_b[:, None], sub_ok & edge3, edge3)
+                left3 = torch.where(sub_b[..., None, None], subcum, left3)
+                edge3 = torch.where(sub_b[..., None], sub_ok & edge3, edge3)
         GL, HL, CL = left3[..., 0], left3[..., 1], left3[..., 2]
         Gp, Hp, Cp = tot[..., 0], tot[..., 1], tot[..., 2]
         GR, HR, CR = (Gp[:, :, None] - GL, Hp[:, :, None] - HL,
@@ -631,10 +701,10 @@ def _split_math(params: GBDTParams, ct: _CatTools, float_prefix=None):
         if ct.has_subset:
             gain_cat = (ct.leaf_score_cat(GL, HL) + ct.leaf_score_cat(GR, HR)
                         - ct.leaf_score_cat(Gp, Hp)[:, :, None])
-            gain = torch.where(sub_b[:, None], gain_cat, gain)
+            gain = torch.where(sub_b[..., None], gain_cat, gain)
         valid = ((CL >= min_data) & (CR >= min_data)
                  & (HL >= min_hess) & (HR >= min_hess)
-                 & feat_mask[None, :, None] & edge3)
+                 & fmask3 & edge3)
         if depth_ok is not None:
             valid = valid & depth_ok
         gain = torch.where(valid, gain, torch.full_like(gain, -math.inf))
@@ -653,7 +723,9 @@ def _kernel_gains(params: GBDTParams, g_scale, h_scale, feat_mask,
 
 
 def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
-                     params: GBDTParams, backend: str = "auto"):
+                     params: GBDTParams, backend: str = "auto",
+                     axis_name: Optional[str] = None,
+                     psum_row_bound: Optional[int] = None, mesh=None):
     """Level-wise grower.  Returns ``grow(binned, grad, hess, hist_mask,
     feat_mask, edges, *, generator=None, noise=None) -> Tree``.
 
@@ -668,9 +740,24 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
     a tree with categorical features, and every level under ``matmul`` or
     ``scatter`` build the smaller child's histogram through
     ``build_quantized`` and scan gains in torch — in the finish kernel's op
-    order where ``cuda`` would have fused, so the trees are the same."""
+    order where ``cuda`` would have fused, so the trees are the same.
+
+    With ``axis_name`` the grower is one rank of a row-sharded ``mesh``
+    (default: the active one) and ``binned`` its contiguous block of rows:
+    local histograms are summed over the axis (``histogram_psum``, the
+    LGBM_NetworkInit ring's replacement) and every split decision is the
+    same on every rank.  ``psum_row_bound`` is the GLOBAL (padded) row
+    count: it bounds the summed cells and gates the packed allreduce.  The
+    quantizer's scales are maxima over the axis and its noise is keyed on
+    each row's global id, so a tree does not depend on the shard count.
+    ``params.voting_k`` in ``(0, F)`` engages voting-parallel under an
+    axis (and only there, as in the JAX package): each rank ranks features
+    by its LOCAL gains, the ranks vote, and only the top ``2 * voting_k``
+    features' histograms cross the axis; the sibling subtraction then runs
+    on the local histograms."""
     use_quant = bool(params.use_quantized_grad)
     quant_bins = params.num_grad_quant_bins
+    _check_quant_psum_bound(use_quant, quant_bins, axis_name, psum_row_bound)
     D, F, B = max_depth, num_features, num_bins
     I, L = 2 ** D - 1, 2 ** D
     ct = _CatTools(params, F, B)
@@ -678,6 +765,14 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
     min_gain = params.min_gain_to_split
     leaf_output, split_gains = _split_math(params, ct)
     lc_np, rc_np = perfect_tree_children(D)
+    voting_k = params.voting_k
+    # voting engages only under an axis, and where it means something
+    # (F > k); with 2k >= F the vote picks every feature: no saving, the
+    # same splits, which the tests use
+    use_voting = axis_name is not None and 0 < voting_k < F
+    k2 = min(2 * voting_k, F)
+    psum_hist, psum_any = _sharded_ops(use_quant, quant_bins, axis_name,
+                                       psum_row_bound, mesh)
 
     def grow(binned, grad, hess, hist_mask, feat_mask, edges, *,
              generator: Optional[torch.Generator] = None,
@@ -686,17 +781,21 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
         n = binned.shape[0]
         rows = torch.arange(n, device=dev)
         bk, use_fused, kernel_scan = _grow_backend(
-            backend, use_quant, has_cat, B, quant_bins, dev)
+            backend, use_quant, has_cat, B, quant_bins, dev, axis_name)
         scales = None
         if use_quant:
             # quantize once per tree: every level's histogram is an exact
             # integer function of the same per-row ints, so the sibling
-            # subtraction never leaves integer space
+            # subtraction never leaves integer space.  Sharded, the noise
+            # is keyed on each row's GLOBAL id
+            row_ids = hist_ops.global_row_ids(axis_name, n, mesh, dev)
             qg, qh, g_scale, h_scale = hist_ops.quantize_gradients(
-                grad, hess, quant_bins, generator=generator, noise=noise)
+                grad, hess, quant_bins, generator=generator, noise=noise,
+                row_ids=row_ids, seed=params.seed, axis_name=axis_name,
+                mesh=mesh)
             scales = (g_scale, h_scale)
 
-        def hist(node_a, num_nodes, max_rows=None):
+        def build_local(node_a, num_nodes, max_rows=None):
             if use_quant:
                 return hist_ops.build_quantized(
                     binned, qg, qh, node_a, num_nodes, B,
@@ -704,6 +803,10 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
                     node_rows_bound=max_rows)
             return hist_ops.build(binned, grad, hess, node_a, num_nodes, B,
                                   backend=bk, max_rows=max_rows)
+
+        def hist(node_a, num_nodes, max_rows=None):
+            out = build_local(node_a, num_nodes, max_rows)
+            return out if axis_name is None else psum_hist(out)
 
         def dehist(h_):
             if not use_quant:
@@ -732,14 +835,45 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
             nodes_d = 2 ** d
             off = nodes_d - 1                       # BFS offset of the level
             nd = torch.arange(nodes_d, device=dev)
-            if d > 0:
+            if d > 0 and not use_voting:
                 # LightGBM's smaller-child rule: rebuild only each parent's
-                # smaller child, sibling = parent - small
+                # smaller child, sibling = parent - small (sharded, by the
+                # global counts: every rank picks the same child)
                 is_left = node % 2 == 0
                 in_small = is_left == small_left[node // 2]
                 small_node = torch.where(hist_mask & in_small, node // 2, -1)
             fusable = max(1, nodes_d // 2) <= cuda_histogram.FUSED_MAX_NODES
-            if use_fused and fusable:
+            sel = None
+            if use_voting:
+                # the stored histograms stay LOCAL (local right = local
+                # parent - local left, exact); only the voted features'
+                # histograms are summed
+                if d == 0:
+                    local = build_local(torch.where(hist_mask, node, -1), 1)
+                else:
+                    left_node = torch.where(hist_mask & (node % 2 == 0),
+                                            node // 2, -1)
+                    left_local = build_local(left_node, nodes_d // 2)
+                    local = torch.stack(
+                        [left_local, hist_ops.histogram_subtraction(
+                            prev_hist, left_local)],
+                        dim=1).reshape(nodes_d, F, B, 3)
+                gain_l, _, _ = split_gains(local, feat_mask, edge_ok2,
+                                           scales=scales)
+                sel = _votes(gain_l.amax(dim=2), voting_k, k2, psum_any)
+                hist_d = psum_hist(torch.take_along_dim(
+                    local, sel[:, :, None, None], dim=1))
+                gain, pick, (Gp0, Hp0, Cp0) = split_gains(
+                    hist_d, feat_mask, edge_ok2, scales=scales, feats=sel)
+                flat = gain.reshape(nodes_d, k2 * B)
+                best = torch.argmax(flat, dim=1)
+                best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
+                bf_local, bb = best // B, best % B
+                bf = sel[nd, bf_local]
+                bsel = pick[nd, bf_local, bb, :]
+                win = hist_d[nd, bf_local]
+                hist_d = local
+            elif use_fused and fusable:
                 if d == 0:
                     hist_d, fused_best = cuda_histogram.frontier_step(
                         binned, qg8, qh8,
@@ -758,9 +892,12 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
                 if d == 0:
                     hist_d = hist(torch.where(hist_mask, node, -1), 1)
                 else:
-                    # at most floor(n/2) rows are in smaller children
+                    # at most floor(n/2) rows are in smaller children (one
+                    # shard's rows may crowd into globally smaller
+                    # children: no bound when sharded)
                     hist_small = hist(small_node, nodes_d // 2,
-                                      max_rows=n // 2 + nodes_d)
+                                      max_rows=None if axis_name is not None
+                                      else n // 2 + nodes_d)
                     hist_sib = hist_ops.histogram_subtraction(prev_hist,
                                                               hist_small)
                     sl4 = small_left[:, None, None, None]
@@ -776,13 +913,14 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
                 best_gain = torch.gather(flat, 1, best[:, None])[:, 0]
                 bf, bb = best // B, best % B
                 bsel = pick[nd, bf, bb, :]
+                win = hist_d[nd, bf]
             prev_hist = hist_d
             do_split = best_gain > min_gain
 
             idx = off + nd
             thr = edges[bf, torch.clamp(bb, 0, B - 2)]
             if has_cat:
-                member = ct.winner_member(dehist(hist_d[nd, bf]), bf, bb)
+                member = ct.winner_member(dehist(win), bf, bb)
                 is_cat = cat_b[bf]
                 cat_member[idx] = member & (do_split & is_cat)[:, None]
                 # the raw threshold of a categorical split is the code
@@ -849,7 +987,9 @@ def leafwise_store_dtype(n_bound, use_quant: bool, quant_bins: int,
 
 def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
                          num_bins: int, params: GBDTParams, *,
-                         store16: bool = True, backend: str = "auto"):
+                         store16: bool = True, backend: str = "auto",
+                         axis_name: Optional[str] = None,
+                         psum_row_bound: Optional[int] = None, mesh=None):
     """Leaf-wise (best-first) grower, LightGBM's default growth: one tree is
     ``num_leaves - 1`` split steps.  Each step splits the live leaf with the
     global best stored gain (the left child keeps the leaf's slot, the right
@@ -872,14 +1012,30 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
     kernel's op order, launching neither kernel and growing the ``cuda``
     backend's tree.  Returns ``grow(...)`` with the level-wise grower's
     signature; the ``Tree`` holds array-of-nodes children with leaves
-    encoded ``~leaf``."""
+    encoded ``~leaf``.
+
+    ``axis_name``, ``psum_row_bound`` and ``mesh`` shard the rows as in
+    ``make_tree_grower``: each step's left-child histogram is summed over
+    the axis and the stored per-leaf histograms are global; with
+    voting-parallel (``0 < voting_k < F`` under an axis) they stay local
+    and each leaf's split search sums only the voted features'
+    histograms.  The summed step waits for the collective, so the sharded
+    loop does sync with the card."""
     use_quant = bool(params.use_quantized_grad)
     quant_bins = params.num_grad_quant_bins
+    _check_quant_psum_bound(use_quant, quant_bins, axis_name, psum_row_bound)
     L, M, F, B = num_leaves, num_leaves - 1, num_features, num_bins
     ct = _CatTools(params, F, B)
     has_cat = ct.has_cat
     min_gain = params.min_gain_to_split
     leaf_output, split_gains = _split_math(params, ct)
+    voting_k = params.voting_k
+    use_voting = axis_name is not None and 0 < voting_k < F
+    k2 = min(2 * voting_k, F)
+    psum_hist, psum_any = _sharded_ops(use_quant, quant_bins, axis_name,
+                                       psum_row_bound, mesh)
+    # the stored histograms are summed ones unless unsharded or voting
+    stored_global = axis_name is not None and not use_voting
 
     def grow(binned, grad, hess, hist_mask, feat_mask, edges, *,
              generator: Optional[torch.Generator] = None,
@@ -887,7 +1043,7 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
         dev = binned.device
         n = binned.shape[0]
         bk, use_fused, kernel_scan = _grow_backend(
-            backend, use_quant, has_cat, B, quant_bins, dev)
+            backend, use_quant, has_cat, B, quant_bins, dev, axis_name)
         edge_ok = ct.edge_ok(edges)
         # depth_ok of every depth a child can reach, looked up per step
         depth_ok = torch.arange(L + 1, device=dev) < depth_cap \
@@ -895,8 +1051,11 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
                                               device=dev)
         scales = None
         if use_quant:
+            row_ids = hist_ops.global_row_ids(axis_name, n, mesh, dev)
             qg, qh, g_scale, h_scale = hist_ops.quantize_gradients(
-                grad, hess, quant_bins, generator=generator, noise=noise)
+                grad, hess, quant_bins, generator=generator, noise=noise,
+                row_ids=row_ids, seed=params.seed, axis_name=axis_name,
+                mesh=mesh)
             scales = (g_scale, h_scale)
         if use_fused:
             # the kernels' inputs, converted once per tree
@@ -917,37 +1076,60 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
         def local_hist(mask):
             ids = torch.where(mask, 0, -1)
             if use_quant:
-                return hist_ops.build_quantized(binned, qg, qh, ids, 1, B,
-                                                quant_bins=quant_bins,
-                                                backend=bk)
-            return hist_ops.build(binned, grad, hess, ids, 1, B, backend=bk)
+                h_ = hist_ops.build_quantized(binned, qg, qh, ids, 1, B,
+                                              quant_bins=quant_bins,
+                                              backend=bk)
+            else:
+                h_ = hist_ops.build(binned, grad, hess, ids, 1, B,
+                                    backend=bk)
+            return psum_hist(h_) if stored_global else h_
 
         def leaf_best(hist_1f3, dok):
             """Best split of one leaf from its ``(1, F, B, 3)`` histogram:
             ``(gain, feat, bin, left (G, H, C), totals, member)``, each with
             a leading axis of 1 (``member``, the winner's ``(1, B)``
-            category set, only with categorical features)."""
-            gain, left3, tot = split_gains(hist_1f3, feat_mask, edge_ok, dok,
+            category set, only with categorical features).  Under voting
+            ``hist_1f3`` is the leaf's LOCAL histogram: the ranks vote on
+            its features by local gain, and the search runs on the sums of
+            the voted features' histograms and of the leaf's totals."""
+            feats = tot_raw = None
+            h_ = hist_1f3
+            Fs = F
+            if use_voting:
+                gain_l, _, _ = split_gains(hist_1f3, feat_mask, edge_ok, dok,
+                                           scales=scales)
+                feats = _votes(gain_l.amax(dim=2), voting_k, k2, psum_any)
+                h_ = psum_hist(torch.take_along_dim(
+                    hist_1f3, feats[:, :, None, None], dim=1))
+                tot_raw = psum_hist(hist_1f3[:, :1].sum(
+                    dim=2, dtype=hist_1f3.dtype))
+                Fs = k2
+            gain, left3, tot = split_gains(h_, feat_mask, edge_ok, dok,
                                            scales=scales,
-                                           kernel_scan=kernel_scan)
+                                           kernel_scan=kernel_scan,
+                                           feats=feats, tot_raw=tot_raw)
             flat = gain.reshape(-1)
             best = torch.argmax(flat).reshape(1)
-            bf, bb = best // B, best % B
+            bfs, bb = best // B, best % B
+            bf = bfs if feats is None else feats[0].index_select(0, bfs)
             member = None
             if has_cat:
-                win = hist_1f3[0].index_select(0, bf)         # (1, B, 3)
+                win = h_[0].index_select(0, bfs)              # (1, B, 3)
                 if use_quant:
                     win = hist_ops.dequantize_histogram(win, g_scale,
                                                         h_scale)
                 member = ct.winner_member(win, bf, bb)
             return (flat.index_select(0, best), bf.to(torch.int32),
                     bb.to(torch.int32),
-                    left3.reshape(F * B, 3).index_select(0, best),
+                    left3.reshape(Fs * B, 3).index_select(0, best),
                     torch.stack(tot, dim=-1), member)
 
         # ---- carry: each array padded by a trash slot (M or L) that takes
-        # the writes of a step whose gate is off
-        st_dtype = leafwise_store_dtype(n, use_quant, quant_bins, store16)
+        # the writes of a step whose gate is off; int16 when the bound of
+        # the stored cells allows (the global rows when they are summed)
+        st_dtype = leafwise_store_dtype(
+            psum_row_bound if stored_global else n, use_quant, quant_bins,
+            store16)
         i32, f32 = torch.int32, torch.float32
 
         def full(size, value, dtype):
@@ -1090,12 +1272,17 @@ def make_leafwise_grower(num_leaves: int, depth_cap: int, num_features: int,
     return grow
 
 
-def _make_grower(p: GBDTParams, F: int, B: int, backend: str = "auto"):
+def _make_grower(p: GBDTParams, F: int, B: int, backend: str = "auto",
+                 axis_name: Optional[str] = None,
+                 psum_row_bound: Optional[int] = None, mesh=None):
     """Growth-mode dispatch (call with resolved params)."""
     if p.growth == "leaf":
         return make_leafwise_grower(p.num_leaves, p.max_depth, F, B, p,
-                                    backend=backend)
-    return make_tree_grower(p.max_depth, F, B, p, backend=backend)
+                                    backend=backend, axis_name=axis_name,
+                                    psum_row_bound=psum_row_bound, mesh=mesh)
+    return make_tree_grower(p.max_depth, F, B, p, backend=backend,
+                            axis_name=axis_name,
+                            psum_row_bound=psum_row_bound, mesh=mesh)
 
 
 def _resolve_hist_backend() -> Tuple[str, str]:
@@ -1299,12 +1486,6 @@ _TREE_KEYS = ("left_child", "right_child", "split_feature", "threshold",
               "internal_count", "leaf_value", "leaf_count")
 
 
-def _check_ported(p: GBDTParams, *, shard_rows) -> None:
-    if shard_rows or p.voting_k:
-        raise _not_ported("row sharding and voting",
-                          "the sharded GBDT over NCCL")
-
-
 def _start_monitor(job: str, p: GBDTParams, n: int, monitor_port,
                    monitor_stall_timeout_s, callbacks, prefetch_fn=None):
     """The live training monitor both drivers wire as the JAX package's
@@ -1474,16 +1655,39 @@ def _bin(mapper: BinMapper, X: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(mapper.transform(X)).t().contiguous().t()
 
 
-def _cat_subset(p: GBDTParams, binned: torch.Tensor, B: int) -> Tuple:
+def _cat_subset(p: GBDTParams, binned: torch.Tensor, B: int,
+                mesh=None) -> Tuple:
     """The categorical features with more than ``max_cat_to_onehot``
     observed codes (the NaN bin aside): they take the sorted-subset search,
-    the rest one-vs-rest (LightGBM ``max_cat_to_onehot``)."""
+    the rest one-vs-rest (LightGBM ``max_cat_to_onehot``).  With a row
+    ``mesh`` the codes are counted over every rank's rows."""
     sub = []
     for f in p.categorical_features:
         seen = torch.bincount(binned[:, f].to(torch.int64), minlength=B)
+        if mesh is not None:
+            from ..parallel.collectives import psum
+            from ..parallel.mesh import AXIS_DATA
+            seen = psum(seen, AXIS_DATA, mesh)
         if int((seen[:B - 1] > 0).sum()) > p.max_cat_to_onehot:
             sub.append(int(f))
     return tuple(sub)
+
+
+def _sharded_lambdas(lambda_fn, scores: torch.Tensor, n: int, n_data: int,
+                     lo: int, axis: str, mesh):
+    """LambdaRank's gradients of this rank's rows under ``shard_rows``: a
+    query may span ranks, so the whole score vector is assembled (each
+    rank's block summed into zeros over the axis: exact) and the lambdas
+    of the unpadded rows taken from it; pad rows get 0."""
+    from ..parallel.collectives import psum
+    full = torch.zeros((n,) + tuple(scores.shape[1:]), dtype=scores.dtype,
+                       device=scores.device)
+    full[lo:lo + scores.shape[0]] = scores
+    g, h = lambda_fn(psum(full, axis, mesh)[:n_data])
+    pad = (0, 0, 0, n - n_data)
+    sl = slice(lo, lo + scores.shape[0])
+    return (torch.nn.functional.pad(g, pad)[sl],
+            torch.nn.functional.pad(h, pad)[sl])
 
 
 def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
@@ -1502,8 +1706,8 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
           monitor_port: Optional[int] = None,
           monitor_stall_timeout_s: Optional[float] = None,
           device: DeviceLike = None) -> TrainResult:
-    """Boosting loop (the JAX package's ``train`` for the single-shard
-    subset: both growers, numerical and categorical splits, the binary,
+    """Boosting loop (the JAX package's ``train``: both growers, numerical
+    and categorical splits, the binary,
     multiclass, regression and lambdarank objectives, boosting types
     gbdt/rf/dart/goss and bagging).  Multiclass grows ``num_class`` trees
     per iteration, one per class from that class's gradient column, with
@@ -1547,14 +1751,35 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     returns with ``extras["preempted"]`` set.  The snapshot file format is
     the JAX package's, so either package reads the other's files; the
     fingerprint, though, is built from each package's own params signature,
-    so one package does not resume the other's run."""
+    so one package does not resume the other's run.
+
+    ``shard_rows`` shards the rows over the active mesh's ``data`` axis
+    (``parallel.get_active_mesh``: a process group's world, or one
+    position): every rank calls ``train`` with the same full ``X`` and
+    ``y``, as the JAX package puts the whole array on its mesh, keeps its
+    contiguous block of the rows (padded to a multiple of the width; pad
+    rows weigh 0 and enter no histogram) on its device, and grows the
+    trees with local histograms summed over the axis
+    (``parallel.collectives.histogram_psum``).  Every rank returns the
+    same booster.  The host statistics, the init score and the bagging
+    draw are taken over the unpadded rows, identically on every rank, and
+    the quantizer's noise is keyed on each row's global id, so a quantized
+    fit is the same at any width.  ``parallelism="voting_parallel"``
+    (``voting_k``) engages only here.  Rank 0 alone writes the snapshots;
+    a preemption on any rank stops every rank at the same boundary.  A
+    resume onto another width (elastic resume) re-pads the rows and the
+    bag mask, re-keys the packed allreduce's bound, books
+    ``mmlspark_reshard_total`` and sets ``extras["resharded"]``.  A valid
+    set is scored whole on every rank.  As in the JAX package, GOSS draws
+    no sample under ``shard_rows`` (its sharded loop takes the plain
+    gradients), and LambdaRank's lambdas are taken over the whole score
+    vector (summed from the ranks' blocks)."""
     dev = resolve_device(device)
     p = params.resolve()
     # the histogram backend and quantization, read once per call
     hist_backend, quant_env = _resolve_hist_backend()
     p = dataclasses.replace(p, use_quantized_grad=_resolve_quantized(
         dev, p.use_quantized_grad, quant_env))
-    _check_ported(p, shard_rows=shard_rows)
     check_resume_arg(resume, checkpoint_dir=checkpoint_dir)
     is_rank = p.objective == "lambdarank"
     if is_rank and group_ptr is None:
@@ -1568,11 +1793,25 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     w = np.ones(n, np.float32) if sample_weight is None \
         else np.asarray(sample_weight, np.float32)
     check_labels(p, y, F)
+    n_data = n              # the unpadded rows: host statistics and draws
+    y_data, w_data = y, w   # never depend on the mesh's width
+    mesh = axis = None
+    lo, hi = 0, n
+    if shard_rows:
+        from ..parallel.mesh import AXIS_DATA, get_active_mesh
+        from ..parallel.sharding import batch_sharded, pad_to_multiple
+        mesh, axis = get_active_mesh(), AXIS_DATA
+        width = mesh.shape[axis]
+        X_pad, _ = pad_to_multiple(X, width)
+        n = X_pad.shape[0]
+        blk = batch_sharded(mesh, axis).block(n)
+        lo, hi = blk.start, blk.stop
+    n_loc = hi - lo
 
     # opt-in binning memo: many train() calls over the SAME X with fresh
     # labels (edges and bins depend on X only)
     bin_sig = (id(X), X.shape, _content_fingerprint(X), p.max_bin,
-               tuple(p.categorical_features or ()), str(dev))
+               tuple(p.categorical_features or ()), str(dev), lo, hi)
     t_edges = t_apply = 0.0
     if bin_cache is not None and bin_cache.get("sig") == bin_sig:
         mapper, binned = bin_cache["mapper"], bin_cache["binned_dev"]
@@ -1586,7 +1825,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         t0 = time.perf_counter()
         with torch.profiler.record_function("train.bin_apply"), \
                 ambient_phase("lightgbm.binning"):
-            binned = _bin(mapper, X, dev)
+            # sharded: this rank's block of the padded rows (pad rows
+            # repeat the last row, as the JAX package pads)
+            binned = _bin(mapper, X_pad[lo:hi] if shard_rows else X, dev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         t_apply = time.perf_counter() - t0
@@ -1596,13 +1837,17 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                              binned_dev=binned)
     B = mapper.num_bins
     if p.categorical_features and p.cat_subset is None:
-        p = dataclasses.replace(p, cat_subset=_cat_subset(p, binned, B))
+        p = dataclasses.replace(p, cat_subset=_cat_subset(p, binned, B,
+                                                          mesh))
 
     # ---- checkpoints: the fingerprint is the data/params identity (must
     # match); the topology stanza is recorded and may differ
-    fingerprint = repr((_params_sig(p), n, F, B, K, shard_rows,
+    fingerprint = repr((_params_sig(p), n_data, F, B, K, shard_rows,
                         _content_fingerprint(X)))
-    topology = topology_stanza(shard_count=1, device_count=1)
+    topology = topology_stanza(mesh=mesh, shard_count=mesh.shape[axis]) \
+        if shard_rows else topology_stanza(shard_count=1, device_count=1)
+    # one writer per checkpoint directory: rank 0 of a sharded run
+    writer = not shard_rows or mesh.axis_index(axis) == 0
     mgr = CheckpointManager(checkpoint_dir, site="lightgbm.train",
                             keep_last=checkpoint_keep_last) \
         if checkpoint_dir else None
@@ -1624,20 +1869,26 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
             n_user_init = int(resume_meta.get("n_init_trees", 0))
             resume_bag = arrs.get("bag_mask")
 
+    if shard_rows:
+        y, _ = pad_to_multiple(y, mesh.shape[axis])
+        w, _ = pad_to_multiple(w, mesh.shape[axis], fill=0.0)
     t0 = time.perf_counter()
     edges = torch.from_numpy(mapper.edges).to(dev)
-    y_dev = torch.from_numpy(y).to(dev)
-    w_dev = torch.from_numpy(w).to(dev)
+    y_dev = torch.from_numpy(y[lo:hi]).to(dev)
+    w_dev = torch.from_numpy(w[lo:hi]).to(dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_transfer = time.perf_counter() - t0
 
-    grow = _make_grower(p, F, B, backend=hist_backend)
+    # sharded: the psum's row bound is the GLOBAL padded row count
+    grow = _make_grower(p, F, B, backend=hist_backend, axis_name=axis,
+                        psum_row_bound=n if shard_rows else None, mesh=mesh)
     D = p.depth_bound
     L = p.num_leaves
 
-    init_score = init_score_of(p.objective, y, w, p.sigmoid)
-    scores = torch.full((n, K), init_score, dtype=torch.float32, device=dev)
+    init_score = init_score_of(p.objective, y_data, w_data, p.sigmoid)
+    scores = torch.full((n_loc, K), init_score, dtype=torch.float32,
+                        device=dev)
 
     # subset splits need each node's category set; a warm-start booster
     # that carries sets keeps them through the continuation
@@ -1709,19 +1960,26 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         evals[:] = [dict(e) for e in resume_meta.get("evals", [])]
 
     feat_mask_full = torch.ones((F,), dtype=torch.bool, device=dev)
-    hist_mask_full = torch.ones((n,), dtype=torch.bool, device=dev)
-    bag_mask = None
+    # sharded: pad rows (weight 0) enter no histogram, nor, as in the JAX
+    # package, do rows the caller weighted 0
+    hist_mask_full = w_dev > 0 if shard_rows \
+        else torch.ones((n,), dtype=torch.bool, device=dev)
+    bag_mask = bag_host = None
     if resume_bag is not None:
-        bag_mask = torch.from_numpy(
-            np.unpackbits(resume_bag)[:n].astype(bool)).to(dev)
+        # the snapshot's bits cover ITS padded width: the real rows are
+        # the same at any width, and pad rows never enter a histogram
+        bits = np.unpackbits(resume_bag)
+        bag_host = np.pad(bits, (0, max(0, n - bits.size)))[:n].astype(bool)
+        bag_mask = torch.from_numpy(bag_host[lo:hi]).to(dev)
     gen = torch.Generator(device=dev)
     shrink = 1.0 if p.boosting_type == "rf" else p.learning_rate
-    is_goss = p.boosting_type == "goss"
+    # the JAX package's sharded loop takes no GOSS sample
+    is_goss = p.boosting_type == "goss" and not shard_rows
     a_n = int(p.top_rate * n) if is_goss else 0
     b_n = int(p.other_rate * n) if is_goss else 0
     goss_amp = (1.0 - p.top_rate) / max(p.other_rate, 1e-12)
     # the packing gathers, built once; the lambdas stay on the device
-    lambda_fn = make_lambdarank_grad_fn(y, group_ptr, p.sigmoid, dev) \
+    lambda_fn = make_lambdarank_grad_fn(y_data, group_ptr, p.sigmoid, dev) \
         if is_rank else None
 
     start_iter = len(tree_weights) // K
@@ -1741,14 +1999,17 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     def save_ckpt(finished: bool, block: bool = False) -> None:
         # the one completed-iteration convention: trees beyond the user's
         # warm start, from the tree count
+        if not writer:
+            return
         done = len(tree_weights) // K - n_user_init // K
         meta = _booster_ckpt_meta(done, n_user_init, rng, best_metric,
                                   best_iter, rounds_no_improve, evals,
                                   init_score, fingerprint, finished,
                                   p.num_iterations, "booster_v1",
                                   topology=topology)
-        mgr.save(done, _booster_ckpt_arrays(trees, tree_weights, bag_mask),
-                 meta, block=block)
+        mgr.save(done, _booster_ckpt_arrays(
+            trees, tree_weights, bag_host if shard_rows else bag_mask),
+            meta, block=block)
 
     # the preemption scope only when checkpointing is on: without a
     # snapshot to write, a SIGTERM keeps its default behaviour
@@ -1770,7 +2031,13 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         if watch is not None:
             watch.set_preemption_token(token)
         for it in range(start_iter, end_iter):
-            if token.requested:
+            requested = token.requested
+            if shard_rows and mgr is not None:
+                # a signal may reach one rank: all stop at one boundary
+                from ..parallel.collectives import pmax
+                requested = bool(pmax(torch.tensor(
+                    [int(requested)], device=dev), axis, mesh)[0])
+            if requested:
                 # one last snapshot at this iteration boundary, then a
                 # clean partial return the caller can resume from
                 save_ckpt(finished=False, block=True)
@@ -1792,9 +2059,13 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                 # resample on schedule, and on the first iteration of a warm
                 # start that begins off schedule
                 if it % p.bagging_freq == 0 or bag_mask is None:
-                    bag_mask = torch.from_numpy(
-                        rng.random(n) < p.bagging_fraction).to(dev)
-                hist_mask = bag_mask
+                    # drawn over the unpadded rows: the rng stream, and so
+                    # every later draw, does not depend on the width
+                    bag_host = np.pad(rng.random(n_data) < p.bagging_fraction,
+                                      (0, n - n_data))
+                    bag_mask = torch.from_numpy(bag_host[lo:hi]).to(dev)
+                hist_mask = hist_mask_full & bag_mask if shard_rows \
+                    else bag_mask
             dropped: List[int] = []
             # ranking draws no drop (the reference's elif): rng unchanged
             if p.boosting_type == "dart" and not is_rank and tree_weights \
@@ -1807,7 +2078,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
             gen.manual_seed(p.seed * 1000003 + it)
             if is_rank:
                 # precomputed lambdas: no GOSS, no RF scale, no weights
-                g, h = lambda_fn(scores)
+                g, h = lambda_fn(scores) if not shard_rows \
+                    else _sharded_lambdas(lambda_fn, scores, n, n_data, lo,
+                                          axis, mesh)
             elif dropped:
                 # DART: gradients against the scores without the dropped trees
                 drop_delta = torch.zeros_like(scores)
@@ -1918,6 +2191,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     extras = {"binning_s": t_edges + t_apply, "edges_s": t_edges,
               "bin_apply_s": t_apply, "transfer_s": t_transfer,
               "boosting_s": t_boost}
+    if shard_rows:
+        extras.update(shard_count=float(mesh.shape[axis]),
+                      shard_rows=float(n_loc))
     if mgr is not None:
         extras.update(_ckpt_extras(preempted, resume_meta, mgr, resharded))
     return TrainResult(booster=booster, evals=evals, bin_mapper=mapper,
@@ -1958,15 +2234,12 @@ def _check_quant_tile_bound(use_quant: bool, quant_bins: int,
 def _quant_mix(g_host: np.ndarray, h_host: np.ndarray) -> np.int32:
     """Per-iteration quantization key mix for the streamed driver: an
     exact INTEGER fold of the bitcast |grad|/hess magnitudes over the
-    whole host row space.  Integer adds are associative and the host
-    arrays are tile-independent, so the mix — and every row's stochastic
-    rounding — survives a resume onto a different tile width bit-for-bit."""
-    gi = int(np.abs(g_host).view(np.int32).astype(np.int64).sum())
-    hi = int(h_host.view(np.int32).astype(np.int64).sum())
-    total = (gi + 3 * hi) & 0xFFFFFFFF
-    if total >= 1 << 31:
-        total -= 1 << 32
-    return np.int32(total)
+    whole host row space (``ops.histogram.quant_mix``).  Integer adds are
+    associative and the host arrays are tile-independent, so the mix — and
+    every row's stochastic rounding — survives a resume onto a different
+    tile width bit-for-bit."""
+    return np.int32(hist_ops.quant_mix(torch.from_numpy(g_host),
+                                       torch.from_numpy(h_host)))
 
 
 def _np_walk_tree(binned: np.ndarray, sf: np.ndarray, tb: np.ndarray,
@@ -2267,7 +2540,6 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     if p.categorical_features:
         raise ValueError("streamed training does not support categorical "
                          "features yet (see docs/out_of_core.md)")
-    _check_ported(p, shard_rows=False)
 
     # ---- dataset geometry
     if isinstance(X, ChunkedDataset):

@@ -17,9 +17,12 @@ resume; with ``num_batches > 1`` each batch checkpoints into its own
 ``batch_{i:04d}`` directory, as in the reference).  ``monitor_port`` and
 ``monitor_stall_timeout_s`` reach ``train()``, which serves the live
 training monitor (``observability.trainwatch``) while ``fit`` runs.  The
-distributed params (``parallelism="voting_parallel"``, ``shard_rows``)
-reach ``train()``, which raises ``NotImplementedError`` naming their
-ROADMAP.md entry for any value other than the default.  ``device`` picks where
+distributed params reach ``train()``: ``shard_rows`` shards the rows over
+the active mesh's ``data`` axis (every rank of a process group fits with
+the same frame and gets the same booster), and
+``parallelism="voting_parallel"`` with ``top_k`` votes on the features to
+sum there (on one device it grows the full-histogram trees, as in the JAX
+package).  ``device`` picks where
 training and scoring run: the card by default, ``"cpu"`` for the plain
 PyTorch versions.
 """
@@ -76,13 +79,11 @@ def _shared_params(cls):
                    "is set)", "string", "auto"),
         ("seed", "random seed", "int", 0),
         ("parallelism", "data_parallel (full histogram psum) | "
-                        "voting_parallel (top-k feature voting) | serial; "
-                        "voting is not ported (raises)", "string",
-         "data_parallel"),
-        ("top_k", "voting_parallel: local top-k features voted per node",
-         "int", 20),
-        ("shard_rows", "shard rows over the devices (not ported: raises)",
-         "bool", False),
+                        "voting_parallel (top-k feature voting, O(k*B) comm) "
+                        "| serial", "string", "data_parallel"),
+        ("top_k", "voting_parallel: local top-k features voted per node "
+                  "(reference TrainParams topK)", "int", 20),
+        ("shard_rows", "shard rows over the active device mesh", "bool", False),
         ("categorical_features", "feature indices treated as categorical "
          "(one-vs-rest below max_cat_to_onehot cardinality, sorted-subset "
          "many-vs-many above)", "list", None),

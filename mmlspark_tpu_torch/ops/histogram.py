@@ -1,5 +1,5 @@
 """Gradient-histogram builds — the GBDT hot path (port of
-``mmlspark_tpu/ops/histogram.py``, the single-shard subset).
+``mmlspark_tpu/ops/histogram.py``).
 
 Layout as in the JAX package: a histogram tensor is ``(nodes, features,
 bins, 3)`` holding ``(sum_grad, sum_hess, count)``; quantized histograms
@@ -13,8 +13,10 @@ What is here:
   feature, bin) index; ``histogram_subtraction`` — sibling = parent -
   child;
 - ``quantize_gradients`` / ``dequantize_histogram`` — LightGBM 4.x
-  quantized training, single-shard; ``row_noise`` — its counter-based
-  rounding noise, a pure function of (seed, mix, global row, channel);
+  quantized training, on one shard or, with ``axis_name``, on a rank of a
+  row-sharded mesh; ``row_noise`` — its counter-based rounding noise, a
+  pure function of (seed, mix, global row, channel); ``global_row_ids``
+  — a shard's rows' global ids;
 - ``_packed_layout`` / ``_pack_lanes`` / ``_unpack_lanes`` — the packed
   int32 lane plan, copied as integer code: the bit-exactness contract with
   the JAX package and with the CUDA kernels rides on them;
@@ -207,29 +209,65 @@ def row_noise(row_ids: torch.Tensor, seed: int, mix: int = 0) -> torch.Tensor:
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+def global_row_ids(axis_name: Optional[str], n: int, mesh=None,
+                   device=None) -> Optional[torch.Tensor]:
+    """Global ids of this rank's ``n`` contiguous rows along ``axis_name``
+    (``rank * n + arange(n)``), or None when unsharded (local ids are
+    already global).  With contiguous block sharding a real row keeps its
+    id at ANY shard count, so rounding noise keyed on it is
+    width-independent: both growers use this one helper."""
+    if axis_name is None:
+        return None
+    from ..parallel.collectives import axis_index
+    return axis_index(axis_name, mesh) * n + torch.arange(n, device=device)
+
+
+def quant_mix(grad: torch.Tensor, hess: torch.Tensor,
+              axis_name: Optional[str] = None, mesh=None) -> int:
+    """The quantizer's per-call key mix over the whole row space: an exact
+    INTEGER fold of the bitcast ``|grad|`` and ``hess`` (``sum |g| + 3 sum
+    h`` of their int32 bit patterns), summed in int64 on each rank, then
+    over the axis, and wrapped to int32 once: the JAX package's integer
+    psum of the same bits (and its host ``_quant_mix``), the same at any
+    shard or tile count (``|g|`` clears the sign bit, so ``-0.0`` pad rows
+    add nothing)."""
+    from ..parallel.collectives import psum
+    g = grad.to(torch.float32).abs().contiguous().view(torch.int32)
+    h = hess.to(torch.float32).contiguous().view(torch.int32)
+    total = g.to(torch.int64).sum() + 3 * h.to(torch.int64).sum()
+    if axis_name is not None:
+        total = psum(total.reshape(1), axis_name, mesh)[0]
+    total = int(total) & _M32
+    return total - (1 << 32) if total >= 1 << 31 else total
+
+
 def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                        quant_bins: int, *,
                        generator: Optional[torch.Generator] = None,
                        noise: Optional[torch.Tensor] = None,
                        g_scale=None, h_scale=None,
                        row_ids: Optional[torch.Tensor] = None,
-                       seed: int = 0, mix: int = 0):
-    """Stochastically round per-row grad/hess to small ints (single shard).
+                       seed: int = 0, mix: Optional[int] = None,
+                       axis_name: Optional[str] = None, mesh=None):
+    """Stochastically round per-row grad/hess to small ints.
 
     Returns ``(qg, qh, g_scale, h_scale)``: ``qg`` int32 in
     ``[-quant_bins//2, quant_bins//2]``, ``qh`` int32 in
     ``[0, quant_bins - 1]``, scales as 0-d float32 tensors, with
     ``qg = clip(floor(g / g_scale + u))`` — the same scales, caps and
-    rounding as ``mmlspark_tpu.ops.histogram.quantize_gradients``.
+    rounding as ``mmlspark_tpu.ops.histogram.quantize_gradients``.  With
+    ``axis_name`` (a rank of a row-sharded ``mesh``) the maxima behind the
+    scales are taken over the axis (``pmax``), so every rank quantizes in
+    the same units and the summed integer histograms stay meaningful.
 
     The uniforms ``u`` come from ``noise`` (``(2, n)`` float32, so a test
     can hand both packages the same numbers), else from ``row_ids`` (each
-    row's global id: ``row_noise(row_ids, seed, mix)``, the out-of-core
-    driver's form, the same under any tile width), else from
-    ``generator``.  The JAX package keys its noise on a float bitcast of
-    the gradient sum or on threefry bits, which this package does not
-    reproduce, so the two packages agree bit for bit only when given the
-    same uniforms."""
+    row's global id: ``row_noise(row_ids, seed, mix)``, the same under any
+    tiling or shard count; ``mix`` unset is 0 on one shard and, under
+    ``axis_name``, ``quant_mix`` over the axis), else from ``generator``.
+    The JAX package keys its noise on a float bitcast of the gradient sum
+    or on threefry bits, which this package does not reproduce, so the two
+    packages agree bit for bit only when given the same uniforms."""
     g = grad.to(torch.float32)
     h = hess.to(torch.float32)
     qg_cap = max(1, quant_bins // 2)
@@ -243,14 +281,22 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
         def cap(c):
             return torch.full((), float(c), dtype=torch.float32,
                               device=g.device)
-        g_scale = torch.clamp(g.abs().max(), min=1e-12) / cap(qg_cap)
-        h_scale = torch.clamp(h.max(), min=1e-12) / cap(qh_cap)
+        gmax, hmax = g.abs().max(), h.max()
+        if axis_name is not None:
+            from ..parallel.collectives import pmax
+            gh = pmax(torch.stack([gmax, hmax]), axis_name, mesh)
+            gmax, hmax = gh[0], gh[1]
+        g_scale = torch.clamp(gmax, min=1e-12) / cap(qg_cap)
+        h_scale = torch.clamp(hmax, min=1e-12) / cap(qh_cap)
     else:
         g_scale = torch.clamp(torch.as_tensor(g_scale, dtype=torch.float32,
                                               device=g.device), min=1e-30)
         h_scale = torch.clamp(torch.as_tensor(h_scale, dtype=torch.float32,
                                               device=g.device), min=1e-30)
     if noise is None and row_ids is not None:
+        if mix is None:
+            mix = quant_mix(g, h, axis_name, mesh) \
+                if axis_name is not None else 0
         noise = row_noise(row_ids, seed, mix)
     if noise is None:
         if generator is None:

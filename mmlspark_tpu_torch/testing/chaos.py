@@ -17,9 +17,9 @@ restart it on a fresh port, re-registering with the driver — driving the
 health-probe eviction and failover paths end to end.
 
 An own copy of the JAX package's ``testing/chaos.py``, verbatim apart from
-module paths and issue numbers, and ``ElasticTopologyDrill``, whose legs train on a sharded
-mesh: the port keeps its data and params recipe, and its legs raise until
-the sharded GBDT over ``torch.distributed`` lands (ROADMAP §1 item 5).
+module paths and issue numbers, but for ``ElasticTopologyDrill``'s legs:
+the reference's are ``jax`` programs on a mesh of virtual CPU devices; the
+port's are worlds of CPU ranks over gloo (``parallel.world``).
 """
 from __future__ import annotations
 
@@ -217,24 +217,24 @@ class PreemptionSimulator:
 
 
 class ElasticTopologyDrill:
-    """SIGKILL a sharded training child mid-run, resume it at a DIFFERENT
-    mesh width, grow back — the crash drill generalized across topology
+    """SIGKILL a sharded training world mid-run, resume it at a DIFFERENT
+    width, grow back — the crash drill generalized across topology
     (elastic resume).
 
-    In the reference each leg runs ``lightgbm.train(shard_rows=True)`` on
-    a ``data`` mesh of ``width`` CPU devices against one shared checkpoint
-    directory; in the port the legs raise ``NotImplementedError`` until the
-    sharded GBDT lands (ROADMAP §1 item 5), and the data and params recipe
-    is kept.  The child
-    appends each completed iteration to a marker file; :meth:`run_child`
-    SIGKILLs it — no grace, no handler, the crash class atomic
-    publication exists for — once enough NEW iterations landed.
-    :meth:`train_inline` runs a leg (or the uninterrupted baseline)
-    in-process and returns the TrainResult, so the final assertion —
-    resumed-across-widths booster == uninterrupted booster, bit for bit —
-    stays a plain array compare.  Quantized histograms are forced ON:
-    integer accumulation plus global-row-keyed rounding noise is what
-    makes the cross-width replay exact."""
+    Each leg runs ``lightgbm.train(shard_rows=True)`` on the CPU in a
+    world of ``width`` ranks over gloo (``parallel.world.World``: spawned
+    processes, one process group) against one shared checkpoint
+    directory, which rank 0 writes.  Rank 0 appends each completed
+    iteration to a marker file; :meth:`run_child` SIGKILLs the leg's whole
+    process group — launcher and ranks, no grace, no handler, the crash
+    class atomic publication exists for — once enough NEW iterations
+    landed.  :meth:`train_inline` runs a leg (or the uninterrupted
+    baseline) in a world started from this process and returns rank 0's
+    TrainResult after checking every rank grew the same booster, so the
+    final assertion — resumed-across-widths booster == uninterrupted
+    booster, bit for bit — stays a plain array compare.  Quantized
+    histograms are forced ON: integer accumulation plus global-row-keyed
+    rounding noise is what makes the cross-width replay exact."""
 
     def __init__(self, ckpt_dir: str, marker_path: str, *, rows: int = 801,
                  features: int = 6, num_iterations: int = 8,
@@ -263,10 +263,23 @@ class ElasticTopologyDrill:
                           use_quantized_grad=True, bagging_fraction=0.7,
                           bagging_freq=2, feature_fraction=0.8)
 
+    def _spec(self) -> dict:
+        return dict(ckpt_dir=self.ckpt_dir, marker_path=self.marker_path,
+                    rows=self.rows, features=self.features,
+                    num_iterations=self.num_iterations,
+                    max_depth=self.max_depth, seed=self.seed,
+                    data_seed=self.data_seed)
+
     def child_program(self, width: int) -> str:
-        """The reference's leg is a ``jax`` program on a ``width``-device
-        mesh; the port has no sharded GBDT yet."""
-        raise NotImplementedError(_ELASTIC_NOT_PORTED)
+        """Source of one training leg: a world of ``width`` CPU ranks, each
+        resuming from (and rank 0 checkpointing into) the shared
+        directory, a marker line per iteration."""
+        return (
+            "from mmlspark_tpu_torch.parallel.world import World\n"
+            "from mmlspark_tpu_torch.testing.chaos import _drill_leg\n"
+            f"spec = {self._spec()!r}\n"
+            f"with World({int(width)}, threads=1) as w:\n"
+            "    w.run(_drill_leg, spec, True, 'auto', True)\n")
 
     def _marker_lines(self) -> int:
         import os
@@ -277,21 +290,103 @@ class ElasticTopologyDrill:
 
     def run_child(self, width: int, min_new_iterations: int = 2,
                   timeout_s: float = 240.0, env: Optional[dict] = None):
-        """Spawn one sharded leg at ``width`` and SIGKILL it mid-run: needs
-        ``train(shard_rows=True)`` on a process group, not yet ported."""
-        raise NotImplementedError(_ELASTIC_NOT_PORTED)
+        """Spawn one leg at ``width`` and SIGKILL its process group after
+        it has logged ``min_new_iterations`` NEW iterations (legs that
+        finish first are left finished).  Returns the iteration count
+        observed at the kill."""
+        import os
+        import signal
+        import subprocess
+        import sys
+        base = self._marker_lines()
+        run_env = dict(os.environ)
+        if env:
+            run_env.update(env)
+        repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        run_env["PYTHONPATH"] = os.pathsep.join(
+            [repo_root] + [p for p in [run_env.get("PYTHONPATH")] if p])
+        proc = subprocess.Popen([sys.executable, "-c",
+                                 self.child_program(width)],
+                                env=run_env, cwd=repo_root,
+                                start_new_session=True)
+
+        def kill():
+            try:                         # the launcher and its ranks
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+        try:
+            deadline = time.time() + timeout_s
+            while time.time() < deadline:
+                if self._marker_lines() >= base + min_new_iterations:
+                    break
+                if proc.poll() is not None:
+                    break
+                time.sleep(0.05)
+            if proc.poll() is None:
+                kill()                   # SIGKILL: no cleanup, no handler
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                kill()
+        return self._marker_lines()
 
     def train_inline(self, width: int, checkpoint: bool = True,
-                     resume: str = "auto"):
-        """Run one sharded leg in this process on a ``width``-wide group:
-        not yet ported, as :meth:`run_child`."""
-        raise NotImplementedError(_ELASTIC_NOT_PORTED)
+                     resume: str = "auto", stop_at: Optional[int] = None):
+        """Run one leg (or, with ``checkpoint=False``, the uninterrupted
+        baseline) in a world of ``width`` CPU ranks started from this
+        process; returns rank 0's TrainResult, raising unless every rank
+        grew the same booster.  ``stop_at`` preempts the leg once that
+        iteration completed (``utils.resilience.request_preemption``, the
+        SIGTERM path without the signal): the leg writes its last snapshot
+        and returns, as a preempted fleet would."""
+        import numpy as np
+        from ..parallel.world import World
+        with World(int(width), threads=1) as w:
+            results = w.run(_drill_leg, self._spec(), checkpoint, resume,
+                            False, stop_at)
+        first = results[0].booster
+        for r in results[1:]:
+            for k in _BOOSTER_ARRAYS:
+                if not np.array_equal(getattr(first, k),
+                                      getattr(r.booster, k)):
+                    raise AssertionError(f"ranks grew different boosters "
+                                         f"({k}) at width {width}")
+        return results[0]
 
 
-_ELASTIC_NOT_PORTED = (
-    "ElasticTopologyDrill's legs train with shard_rows=True across a "
-    "device mesh; the sharded GBDT over torch.distributed is ROADMAP §1 "
-    "item 5, not yet ported")
+_BOOSTER_ARRAYS = ("split_feature", "threshold", "threshold_bin",
+                   "split_gain", "internal_value", "internal_count",
+                   "leaf_value", "leaf_count", "tree_weight", "left_child",
+                   "right_child")
+
+
+def _drill_leg(spec: dict, checkpoint: bool, resume: str, mark: bool,
+               stop_at: Optional[int] = None):
+    """One rank of an :class:`ElasticTopologyDrill` leg (a world's task)."""
+    from ..lightgbm import core as gbdt_core
+    from ..parallel.mesh import world_rank
+    from ..utils.resilience import request_preemption
+    drill = ElasticTopologyDrill(**spec)
+    X, y = drill.make_data()
+    kw, cbs = {}, []
+    if checkpoint:
+        kw = dict(checkpoint_dir=drill.ckpt_dir, checkpoint_every=1,
+                  resume=resume)
+    if mark and world_rank() == 0:
+        def mark_cb(it, ev):
+            with open(drill.marker_path, "a") as f:
+                f.write(str(it) + chr(10))
+        cbs.append(mark_cb)
+    if stop_at is not None:
+        def stop_cb(it, ev):
+            if it >= stop_at:
+                request_preemption("drill")
+        cbs.append(stop_cb)
+    return gbdt_core.train(X, y, drill.make_params(), shard_rows=True,
+                           device="cpu", callbacks=cbs or None, **kw)
 
 
 class HungWorkerInjector:

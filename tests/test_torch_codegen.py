@@ -39,11 +39,10 @@ from tests.test_r_bindings import PAIR, _exported_defs, r_lex
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 API = os.path.join(ROOT, "docs", "api")
-#: params whose doc the port words its own way (LightGBM's parallelism,
-#: top_k, shard_rows, categorical_features, use_quantized_grad,
-#: num_grad_quant_bins on the three estimators, the ranker's max_position,
-#: ImageFeaturizer.model)
-PORT_WORDED_DOCS = 20
+#: params whose doc the port words its own way (LightGBM's
+#: categorical_features, use_quantized_grad, num_grad_quant_bins on the
+#: three estimators, the ranker's max_position, ImageFeaturizer.model)
+PORT_WORDED_DOCS = 11
 #: stages that take the port's ``device`` param
 DEVICE_STAGES = 36
 

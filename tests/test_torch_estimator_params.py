@@ -1,9 +1,9 @@
 """The port's estimators carry the JAX package's param surface: every param
 of the reference's classifier, regressor and ranker exists with its default;
 the GOSS and DART rates reach ``train()``; ``num_batches`` trains in
-sequential batches as the reference does; each param of a path the port
-has not taken yet reaches ``train()`` and raises the ``NotImplementedError``
-that names its ROADMAP.md queue.  Boosters are compared with
+sequential batches as the reference does; the distributed params
+(``parallelism="voting_parallel"``, ``top_k``, ``shard_rows``) and the
+checkpoint params reach ``train()`` and train on one device.  Boosters are compared with
 ``test_torch_multiclass.same_booster`` (float histograms on both sides;
 integer arrays identical unless an f32 near-tie parts them, scores within
 rtol 1e-5 and 1e-5 of the largest score); tree weights and root row counts,
@@ -98,17 +98,21 @@ def test_regressor_trains_in_one_batch_as_the_reference():
 
 
 @pytest.mark.parametrize("kw,queue", [
-    (dict(parallelism="voting_parallel"), "NCCL"),
-    (dict(parallelism="voting_parallel", top_k=5), "NCCL"),
-    (dict(shard_rows=True), "NCCL"),
+    (dict(parallelism="voting_parallel"), "default"),
+    (dict(parallelism="voting_parallel", top_k=1), "default"),
+    (dict(shard_rows=True), "default"),
     (dict(checkpoint_dir="ckpt"), None),
     (dict(checkpoint_every=5), None)],
     ids=["voting", "voting_top_k", "shard_rows", "checkpoint_dir",
          "checkpoint_every"])
 def test_unported_params_raise_their_queue(kw, queue, tmp_path):
-    """Params whose queue is still open raise it; the checkpoint params
-    (``queue`` None) are ported: the fit trains and, with a directory,
-    leaves its terminal snapshot there."""
+    """No param's queue is open any more: each fit trains.  The distributed
+    params on one device (``queue`` "default") grow the default fit's
+    booster bit for bit: voting engages only across ranks (a ``top_k`` of 1
+    would vote away 3 of the 4 features there), and ``shard_rows`` on a
+    mesh of one position sums nothing.  The checkpoint params (``queue``
+    None) train and, with a directory, leave the terminal snapshot
+    there."""
     X, y = _data(n=300, f=4, seed=2)
     df = DataFrame.from_dict({"features": X, "label": y})
     if queue is None:
@@ -124,12 +128,12 @@ def test_unported_params_raise_their_queue(kw, queue, tmp_path):
             if "checkpoint_dir" in kw:
                 assert snapshot_steps(kw["checkpoint_dir"]) == [1]
         return
-    with pytest.raises(NotImplementedError, match=queue):
-        port_est.LightGBMClassifier().set_params(
-            device="cpu", num_iterations=1, num_leaves=4, **kw).fit(df)
-    with pytest.raises(NotImplementedError, match=queue):
-        port_est.LightGBMRegressor().set_params(
-            device="cpu", num_iterations=1, num_leaves=4, **kw).fit(df)
+    for cls in (port_est.LightGBMClassifier, port_est.LightGBMRegressor):
+        base = dict(device="cpu", num_iterations=2, num_leaves=4)
+        got = cls().set_params(**base, **kw).fit(df).booster
+        want = cls().set_params(**base).fit(df).booster
+        for k in ("split_feature", "threshold_bin", "leaf_value"):
+            np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
 
 
 @pytest.mark.parametrize("kw", [dict(monitor_port=0),

@@ -187,11 +187,17 @@ def test_estimator_fit_transform_on_the_ports_dataframe():
 
 
 def test_not_ported_paths_raise_with_their_roadmap_entry():
-    """Row sharding still raises its queue's ``NotImplementedError``;
-    multiclass, lambdarank and ``group_ptr`` (ported since) now train."""
+    """Every path these raised for is ported: row sharding on a mesh of one
+    position grows the unsharded booster (nothing to sum), and multiclass,
+    lambdarank and ``group_ptr`` train."""
     X, y = _data(n=300)
-    with pytest.raises(NotImplementedError, match="NCCL"):
-        train(X, y, GBDTParams(max_depth=2), device="cpu", shard_rows=True)
+    sharded = train(X, y, GBDTParams(max_depth=2), device="cpu",
+                    shard_rows=True)
+    plain = train(X, y, GBDTParams(max_depth=2), device="cpu")
+    assert sharded.extras["shard_count"] == 1.0
+    for k in ("split_feature", "threshold_bin", "leaf_value"):
+        np.testing.assert_array_equal(getattr(sharded.booster, k),
+                                      getattr(plain.booster, k))
     y3 = (np.arange(300) % 3).astype(np.float32)
     gp = np.array([0, 150, 300])
     for params, yy, kw, trees in (

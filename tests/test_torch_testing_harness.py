@@ -18,8 +18,9 @@ package's, on the CPU.
   the committed baseline (read-only).
 - ``chaos``: each injector's seeded schedule equals the reference's;
   ``HungWorkerInjector`` registers with the port's ``TopologyService``;
-  ``ElasticTopologyDrill`` keeps the data and params recipe, and its legs
-  raise naming ROADMAP item 5.
+  ``ElasticTopologyDrill`` keeps the data and params recipe; its legs are
+  worlds of CPU ranks (``tests/test_torch_sharded_gbdt.py`` drives them
+  across widths).
 - ``modifiers``: retries, flaky and the time limit.
 """
 import os
@@ -316,10 +317,13 @@ def test_elastic_drill_keeps_its_recipe_and_raises_naming_item_5(tmp_path):
               "feature_fraction"):
         assert getattr(pp, k) == getattr(rp, k), k
     assert pp.growth == "level"
-    for call in (lambda: port.run_child(2), lambda: port.train_inline(2),
-                 lambda: port.child_program(2)):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
+    # the legs are torch programs now: a world of ranks, no jax
+    src = port.child_program(2)
+    assert "World(2" in src and "import jax" not in src
+    compile(src, "<leg>", "exec")
+    res = port.train_inline(1, checkpoint=False)
+    assert res.booster.num_trees == 3
+    assert res.extras["shard_count"] == 1.0
     assert port._marker_lines() == 0
 
 
