@@ -389,7 +389,38 @@ Phases; any failure exits nonzero and prints no result line:
    rank's fit
    seconds, the bytes all-reduced per tree and the seconds in
    ``all_reduce`` (timed between device syncs), world 1 against world 2.
-22. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+22. parallel — the rest of ``parallel/`` on ``torch.distributed`` (budget
+   75 s), two ranks on the one card over gloo (``all_gather`` and
+   ``ppermute`` carried by the slot all_reduce of
+   ``parallel.collectives``).  The seeded models are drawn once and saved
+   whole; every process loads them.  (a) ``run_local_cluster`` with 2
+   executor processes: ResNet-50 at full width scores 512 images at 224
+   through ``ModelRunner`` batch-sharded over ``data`` (both processes'
+   logits equal, and within 1e-4 relative of world 1 here, float32);
+   process 0 serves a ``WorkerServer`` and process 1 routes 8 requests
+   through ``RoutingClient`` on 127.0.0.1 ports the OS picks (every routed
+   reply equal to the stage called directly).  (b) ``Trainer`` on
+   ResNet-50 (1,000 classes, 32 images a rank at 224, data 2, SGD with
+   momentum, BatchNorm over the global batch), 6 steps through
+   ``train_stream`` with ``checkpoint_every=3``; again preempted after
+   step 3 and resumed at world 2 (bit-identical to the uninterrupted run)
+   and here at world 1 (within 1e-4 relative); both ranks' params
+   bit-identical after every step; step time, gradient bytes and timed
+   ``all_reduce`` seconds a step.  (c) ``ring_attention`` at 2 x 4 x 4,096
+   x 64 over ``seq`` 2, causal and not, within 1e-4 of dense attention;
+   ``make_seq_parallel_train_step`` on the encoder at bench.py's LM width
+   (ring mode, 2 x 4,096 tokens) for 3 steps, losses within 1e-4 relative
+   of world 1's blockwise step at twice the rate (the reference's step is
+   P times the mean-loss gradient).  (d) a GPipe pipeline of 2
+   ``tanh(x @ W + b)`` stages at d 1,024, 8 microbatches of 256: forward
+   within 1e-4 of the sequential stack, 3 steps, losses falling.  (e)
+   ``MoELayer(E=8, d=1024, hidden=4096)`` on 4,096 tokens over ``expert``
+   2: forward within 1e-5 relative of world 1, 5 Adam steps, both ranks'
+   losses equal.  (f) VW defaults on each rank's half of the vw phase's
+   tweets, the pass-end average: weights bit-identical on both ranks.
+   Each leg prints one JSON line (seconds, collectives by route, peak
+   device memory); TF32 is off in every leg.
+23. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
    fits, the two multiclass fits, the ranker fit, the two streamed fits,
    the fleet phase's monitored ``train()`` and ``train_streamed()`` fits
@@ -398,7 +429,7 @@ Phases; any failure exits nonzero and prints no result line:
    fits, the explain phase's LightGBM fit, the harness phase's seed
    sweep and delegated fit, and both ranks' fits of the sharded phase,
    split in
-   ``launches_by_path``; the vw and neighbours paths' 0 have
+   ``launches_by_path``; the vw, neighbours and parallel paths' 0 have
    their own keys; the dnn, seq and serve phases and the fleet phase's serving
    run no kernel of this repository on their paths (the serve phase's
    booster fit, the fleet phase's unmonitored fits and its one grown tree,
@@ -6959,6 +6990,809 @@ def sharded_phase(dev, smi: str):
     return launches
 
 
+# phase 22: the rest of parallel/, two ranks on the one card over gloo
+PARALLEL_WIDTH = 2
+PAR_IMAGES, PAR_HW, PAR_SCORE_BATCH = 512, 224, 256
+PAR_TRAIN_BATCH, PAR_TRAIN_STEPS, PAR_PREEMPT_AT = 32, 6, 3
+PAR_RING = (2, 4, 4096, 64)                   # B, H, L, D
+PAR_SEQ_BATCH, PAR_SEQ_STEPS, PAR_SEQ_LR = 2, 3, 0.05
+PAR_PIPE = (1024, 8, 256, 3)                  # d, M, mb, steps (S = width)
+PAR_MOE = (8, 1024, 4096, 4096, 5)            # E, d, hidden, tokens, steps
+PAR_SERVE_REQUESTS = 8
+
+
+def _tf32_off() -> None:
+    """Float32 is float32 in this process (the ranks are processes of
+    their own)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _par_dev() -> torch.device:
+    """This rank's device: the card (the CPU only in a rehearsal without
+    one)."""
+    from mmlspark_tpu_torch.parallel.mesh import default_device
+    return default_device()
+
+
+def _par_sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _par_images() -> np.ndarray:
+    """The seeded 512 x 224 x 224 x 3 float32 batch every process makes."""
+    return np.random.default_rng(90).standard_normal(
+        (PAR_IMAGES, PAR_HW, PAR_HW, 3), dtype=np.float32)
+
+
+def _leg_record(leg: str, t0: float, **more) -> dict:
+    """A leg's JSON line: its seconds, this process's collectives by route
+    and its peak device memory."""
+    from mmlspark_tpu_torch.parallel import collectives as PC
+    _par_sync()
+    book = PC.collective_stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 \
+        if torch.cuda.is_available() else None
+    return {"leg": leg, "seconds": time.perf_counter() - t0,
+            "routes": book["routes"], "peak_mb": peak, **more}
+
+
+def _start_leg(timed: bool = True) -> float:
+    from mmlspark_tpu_torch.parallel import collectives as PC
+    _par_sync()
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+    PC.reset_collective_stats(timed=timed)
+    return time.perf_counter()
+
+
+class _ImageScorer:
+    """The serving leg's stage: request = an image index, reply = that
+    image's top class and logit from ResNet-50 scored alone (a world of
+    one: ``ModelRunner.__call__`` on one device batch)."""
+
+    def __init__(self, runner, images):
+        self.runner, self.images = runner, images
+
+    def reply(self, i: int) -> list:
+        with torch.inference_mode():
+            x = torch.from_numpy(self.images[int(i)][None]).to(
+                self.runner.device)
+            logits = self.runner(x)[0]
+            return [int(logits.argmax()), float(logits.max())]
+
+    def stage(self):
+        from mmlspark_tpu_torch.core import Transformer
+        scorer = self
+
+        class Scorer(Transformer):
+            def _transform(self, df):
+                def per_part(p):
+                    out = np.empty(len(p["request"]), dtype=object)
+                    for j, r in enumerate(p["request"]):
+                        out[j] = scorer.reply(r)
+                    return {**p, "reply": out}
+                return df.map_partitions(per_part)
+
+            def transform_schema(self, schema):
+                return schema
+
+        return Scorer()
+
+
+def _par_models(work: str) -> dict:
+    """The phase's seeded models, drawn once here and saved whole
+    (``torch.save`` of the module) under ``work``: every process of the
+    phase loads them instead of drawing 25M and 67M truncated normals on
+    its host again.  Returns the files."""
+    from mmlspark_tpu_torch.parallel.moe import MoELayer
+    E, d, H, _, _ = PAR_MOE
+    files = {"resnet50": os.path.join(work, "resnet50.pt"),
+             "moe": os.path.join(work, "moe.pt")}
+    torch.save(seeded_resnet50(torch.Generator().manual_seed(93)),
+               files["resnet50"])
+    torch.save(MoELayer(E, H, d, generator=torch.Generator().manual_seed(98)),
+               files["moe"])
+    return files
+
+
+def _par_load(path: str):
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def parallel_serving_job(mesh, process_id, model_file: str):
+    """Leg (a), one executor process of ``run_local_cluster``: ResNet-50
+    seeded at full width scores the 512 images through ``ModelRunner``
+    batch-sharded over ``data`` (rows all-gathered); then process 0 serves
+    a ``WorkerServer`` (with its ``TopologyService``) on ports the OS picks
+    and process 1 routes requests to it through ``RoutingClient``, beside
+    the stage's direct replies."""
+    import torch.distributed as dist
+    from mmlspark_tpu_torch.models.runner import ModelRunner
+    from mmlspark_tpu_torch.observability import MetricsRegistry
+    from mmlspark_tpu_torch.parallel import psum
+    from mmlspark_tpu_torch.parallel.mesh import world_rank
+    from mmlspark_tpu_torch.serving import (RoutingClient, TopologyService,
+                                            WorkerServer)
+    _tf32_off()
+    torch.backends.cudnn.deterministic = True
+    t_start = time.perf_counter()
+    model = _par_load(model_file)
+    runner = ModelRunner(module=model, name="parallel.resnet50",
+                         batch_size=PAR_SCORE_BATCH, device=_par_dev(),
+                         registry=MetricsRegistry())
+    images = _par_images()
+    runner.apply_batch(images[:PAR_SCORE_BATCH])           # warm
+    t0 = _start_leg()
+    logits = runner.apply_batch(images)
+    rec = _leg_record("a.inference", t0, rank=world_rank())
+    rec["images_per_s"] = PAR_IMAGES / rec["seconds"]
+    # serving: the stage scores at world 1 (the worker's thread must not
+    # enter the data mesh's collectives)
+    scorer = _ImageScorer(runner, images)
+    svc = worker = None
+    t1 = time.perf_counter()
+    port = 0
+    if process_id == 0:
+        svc = TopologyService(port=0, registry=MetricsRegistry()).start()
+        worker = WorkerServer(scorer.stage(), server_id="rank0",
+                              driver_address=svc.address, port=0,
+                              registry=MetricsRegistry()).start()
+        port = int(svc.address.rsplit(":", 1)[1])
+    port = int(psum(torch.tensor([port]), "data", mesh))
+    dist.barrier()
+    served = []
+    if process_id == 1:
+        client = RoutingClient(f"http://127.0.0.1:{port}")
+        for i in range(PAR_SERVE_REQUESTS):
+            idx = (37 * i) % PAR_IMAGES
+            served.append((idx, client.request(idx), scorer.reply(idx)))
+    dist.barrier()
+    if worker is not None:
+        worker.stop()
+        svc.stop()
+    rec.update(serve_s=time.perf_counter() - t1, port=port,
+               process_s=time.perf_counter() - t_start)
+    return {"logits": logits, "served": served, "record": rec}
+
+
+def parallel_warm() -> float:
+    """A process's one-time costs of the trainer, paid before the legs
+    need them (run beside leg (a)): the first ``torch.optim`` optimizer
+    (it imports torch's compiler and DTensor stacks, seconds of host
+    time) and the first cuDNN convolution.  Returns its seconds."""
+    t0 = time.perf_counter()
+    dev = _par_dev()
+    w = torch.zeros(4, 3, 3, 3, device=dev, requires_grad=True)
+    opt = torch.optim.SGD([w], lr=0.1, momentum=0.9)
+    torch.nn.functional.conv2d(torch.zeros(1, 3, 8, 8, device=dev),
+                               w).sum().backward()
+    opt.step()
+    from torch.func import functional_call  # noqa: F401
+    _par_sync()
+    return time.perf_counter() - t0
+
+
+def _in_thread(fn, *args):
+    """Run ``fn(*args)`` on a thread; ``join()`` returns its result or
+    raises its exception."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args)
+        except BaseException as e:           # noqa: BLE001 — re-raised
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def join():
+        t.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return join
+
+
+def _ckpt_save_s() -> float:
+    """Seconds this process's checkpoint writer has spent writing
+    snapshots (``mmlspark_checkpoint_save_seconds``)."""
+    from mmlspark_tpu_torch.observability import get_registry
+    fam = get_registry().to_dict().get("mmlspark_checkpoint_save_seconds")
+    return sum(x["sum"] for x in fam["samples"]) if fam else 0.0
+
+
+def _param_print(params) -> list:
+    """An exact fingerprint of a nest of float32 tensors: the int64 sums
+    of their bit patterns and of the patterns' squares (wrapping)."""
+    from mmlspark_tpu_torch.parallel.partition import tree_leaves_with_path
+    s = sq = 0
+    for _, t in tree_leaves_with_path(params):
+        bits = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        s += int(bits.sum())
+        sq += int((bits * bits).sum())
+    return [s, sq]
+
+
+def _par_batches(n: int, width: int):
+    """The trainer leg's global batches (every rank makes the same):
+    ``width x 32`` images at 224 and labels in [0, 1000)."""
+    r = np.random.default_rng(92)
+    for _ in range(n):
+        yield {"x": r.standard_normal((width * PAR_TRAIN_BATCH, PAR_HW,
+                                       PAR_HW, 3), dtype=np.float32),
+               "y": r.integers(0, 1000, width * PAR_TRAIN_BATCH)}
+
+
+def _par_trainer(mesh, model_file: str):
+    """A trainer of a fresh copy of the seeded ResNet-50."""
+    from mmlspark_tpu_torch.parallel.trainer import (Trainer,
+                                                     softmax_cross_entropy)
+    return Trainer(_par_load(model_file),
+                   lambda ps: torch.optim.SGD(ps, lr=1e-3, momentum=0.9),
+                   softmax_cross_entropy, mesh=mesh, has_batch_stats=True)
+
+
+def parallel_trainer_rank(ckpt_dir: str, width: int,
+                          model_file: str) -> dict:
+    """Leg (b), one rank: ResNet-50 at full width trained data-parallel
+    (BatchNorm over the global batch) 6 steps through ``train_stream`` with
+    a checkpoint every 3; then again preempted after step 3 and resumed at
+    world 2.  Fingerprints of the params after every step; the resumed
+    run's params against the uninterrupted run's, bit for bit."""
+    import shutil
+    from mmlspark_tpu_torch.parallel import make_mesh
+    from mmlspark_tpu_torch.parallel.mesh import world_rank
+    from mmlspark_tpu_torch.utils.resilience import request_preemption
+    _tf32_off()
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_mesh({"data": width})
+    out = {"rank": world_rank()}
+
+    def run(label, batches, directory, stop_at=None):
+        t_setup = time.perf_counter()
+        tr = _par_trainer(mesh, model_file)
+        state = tr.init_state()
+        setup_s = time.perf_counter() - t_setup
+        ckpt0 = _ckpt_save_s()
+        prints, marks = [], []
+
+        def cb(step, _evals):
+            _par_sync()
+            marks.append(time.perf_counter())
+            prints.append(_param_print(tr.last_state.params))
+            if stop_at is not None and step + 1 == stop_at:
+                request_preemption("parallel leg (b)")
+
+        t0 = _start_leg()
+        state, losses, stats = tr.train_stream(
+            state, batches, checkpoint_dir=directory, checkpoint_every=3,
+            callbacks=[cb])
+        rec = _leg_record(f"b.{label}", t0, losses=losses,
+                          prints=prints, stats=stats, setup_s=setup_s,
+                          ckpt_write_s=_ckpt_save_s() - ckpt0,
+                          compute_s=stats["compute_s"],
+                          step_s=[b - a for a, b in zip(marks, marks[1:])])
+        return tr, state, rec
+
+    full_dir = os.path.join(ckpt_dir, "full")
+    part_dir = os.path.join(ckpt_dir, "part")
+    tr, st_full, out["full"] = run(
+        "uninterrupted", _par_batches(PAR_TRAIN_STEPS, width), full_dir)
+    n_params = sum(p.numel() for p in
+                   tr.module.parameters())
+    out["grad_bytes_per_step"] = 4 * (n_params + 1)
+    full = tr.full_state(st_full)
+    del tr, st_full
+    _, _, out["preempted"] = run(
+        "preempted", _par_batches(PAR_TRAIN_STEPS, width), part_dir,
+        stop_at=PAR_PREEMPT_AT)
+    # the world-1 resume (in the driving process) restores the same
+    # snapshot: this world resumes from a copy of it
+    resume_dir = os.path.join(ckpt_dir, "resume")
+    if world_rank() == 0:
+        shutil.copytree(part_dir, resume_dir)
+    torch.distributed.barrier()
+    tr2, st2, out["resumed"] = run(
+        f"resumed_world{width}", _par_batches(PAR_TRAIN_STEPS, width),
+        resume_dir)
+    res = tr2.full_state(st2)
+    from mmlspark_tpu_torch.parallel.partition import tree_leaves_with_path
+    a = dict(tree_leaves_with_path(full.params))
+    b = dict(tree_leaves_with_path(res.params))
+    out["resume_equal"] = all(np.array_equal(a[k], b[k]) for k in a)
+    out["full_params"] = full.params if world_rank() == 0 else None
+    del tr2, st2
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_ring_seq_rank(width: int) -> dict:
+    """Leg (c), one rank: ring attention at B 2, H 4, L 4,096, D 64 over
+    ``seq`` 2, causal and not, against dense attention; then the
+    sequence-parallel step on the encoder at bench.py's LM width
+    (``attention_mode="ring"``, a per-token next-token classifier) for 3
+    steps at 2 x 4,096 tokens."""
+    from mmlspark_tpu_torch.models.transformer import TransformerEncoder
+    from mmlspark_tpu_torch.parallel import make_mesh
+    from mmlspark_tpu_torch.parallel.mesh import world_rank
+    from mmlspark_tpu_torch.parallel.ring_attention import \
+        make_ring_attention_fn
+    from mmlspark_tpu_torch.parallel.seq_parallel import \
+        make_seq_parallel_train_step
+    _tf32_off()
+    mesh = make_mesh({"data": 1, "seq": width})
+    out = {"rank": world_rank(), "ring": {}}
+    B, H, L, D = PAR_RING
+    dev = _par_dev()
+    gen = torch.Generator(device=dev).manual_seed(94)
+    q, k, v = (torch.randn(B, H, L, D, device=dev, generator=gen)
+               for _ in range(3))
+    for causal in (False, True):
+        fn = make_ring_attention_fn(mesh, causal=causal)
+        t0 = _start_leg()
+        got = fn(q, k, v)
+        rec = _leg_record("c.ring", t0, causal=causal)
+        s = (q @ k.transpose(-1, -2)) / np.sqrt(D)
+        if causal:
+            s = torch.where(torch.ones(L, L, dtype=torch.bool,
+                                       device=dev).tril(), s, -1e30)
+        dense = torch.softmax(s, dim=-1) @ v
+        del s
+        rec["max_abs_err"] = float((got - dense).abs().max())
+        if rec["max_abs_err"] > 1e-4:
+            raise AssertionError(f"parallel (c): ring attention (causal "
+                                 f"{causal}) differs from dense by "
+                                 f"{rec['max_abs_err']}")
+        out["ring"][str(causal)] = rec
+        del got, dense
+    tokens, labels, positions = _par_tokens()
+    module = TransformerEncoder(**dict(SEQ_LM, attention_mode="ring"),
+                                generator=torch.Generator().manual_seed(95))
+    init_fn, step_fn = make_seq_parallel_train_step(module, PAR_SEQ_LR,
+                                                    mesh)
+    params = init_fn(None, tokens, positions)
+    losses = []
+    t0 = _start_leg()
+    for _ in range(PAR_SEQ_STEPS):
+        params, loss = step_fn(params, tokens, positions, labels)
+        losses.append(float(loss))
+    out["seq"] = _leg_record("c.seq", t0, losses=losses)
+    del params, module
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def _par_tokens():
+    from mmlspark_tpu_torch.parallel.seq_parallel import global_positions
+    L = SEQ_LM["max_len"]
+    rng = np.random.default_rng(96)
+    tokens = rng.integers(0, SEQ_LM["vocab_size"],
+                          (PAR_SEQ_BATCH, L)).astype(np.int64)
+    labels = np.roll(tokens, -1, axis=1)
+    return tokens, labels, global_positions(PAR_SEQ_BATCH, L)
+
+
+def _stage_apply(p, x):
+    return torch.tanh(x @ p["W"] + p["b"])
+
+
+def _mse(outs, y):
+    return torch.mean((outs - y) ** 2)
+
+
+def _pipe_data(S: int):
+    d, M, mb, _ = PAR_PIPE
+    rng = np.random.default_rng(97)
+    params = {"W": (rng.standard_normal((S, d, d), dtype=np.float32)
+                    / np.sqrt(d)).astype(np.float32),
+              "b": (rng.standard_normal((S, d), dtype=np.float32)
+                    * 0.1).astype(np.float32)}
+    x = rng.standard_normal((M, mb, d), dtype=np.float32)
+    R = rng.standard_normal((d, d), dtype=np.float32) / np.sqrt(d)
+    return params, x, np.tanh(x @ R).astype(np.float32)
+
+
+def parallel_pipe_moe_rank(width: int, moe_file: str) -> dict:
+    """Legs (d) and (e), one rank: the GPipe schedule of two
+    ``tanh(x @ W + b)`` stages at d 1,024 on 8 microbatches of 256 (its
+    forward against the sequential stack, 3 SGD steps); then
+    ``MoELayer(E=8, d=1024, hidden=4096)`` on 4,096 tokens over ``expert``
+    2 (its forward returned for the world-1 check, 5 Adam steps)."""
+    from torch.func import functional_call
+    from mmlspark_tpu_torch.parallel import make_mesh
+    from mmlspark_tpu_torch.parallel.collectives import live_axes
+    from mmlspark_tpu_torch.parallel.mesh import world_rank
+    from mmlspark_tpu_torch.parallel.moe import MoELayer, shard_moe_params
+    from mmlspark_tpu_torch.parallel.pipeline_parallel import \
+        make_pipeline_train_step
+    _tf32_off()
+    out = {"rank": world_rank()}
+    S = width
+    d, M, mb, steps = PAR_PIPE
+    params, x, y = _pipe_data(S)
+    mesh = make_mesh({"pipe": S})
+    init_fn, step_fn, fwd_fn = make_pipeline_train_step(
+        _stage_apply, S, _mse, learning_rate=0.5, mesh=mesh)
+    p = init_fn(params)
+    dev = _par_dev()
+    t0 = _start_leg()
+    got = fwd_fn(p, x)
+    ref = torch.from_numpy(x).to(dev).reshape(-1, d)
+    for s in range(S):
+        ref = torch.tanh(ref @ torch.from_numpy(params["W"][s]).to(dev)
+                         + torch.from_numpy(params["b"][s]).to(dev))
+    err = float((got - ref.reshape(M, mb, d)).abs().max())
+    losses = []
+    for _ in range(steps):
+        p, loss = step_fn(p, x, y)
+        losses.append(float(loss))
+    out["pipe"] = _leg_record("d.pipeline", t0, max_abs_err=err,
+                              losses=losses)
+    if err > 1e-4 or not losses[-1] < losses[0]:
+        raise AssertionError(f"parallel (d): forward err {err}, losses "
+                             f"{losses}")
+    E, d, H, T, steps = PAR_MOE
+    mesh = make_mesh({"expert": width})
+    module = _par_load(moe_file)
+    rng = np.random.default_rng(99)
+    xm = torch.from_numpy(rng.standard_normal((T, d),
+                                              dtype=np.float32)).to(dev)
+    ym = torch.tanh(xm.flip(1))
+    pm = shard_moe_params(dict(module.state_dict()), mesh)
+    module = module.to(dev)
+    t0 = _start_leg()
+    with torch.no_grad(), live_axes(mesh):
+        fwd = functional_call(module, pm, (xm,))
+    leaves = [v.requires_grad_(True) for v in pm.values()]
+    opt = torch.optim.Adam(leaves, lr=1e-3)
+    losses = []
+    for _ in range(steps):
+        with live_axes(mesh):
+            pred = functional_call(module, pm, (xm,))
+            loss = torch.mean((pred - ym) ** 2) + \
+                sum(module.losses["moe_aux"])
+            loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss.detach()))
+    out["moe"] = _leg_record("e.experts", t0, losses=losses,
+                             w_in_block=list(pm["w_in"].shape))
+    out["moe_forward"] = fwd.cpu().numpy()
+    del pm, leaves, opt, fwd, module
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def _vw_half(path: str, r: int, parts: int) -> None:
+    """A child process: part ``r`` of ``parts`` of the vw phase's training
+    tweets featurized at the vw phase's bits, saved as CSR arrays (the
+    host featurizer's ~10 s run beside the other legs)."""
+    text, y, _ = vw_tweets(VW_TRAIN, 161)
+    part = slice(r * VW_TRAIN // parts, (r + 1) * VW_TRAIN // parts)
+    col, feat_s = vw_featurize(text[part], VW_BITS)
+    lens = np.fromiter((len(v["indices"]) for v in col), np.int64, len(col))
+    np.savez(path, off=np.concatenate([[0], np.cumsum(lens)]),
+             idx=np.concatenate([v["indices"] for v in col]),
+             val=np.concatenate([v["values"] for v in col]), y=y[part],
+             featurize_s=feat_s)
+
+
+def _vw_children(work: str, parts: int):
+    """Start one featurizing child per rank; returns (processes, files)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    files = [os.path.join(work, f"vw_{r}.npz") for r in range(parts)]
+    procs = [ctx.Process(target=_vw_half, args=(f, r, parts), daemon=True)
+             for r, f in enumerate(files)]
+    for p in procs:
+        p.start()
+    return procs, files
+
+
+def parallel_vw_rank(files) -> dict:
+    """Leg (f), one rank: ``VowpalWabbitClassifier()`` defaults on this
+    rank's part of the ``vw`` phase's training tweets (featurized by a
+    child of the driving process), the pass-end average over the
+    world."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.parallel.mesh import world_rank
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+    r = world_rank()
+    t0 = time.perf_counter()
+    with np.load(files[r]) as z:
+        col = _csr_column((z["off"], z["idx"], z["val"]))
+        y, feat_s = z["y"], float(z["featurize_s"])
+    df = DataFrame.from_dict({"features": col, "label": y})
+    data_s = time.perf_counter() - t0
+    est = VowpalWabbitClassifier()
+    if not torch.cuda.is_available():          # a rehearsal on the CPU
+        est.set_params(device="cpu")
+    t0 = _start_leg()
+    model = est.fit(df)
+    rec = _leg_record("f.vw", t0, rank=r, rows=len(col), data_s=data_s,
+                      featurize_s=feat_s)
+    return {"weights": np.asarray(model.weights), "record": rec}
+
+
+def parallel_phase(dev, smi: str):
+    """The rest of ``parallel/`` on the card (legs (a)-(f)); see the
+    module doc.  Two ranks share the one card over gloo."""
+    return parallel_legs(dev, smi)
+
+
+def parallel_legs(dev, smi: str, width: int = PARALLEL_WIDTH,
+                  backend: str = "gloo", legs: str = "abcdef"):
+    """Legs ``legs`` of the parallel phase in a world of ``width`` ranks
+    over ``backend`` (``tools/parallel_nccl.py``: legs (b)-(e), one rank a
+    card over NCCL), each held as the module doc says; the world-1
+    references run in this process.  Returns the GBDT kernels' launches
+    over the phase (none: no leg runs them)."""
+    import shutil
+    import tempfile
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    from mmlspark_tpu_torch.parallel.world import World
+    t_phase = time.perf_counter()
+    _par_sync()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    CH.reset_launch_counts()
+    rec = {"card": smi, "width": width, "backend": backend, "legs": {}}
+
+    def emit(line: dict) -> None:
+        if "." not in line["leg"]:
+            # a leg's own line: its sub-steps' collectives by route (every
+            # process's, summed) and the largest peak of any process
+            subs = [x for k, v in rec["legs"].items()
+                    if k.split(".")[0] in line["leg"] for x in v]
+            routes: dict = {}
+            for x in subs:
+                for r, b in x.get("routes", {}).items():
+                    acc = routes.setdefault(r, {"calls": 0, "bytes": 0,
+                                                "s": 0.0})
+                    for key in acc:
+                        acc[key] += b[key]
+            peaks = [x["peak_mb"] for x in subs
+                     if x.get("peak_mb") is not None]
+            line = dict(line, routes=routes,
+                        peak_mb=max(peaks) if peaks else None)
+        rec["legs"].setdefault(line["leg"], []).append(line)
+        log("[parallel] " + json.dumps(
+            {k: v for k, v in line.items()
+             if k not in ("prints", "stats", "step_s")}, default=str))
+
+    work = tempfile.mkdtemp(prefix="parallel_")
+    vw = ([], [])
+    try:
+        # the VW data's host featurizer and the world's start run beside
+        # leg (a)
+        if "f" in legs:
+            vw = _vw_children(work, width)
+        t0 = time.perf_counter()
+        files = _par_models(work)
+        rec["models_s"] = time.perf_counter() - t0
+        with World(width, backend=backend, timeout_s=600) as w:
+            warm_here = _in_thread(parallel_warm)
+            warm_ranks = _in_thread(w.run, parallel_warm)
+            if "a" in legs:
+                _leg_serving(dev, width, files, emit)
+            rec["warm_s"] = {"driver": warm_here(), "ranks": warm_ranks()}
+            if "b" in legs:
+                _leg_trainer(w, dev, width, files, work, emit)
+            if "c" in legs:
+                _leg_ring_seq(w, dev, width, emit)
+            if "d" in legs or "e" in legs:
+                _leg_pipe_moe(w, dev, width, files, emit)
+            if "f" in legs:
+                _leg_vw(w, vw, emit)
+    finally:
+        for p in vw[0]:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    _par_sync()
+    launches = CH.launch_counts()
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["launches"] = launches
+    DETAIL["parallel" if backend == "gloo" else f"parallel_{backend}"] = rec
+    log(f"[parallel] {smi} x{width} over {backend} | legs {legs} held in "
+        f"{rec['seconds']:.1f} s; launches of the repository's Hopper "
+        f"kernels: {launches}")
+    return launches
+
+
+def _held(what: str, ok: bool, detail: str = "") -> None:
+    """Fail the phase unless ``ok``."""
+    if not ok:
+        raise AssertionError(f"parallel {what} {detail}")
+
+
+def _all_equal(values) -> bool:
+    return all(v == values[0] for v in values[1:])
+
+
+def _leg_serving(dev, width: int, files: dict, emit) -> None:
+    """(a) sharded inference and serving across executor processes; the
+    processes import the job by name (no cloudpickle on the card)."""
+    import functools
+    import importlib
+    from mmlspark_tpu_torch.models.runner import ModelRunner
+    from mmlspark_tpu_torch.observability import MetricsRegistry
+    from mmlspark_tpu_torch.parallel.executor import run_local_cluster
+    me = importlib.import_module("chip_smoke")
+    t0 = time.perf_counter()
+    procs = run_local_cluster(
+        functools.partial(me.parallel_serving_job,
+                          model_file=files["resnet50"]),
+        num_processes=width, devices_per_process=1, timeout_s=300)
+    cluster_s = time.perf_counter() - t0
+    _tf32_off()
+    one = ModelRunner(module=_par_load(files["resnet50"]),
+                      name="parallel.world1", batch_size=PAR_SCORE_BATCH,
+                      device=dev, registry=MetricsRegistry())
+    want = one.apply_batch(_par_images())
+    for p in procs:
+        emit(p["record"])
+    logits = [p["logits"] for p in procs]
+    _held("(a)", all(np.array_equal(logits[0], x) for x in logits[1:]),
+          "the processes' logits differ")
+    err = float(np.abs(logits[0] - want).max() / np.abs(want).max())
+    _held("(a)", err <= 1e-4, f"sharded vs world 1 rel err {err}")
+    replies = procs[1]["served"]
+    _held("(a)", len(replies) == PAR_SERVE_REQUESTS and all(
+        list(routed) == list(direct) for _, routed, direct in replies),
+        f"routed replies {replies}")
+    emit({"leg": "a", "seconds": cluster_s, "ok": True,
+          "rel_err_vs_world1": err, "routed": len(replies)})
+
+
+def _leg_trainer(w, dev, width: int, files: dict, ckpt: str,
+                 emit) -> None:
+    """(b) the trainer at ``width``, then its resume here at world 1."""
+    from mmlspark_tpu_torch.parallel import make_mesh
+    from mmlspark_tpu_torch.parallel.partition import tree_leaves_with_path
+    t0 = time.perf_counter()
+    ranks = w.run(parallel_trainer_rank, ckpt, width, files["resnet50"])
+    b_s = time.perf_counter() - t0
+    for r in ranks:
+        for key in ("full", "preempted", "resumed"):
+            emit(dict(r[key], rank=r["rank"]))
+    for key in ("full", "preempted", "resumed"):
+        _held("(b)", _all_equal([r[key]["prints"] for r in ranks]),
+              f"{key}: the ranks' params differ")
+    full0, res0 = ranks[0]["full"], ranks[0]["resumed"]
+    _held("(b)", ranks[0]["preempted"]["stats"]["preempted"] == 1.0 and
+          res0["stats"]["resumed_from_step"] == PAR_PREEMPT_AT,
+          "no preemption and resume")
+    _held("(b)", all(r["resume_equal"] for r in ranks) and
+          res0["losses"] == full0["losses"][PAR_PREEMPT_AT:] and
+          res0["prints"] == full0["prints"][PAR_PREEMPT_AT:],
+          f"the world-{width} resume differs from the uninterrupted run")
+    t1 = time.perf_counter()
+    tr1 = _par_trainer(make_mesh({"data": 1}, device=dev), files["resnet50"])
+    st0 = tr1.init_state()
+    setup1_s = time.perf_counter() - t1
+    ckpt0 = _ckpt_save_s()
+    st1, tail, stats1 = tr1.train_stream(
+        st0, _par_batches(PAR_TRAIN_STEPS, width),
+        checkpoint_dir=os.path.join(ckpt, "part"), resume="must")
+    _par_sync()
+    one_s = time.perf_counter() - t1
+    got = dict(tree_leaves_with_path(tr1.full_state(st1).params))
+    ref = dict(tree_leaves_with_path(ranks[0]["full_params"]))
+    p_err = max(float(np.abs(got[k] - ref[k]).max() /
+                      max(np.abs(ref[k]).max(), 1e-30)) for k in ref)
+    want = np.array(full0["losses"][PAR_PREEMPT_AT:])
+    l_err = float(np.max(np.abs(np.array(tail) - want) / np.abs(want)))
+    _held("(b)", stats1["resharded"] == 1.0 and p_err <= 1e-4 and
+          l_err <= 1e-4, f"world-1 resume: params rel err {p_err}, losses "
+          f"rel err {l_err}, {stats1}")
+    ar = full0["routes"].get("all_reduce/sum", {})
+    emit({"leg": "b", "seconds": b_s, "ok": True,
+          "step_s_median": float(np.median(full0["step_s"])),
+          "grad_bytes_per_step": ranks[0]["grad_bytes_per_step"],
+          "all_reduce_bytes_per_step": ar.get("bytes", 0) / PAR_TRAIN_STEPS,
+          "all_reduce_s_per_step": ar.get("s", 0.0) / PAR_TRAIN_STEPS,
+          "world1_resume_s": one_s, "world1_setup_s": setup1_s,
+          "world1_compute_s": stats1["compute_s"],
+          "world1_ckpt_write_s": _ckpt_save_s() - ckpt0,
+          "world1_param_rel_err": p_err,
+          "world1_loss_rel_err": l_err, "losses": full0["losses"]})
+
+
+def _leg_ring_seq(w, dev, width: int, emit) -> None:
+    """(c) ring attention and the sequence-parallel step, then world 1's
+    blockwise step here."""
+    from mmlspark_tpu_torch.models.transformer import TransformerEncoder
+    from mmlspark_tpu_torch.parallel import make_mesh
+    from mmlspark_tpu_torch.parallel.seq_parallel import \
+        make_seq_parallel_train_step
+    t0 = time.perf_counter()
+    ranks = w.run(parallel_ring_seq_rank, width)
+    c_s = time.perf_counter() - t0
+    for r in ranks:
+        for line in r["ring"].values():
+            emit(dict(line, rank=r["rank"]))
+        emit(dict(r["seq"], rank=r["rank"]))
+    _tf32_off()
+    module = TransformerEncoder(**dict(SEQ_LM, attention_mode="blockwise"),
+                                generator=torch.Generator().manual_seed(95))
+    # the reference's step is P = data x seq times the mean-loss gradient,
+    # so world 1 takes the same step at P times the rate
+    init_fn, step_fn = make_seq_parallel_train_step(
+        module, PAR_SEQ_LR * width,
+        make_mesh({"data": 1, "seq": 1}, device=dev))
+    tokens, labels, positions = _par_tokens()
+    params = init_fn(None, tokens, positions)
+    one = []
+    for _ in range(PAR_SEQ_STEPS):
+        params, loss = step_fn(params, tokens, positions, labels)
+        one.append(float(loss))
+    seq = [r["seq"]["losses"] for r in ranks]
+    s_err = float(np.max(np.abs(np.array(seq[0]) - one) / np.abs(one)))
+    _held("(c)", _all_equal(seq) and s_err <= 1e-4,
+          f"seq losses {seq} vs world 1 {one}")
+    emit({"leg": "c", "seconds": c_s, "ok": True,
+          "ring_max_abs_err": max(l["max_abs_err"] for r in ranks
+                                  for l in r["ring"].values()),
+          "seq_losses": seq[0], "world1_losses": one,
+          "seq_loss_rel_err": s_err})
+
+
+def _leg_pipe_moe(w, dev, width: int, files: dict, emit) -> None:
+    """(d) the pipeline and (e) the experts, the experts' forward against
+    world 1's here."""
+    t0 = time.perf_counter()
+    ranks = w.run(parallel_pipe_moe_rank, width, files["moe"])
+    de_s = time.perf_counter() - t0
+    for r in ranks:
+        emit(dict(r["pipe"], rank=r["rank"]))
+        emit(dict(r["moe"], rank=r["rank"]))
+    _held("(d)", _all_equal([r["pipe"]["losses"] for r in ranks]),
+          "the stages' losses differ")
+    E, d, H, T, _ = PAR_MOE
+    moe = _par_load(files["moe"]).to(dev)
+    xm = torch.from_numpy(np.random.default_rng(99).standard_normal(
+        (T, d), dtype=np.float32)).to(dev)
+    _tf32_off()
+    with torch.no_grad():
+        ref = moe(xm).cpu().numpy()
+    m_err = max(float(np.abs(r["moe_forward"] - ref).max() /
+                      np.abs(ref).max()) for r in ranks)
+    _held("(e)", m_err <= 1e-5 and _all_equal(
+        [r["moe"]["losses"] for r in ranks]), f"experts: forward rel err "
+        f"{m_err}, losses {[r['moe']['losses'] for r in ranks]}")
+    emit({"leg": "de", "seconds": de_s, "ok": True,
+          "pipe_max_abs_err": max(r["pipe"]["max_abs_err"] for r in ranks),
+          "moe_rel_err_vs_world1": m_err})
+
+
+def _leg_vw(w, vw, emit) -> None:
+    """(f) VW's pass-end average over the world."""
+    procs, files = vw
+    t0 = time.perf_counter()
+    for p in procs:
+        p.join(timeout=300)
+        _held("(f)", p.exitcode == 0, f"featurizing child rc {p.exitcode}")
+    wait_s = time.perf_counter() - t0
+    ranks = w.run(parallel_vw_rank, files)
+    f_s = time.perf_counter() - t0
+    for r in ranks:
+        emit(r["record"])
+    ws = [r["weights"] for r in ranks]
+    _held("(f)", all(np.array_equal(ws[0], x) for x in ws[1:]) and
+          np.abs(ws[0]).sum() > 0, "the ranks' VW weights differ")
+    emit({"leg": "f", "seconds": f_s, "ok": True, "featurize_wait_s": wait_s,
+          "nonzero_weights": int(np.count_nonzero(ws[0]))})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7096,6 +7930,11 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[sharded] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    parallel_launches = parallel_phase(dev, smi)
+    torch.cuda.synchronize()
+    log(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s")
+
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
              "cat_level": cat_launches["level"],
@@ -7107,7 +7946,8 @@ def main() -> int:
              **fleet_launches, "backends": backend_launches,
              "vw": vw_launches, "featurize": featurize_launches,
              "neighbours": neighbours_launches, "explain": explain_launches,
-             "harness": harness_launches, "sharded": sharded_launches}
+             "harness": harness_launches, "sharded": sharded_launches,
+             "parallel": parallel_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in paths.values()),

@@ -227,6 +227,32 @@ def transformer_state_dict_from_flax(variables: Mapping,
     return _check_fits(out, model)
 
 
+def moe_state_dict_from_flax(variables: Mapping,
+                             model: Optional[torch.nn.Module] = None
+                             ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``parallel.moe.MoELayer`` holding a flax
+    ``MoELayer``'s weights (``mmlspark_tpu/parallel/moe.py``):
+    ``gate/kernel`` ``(d, E)`` -> ``gate.weight`` ``(E, d)``,
+    ``gate/bias``, and the expert stacks ``w_in`` ``(E, d, H)`` /
+    ``w_out`` ``(E, H, d)`` as they are; the sown ``losses`` collection
+    (``init``'s output, not weights) is skipped.  A key that names nothing
+    of the port raises ``KeyError``; ``model`` given, a missing or
+    misshapen name raises ``ValueError``.  Arrays come out float32 on the
+    CPU."""
+    names = {"params/gate/kernel": "gate.weight",
+             "params/gate/bias": "gate.bias",
+             "params/w_in": "w_in", "params/w_out": "w_out"}
+    out: Dict[str, torch.Tensor] = {}
+    for key, arr in flatten_variables(variables).items():
+        if key.startswith("losses/"):
+            continue
+        if key not in names:
+            raise KeyError(key)
+        a = np.asarray(arr, np.float32)
+        out[names[key]] = _tensor(a.T if key.endswith("kernel") else a)
+    return _check_fits(out, model)
+
+
 _GATES = ("i", "f", "g", "o")
 
 

@@ -20,8 +20,11 @@ The modules compute what the flax modules compute, on the same weights
   call's input size, and an asymmetric pair goes through ``F.pad``.  The
   stem's explicit ``(3, 3)`` / ``(1, 1)`` and the max-pool's ``(1, 1)``
   are symmetric torch padding.
-- **BatchNorm in eval mode**, eps 1e-5, scale/bias/statistics in float32
-  (flax normalizes in float32 and casts to the compute dtype after).
+- **BatchNorm**, eps 1e-5, scale/bias/statistics in float32 (flax
+  normalizes in float32 and casts to the compute dtype after): by the
+  running statistics by default, by the batch's with ``train=True``
+  (momentum 0.9, the biased variance, summed over the ``data`` axis of a
+  live mesh: the ``parallel.trainer`` path).
 - ``dtype``: float32 or bfloat16 compute (conv and dense weights are held
   in it; flax casts its float32 kernels to it at each call, the same
   rounding), output float32.  Float32 on the card is float32: the forward
@@ -79,20 +82,51 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm (flax ``use_running_average=True``): float32
-    scale, bias and running statistics; the output in the input's dtype."""
+    """flax ``nn.BatchNorm`` over the channel dim: float32 scale, bias and
+    running statistics; the output in the input's dtype.
 
-    def __init__(self, ch: int, eps: float = 1e-5):
+    ``train=False`` normalizes by the running statistics
+    (``use_running_average=True``).  ``train=True`` normalizes by the
+    batch's: mean and *biased* variance over every dim but the channels,
+    computed as flax computes them (``mean(x^2) - mean(x)^2``, floored at
+    0, in float32), summed over the ``data`` axis first when it is live
+    (:func:`parallel.collectives.axis_is_live`; the sum's backward sums
+    the cotangent, so the gradient is the global batch's, as GSPMD's), and
+    the running statistics move to ``momentum * old + (1 - momentum) *
+    batch`` (flax's update, 0.9 in the ResNets)."""
+
+    def __init__(self, ch: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        from ..parallel import collectives as PC
+        xf = x.float()
+        dims = [d for d in range(xf.ndim) if d != 1]
+        count = xf.numel() // xf.shape[1]
+        sums = torch.stack([xf.sum(dims), (xf * xf).sum(dims)])
+        if PC.axis_is_live("data"):
+            mesh = PC.live_mesh()
+            sums = PC.psum(sums, "data", mesh)
+            count *= mesh.shape["data"]
+        mean, mean2 = sums[0] / count, sums[1] / count
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())
+            self.running_var.mul_(m).add_((1.0 - m) * var.detach())
+        shape = [1] * xf.ndim
+        shape[1] = -1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class BottleneckBlock(nn.Module):
@@ -113,13 +147,14 @@ class BottleneckBlock(nn.Module):
             self.conv_proj = Conv(in_ch, out, 1, strides, dtype=dtype)
             self.norm_proj = BatchNorm(out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = x
         for i, (conv, norm) in enumerate(zip(self.convs, self.norms)):
-            y = norm(conv(y))
+            y = norm(conv(y), train)
             if i < 2:
                 y = F.relu(y)
-        residual = self.norm_proj(self.conv_proj(x)) if self.proj else x
+        residual = self.norm_proj(self.conv_proj(x), train) if self.proj \
+            else x
         return F.relu(residual + y)
 
 
@@ -138,10 +173,11 @@ class BasicBlock(nn.Module):
             self.conv_proj = Conv(in_ch, filters, 1, strides, dtype=dtype)
             self.norm_proj = BatchNorm(filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.norms[0](self.convs[0](x)))
-        y = self.norms[1](self.convs[1](y))
-        residual = self.norm_proj(self.conv_proj(x)) if self.proj else x
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = F.relu(self.norms[0](self.convs[0](x), train))
+        y = self.norms[1](self.convs[1](y), train)
+        residual = self.norm_proj(self.conv_proj(x), train) if self.proj \
+            else x
         return F.relu(residual + y)
 
 
@@ -228,15 +264,18 @@ class ResNet(nn.Module):
         lecun(self.head.weight, self.head.in_features)
         self.head.bias.zero_()
 
-    def forward(self, x: torch.Tensor, features: bool = False
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                features: bool = False) -> torch.Tensor:
+        """``train=True`` normalizes by batch statistics and updates the
+        running ones (``BatchNorm``), as flax's ``train=True`` apply with
+        ``mutable=["batch_stats"]``."""
         with float32_exact(self.dtype == torch.float32 and x.is_cuda):
             x = x.to(self.dtype).permute(0, 3, 1, 2)
-            x = F.relu(self.bn_init(self.conv_init(x)))
+            x = F.relu(self.bn_init(self.conv_init(x), train))
             if not self.cifar_stem:
                 x = F.max_pool2d(x, 3, 2, padding=1)
             for block in self.blocks:
-                x = block(x)
+                x = block(x, train)
             x = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype)
             if features:
                 return x.float()

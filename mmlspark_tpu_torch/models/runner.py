@@ -479,6 +479,18 @@ class PagePool:
             self._cond.notify()
 
 
+def _data_mesh():
+    """The active mesh and its ``data`` axis size (1 without the axis)."""
+    from ..parallel.mesh import get_active_mesh
+    mesh = get_active_mesh()
+    return mesh, int(mesh.shape.get("data", 1))
+
+
+def _rows_of(mesh, bucket: int) -> slice:
+    from ..parallel.sharding import batch_sharded
+    return batch_sharded(mesh).block(bucket)
+
+
 class ModelRunner:
     """Device placement + the batch front.
 
@@ -656,12 +668,20 @@ class ModelRunner:
         ``batch_size``, pad each chunk to its power-of-two bucket, run the
         model on the device, unpad, concatenate.  The chunks' outputs stay
         on the device until the last one is enqueued, then come back in
-        one copy, so the host never waits for the card between chunks."""
+        one copy, so the host never waits for the card between chunks.
+
+        Under an active mesh whose ``data`` axis has P > 1 positions, a
+        bucket that P divides is sharded (the reference's inference data
+        parallelism): this rank scores its contiguous block of the bucket
+        and the rows are all-gathered along ``data``, so every rank, which
+        holds the same batch, gets every row.  Every rank must call this
+        with the same batch (the executor model)."""
         bs = int(batch_size or self.batch_size)
         n = x.shape[0]
         if n == 0:
             return np.empty((0,), dtype=np.float32)
         cuda = self.device.type == "cuda"
+        mesh, parts = _data_mesh()
         marks = []                           # (start, copied, computed)
         outs = []
         pad_total = 0
@@ -672,10 +692,17 @@ class ModelRunner:
                 bucket = bucket_rows(m, bs)
                 pad_total += bucket - m
                 chunk = np.ascontiguousarray(_pad_rows(chunk, bucket))
+                sharded = parts > 1 and bucket % parts == 0
+                if sharded:
+                    # this rank's contiguous block; the rows all-gathered
+                    chunk = chunk[_rows_of(mesh, bucket)]
                 t = [_mark(cuda)]
                 batch = torch.from_numpy(chunk).to(self.device)
                 t.append(_mark(cuda))
                 y = self(batch)
+                if sharded:
+                    from ..parallel.collectives import all_gather
+                    y = all_gather(y, "data", mesh=mesh)
                 outs.append(y[:m])
                 t.append(_mark(cuda))
                 marks.append(t)

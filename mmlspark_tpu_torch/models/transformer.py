@@ -8,10 +8,11 @@ The modules compute what the flax modules compute, on the same weights
 - attention runs ``dense`` (the plain einsum, a ``-1e30`` causal mask and
   a softmax in the scores' dtype, not ``scaled_dot_product_attention``),
   ``blockwise`` (``parallel.ring_attention.blockwise_attention``, float32
-  online softmax over KV blocks of 512) or ``ring``, which outside a
-  sequence-parallel group runs blockwise, as the reference falls back
-  when the ``seq`` axis is unbound (the port has no such group yet:
-  ROADMAP.md §1 item 10);
+  online softmax over KV blocks of 512) or ``ring``
+  (``parallel.ring_attention.ring_attention`` when the ``seq`` axis is
+  live, ``parallel.collectives.axis_is_live``: inside ``shard_mapped``
+  and ``seq_parallel``'s step; blockwise otherwise, as the reference falls
+  back when the axis is unbound);
 - the ``qkv`` projection is one ``nn.Linear`` whose output axis is laid
   out ``(3, H, D)``, as flax's ``reshape(B, L, 3, H, D)`` reads it;
 - LayerNorm with flax's epsilon 1e-6 (statistics in float32), GELU in
@@ -50,6 +51,7 @@ import torch.nn.functional as F
 
 from .._device import float32_exact
 from ..parallel import ring_attention as ra
+from ..parallel.collectives import axis_is_live, live_mesh
 
 KVCache = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
 
@@ -165,9 +167,13 @@ class MultiHeadAttention(nn.Module):
                                vals.to(s.dtype))
             return self.proj(out.reshape(B, L, H * D)), (ck, cv)
         q, k, v = qkv.view(B, L, 3, H, D).permute(2, 0, 3, 1, 4)  # (B,H,L,D)
-        if self.attention_mode in ("ring", "blockwise"):
-            # ring: no sequence-parallel group in the port, so blockwise,
-            # the reference's fallback outside shard_map
+        if self.attention_mode == "ring" and \
+                axis_is_live(self.seq_axis):
+            out = ra.ring_attention(q, k, v, self.seq_axis, self.causal,
+                                    mesh=live_mesh())
+        elif self.attention_mode in ("ring", "blockwise"):
+            # ring outside a live seq axis runs blockwise, the reference's
+            # NameError fallback outside shard_map
             out = ra.blockwise_attention(q, k, v, self.block_size,
                                          self.causal)
         else:

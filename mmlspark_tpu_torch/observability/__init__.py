@@ -8,9 +8,9 @@ module paths: ``metrics``, ``tracing``, ``instruments``, ``collector``
 ``attribution``, ``flightrecorder``, the fleet plane (``federation``,
 ``autoscale``) and the training monitor (``trainwatch``).  Twins with a
 PyTorch body: ``profiling`` (a ``torch.profiler`` capture hatch) and
-``compute`` (``compile_report``, ``torch.cuda`` memory gauges, build
-info and host -> device transfer booking; its jit wrappers raise,
-ROADMAP.md §1 item 13).
+``compute`` (``InstrumentedJit``'s signature booking around an eager
+call, ``compile_report``, ``torch.cuda`` memory gauges, build info and
+host -> device transfer booking).
 """
 from .metrics import (Counter, DEFAULT_LATENCY_BUCKETS, Gauge, Histogram,
                       MetricsRegistry, get_registry, set_registry)

@@ -103,7 +103,9 @@ class Mesh:
     """A mesh of ranks: ``axis_names``, ``shape`` (axis -> size), and
     ``devices``, an array of the axes' shape holding the rank at each
     position — what ``io.checkpoint.topology_stanza`` reads of a
-    ``jax.sharding.Mesh``.  ``device`` is this rank's device; ``group(axis)``
+    ``jax.sharding.Mesh``.  ``device`` is this rank's device (the card, else
+    the CPU; the step makers and the trainer run on it only when it was
+    named, :func:`mesh_device`); ``group(axis)``
     is the process group of the ranks that differ only along ``axis``
     (None: the default group, or no group in a world of one)."""
 
@@ -112,6 +114,8 @@ class Mesh:
         self.devices = np.asarray(devices)
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, self.devices.shape))
+        #: whether the caller named the device (``device="cpu"``)
+        self.device_given = device is not None
         self.device = torch.device(device) if device is not None \
             else default_device()
         self._groups = dict(groups or {})
@@ -139,6 +143,17 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, device={self.device})"
+
+
+def mesh_device(mesh: Mesh) -> torch.device:
+    """The device an entry point of ``parallel`` runs on: the mesh's, which
+    is this rank's card unless the mesh was built with ``device="cpu"``.
+    Without a card and without that ask it raises, as
+    ``_device.resolve_device`` does."""
+    if mesh.device.type == "cpu" and not mesh.device_given:
+        from .._device import resolve_device
+        return resolve_device(None)
+    return mesh.device
 
 
 def _axis_groups(dev_array: np.ndarray, names: Sequence[str]) -> Dict:

@@ -1,5 +1,5 @@
-"""Blockwise attention — the single-device half of the port of
-``mmlspark_tpu/parallel/ring_attention.py``.
+"""Ring attention — sequence/context parallelism over the mesh (port of
+``mmlspark_tpu/parallel/ring_attention.py``).
 
 ``blockwise_attention`` streams K/V blocks through an online softmax
 (flash-style) in float32 accumulators, so a long sequence never holds its
@@ -9,9 +9,16 @@ outside a sequence-parallel group).  The reference scans the blocks with
 ``lax.scan``; here a Python loop over the blocks runs eagerly, one block's
 ``(Lq, block)`` scores at a time.
 
-``ring_attention`` and ``make_ring_attention_fn`` — K/V rotating around a
-``torch.distributed`` ring of cards — are not ported: they raise
-``NotImplementedError`` naming ROADMAP.md §1 item 10.
+``ring_attention`` runs on the ranks of the ``seq`` axis, each holding a
+contiguous slice of the sequence: K/V blocks rotate around the ring by the
+differentiable ``collectives.ppermute`` (P - 1 useful hops; the reference's
+loop makes P and so does this one, the last rotation returning every block
+home) while each rank folds each block into its queries' online softmax.
+Causal positions are global, ``me * Lloc + arange(Lloc)``.  Memory per
+rank: O(L/P x d) activations plus one ``(Lloc, Lloc)`` score block.
+``make_ring_attention_fn`` is the reference's jitted ``shard_map``: it cuts
+the global ``(B, H, L, D)`` inputs to this rank's slice, runs the ring
+under the mesh's live axes, and all-gathers the output along the sequence.
 """
 from __future__ import annotations
 
@@ -20,9 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-_NOT_PORTED = ("ring_attention (sequence parallelism over a ring of cards) "
-               "is not ported yet (ROADMAP.md §1 item 10, the rest of "
-               "parallel/)")
+from .mesh import AXIS_SEQ, get_active_mesh, mesh_device
 
 
 def _online_softmax_step(carry, kv, q, scale, mask_value=-1e30,
@@ -82,13 +87,69 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
 
 
-def ring_attention(*_args, **_kwargs):
-    """Not ported: raises ``NotImplementedError`` (ROADMAP.md §1 item
-    10)."""
-    raise NotImplementedError(_NOT_PORTED)
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   axis_name: str = AXIS_SEQ, causal: bool = False,
+                   scale: Optional[float] = None, mesh=None) -> torch.Tensor:
+    """Attention with the sequence sharded over ``axis_name``: each rank
+    holds its local ``(..., L/P, d)`` Q/K/V slices.  K/V rotate around
+    the ring; the online-softmax statistics merge the partial results, so
+    the output equals full attention over the global sequence.  Scores,
+    maxima and sums are float32; the output is cast back to ``q``'s
+    dtype.  Differentiable (the rotation's backward is the inverse
+    rotation)."""
+    from .collectives import ppermute
+    mesh = mesh or get_active_mesh()
+    if axis_name not in mesh.shape:
+        raise ValueError(f"ring_attention: the mesh {mesh.shape} has no "
+                         f"{axis_name!r} axis (the reference's NameError)")
+    P = mesh.shape[axis_name]
+    me = mesh.axis_index(axis_name)
+    Lloc = q.shape[-2]
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / np.sqrt(d)
+    perm = [(i, (i + 1) % P) for i in range(P)]
+    q32 = q.float()
+    acc = q32.new_zeros((*q.shape[:-2], Lloc, d))
+    m = q32.new_full((*q.shape[:-2], Lloc), -float("inf"))
+    l = q32.new_zeros((*q.shape[:-2], Lloc))
+    local = torch.arange(Lloc, device=q.device)
+    q_pos = me * Lloc + local
+    k_cur, v_cur = k, v
+    for step in range(P):
+        src = (me - step) % P                      # whose KV block this is
+        mask = None
+        if causal:
+            kv_pos = src * Lloc + local
+            mask = kv_pos[None, :] <= q_pos[:, None]
+        acc, m, l = _online_softmax_step(
+            (acc, m, l), (k_cur.float(), v_cur.float()), q32, scale,
+            block_mask=mask)
+        k_cur = ppermute(k_cur, perm, axis_name, mesh)
+        v_cur = ppermute(v_cur, perm, axis_name, mesh)
+    return (acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
 
 
-def make_ring_attention_fn(*_args, **_kwargs):
-    """Not ported: raises ``NotImplementedError`` (ROADMAP.md §1 item
-    10)."""
-    raise NotImplementedError(_NOT_PORTED)
+def make_ring_attention_fn(mesh=None, axis_name: str = AXIS_SEQ,
+                           causal: bool = False):
+    """``f(q, k, v)`` on global ``(batch, heads, seq, head_dim)`` inputs
+    (every rank holds the same) with the sequence sharded over
+    ``axis_name``: the reference's jitted ``shard_map``, booked through
+    ``instrumented_jit``, on the mesh's device
+    (:func:`parallel.mesh.mesh_device`)."""
+    from ..observability.compute import instrumented_jit
+    from .collectives import all_gather, live_axes
+    from .sharding import NamedSharding, PartitionSpec
+    mesh = mesh or get_active_mesh()
+    spec = NamedSharding(mesh, PartitionSpec(None, None, axis_name, None))
+    dev = mesh_device(mesh)
+
+    def fn(q, k, v):
+        q, k, v = (torch.as_tensor(t).to(dev) for t in (q, k, v))
+        with live_axes(mesh):
+            out = ring_attention(spec.local(q), spec.local(k),
+                                 spec.local(v), axis_name, causal,
+                                 mesh=mesh)
+        parts = all_gather(out, axis_name, tiled=False, mesh=mesh)
+        return torch.cat(list(parts.unbind(0)), dim=-2)
+
+    return instrumented_jit(fn, name="parallel.ring_attention")

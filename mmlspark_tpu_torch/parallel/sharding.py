@@ -5,8 +5,9 @@ The reference annotates arrays with a ``NamedSharding`` and lets XLA place
 the shards.  Here every rank holds the whole host array (the SPMD contract:
 each rank is handed the same inputs) and a placement says which block of
 it this rank keeps on its device: ``batch_sharded`` splits the leading dim
-into contiguous blocks over an axis, in rank order along it; ``replicated``
-keeps the whole array.
+into contiguous blocks over an axis, in rank order along it (a spec may
+split any one dim, as the trainer's kernel rule does); ``replicated`` keeps
+the whole array.
 """
 from __future__ import annotations
 
@@ -30,35 +31,54 @@ class PartitionSpec(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A placement: ``spec`` over ``mesh``.  Only the leading dim may be
-    split (the batch)."""
+    """A placement: ``spec`` over ``mesh``.  At most one dim may be split
+    (the batch's leading dim, or a kernel's sharded axis); its blocks are
+    contiguous, in rank order along the axis."""
     mesh: Mesh
     spec: PartitionSpec
 
     @property
+    def dim(self) -> Optional[int]:
+        """The split dim, or None (replicated)."""
+        split = [i for i, a in enumerate(self.spec) if a is not None]
+        if len(split) > 1 or any(isinstance(self.spec[i], (tuple, list))
+                                 for i in split):
+            raise ValueError(f"{self.spec}: the port splits one dim over "
+                             "one axis")
+        return split[0] if split else None
+
+    @property
     def axis(self) -> Optional[str]:
-        return self.spec[0] if len(self.spec) else None
+        d = self.dim
+        return None if d is None else self.spec[d]
 
     def block(self, n: int) -> slice:
-        """This rank's rows of a leading dim of ``n`` (divisible by the
-        axis size when split)."""
+        """This rank's indices of the split dim of length ``n`` (divisible
+        by the axis size when split)."""
         if self.axis is None:
             return slice(0, n)
         parts = self.mesh.shape[self.axis]
         if n % parts:
-            raise ValueError(f"leading dim {n} is not divisible by the "
+            raise ValueError(f"dim of {n} is not divisible by the "
                              f"{self.axis!r} axis size {parts}")
         m = n // parts
         r = self.mesh.axis_index(self.axis)
         return slice(r * m, (r + 1) * m)
+
+    def local(self, t):
+        """This rank's block of ``t`` (a view; ``t`` itself when
+        replicated or 0-d)."""
+        d = self.dim
+        if d is None or not getattr(t, "ndim", 0):
+            return t
+        return t[(slice(None),) * d + (self.block(t.shape[d]),)]
 
     def place(self, x, site: str = "parallel.place") -> torch.Tensor:
         """This rank's block of ``x`` on the mesh's device."""
         from ..observability.compute import device_put
         t = torch.as_tensor(np.asarray(x)) if not isinstance(
             x, torch.Tensor) else x
-        return device_put(t[self.block(t.shape[0])] if t.ndim else t,
-                          self.mesh.device, site=site)
+        return device_put(self.local(t), self.mesh.device, site=site)
 
 
 def named_sharding(mesh=None, *spec) -> NamedSharding:

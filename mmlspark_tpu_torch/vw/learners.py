@@ -24,8 +24,9 @@ copy of the ``optax.lbfgs`` algorithm the JAX package runs).  TrainingStats
 diagnostics mirror the reference's per-partition stats DataFrame
 (``VowpalWabbitBase.scala:27-49``).  Estimators and models take ``device``:
 unset is the card (an error without one), ``"cpu"`` the host.  A run over
-several processes (the JAX package's end-of-pass average) is not ported:
-``_allreduce_pass_end`` raises there (ROADMAP.md §1 item 10).
+several processes (ranks of a ``torch.distributed`` world, e.g.
+``parallel.executor.run_local_cluster``) averages its ranks' states at
+every pass end (``_allreduce_pass_end``).
 """
 from __future__ import annotations
 
@@ -86,20 +87,23 @@ class TrainingStats:
 
 
 def _allreduce_pass_end(state):
-    """End-of-pass weight averaging across executor processes — the JAX
-    package's spanning-tree allreduce replacement.  A single process
-    returns the state untouched.  Under an initialised ``torch.
-    distributed`` world larger than one it raises: the executor that would
-    average the shards is not ported (ROADMAP.md §1 item 10), and
-    skipping the average silently would train N different models."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "VW's end-of-pass average across processes is not ported yet "
-            "(ROADMAP.md §1 item 10, the rest of parallel/): train in one "
-            "process")
-    return state
+    """End-of-pass weight averaging across executor processes — the
+    spanning-tree allreduce replacement (``trainInternalDistributed``,
+    VowpalWabbitBase.scala:434-462).  Each rank trains its own partition
+    shard; at pass end, the weights AND the AdaGrad accumulators are
+    averaged over the ``torch.distributed`` world (a sum over the default
+    group, then a divide) and the normalizer's ``xmax`` takes the world's
+    max, so every rank continues the next pass from the same model.  A
+    single process returns the state untouched."""
+    from ..parallel.collectives import pmax, psum
+    from ..parallel.mesh import data_parallel_mesh, world_size
+    n = world_size()
+    if n <= 1:
+        return state
+    mesh = data_parallel_mesh()
+    weights, gsq, xmax = state
+    mean = psum(torch.stack([weights, gsq]), "data", mesh) / n
+    return mean[0], mean[1], pmax(xmax, "data", mesh)
 
 
 def _interaction_features(part: Dict, base_col: np.ndarray, specs: List[str],

@@ -420,9 +420,16 @@ def test_compute_twin_keeps_the_reference_names_and_raises_the_rest(
     reg2 = port_obs.MetricsRegistry()
     assert port_compute.ensure_device_memory_gauges(reg2) is False
     assert "mmlspark_device_bytes_in_use" not in reg2.to_dict()
+    # the compile booking is ported (its parity with the reference's is
+    # in test_torch_trainer.py): a wrapper registers, books and reports
+    import torch
+    live = []           # the registry's table holds its wrappers weakly
     for fn in (port_compute.instrumented_jit, port_compute.InstrumentedJit):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn(lambda x: x)
+        live.append(fn(lambda x: x + 1, name="twin", registry=reg))
+        assert float(live[-1](torch.ones(2)).sum()) == 4.0
+        assert live[-1].compiles == 1
+    assert port_compute.compile_report(reg)["functions"]["twin"][
+        "compiles"] == 2
     assert sorted(port_compute.__all__) == sorted(
         __import__("mmlspark_tpu.observability.compute",
                    fromlist=["x"]).__all__)

@@ -27,6 +27,7 @@ from mmlspark_tpu.models import transformer as jax_tf
 from mmlspark_tpu.parallel import ring_attention as jax_ra
 from mmlspark_tpu_torch.convert import transformer_state_dict_from_flax
 from mmlspark_tpu_torch.models import transformer
+from mmlspark_tpu_torch import parallel
 from mmlspark_tpu_torch.parallel import ring_attention as ra
 
 ATOL = 1e-5
@@ -74,11 +75,23 @@ def test_blockwise_attention_equals_jax_at_a_ragged_length(causal, block):
 
 
 def test_ring_attention_is_not_ported():
-    q = torch.zeros(1, 1, 4, 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ra.ring_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ra.make_ring_attention_fn()
+    """Ring attention is ported (``parallel.ring_attention``; the ring
+    itself is tested in ``test_torch_seq_pipe_moe.py``): in a world of one
+    it is one block, equal to JAX's blockwise attention, and the encoder's
+    ``ring`` mode outside a live ``seq`` axis runs blockwise."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.normal(size=(1, 2, 12, 4)).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(jax_ra.blockwise_attention(q, k, v, 512, True))
+    one = parallel.make_mesh({"seq": 1}, device="cpu")
+    got = ra.ring_attention(*map(torch.from_numpy, (q, k, v)), causal=True,
+                            mesh=one)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    with pytest.raises(ValueError, match="no 'seq' axis"):
+        ra.ring_attention(*map(torch.from_numpy, (q, k, v)))
+    fn = ra.make_ring_attention_fn(one, causal=True)
+    np.testing.assert_allclose(fn(q, k, v).numpy(), want, atol=ATOL)
+    assert fn.compiles == 1
 
 
 @pytest.mark.parametrize("pool", ["mean", "none"])

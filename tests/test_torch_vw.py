@@ -757,17 +757,37 @@ def test_compute_per_instance_statistics_equal_jax():
 
 
 def test_allreduce_pass_end_raises_in_a_world_of_two(monkeypatch):
+    """The pass-end average is ported (a world of two processes runs in
+    ``test_torch_partition_executor.py``): one process returns its state
+    untouched, and a world of two averages weights and accumulators and
+    takes the max of ``xmax`` through the world's collectives, which no
+    longer raise."""
     import torch.distributed as dist
+    from mmlspark_tpu_torch.parallel import collectives as TC
     state = (torch.zeros(4), torch.zeros(4), torch.zeros(4))
     assert tlearners._allreduce_pass_end(state) is state
     monkeypatch.setattr(dist, "is_available", lambda: True)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tlearners._allreduce_pass_end(state)
-    df = _sparse_frame(tcore, 100, 5)[0]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _est("port", "VowpalWabbitClassifier", num_bits=8).fit(df)
+    monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 0)
+    calls = []
+
+    def fake_all_reduce(x, op=None, group=None):
+        calls.append(str(op))
+        x.mul_(2) if "SUM" in str(op) else x.add_(1)
+
+    monkeypatch.setattr(dist, "all_reduce", fake_all_reduce)
+    monkeypatch.setattr(TC, "_booked", lambda *a, **k: _null())
+    w, g, xmax = tlearners._allreduce_pass_end(
+        (torch.ones(4), torch.full((4,), 3.0), torch.zeros(4)))
+    assert len(calls) == 2
+    assert w.tolist() == [1.0] * 4 and g.tolist() == [3.0] * 4
+    assert xmax.tolist() == [1.0] * 4
+
+
+def _null():
+    import contextlib
+    return contextlib.nullcontext()
 
 
 def test_ingest_and_scoring_book_their_transfer_bytes():
