@@ -430,7 +430,8 @@ Phases; any failure exits nonzero and prints no result line:
    sweep and delegated fit, and both ranks' fits of the sharded phase,
    split in
    ``launches_by_path``; the vw, neighbours and parallel paths' 0 have
-   their own keys; the dnn, seq and serve phases and the fleet phase's serving
+   their own keys (the parallel path's summed over the rank and executor
+   processes that run its legs, each counting its own); the dnn, seq and serve phases and the fleet phase's serving
    run no kernel of this repository on their paths (the serve phase's
    booster fit, the fleet phase's unmonitored fits and its one grown tree,
    and the backends phase's ``matmul``, ``scatter``, float and bare-copy
@@ -7047,6 +7048,19 @@ def _start_leg(timed: bool = True) -> float:
     return time.perf_counter()
 
 
+def _rank_counts_reset() -> None:
+    """Zero this process's kernel launch counts at the start of a leg's
+    work in a rank or executor process (each process counts its own)."""
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    CH.reset_launch_counts()
+
+
+def _rank_counts() -> dict:
+    """This process's kernel launches since :func:`_rank_counts_reset`."""
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    return CH.launch_counts()
+
+
 class _ImageScorer:
     """The serving leg's stage: request = an image index, reply = that
     image's top class and logit from ResNet-50 scored alone (a world of
@@ -7115,6 +7129,7 @@ def parallel_serving_job(mesh, process_id, model_file: str):
     from mmlspark_tpu_torch.parallel.mesh import world_rank
     from mmlspark_tpu_torch.serving import (RoutingClient, TopologyService,
                                             WorkerServer)
+    _rank_counts_reset()
     _tf32_off()
     torch.backends.cudnn.deterministic = True
     t_start = time.perf_counter()
@@ -7154,7 +7169,8 @@ def parallel_serving_job(mesh, process_id, model_file: str):
         svc.stop()
     rec.update(serve_s=time.perf_counter() - t1, port=port,
                process_s=time.perf_counter() - t_start)
-    return {"logits": logits, "served": served, "record": rec}
+    return {"logits": logits, "served": served, "record": rec,
+            "launches": _rank_counts()}
 
 
 def parallel_warm() -> float:
@@ -7248,6 +7264,7 @@ def parallel_trainer_rank(ckpt_dir: str, width: int,
     from mmlspark_tpu_torch.parallel import make_mesh
     from mmlspark_tpu_torch.parallel.mesh import world_rank
     from mmlspark_tpu_torch.utils.resilience import request_preemption
+    _rank_counts_reset()
     _tf32_off()
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
@@ -7309,6 +7326,7 @@ def parallel_trainer_rank(ckpt_dir: str, width: int,
     out["full_params"] = full.params if world_rank() == 0 else None
     del tr2, st2
     torch.cuda.empty_cache()
+    out["launches"] = _rank_counts()
     return out
 
 
@@ -7325,6 +7343,7 @@ def parallel_ring_seq_rank(width: int) -> dict:
         make_ring_attention_fn
     from mmlspark_tpu_torch.parallel.seq_parallel import \
         make_seq_parallel_train_step
+    _rank_counts_reset()
     _tf32_off()
     mesh = make_mesh({"data": 1, "seq": width})
     out = {"rank": world_rank(), "ring": {}}
@@ -7366,6 +7385,7 @@ def parallel_ring_seq_rank(width: int) -> dict:
     del params, module
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+    out["launches"] = _rank_counts()
     return out
 
 
@@ -7412,6 +7432,7 @@ def parallel_pipe_moe_rank(width: int, moe_file: str) -> dict:
     from mmlspark_tpu_torch.parallel.moe import MoELayer, shard_moe_params
     from mmlspark_tpu_torch.parallel.pipeline_parallel import \
         make_pipeline_train_step
+    _rank_counts_reset()
     _tf32_off()
     out = {"rank": world_rank()}
     S = width
@@ -7468,6 +7489,7 @@ def parallel_pipe_moe_rank(width: int, moe_file: str) -> dict:
     del pm, leaves, opt, fwd, module
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+    out["launches"] = _rank_counts()
     return out
 
 
@@ -7505,6 +7527,7 @@ def parallel_vw_rank(files) -> dict:
     from mmlspark_tpu_torch.core import DataFrame
     from mmlspark_tpu_torch.parallel.mesh import world_rank
     from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+    _rank_counts_reset()
     r = world_rank()
     t0 = time.perf_counter()
     with np.load(files[r]) as z:
@@ -7519,7 +7542,8 @@ def parallel_vw_rank(files) -> dict:
     model = est.fit(df)
     rec = _leg_record("f.vw", t0, rank=r, rows=len(col), data_s=data_s,
                       featurize_s=feat_s)
-    return {"weights": np.asarray(model.weights), "record": rec}
+    return {"weights": np.asarray(model.weights), "record": rec,
+            "launches": _rank_counts()}
 
 
 def parallel_phase(dev, smi: str):
@@ -7534,16 +7558,17 @@ def parallel_legs(dev, smi: str, width: int = PARALLEL_WIDTH,
     over ``backend`` (``tools/parallel_nccl.py``: legs (b)-(e), one rank a
     card over NCCL), each held as the module doc says; the world-1
     references run in this process.  Returns the GBDT kernels' launches
-    over the phase (none: no leg runs them)."""
+    on the legs' paths: each rank and executor process zeroes its own
+    counts when its part of a leg starts and returns them when it ends,
+    and the phase sums them (none: no leg runs those kernels)."""
     import shutil
     import tempfile
-    from mmlspark_tpu_torch.ops import cuda_histogram as CH
     from mmlspark_tpu_torch.parallel.world import World
     t_phase = time.perf_counter()
     _par_sync()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
-    CH.reset_launch_counts()
+    launches = {"hist_accumulate": 0, "frontier_finish": 0}
     rec = {"card": smi, "width": width, "backend": backend, "legs": {}}
 
     def emit(line: dict) -> None:
@@ -7582,29 +7607,32 @@ def parallel_legs(dev, smi: str, width: int = PARALLEL_WIDTH,
             warm_here = _in_thread(parallel_warm)
             warm_ranks = _in_thread(w.run, parallel_warm)
             if "a" in legs:
-                _leg_serving(dev, width, files, emit)
+                launches = add_counts(
+                    launches, _leg_serving(dev, width, files, emit))
             rec["warm_s"] = {"driver": warm_here(), "ranks": warm_ranks()}
             if "b" in legs:
-                _leg_trainer(w, dev, width, files, work, emit)
+                launches = add_counts(
+                    launches, _leg_trainer(w, dev, width, files, work, emit))
             if "c" in legs:
-                _leg_ring_seq(w, dev, width, emit)
+                launches = add_counts(
+                    launches, _leg_ring_seq(w, dev, width, emit))
             if "d" in legs or "e" in legs:
-                _leg_pipe_moe(w, dev, width, files, emit)
+                launches = add_counts(
+                    launches, _leg_pipe_moe(w, dev, width, files, emit))
             if "f" in legs:
-                _leg_vw(w, vw, emit)
+                launches = add_counts(launches, _leg_vw(w, vw, emit))
     finally:
         for p in vw[0]:
             if p.is_alive():
                 p.kill()
         shutil.rmtree(work, ignore_errors=True)
     _par_sync()
-    launches = CH.launch_counts()
     rec["seconds"] = time.perf_counter() - t_phase
     rec["launches"] = launches
     DETAIL["parallel" if backend == "gloo" else f"parallel_{backend}"] = rec
     log(f"[parallel] {smi} x{width} over {backend} | legs {legs} held in "
         f"{rec['seconds']:.1f} s; launches of the repository's Hopper "
-        f"kernels: {launches}")
+        f"kernels in the legs' processes: {launches}")
     return launches
 
 
@@ -7616,6 +7644,14 @@ def _held(what: str, ok: bool, detail: str = "") -> None:
 
 def _all_equal(values) -> bool:
     return all(v == values[0] for v in values[1:])
+
+
+def _sum_counts(parts) -> dict:
+    """The launches the leg's processes returned, summed."""
+    total = {"hist_accumulate": 0, "frontier_finish": 0}
+    for p in parts:
+        total = add_counts(total, p["launches"])
+    return total
 
 
 def _leg_serving(dev, width: int, files: dict, emit) -> None:
@@ -7649,8 +7685,11 @@ def _leg_serving(dev, width: int, files: dict, emit) -> None:
     _held("(a)", len(replies) == PAR_SERVE_REQUESTS and all(
         list(routed) == list(direct) for _, routed, direct in replies),
         f"routed replies {replies}")
+    counts = _sum_counts(procs)
     emit({"leg": "a", "seconds": cluster_s, "ok": True,
-          "rel_err_vs_world1": err, "routed": len(replies)})
+          "rel_err_vs_world1": err, "routed": len(replies),
+          "launches": counts})
+    return counts
 
 
 def _leg_trainer(w, dev, width: int, files: dict, ckpt: str,
@@ -7704,7 +7743,9 @@ def _leg_trainer(w, dev, width: int, files: dict, ckpt: str,
           "world1_compute_s": stats1["compute_s"],
           "world1_ckpt_write_s": _ckpt_save_s() - ckpt0,
           "world1_param_rel_err": p_err,
-          "world1_loss_rel_err": l_err, "losses": full0["losses"]})
+          "world1_loss_rel_err": l_err, "losses": full0["losses"],
+          "launches": _sum_counts(ranks)})
+    return _sum_counts(ranks)
 
 
 def _leg_ring_seq(w, dev, width: int, emit) -> None:
@@ -7743,7 +7784,8 @@ def _leg_ring_seq(w, dev, width: int, emit) -> None:
           "ring_max_abs_err": max(l["max_abs_err"] for r in ranks
                                   for l in r["ring"].values()),
           "seq_losses": seq[0], "world1_losses": one,
-          "seq_loss_rel_err": s_err})
+          "seq_loss_rel_err": s_err, "launches": _sum_counts(ranks)})
+    return _sum_counts(ranks)
 
 
 def _leg_pipe_moe(w, dev, width: int, files: dict, emit) -> None:
@@ -7771,7 +7813,8 @@ def _leg_pipe_moe(w, dev, width: int, files: dict, emit) -> None:
         f"{m_err}, losses {[r['moe']['losses'] for r in ranks]}")
     emit({"leg": "de", "seconds": de_s, "ok": True,
           "pipe_max_abs_err": max(r["pipe"]["max_abs_err"] for r in ranks),
-          "moe_rel_err_vs_world1": m_err})
+          "moe_rel_err_vs_world1": m_err, "launches": _sum_counts(ranks)})
+    return _sum_counts(ranks)
 
 
 def _leg_vw(w, vw, emit) -> None:
@@ -7790,7 +7833,9 @@ def _leg_vw(w, vw, emit) -> None:
     _held("(f)", all(np.array_equal(ws[0], x) for x in ws[1:]) and
           np.abs(ws[0]).sum() > 0, "the ranks' VW weights differ")
     emit({"leg": "f", "seconds": f_s, "ok": True, "featurize_wait_s": wait_s,
-          "nonzero_weights": int(np.count_nonzero(ws[0]))})
+          "nonzero_weights": int(np.count_nonzero(ws[0])),
+          "launches": _sum_counts(ranks)})
+    return _sum_counts(ranks)
 
 
 def main() -> int:

@@ -23,11 +23,12 @@ rounding, NaN payloads kept.  The route moves P times the bytes of
 it is a transport, not a fallback: the tensors stay on the card and the
 compute never moves to the CPU.
 
-Every collective that crosses ranks is booked in this process
-(``collective_stats``): the ``all_reduce`` of ``psum``/``pmean``/``pmax``
-under the flat ``all_reduce_*`` keys, and every collective per route under
-``routes`` (``"all_gather/slot_all_reduce"``, ``"ppermute/send_recv"``,
-...: calls and bytes on the wire from this rank).  With ``timed`` set by
+Every collective that crosses ranks is booked in this process, once, per
+route (``collective_stats()["routes"]``: ``"all_reduce/sum"``,
+``"all_gather/slot_all_reduce"``, ``"ppermute/send_recv"``, ...: calls and
+bytes on the wire from this rank); the flat ``all_reduce_*`` keys are the
+sums of the ``all_reduce/*`` routes (the ``all_reduce`` of
+``psum``/``pmean``/``pmax``).  With ``timed`` set by
 ``reset_collective_stats``, each is also clocked between a device sync
 before it and one after it (off by default, since the syncs cost the
 overlap).
@@ -40,7 +41,10 @@ assume: the backward of ``psum`` is a ``psum`` of the cotangent, of
 ``all_gather`` a ``psum`` of the cotangent cut to this rank's block (the
 reduce-scatter).  A step that differentiates a ``pmean``'d loss and then
 sums its gradients therefore takes the reference's step, which is P times
-the mean gradient (``seq_parallel``).
+the mean gradient (``seq_parallel``).  Where every rank then uses the
+sum whole (the experts' combine), :func:`psum_invariant` and :func:`pvary`
+give the ``check_vma=True`` pair instead: a sum whose backward is the
+identity, and an identity whose backward is a sum.
 
 Live axes.  ``jax.lax.axis_index`` raises ``NameError`` outside a
 ``shard_map`` that binds the axis; code that branches on it (the
@@ -122,8 +126,6 @@ def live_mesh():
 # ---------------------------------------------------------------------------
 
 _STATS_LOCK = threading.Lock()
-_STATS = {"all_reduce_calls": 0, "all_reduce_bytes": 0,
-          "all_reduce_s": 0.0}
 _ROUTES: dict = {}
 _TIMED = False
 
@@ -133,19 +135,23 @@ def reset_collective_stats(timed: bool = False) -> None:
     syncs."""
     global _TIMED
     with _STATS_LOCK:
-        _STATS.update(all_reduce_calls=0, all_reduce_bytes=0,
-                      all_reduce_s=0.0)
         _ROUTES.clear()
         _TIMED = bool(timed)
 
 
 def collective_stats() -> dict:
-    """This process's collectives since the last reset: the ``all_reduce``
-    of ``psum``/``pmean``/``pmax`` (calls, bytes, timed seconds) and
-    ``routes``, ``"<collective>/<route>"`` -> calls, bytes and seconds."""
+    """This process's collectives since the last reset: ``routes``,
+    ``"<collective>/<route>"`` -> calls, bytes and (timed) seconds, and
+    ``all_reduce_calls``/``_bytes``/``_s``, the sums of the
+    ``all_reduce/*`` routes (the ``all_reduce`` of
+    ``psum``/``pmean``/``pmax``)."""
     with _STATS_LOCK:
-        return dict(_STATS, timed=_TIMED,
-                    routes={k: dict(v) for k, v in _ROUTES.items()})
+        routes = {k: dict(v) for k, v in _ROUTES.items()}
+    ar = [v for k, v in routes.items() if k.startswith("all_reduce/")]
+    return {"all_reduce_calls": sum(v["calls"] for v in ar),
+            "all_reduce_bytes": sum(v["bytes"] for v in ar),
+            "all_reduce_s": sum(v["s"] for v in ar),
+            "timed": _TIMED, "routes": routes}
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -172,11 +178,6 @@ def _booked(collective: str, route: str, t: torch.Tensor, nbytes: int):
         row["bytes"] += int(nbytes)
         if timed:
             row["s"] += dt
-        if collective == "all_reduce":
-            _STATS["all_reduce_calls"] += 1
-            _STATS["all_reduce_bytes"] += int(nbytes)
-            if timed:
-                _STATS["all_reduce_s"] += dt
 
 
 def _backend(group) -> str:
@@ -249,6 +250,50 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_reduce(g, ctx.axis, "SUM", ctx.mesh), None, None
+
+
+class _PSumInvariant(torch.autograd.Function):
+    """``psum`` whose backward is the cotangent unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return _all_reduce(x, axis, "SUM", mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _PVary(torch.autograd.Function):
+    """The identity whose backward is a ``psum`` of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.axis, "SUM", ctx.mesh), None, None
+
+
+def psum_invariant(x, axis=AXIS_DATA, mesh=None) -> torch.Tensor:
+    """Sum over the axis for a result every rank then uses whole (the
+    same loss on every rank): the backward hands each rank the cotangent
+    as it is, with no second sum (JAX's transpose of ``psum`` under
+    ``check_vma=True``).  Pairs with :func:`pvary`."""
+    if _differentiable(x):
+        return _PSumInvariant.apply(x, axis, mesh)
+    return _all_reduce(x, axis, "SUM", mesh)
+
+
+def pvary(x, axis=AXIS_DATA, mesh=None) -> torch.Tensor:
+    """The identity on a value every rank holds whole, before each rank
+    uses it for its own part: the backward sums the ranks' cotangents
+    (``jax.lax.pvary``'s transpose).  Pairs with :func:`psum_invariant`."""
+    if _differentiable(x):
+        return _PVary.apply(x, axis, mesh)
+    return x
 
 
 def _differentiable(x) -> bool:

@@ -11,9 +11,10 @@ inside ``shard_mapped`` or a step that enters ``live_axes``) each rank
 holds E / n experts (:func:`shard_moe_params` keeps this rank's block of
 ``w_in`` / ``w_out``), runs them on its tokens, and the combine is a
 ``psum`` over ``expert``.  Every rank then holds the same output and the
-same loss, so the combine's backward hands each rank the cotangent as it
-is (no second sum) and the experts' input gathers its gradient with a
-``psum`` (the gate's part of it is already whole on every rank): the
+same loss, so the combine is ``collectives.psum_invariant`` (its backward
+hands each rank the cotangent as it is, no second sum) and the experts'
+input goes through ``collectives.pvary`` (its backward sums the ranks'
+cotangents; the gate's part of it is already whole on every rank): the
 gradients are the dense layer's, as GSPMD's are in the reference.
 """
 from __future__ import annotations
@@ -26,33 +27,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .mesh import AXIS_EXPERT
-
-
-class _Combine(torch.autograd.Function):
-    """psum over the expert axis; backward: the cotangent unchanged."""
-
-    @staticmethod
-    def forward(ctx, y, axis, mesh):
-        from .collectives import _all_reduce
-        return _all_reduce(y, axis, "SUM", mesh)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None, None
-
-
-class _ToExperts(torch.autograd.Function):
-    """Identity; backward: the cotangent summed over the expert axis."""
-
-    @staticmethod
-    def forward(ctx, x, axis, mesh):
-        ctx.axis, ctx.mesh = axis, mesh
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        from .collectives import _all_reduce
-        return _all_reduce(g, ctx.axis, "SUM", ctx.mesh), None, None
 
 
 def _lecun_normal(shape, fan_in: int, fan_out: int, gen) -> torch.Tensor:
@@ -102,7 +76,8 @@ class MoELayer(nn.Module):
         self.losses = {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        from .collectives import axis_is_live, live_mesh
+        from .collectives import (axis_is_live, live_mesh, psum_invariant,
+                                  pvary)
         T, d = x.shape
         E = self.num_experts
         xc = x.to(self.dtype)
@@ -117,14 +92,14 @@ class MoELayer(nn.Module):
             mesh = live_mesh()
             off = mesh.axis_index(AXIS_EXPERT) * e_loc
             disp = dispatch[:, off:off + e_loc]
-            xe = _ToExperts.apply(xc, AXIS_EXPERT, mesh)
+            xe = pvary(xc, AXIS_EXPERT, mesh)
         else:
             disp, xe = dispatch, xc
         h = disp[:, :, None] * torch.einsum("td,edh->teh", xe, self.w_in)
         h = F.gelu(h, approximate="tanh")
         y = torch.einsum("teh,ehd->td", h, self.w_out)
         if live:
-            y = _Combine.apply(y, AXIS_EXPERT, mesh)
+            y = psum_invariant(y, AXIS_EXPERT, mesh)
         y = y * gate_val
         me = probs.mean(dim=0)
         ce = dispatch.mean(dim=0)

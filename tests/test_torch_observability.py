@@ -408,6 +408,11 @@ def test_profile_window_attributes_phases_and_reports_the_torch_hatch(
 
 def test_compute_twin_keeps_the_reference_names_and_raises_the_rest(
         monkeypatch):
+    """The compute twin's reports and its compile booking.  (The name
+    dates from when ``InstrumentedJit`` raised; nothing here raises now.)
+    ``compile_report`` and the build-info and device-memory gauges keep the
+    reference's names, and an ``instrumented_jit`` wrapper registers,
+    books its signatures and reports."""
     reg = port_obs.MetricsRegistry()
     assert port_compute.compile_report(reg) == {
         "functions": {}, "storm_threshold_default": 8}

@@ -156,7 +156,9 @@ def _rank_slot_route():
         b = torch.tensor([float(r + 1)], requires_grad=True)
         (TP.all_gather(b) * torch.arange(1.0, 5.0)).sum().backward()
         res["grads"] = (float(a.grad), float(b.grad))
-        res["routes"] = sorted(TC.collective_stats()["routes"])
+        st = TC.collective_stats()
+        res["routes"] = sorted(st["routes"])
+        res["flat"] = (st["all_reduce_calls"], st["all_reduce_bytes"])
         out[slot] = res
     return out
 
@@ -208,6 +210,9 @@ def test_slot_route_is_bit_exact_and_booked_by_route(world4):
         assert res[False]["routes"] == ["all_gather/all_gather",
                                         "all_reduce/sum",
                                         "ppermute/send_recv"]
+        # the flat all_reduce keys count the all_reduce routes only: the
+        # all_gather's backward, one sum of a (4, 1) float32 cotangent
+        assert res[True]["flat"] == res[False]["flat"] == (1, 16)
 
 
 # ---------------------------------------------------------------------------

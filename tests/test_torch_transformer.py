@@ -75,10 +75,13 @@ def test_blockwise_attention_equals_jax_at_a_ragged_length(causal, block):
 
 
 def test_ring_attention_is_not_ported():
-    """Ring attention is ported (``parallel.ring_attention``; the ring
-    itself is tested in ``test_torch_seq_pipe_moe.py``): in a world of one
-    it is one block, equal to JAX's blockwise attention, and the encoder's
-    ``ring`` mode outside a live ``seq`` axis runs blockwise."""
+    """Ring attention in a world of one is blockwise, and a missing ``seq``
+    axis raises.  (The name dates from when the port raised here; ring
+    attention is ported in ``parallel.ring_attention`` and the ring itself,
+    at seq 2 and 4, is tested in ``test_torch_seq_pipe_moe.py``.)  In a
+    world of one the ring is one block, equal to JAX's blockwise
+    attention, and the encoder's ``ring`` mode outside a live ``seq`` axis
+    runs blockwise."""
     rng = np.random.default_rng(4)
     q, k, v = (rng.normal(size=(1, 2, 12, 4)).astype(np.float32)
                for _ in range(3))

@@ -757,11 +757,15 @@ def test_compute_per_instance_statistics_equal_jax():
 
 
 def test_allreduce_pass_end_raises_in_a_world_of_two(monkeypatch):
-    """The pass-end average is ported (a world of two processes runs in
-    ``test_torch_partition_executor.py``): one process returns its state
-    untouched, and a world of two averages weights and accumulators and
-    takes the max of ``xmax`` through the world's collectives, which no
-    longer raise."""
+    """The pass-end average: one process returns its state untouched, and a
+    world of two averages weights and accumulators and takes the max of
+    ``xmax`` through the world's collectives, without raising.  (The name
+    dates from when a world of two raised here.)  The world of two is
+    faked here: ``torch.distributed.all_reduce`` is monkeypatched, so this
+    checks only which reductions the learner asks for.  The real average
+    across two processes, against the numpy mean of each process's own
+    state, is ``test_torch_partition_executor.py::
+    test_vw_pass_end_average_across_processes``."""
     import torch.distributed as dist
     from mmlspark_tpu_torch.parallel import collectives as TC
     state = (torch.zeros(4), torch.zeros(4), torch.zeros(4))
