@@ -420,7 +420,14 @@ Phases; any failure exits nonzero and prints no result line:
    tweets, the pass-end average: weights bit-identical on both ranks.
    Each leg prints one JSON line (seconds, collectives by route, peak
    device memory); TF32 is off in every leg.
-23. results — one ``{"kernels": [...]}`` line (``launches`` sums the
+23. analysis — graft-lint, the port's static-analysis gate (budget 15 s):
+   ``mmlspark_tpu_torch.analysis.cli.main([])`` in this process over the
+   checkout's ``mmlspark_tpu_torch`` against
+   ``mmlspark_tpu_torch/analysis/baseline.toml``; any exit but 0 stops the
+   run.  One JSON line: the phase's seconds, the findings, baselined and
+   stale counts, and the rule families scanned.  Host-side source parsing:
+   its 0 launches have their own key in ``launches_by_path``.
+24. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
    fits, the two multiclass fits, the ranker fit, the two streamed fits,
    the fleet phase's monitored ``train()`` and ``train_streamed()`` fits
@@ -429,8 +436,8 @@ Phases; any failure exits nonzero and prints no result line:
    fits, the explain phase's LightGBM fit, the harness phase's seed
    sweep and delegated fit, and both ranks' fits of the sharded phase,
    split in
-   ``launches_by_path``; the vw, neighbours and parallel paths' 0 have
-   their own keys (the parallel path's summed over the rank and executor
+   ``launches_by_path``; the vw, neighbours, parallel and analysis paths'
+   0 have their own keys (the parallel path's summed over the rank and executor
    processes that run its legs, each counting its own); the dnn, seq and serve phases and the fleet phase's serving
    run no kernel of this repository on their paths (the serve phase's
    booster fit, the fleet phase's unmonitored fits and its one grown tree,
@@ -7838,6 +7845,46 @@ def _leg_vw(w, vw, emit) -> None:
     return _sum_counts(ranks)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: graft-lint, the port's static-analysis gate
+# ---------------------------------------------------------------------------
+
+def analysis_phase(smi: str):
+    """``mmlspark_tpu_torch.analysis.cli.main([])`` in this process over
+    the checkout's package against its baseline: exit 0, or the run stops.
+    It parses source on the host and launches no kernel."""
+    import io
+    import re
+    from mmlspark_tpu_torch.analysis import cli, rule_catalog
+
+    def gate():
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([])
+        return rc, out.getvalue(), time.perf_counter() - t0
+
+    (rc, text, seconds), launches = counted(gate)
+    for line in text.splitlines():
+        log(f"[analysis] {line}")
+    if rc != 0:
+        raise AssertionError(f"analysis: graft-lint exited {rc}")
+    if any(launches.values()):
+        raise AssertionError(f"analysis: Hopper kernels launched {launches}")
+    counts = re.search(r"graft-lint: (\d+) findings?, (\d+) baselined, "
+                       r"(\d+) stale", text)
+    if counts is None:
+        raise AssertionError("analysis: no graft-lint summary line")
+    rec = {"phase": "analysis", "seconds": seconds, "exit": rc,
+           "findings": int(counts[1]), "baselined": int(counts[2]),
+           "stale": int(counts[3]),
+           "families": sorted({r[:3] for r in rule_catalog()}),
+           "launches": launches, "card": smi}
+    DETAIL["analysis"] = rec
+    print(json.dumps(rec), flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -7980,6 +8027,10 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    analysis_launches = analysis_phase(smi)
+    log(f"[analysis] phase done in {time.perf_counter() - t0:.1f} s")
+
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
              "cat_level": cat_launches["level"],
@@ -7992,7 +8043,7 @@ def main() -> int:
              "vw": vw_launches, "featurize": featurize_launches,
              "neighbours": neighbours_launches, "explain": explain_launches,
              "harness": harness_launches, "sharded": sharded_launches,
-             "parallel": parallel_launches}
+             "parallel": parallel_launches, "analysis": analysis_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[name],
                 "launches": sum(c[name] for c in paths.values()),

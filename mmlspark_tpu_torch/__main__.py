@@ -3,8 +3,8 @@
 Commands:
   codegen [out_dir]      regenerate the codegen artifacts (default
                          mmlspark_tpu_torch/_generated)
-  graft-lint [args...]   the static-analysis gate (alias: lint, analysis):
-                         not yet ported (ROADMAP §1 item 14)
+  graft-lint [args...]   the static-analysis gate (alias: lint, analysis);
+                         same CLI as ``python -m mmlspark_tpu_torch.analysis``
   help                   this message
 """
 import sys
@@ -15,10 +15,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     cmd = argv.pop(0) if argv else "help"
     if cmd in ("graft-lint", "lint", "analysis"):
-        raise NotImplementedError(
-            f"{cmd}: the static-analysis gate's checkers name JAX/Pallas "
-            "idioms; its torch/CUDA twin is ROADMAP §1 item 14, not yet "
-            "ported")
+        from .analysis.cli import main as lint_main
+        return lint_main(argv)
     if cmd == "codegen":
         from .codegen.codegen import DEFAULT_OUT_DIR, generate_all
         generate_all(argv[0] if argv else DEFAULT_OUT_DIR)

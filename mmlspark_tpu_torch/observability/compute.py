@@ -134,7 +134,14 @@ class InstrumentedJit:
     blocks, ``parallel.sharding``) and donation has no eager meaning (a
     torch step updates its tensors in place).  ``last_cost_analysis`` is
     always ``None``: nothing is lowered, so there is no cost analysis to
-    read."""
+    read.
+
+    Not a tracing root of graft-lint's TRC rules
+    (``analysis/checkers.py``'s ``TracerSafetyChecker``), as the
+    reference's ``instrumented_jit`` is: the wrapper calls ``fn`` eagerly
+    and traces nothing, so host clocks, locks and syncs reached from it
+    are ordinary host code.  The change that makes it capture (a CUDA
+    graph) adds it to the checker's ``_TRACE_ROOTS``."""
 
     def __init__(self, fn: Callable, *, name: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,

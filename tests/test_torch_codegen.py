@@ -16,7 +16,8 @@ the CPU.
 - ``testgen``'s files, generated into ``tmp_path``, pass in a child pytest
   on the CPU.
 - ``python -m mmlspark_tpu_torch``: ``help``, ``codegen`` in a child
-  process, and ``graft-lint`` raising naming ROADMAP item 14.
+  process, and ``graft-lint``/``lint``/``analysis`` dispatching to the
+  port's graft-lint CLI (``--list-rules`` prints its rule catalog).
 - ``digits_as_images``: the reference's arrays, identical, with jitter on
   and off.
 """
@@ -174,7 +175,7 @@ def _main(*args, cwd=ROOT):
                           cwd=cwd, env={**os.environ, "PYTHONPATH": ROOT})
 
 
-def test_main_help_codegen_and_lint(tmp_path, manifest):
+def test_main_help_codegen_and_lint(tmp_path, manifest, capsys):
     proc = _main("help")
     assert proc.returncode == 0 and "codegen [out_dir]" in proc.stdout
     assert _main("nonsense").returncode == 2
@@ -183,9 +184,13 @@ def test_main_help_codegen_and_lint(tmp_path, manifest):
     with open(tmp_path / "out" / "params_manifest.json") as f:
         assert sorted(json.load(f)) == sorted(manifest)
     from mmlspark_tpu_torch.__main__ import main
+    from mmlspark_tpu_torch.analysis import rule_catalog
     for cmd in ("graft-lint", "lint", "analysis"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            main([cmd])
+        capsys.readouterr()
+        assert main([cmd, "--list-rules"]) == 0
+        listed = capsys.readouterr().out
+        assert [line.split()[0] for line in listed.splitlines()] == \
+            sorted(rule_catalog())
 
 
 @pytest.mark.parametrize("jitter", [True, False])
