@@ -194,6 +194,22 @@ Phases; any failure exits nonzero and prints no result line:
    and every page back, the rebuild refused inside its backoff
    (``engine_restarting``), the rebuilt engine's first request = one-shot,
    ``mmlspark_engine_restarts_total`` 1, no engine thread left alive.
+13b. graphs — the runner's compiled programs (CUDA graphs captured per
+   signature by ``InstrumentedJit``) against the same runner code run
+   eagerly (``eager_runner``: every program built by ``instrumented_call``),
+   at the seq LM: (a) bench.py's decode arm (8 x 16 prompts, 32 new
+   tokens) dense and paged at 16: greedy tokens equal, collected logits
+   equal bit for bit; tokens/s in turns and ``decode_profile``'s host
+   enqueue and device ms per forward, eager and replayed; (b) bench.py's
+   continuous trace through each runner's engine: tokens equal, no join
+   compiled, TTFT p50/p99; (c) copy-on-write splits (a 12-token prompt's
+   full and partial hits, one-shot and through an engine): tokens and
+   splits equal, splits > 0; (d) one call sequence on a runner on the card
+   and one on the CPU: ``compile_stats()`` equal; (e) ResNet-50 bfloat16
+   at batch 256 through ``apply_batch`` on 384 images: both buckets'
+   replays = the module called eagerly, bit for bit.  Capture seconds per
+   signature and the graph pool's bytes printed.  No kernel of this
+   repository runs (``launches_by_path["graphs"]``, 0).
 14. fleet  — the training monitor on the kernels and a serving fleet on
    one card, no JAX on the card.  (a) A ``TopologyService`` on 127.0.0.1;
    ``train()`` leaf-wise with its defaults (31 leaves, 8 iterations,
@@ -457,6 +473,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2825,8 +2842,10 @@ def timed_decode(runner, prompts, **kw):
 
 def decode_profile(runner, prompts, **kw):
     """Where one decode's time goes: ``torch.profiler`` over a warm call;
-    the device time and its busy share of the call's wall, kernel launches
-    per step and the top kernels by device time."""
+    the device time and its busy share of the call's wall, kernel and
+    CUDA-graph launches per forward, the host's enqueue per step (the
+    decode's own ``dispatch_s``: the call of each step's program) and the
+    top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2841,10 +2860,14 @@ def decode_profile(runner, prompts, **kw):
     kernels.sort(key=lambda e: -e.self_device_time_total)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    graphs = sum(e.count for e in events if e.key == "cudaGraphLaunch")
     forwards = res.steps + 1
     return {"wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy_share": device_ms / 1e3 / wall,
             "launches_per_forward": launches / forwards,
+            "graph_launches_per_forward": graphs / forwards,
+            "host_enqueue_ms_per_step": res.extras["dispatch_s"] * 1e3
+            / max(res.steps, 1),
             "device_ms_per_step": device_ms / forwards,
             "wall_ms_per_step": wall * 1e3 / forwards,
             "top": [{"name": e.key[:80], "calls": e.count,
@@ -3732,6 +3755,325 @@ def serve_phase(dev, smi: str):
         f"after backoff, first request = one-shot, restarts "
         f"{stall['restarts']:.0f}")
     return runner, ref, reqs
+
+
+# --------------------------------------------------------------------------
+# graphs phase: the runner's compiled programs (CUDA graphs) against eager
+# --------------------------------------------------------------------------
+
+GRAPHS_RESNET_ROWS = 384        # ResNet-50 buckets of 256 and 128 rows
+
+
+def eager_runner(**kw):
+    """A ``ModelRunner`` whose programs are eager: the same runner code with
+    every program built by ``instrumented_call`` (booked, never captured),
+    the baseline the replayed programs are held to bit for bit."""
+    from mmlspark_tpu_torch.models import ModelRunner
+    from mmlspark_tpu_torch.observability import compute
+
+    class EagerRunner(ModelRunner):
+        def _instrumented(self, fn, suffix="", **jit_kwargs):
+            wrapper = compute.instrumented_call(
+                fn, name=f"runner.{self.name}{suffix}",
+                registry=self.registry, **jit_kwargs)
+            self._wrappers.append(wrapper)
+            return wrapper
+
+    return EagerRunner(**kw)
+
+
+def graphs_decode(runners):
+    """(a) bench.py's decode arm (8 x 16 prompts, 32 new tokens) at the
+    seq LM, dense and paged at 16, on the replayed and the eager runner:
+    greedy tokens equal, then the collected logits equal bit for bit (each
+    replayed call after its capture); tokens/s (``timed_decode``, in
+    turns) and ``decode_profile``'s host enqueue and device ms per
+    forward for each."""
+    rng = np.random.default_rng(61)
+    prompts = rng.integers(0, SEQ_LM["vocab_size"], (8, 16)).astype(
+        np.int32)
+    lengths = np.full(8, 16, np.int32)
+    rec = {}
+    for lay, lkw in (("dense", {}),
+                     (f"paged{SERVE_PAGE}", {"kv_layout": "paged",
+                                             "page_size": SERVE_PAGE})):
+        kw = dict(lengths=lengths, max_new_tokens=32, **lkw)
+        r = {name: {"timed": []} for name in runners}
+        for run in runners.values():
+            run.decode(prompts, **kw)             # capture / warm-up
+        greedy = {}
+        for name in ("replayed", "eager", "eager", "replayed"):
+            # captures and the collector's passes during the call: a slow
+            # call says which of the two it paid for, or neither
+            c0 = runners[name].graph_stats()["captures"]
+            g0 = [g["collections"] for g in gc.get_stats()]
+            greedy[name], t = timed_decode(runners[name], prompts, **kw)
+            t["captures"] = runners[name].graph_stats()["captures"] - c0
+            t["gc_passes"] = [g["collections"] - n
+                              for g, n in zip(gc.get_stats(), g0)]
+            r[name]["timed"].append(t)
+        if not np.array_equal(greedy["replayed"].tokens,
+                              greedy["eager"].tokens):
+            raise AssertionError(f"graphs (a) {lay}: replayed tokens differ "
+                                 "from eager")
+        logits = {}
+        for name, run in runners.items():
+            run.decode(prompts, collect_logits=True, **kw)
+            logits[name] = run.decode(prompts, collect_logits=True, **kw)
+        g, e = logits["replayed"], logits["eager"]
+        if not (np.array_equal(g.tokens, e.tokens)
+                and np.array_equal(g.logits, e.logits)):
+            raise AssertionError(
+                f"graphs (a) {lay}: replayed logits differ from eager by "
+                f"{float(np.abs(g.logits - e.logits).max())}: the capture "
+                "picked other kernels")
+        # the process's first profile pays the profiler's own start-up:
+        # one profile is thrown away before the two that are kept
+        decode_profile(runners["eager"], prompts, **kw)
+        for name, run in runners.items():
+            r[name]["profile"] = decode_profile(run, prompts, **kw)
+        rec[lay] = r
+    return rec
+
+
+def graphs_engine(runners):
+    """(b) bench.py's continuous trace through each runner's
+    ``ContinuousDecoder``: every request's tokens equal, replayed and
+    eager, and no join compiles; TTFT p50/p99 and wall per forward of
+    each.  (c) copy-on-write splits (``tests/test_prefix_cache.py``'s
+    drill at the seq LM): a 12-token prompt decoded with the prefix
+    cache, then again (a full hit ending mid-page: a split), a partial
+    hit, then both through a continuous engine on the same pool (a join's
+    split): tokens and splits equal, splits > 0 (the replayed runner's
+    ``cow_copy`` program)."""
+    from mmlspark_tpu_torch.models import PagePool
+    reqs = serve_trace(SEQ_LM["vocab_size"])
+    useful = sum(r[2] for r in reqs)
+    rec, toks = {}, {}
+    for name, run in runners.items():
+        dec = run.decode_stream(slots=SERVE_SLOTS, prompt_bucket=SERVE_PROMPT,
+                                max_new_tokens=SERVE_NEW,
+                                page_size=SERVE_PAGE)
+        dec.warmup()
+        n0 = run.compile_stats()["compiles"]
+        _sync()
+        t0 = time.perf_counter()
+        hs = drive_stream(dec, reqs, lambda r: {"max_new_tokens": r[2]})
+        _sync()
+        wall = time.perf_counter() - t0
+        if any(h.status != "ok" for h in hs):
+            raise AssertionError(f"graphs (b) {name}: a request failed")
+        if run.compile_stats()["compiles"] != n0:
+            raise AssertionError(f"graphs (b) {name}: a join compiled")
+        ttfts = sorted(1e3 * h.ttft_s for h in hs)
+        rec[name] = {"ttft_p50_ms": ttfts[len(ttfts) // 2],
+                     "ttft_p99_ms": ttfts[int(len(ttfts) * 0.99)],
+                     "tokens_per_s": useful / wall,
+                     "wall_ms_per_forward": wall * 1e3 / (dec.steps
+                                                          + len(hs))}
+        toks[name] = [[int(t) for t in h.tokens] for h in hs]
+        dec.close()
+    if toks["replayed"] != toks["eager"]:
+        raise AssertionError("graphs (b): the replayed engine's tokens "
+                             "differ from the eager engine's")
+    base = np.random.default_rng(63).integers(
+        1, SEQ_LM["vocab_size"], 12).astype(np.int32)
+    partial = base.copy()
+    partial[8:] = base[8:] + 1
+    cow = {}
+    for name, run in runners.items():
+        fam = run.registry.family("mmlspark_prefix_cow_splits_total")
+        c0 = fam.labels(runner=run.name).value
+        pool = PagePool(run.module, num_pages=24, page_size=4,
+                        name=run.name, registry=run.registry)
+        got = [[int(t) for t in run.decode(
+            p[None], max_new_tokens=5, kv_layout="paged", page_size=4,
+            pool=pool, prefix_cache=True).tokens[0]]
+            for p in (base, base, partial)]
+        dec = run.decode_stream(slots=2, prompt_bucket=16, max_new_tokens=5,
+                                pool=pool, prefix_cache=True)
+        dec.warmup()
+        got += [[int(t) for t in h.tokens]
+                for h in drive_stream(dec, [(base, 0), (partial, 0)],
+                                      lambda r: {})]
+        dec.close()
+        cow[name] = (fam.labels(runner=run.name).value - c0, got)
+    if cow["replayed"][1] != cow["eager"][1]:
+        raise AssertionError("graphs (c): the replayed prefix-cache tokens "
+                             f"differ from eager: {cow}")
+    if not cow["replayed"][0] == cow["eager"][0] > 0:
+        raise AssertionError(f"graphs (c): CoW splits {cow}")
+    rec["cow_splits"] = cow["replayed"][0]
+    return rec
+
+
+def graphs_keys(lm):
+    """(d) one call sequence (dense and paged decodes, greedy, eos and
+    logits, an apply, a continuous engine with the prefix cache warmed)
+    on a runner on the card and on a runner on the CPU over the same
+    weights: ``compile_stats()`` equal, keys and compiles."""
+    from mmlspark_tpu_torch.models import ModelRunner, TransformerEncoder
+    from mmlspark_tpu_torch.observability import MetricsRegistry
+    cpu_lm = TransformerEncoder(**SEQ_LM,
+                                generator=torch.Generator().manual_seed(60))
+    runners = [ModelRunner(module=lm, name="graphs.keys", batch_size=8,
+                           registry=MetricsRegistry()),
+               ModelRunner(module=cpu_lm, name="graphs.keys", batch_size=8,
+                           registry=MetricsRegistry(), device="cpu")]
+    prompts = np.random.default_rng(62).integers(
+        0, SEQ_LM["vocab_size"], (3, 12)).astype(np.int32)
+    calls = [dict(max_new_tokens=8), dict(max_new_tokens=8, eos_id=7),
+             dict(max_new_tokens=8, kv_layout="paged", page_size=16),
+             dict(max_new_tokens=8, collect_logits=True),
+             dict(max_new_tokens=24, kv_layout="paged", page_size=16)]
+    for run in runners:
+        for kw in calls:
+            run.decode(prompts, **kw)
+        run.apply_batch(prompts)
+        dec = run.decode_stream(slots=4, prompt_bucket=16, max_new_tokens=8,
+                                page_size=16, prefix_cache=True)
+        dec.warmup()
+        dec.close()
+    card, cpu = (r.compile_stats() for r in runners)
+    if card != cpu:
+        raise AssertionError(f"graphs (d): compile_stats card {card} != "
+                             f"CPU {cpu}")
+    return card
+
+
+def graphs_resnet(dev):
+    """(e) ResNet-50 at full width in bfloat16 through ``apply_batch`` at
+    batch 256 (``features=True``) on 384 images: buckets of 256 and 128
+    captured, then replayed; the replay equals the module called eagerly
+    on the same padded buckets, bit for bit."""
+    from mmlspark_tpu_torch.models import ModelRunner, resnet
+    from mmlspark_tpu_torch.models.runner import _pad_rows, bucket_rows
+    cpu32 = seeded_resnet50(torch.Generator().manual_seed(50))
+    m = resnet.ResNet.from_config({**cpu32.config(), "dtype": "bfloat16"})
+    m.load_state_dict(cpu32.state_dict())
+    m = m.to(dev)
+    x = np.random.default_rng(55).standard_normal(
+        (GRAPHS_RESNET_ROWS, DNN_HW, DNN_HW, 3), dtype=np.float32)
+    runner = ModelRunner(module=m, name="graphs.resnet50",
+                         batch_size=DNN_BATCH, apply_kwargs={"features": True})
+    runner.apply_batch(x)                         # captures both buckets
+    split0 = dict(runner.phase_s)
+    _sync()
+    t0 = time.perf_counter()
+    got = runner.apply_batch(x)                   # replays
+    wall = time.perf_counter() - t0
+    want = []
+    with torch.inference_mode():
+        for i in range(0, len(x), DNN_BATCH):
+            chunk = x[i:i + DNN_BATCH]
+            b = bucket_rows(len(chunk), DNN_BATCH)
+            y = m(torch.from_numpy(_pad_rows(chunk, b)).to(dev),
+                  features=True)
+            want.append(y[:len(chunk)].float().cpu().numpy())
+    want = np.concatenate(want)
+    if not np.array_equal(got, want):
+        raise AssertionError(
+            f"graphs (e): ResNet-50 replay differs from eager by "
+            f"{float(np.abs(got - want).max())}: the capture picked other "
+            "kernels")
+    return runner, {"rows": len(x), "buckets": sorted(runner.bucket_calls),
+                    "replay_wall_s": wall,
+                    "replay_split_s": {k: runner.phase_s[k] - split0[k]
+                                       for k in split0},
+                    "compile_stats": runner.compile_stats()}
+
+
+def graphs_phase(dev, smi: str):
+    """The runner's compiled programs on the card: (a) decode, (b) the
+    continuous engine, (c) a CoW split, (d) the keys card = CPU, (e)
+    ResNet-50's buckets; capture seconds per signature and the graph
+    pool's bytes."""
+    from mmlspark_tpu_torch.models import ModelRunner, TransformerEncoder
+    from mmlspark_tpu_torch.observability import compute
+    t0 = time.perf_counter()
+
+    def run():
+        lm = TransformerEncoder(**SEQ_LM,
+                                generator=torch.Generator().manual_seed(60))
+        runners = {"replayed": ModelRunner(module=lm, name="graphs",
+                                           batch_size=8, device=dev),
+                   "eager": eager_runner(module=lm, name="graphs.eager",
+                                         batch_size=8, device=dev)}
+        lm = runners["replayed"].module
+        rec = {"decode": graphs_decode(runners)}
+        t_a = time.perf_counter() - t0
+        rec["engine"] = graphs_engine(runners)
+        t_b = time.perf_counter() - t0
+        rec["keys"] = graphs_keys(lm)
+        t_d = time.perf_counter() - t0
+        resnet_runner, rec["resnet50"] = graphs_resnet(dev)
+        rec["pool_bytes"] = compute.graph_pool_bytes(
+            torch.cuda.current_device())
+        rec["graph_stats"] = {
+            "decode": runners["replayed"].graph_stats(),
+            "resnet50": resnet_runner.graph_stats()}
+        rec["seconds"] = {"decode": t_a, "engine_cow": t_b - t_a,
+                          "keys": t_d - t_b,
+                          "resnet50": time.perf_counter() - t0 - t_d}
+        return rec
+
+    rec, launches = counted(run)
+    if any(launches.values()):
+        raise AssertionError(f"graphs: Hopper kernels launched {launches}")
+    rec.update(card=smi, launches=launches,
+               total_s=time.perf_counter() - t0)
+    DETAIL["graphs"] = rec
+    for lay, r in rec["decode"].items():
+        e, g = r["eager"], r["replayed"]
+        ep, gp = e["profile"], g["profile"]
+        log(f"[graphs] {smi} | (a) decode {lay}, 8 x 16 + 32: replayed = "
+            f"eager (tokens, logits bit for bit); host enqueue per step "
+            f"eager {ep['host_enqueue_ms_per_step']:.3f} ms, replayed "
+            f"{gp['host_enqueue_ms_per_step']:.3f} ms; device per forward "
+            f"eager {ep['device_ms_per_step']:.3f} ms, replayed "
+            f"{gp['device_ms_per_step']:.3f} ms; wall per forward eager "
+            f"{ep['wall_ms_per_step']:.3f} ms, replayed "
+            f"{gp['wall_ms_per_step']:.3f} ms (launches per forward "
+            f"{ep['launches_per_forward']:.0f} -> "
+            f"{gp['launches_per_forward']:.0f} + "
+            f"{gp['graph_launches_per_forward']:.1f} graphs); tokens/s "
+            f"(events, in turns) eager "
+            + " / ".join(f"{t['tokens_per_s_events']:.0f}"
+                         for t in e["timed"]) + ", replayed "
+            + " / ".join(f"{t['tokens_per_s_events']:.0f}"
+                         for t in g["timed"]) + " (captures "
+            + " / ".join(str(t["captures"]) for t in g["timed"])
+            + ", gc passes " + " / ".join(str(t["gc_passes"])
+                                          for t in g["timed"]) + ")")
+    en = rec["engine"]
+    log(f"[graphs] {smi} | (b) continuous trace ({SERVE_REQUESTS} "
+        f"requests, {SERVE_SLOTS} slots): replayed = eager tokens, no join "
+        f"compiled; TTFT p50/p99 eager {en['eager']['ttft_p50_ms']:.2f}/"
+        f"{en['eager']['ttft_p99_ms']:.2f} ms, replayed "
+        f"{en['replayed']['ttft_p50_ms']:.2f}/"
+        f"{en['replayed']['ttft_p99_ms']:.2f} ms; wall per forward eager "
+        f"{en['eager']['wall_ms_per_forward']:.3f} ms, replayed "
+        f"{en['replayed']['wall_ms_per_forward']:.3f} ms; tokens/s eager "
+        f"{en['eager']['tokens_per_s']:.0f}, replayed "
+        f"{en['replayed']['tokens_per_s']:.0f}; (c) prefix cache: "
+        f"{en['cow_splits']:.0f} CoW splits each, tokens equal")
+    gs = rec["graph_stats"]
+    caps = {k: [round(c, 4) for c in v]
+            for st in gs.values() for k, v in st["capture_seconds"].items()
+            if v}
+    log(f"[graphs] {smi} | (d) compile_stats card = CPU: "
+        f"{rec['keys']['compiles']} compiles, "
+        f"{len(rec['keys']['executables'])} keys; (e) ResNet-50 bf16 "
+        f"buckets {rec['resnet50']['buckets']} replayed = eager bit for "
+        f"bit, replay of {rec['resnet50']['rows']} images "
+        f"{rec['resnet50']['replay_wall_s']:.3f} s; captures "
+        f"{gs['decode']['captures'] + gs['resnet50']['captures']}, "
+        f"re-captures {gs['decode']['recaptures']}, graph pool "
+        f"{(rec['pool_bytes'] or 0) / 1e6:.1f} MB; phase "
+        f"{rec['total_s']:.1f} s")
+    log(f"[graphs] {smi} | capture seconds per signature: "
+        f"{json.dumps(caps)}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -7982,6 +8324,11 @@ def main() -> int:
     log(f"[serve] phase done in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
+    graphs_launches = graphs_phase(dev, smi)
+    torch.cuda.synchronize()
+    log(f"[graphs] phase done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
     fleet_launches = fleet_phase(dev, smi, served)
     del served
     torch.cuda.synchronize()
@@ -8042,6 +8389,7 @@ def main() -> int:
              **fleet_launches, "backends": backend_launches,
              "vw": vw_launches, "featurize": featurize_launches,
              "neighbours": neighbours_launches, "explain": explain_launches,
+             "graphs": graphs_launches,
              "harness": harness_launches, "sharded": sharded_launches,
              "parallel": parallel_launches, "analysis": analysis_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,

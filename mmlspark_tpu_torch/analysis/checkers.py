@@ -36,6 +36,14 @@ _TRACE_ROOTS = {
     "torch.jit.script", "torch.jit.trace",
     "torch.cuda.make_graphed_callables",
     "torch.fx.symbolic_trace",
+    # the port's compiled-program layer: a CUDA graph captured per
+    # signature on the card (observability/compute.py)
+    "instrumented_jit", "compute.instrumented_jit",
+    "observability.compute.instrumented_jit",
+    "mmlspark_tpu_torch.observability.compute.instrumented_jit",
+    "InstrumentedJit", "compute.InstrumentedJit",
+    "observability.compute.InstrumentedJit",
+    "mmlspark_tpu_torch.observability.compute.InstrumentedJit",
 }
 
 #: transforms that call their function on batched or gradient-tracking
@@ -133,19 +141,21 @@ class TracerSafetyChecker(Checker):
     ``int()``/``bool()`` of a tensor argument).
 
     Roots are functions decorated with (or passed to) ``torch.compile``,
-    ``torch.jit.script``/``trace``, ``torch.cuda.make_graphed_callables``
-    or ``torch.fx.symbolic_trace``, and the body of every ``with
+    ``torch.jit.script``/``trace``, ``torch.cuda.make_graphed_callables``,
+    ``torch.fx.symbolic_trace`` or the port's ``instrumented_jit``/
+    ``InstrumentedJit`` (``observability/compute.py``: a CUDA graph
+    captured per signature on the card, as the reference roots its
+    ``jax.jit`` wrapper), and the body of every ``with
     torch.cuda.graph(...)`` block.  ``torch.vmap``/``torch.func.vmap``/
     ``torch.func.grad`` root TRC004 only: their functions run as ordinary
     host code on every call, so a clock or a print is harmless there, but
     a host sync on a batched tensor raises.
 
-    ``instrumented_jit``/``InstrumentedJit`` (``observability/compute.py``)
-    is NOT a root: the port's wrapper books signatures around an eager call
-    and traces nothing.  When it starts to capture (CUDA graphs), it joins
-    ``_TRACE_ROOTS`` in the same change.  The reference's Pallas roots have
-    no counterpart: the port's kernels are CUDA C++ launched through
-    ``ctypes``.
+    ``instrumented_call``/``InstrumentedCall``, the same booking around a
+    call that is never captured (the ``parallel/`` steps, whose gloo
+    collectives run host code), is not a root.  The reference's Pallas
+    roots have no counterpart: the port's kernels are CUDA C++ launched
+    through ``ctypes``.
 
     Reachability is cross-module over the scanned scope: roots include
     imported functions, resolved through each module's import table, and

@@ -36,12 +36,14 @@ histogram knobs once per call (``MMLSPARK_TPU_HIST_BACKEND`` picks
 ``cuda``, ``matmul`` or ``scatter`` for the growers and the tile builds,
 ``MMLSPARK_TPU_HIST_QUANT`` overrides ``use_quantized_grad``), and the
 streamed driver books every staged tile's bytes under
-``mmlspark_device_transfer_bytes_total{site="lightgbm.ooc_tile"}``.  Not
-ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
-entry: row sharding and voting.
-The JAX package's scan-chunked multi-iteration path exists to amortize a
-device relay's per-dispatch latency; the port launches per iteration and
-has no counterpart.
+``mmlspark_device_transfer_bytes_total{site="lightgbm.ooc_tile"}``.  Row
+sharding and voting-parallel run over a ``torch.distributed`` process
+group (``train(shard_rows=True)``, ``parallelism="voting_parallel"``).
+The JAX package's fused iteration and its scan-chunked multi-iteration
+path (``lightgbm.iter`` / ``multi_iter``, compiled programs that amortize
+a device's per-dispatch latency) wait for ROADMAP.md §1's next slice,
+which captures them as CUDA graphs; until then the port launches per
+iteration.
 """
 from __future__ import annotations
 

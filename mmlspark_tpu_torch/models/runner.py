@@ -11,11 +11,26 @@ One object takes an in-tree model (``models.resnet``,
 it on its device once, and scores stacked host batches of any row count:
 chunk to ``batch_size``, pad each chunk to its power-of-two latency bucket
 (a 1-row request pads to 1, not ``batch_size``), run, unpad, concatenate.
-There is no jit: PyTorch runs eagerly, so a bucket is an eager call under
-``torch.inference_mode()``, and the buckets keep the reference's padding
-(and with it its outputs) rather than a compile cache.  The batch counters
-(``mmlspark_runner_batches_total``, ``_rows_total``, ``_pad_rows_total``)
-book into the port's registry under the reference's names.
+The batch counters (``mmlspark_runner_batches_total``, ``_rows_total``,
+``_pad_rows_total``) book into the port's registry under the reference's
+names.
+
+**Compiled programs.**  As the reference keeps one jitted executable per
+signature, the runner keeps one :class:`~mmlspark_tpu_torch.observability.
+compute.InstrumentedJit` per key of the reference's (``executable``, the
+decode's prefill and step, dense and paged, greedy-fused with ``eos_id``
+in the key, the on-device sampler, the copy-on-write page clone): on the
+card each signature's first call is captured as a CUDA graph and every
+later call replays it; on the CPU the same calls run eagerly under the
+same booking.  ``compile_stats()`` gives the reference's dict: the keys,
+``"/"``-joined and sorted (the device field is the port's own: the card's
+index, or the ranks of a live ``data`` mesh), and the compiles, one per
+signature.  What the reference donates is the graphs' in-place state:
+the paged layout's pool slabs, the dense layout's cache (owned by its
+(device, batch bucket, cache length) geometry and zeroed at each decode,
+so a decode sees a fresh ``init_cache``), and each borrower's finished
+masks.  ``graph_stats()`` counts the captures and the re-captures for new
+storage (a rebuilt slab), which are not compiles.
 
 ``decode`` is the reference's cold path: power-of-two batch and prompt
 buckets, ragged ``lengths`` (each sequence writes and reads the cache at
@@ -24,30 +39,28 @@ sampling on the device (one ``(B,)`` token fetch per step) or a host
 ``sample_fn`` / ``collect_logits``.  ``kv_layout="paged"`` allocates
 fixed-size pages from a shared ``PagePool`` by true length, extends at
 page boundaries, frees on eos, and turns a budgeted pool's mid-decode
-exhaustion into a partial result (``denied_rows`` / ``denied_at``).  Each
-step is one eager forward of the model with the cache updated in place
-(the analogue of the reference's donated buffers); the decode counters,
-the useful/wasted token ledger, the decode span and the page pool's
-gauges keep the reference's names.  ``prefix_cache=True`` pins the
-cached prefix pages of ``models.prefix_cache.PrefixIndex`` and prefills
-only the suffix; a write that would land on a shared page first splits it
-(copy-on-write: ``index_copy``-shaped in-place copies of one page in every
-layer's k and v slabs).
+exhaustion into a partial result (``denied_rows`` / ``denied_at``).
+Positions are checked on the host, while they are numpy, before they
+reach the card.  The decode counters, the useful/wasted token ledger,
+the decode span and the page pool's gauges keep the reference's names.
+``prefix_cache=True`` pins the cached prefix pages of
+``models.prefix_cache.PrefixIndex`` and prefills only the suffix; a write
+that would land on a shared page first splits it (copy-on-write: the
+page's k and v copied in every layer's slabs, in place).
 
 ``ContinuousDecoder`` (``decode_stream``) keeps a fixed ``slots``-wide
 batch on the paged pool: a request joins a free slot between steps (its
 prompt prefilled alone at ``(1, prompt_bucket)``) and leaves the moment it
-finishes.  A stall watchdog (``utils.resilience.Watchdog``) brackets each
-dispatch and host fetch; a trip poison-aborts the engine from the monitor
-thread, and the scorer's ``RestartSupervisor`` gates the rebuild.  Where
-the reference treats donated slabs as unknown after an abort, the port
-drops them as well: the rebuilt engine borrows fresh slabs, and the
-aborted engine thread, should it still be running, touches no slot state
-after the teardown (one engine lock orders the two).
-
-``executable`` and ``compile_stats`` describe the reference's jit cache
-and raise ``NotImplementedError`` naming ROADMAP.md §2 item 6 (the decode
-step as a CUDA graph).
+finishes.  It takes its step, its single-row prefill and its sampler from
+the runner once, so a warmed one-shot decode at its geometry warms it and
+a join mints no key.  A stall watchdog (``utils.resilience.Watchdog``)
+brackets each dispatch and host fetch; a trip poison-aborts the engine
+from the monitor thread, and the scorer's ``RestartSupervisor`` gates the
+rebuild.  Where the reference treats donated slabs as unknown after an
+abort, the port drops them as well: the rebuilt engine borrows fresh
+slabs, and the aborted engine thread, should it still be running,
+touches no slot state after the teardown (one engine lock orders the
+two).
 """
 from __future__ import annotations
 
@@ -72,10 +85,6 @@ __all__ = ["ModelRunner", "DecodeResult", "PagePool", "ContinuousDecoder",
 
 #: fronts a batch can arrive through; metric label values
 FRONTS = ("transform", "serving", "decode")
-
-_CUDA_GRAPH_ITEM = ("the port runs eagerly and keeps no jit executables: "
-                    "{} would describe the decode step's CUDA graph, which "
-                    "is not captured yet (ROADMAP.md §2 item 6)")
 
 
 class PagePoolExhausted(RuntimeError):
@@ -177,6 +186,79 @@ def _nbytes(cache) -> int:
     return sum(t.numel() * t.element_size() for pair in cache for t in pair)
 
 
+def _finished_mask(masks: Dict[int, torch.Tensor], rows: int,
+                   dev: torch.device) -> torch.Tensor:
+    """The borrower's ``(rows,)`` finished mask: donated state of the
+    sampler and the fused step, so it keeps its storage across decodes."""
+    m = masks.get(rows)
+    if m is None or m.device != dev:
+        with torch.inference_mode(False):
+            m = masks[rows] = torch.ones(rows, dtype=torch.bool, device=dev)
+    return m
+
+
+def _check_positions(module, pos: np.ndarray) -> None:
+    """The module's position bound, checked on the host while ``pos`` is
+    numpy: on the card an index past ``max_len`` is a device-side assert,
+    and reading positions back from the card would be a sync inside the
+    captured forward."""
+    max_len = getattr(module, "max_len", None)
+    if max_len is None or pos.size == 0:
+        return
+    hi = int(pos.max())
+    if hi >= max_len or int(pos.min()) < 0:
+        raise ValueError(f"positions must lie in [0, max_len = {max_len}), "
+                         f"got max {hi}")
+
+
+class _DenseCache:
+    """The dense layout's KV cache at one (device, batch bucket, cache
+    length): the fixed storage its captured prefills and steps read and
+    write.  One decode borrows it at a time; each borrow zeroes it, so a
+    decode starts from what a fresh ``init_cache`` gives.  ``masks`` holds
+    the borrower's finished masks."""
+
+    __slots__ = ("cache", "masks", "busy")
+
+    def __init__(self):
+        self.cache = None
+        self.masks: Dict[int, torch.Tensor] = {}
+        self.busy = False
+
+    def finished_mask(self, rows: int, dev: torch.device) -> torch.Tensor:
+        return _finished_mask(self.masks, rows, dev)
+
+
+class _ApplyProgram:
+    """One bucket's compiled apply (``ModelRunner.executable``):
+    ``local`` (an ``InstrumentedJit`` of the model) on this rank's rows of
+    the bucket.  Under a live ``data`` axis that divides the bucket,
+    ``rows`` is this rank's contiguous block and the block's outputs are
+    all-gathered along ``data`` outside the graph."""
+
+    def __init__(self, local, device: torch.device, mesh=None, rows=None):
+        self.local, self.device = local, device
+        self.mesh, self.rows = mesh, rows
+
+    def __call__(self, batch) -> torch.Tensor:
+        """The bucket's output for the full bucket ``batch`` (a tensor or
+        numpy), a tensor of its own on the runner's device."""
+        if not isinstance(batch, torch.Tensor):
+            batch = torch.from_numpy(np.ascontiguousarray(batch))
+        if self.rows is not None:
+            batch = batch[self.rows]
+        with torch.inference_mode():
+            return self.run_block(batch.to(self.device))
+
+    def run_block(self, block: torch.Tensor) -> torch.Tensor:
+        """The program on this rank's block, already on the device."""
+        y = self.local(block)
+        if self.rows is not None:
+            from ..parallel.collectives import all_gather
+            y = all_gather(y, "data", mesh=self.mesh)
+        return y
+
+
 @dataclass
 class DecodeResult:
     """One batched decode: ``tokens[b, t]`` is the t-th generated token of
@@ -245,6 +327,8 @@ class PagePool:
         self._cond = make_condition("PagePool._cond")
         self._cache = None          # built lazily, rebuilt if dropped
         self._cache_nbytes = 0
+        #: the slabs' borrower's finished masks (see finished_mask)
+        self._masks: Dict[int, torch.Tensor] = {}
         self._borrowed = False
         self.high_water = 0
         #: True when the owning runner sized this pool implicitly (from a
@@ -441,6 +525,13 @@ class PagePool:
                 raise
         return cache
 
+    def finished_mask(self, rows: int, dev: torch.device) -> torch.Tensor:
+        """A ``(rows,)`` finished mask for the decode that holds the slabs
+        (the sampler's and the fused step's donated state: it keeps its
+        storage across borrowers, as the slabs do, so their captured
+        programs replay)."""
+        return _finished_mask(self._masks, rows, dev)
+
     def resized(self, num_pages: int) -> "PagePool":
         """A fresh pool with the same module/page size/metric identity but
         ``num_pages`` pages.  Refuses while sequences hold pages or a
@@ -550,7 +641,7 @@ class ModelRunner:
             self.module = _on_device(module, self.device).eval()
         self.name = name
         self.batch_size = int(batch_size)
-        #: bucket rows -> eager calls made at that bucket
+        #: bucket rows -> program calls made at that bucket
         self.bucket_calls: Dict[int, int] = {}
         self.phase_s = {"stack": 0.0, "h2d": 0.0, "device": 0.0, "d2h": 0.0}
         from ..observability.metrics import get_registry
@@ -637,6 +728,13 @@ class ModelRunner:
         from .prefix_cache import prefix_instruments
         prefix_instruments(reg)
         self._lock = make_lock("ModelRunner._lock")
+        #: the reference's executable cache: key -> compiled program
+        self._executables: Dict[Tuple, Callable] = {}
+        #: every InstrumentedJit the cache made (compile_stats sums them)
+        self._wrappers: list = []
+        #: (device key, batch bucket, cache length) -> the dense cache
+        self._dense: Dict[Tuple, _DenseCache] = {}
+        self._dense_cond = make_condition("ModelRunner._dense_cond")
         #: page size -> the runner's shared PagePool for paged decode
         self._pools: Dict[int, PagePool] = {}
         #: resolved geometry of the most recent decode (DecodeResult.extras)
@@ -652,23 +750,91 @@ class ModelRunner:
             return self.module(batch, **self.apply_kwargs)
         return self._apply_fn(self.state, batch)
 
+    # ------------------------------------------------------------- lowering
+    def _device_key(self) -> Tuple:
+        """The device the executables are specialized to: the ranks of a
+        live ``data`` mesh, else the runner's device index (the port's own
+        field of the reference's key; a mesh change re-keys instead of
+        serving a stale placement)."""
+        mesh, parts = _data_mesh()
+        if parts > 1:
+            return tuple(int(r) for r in mesh.devices.flat)
+        return (self.device.index or 0,)
+
+    def _instrumented(self, fn: Callable, suffix: str = "", **jit_kwargs):
+        from ..observability.compute import instrumented_jit
+        wrapper = instrumented_jit(
+            fn, name=f"runner.{self.name}{suffix}",
+            registry=self.registry, **jit_kwargs)
+        self._wrappers.append(wrapper)
+        return wrapper
+
     def executable(self, bucket_n: int, feat_shape: Tuple[int, ...]):
-        """Not ported: the reference's compiled apply per bucket."""
-        raise NotImplementedError(_CUDA_GRAPH_ITEM.format("executable()"))
+        """The compiled apply for one (device key, bucketed batch shape) —
+        built on first use, a dict hit forever after: an
+        :class:`_ApplyProgram` whose call takes the bucket's batch (a
+        tensor or numpy) and returns the model's output on the runner's
+        device, a tensor of its own (copied out of the graph, so chunks'
+        outputs stay valid side by side).  On the card the model is a CUDA
+        graph per signature; under a live ``data`` axis that divides the
+        bucket, only this rank's block is captured and the gather stays
+        outside the graph."""
+        key = ("apply", self._device_key(), int(bucket_n),
+               tuple(int(d) for d in feat_shape))
+        fn = self._executables.get(key)
+        if fn is not None:
+            return fn
+        with self._lock:
+            fn = self._executables.get(key)
+            if fn is not None:
+                return fn
+            mesh, parts = _data_mesh()
+            local = self._instrumented(self.__call__)
+            if parts > 1 and bucket_n % parts == 0:
+                fn = _ApplyProgram(local, self.device, mesh,
+                                   _rows_of(mesh, int(bucket_n)))
+            else:
+                fn = _ApplyProgram(local, self.device)
+            self._executables[key] = fn
+        return fn
 
     def compile_stats(self) -> Dict[str, Any]:
-        """Not ported: the reference's executable cache and compile
-        count."""
-        raise NotImplementedError(_CUDA_GRAPH_ITEM.format("compile_stats()"))
+        """Introspection for tests and ops: executables cached by key plus
+        the underlying compile count (one per signature by contract)."""
+        return {
+            "executables": sorted(
+                "/".join(str(p) for p in k) for k in self._executables),
+            "compiles": sum(getattr(w, "compiles", 0)
+                            for w in self._wrappers),
+        }
+
+    def graph_stats(self) -> Dict[str, Any]:
+        """The card's side of the cache: CUDA graphs captured, re-captures
+        for new donated storage (not compiles), and each signature's
+        capture seconds by wrapper name.  All zero on the CPU."""
+        captures = recaptures = 0
+        seconds: Dict[str, List[float]] = {}
+        for w in self._wrappers:
+            captures += getattr(w, "captures", 0)
+            recaptures += getattr(w, "recaptures", 0)
+            snap = w.snapshot().get("capture_seconds", ())
+            seconds.setdefault(w.name, []).extend(
+                c for c in snap if c is not None)
+        return {"captures": captures, "recaptures": recaptures,
+                "capture_seconds": seconds}
 
     # ------------------------------------------------------------ batch front
     def apply_batch(self, x: np.ndarray, front: str = "transform",
                     batch_size: Optional[int] = None) -> np.ndarray:
         """Score a stacked host batch of any row count: chunk to
         ``batch_size``, pad each chunk to its power-of-two bucket, run the
-        model on the device, unpad, concatenate.  The chunks' outputs stay
-        on the device until the last one is enqueued, then come back in
-        one copy, so the host never waits for the card between chunks.
+        bucket's :meth:`executable` (a replayed CUDA graph on the card),
+        unpad, concatenate.  The chunks' outputs (each copied out of its
+        graph) stay on the device until the last one is enqueued, then
+        come back in one copy, so the host never waits for the card
+        between chunks.  ``phase_s`` splits as before: ``h2d`` is the
+        chunk's upload, ``device`` the program (the copy into the graph's
+        static input, the replay, the copy out).
 
         Under an active mesh whose ``data`` axis has P > 1 positions, a
         bucket that P divides is sharded (the reference's inference data
@@ -681,7 +847,6 @@ class ModelRunner:
         if n == 0:
             return np.empty((0,), dtype=np.float32)
         cuda = self.device.type == "cuda"
-        mesh, parts = _data_mesh()
         marks = []                           # (start, copied, computed)
         outs = []
         pad_total = 0
@@ -691,18 +856,16 @@ class ModelRunner:
                 m = chunk.shape[0]
                 bucket = bucket_rows(m, bs)
                 pad_total += bucket - m
-                chunk = np.ascontiguousarray(_pad_rows(chunk, bucket))
-                sharded = parts > 1 and bucket % parts == 0
-                if sharded:
+                chunk = _pad_rows(chunk, bucket)
+                prog = self.executable(bucket, chunk.shape[1:])
+                if prog.rows is not None:
                     # this rank's contiguous block; the rows all-gathered
-                    chunk = chunk[_rows_of(mesh, bucket)]
+                    chunk = chunk[prog.rows]
                 t = [_mark(cuda)]
-                batch = torch.from_numpy(chunk).to(self.device)
+                batch = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                    self.device)
                 t.append(_mark(cuda))
-                y = self(batch)
-                if sharded:
-                    from ..parallel.collectives import all_gather
-                    y = all_gather(y, "data", mesh=mesh)
+                y = prog.run_block(batch)
                 outs.append(y[:m])
                 t.append(_mark(cuda))
                 marks.append(t)
@@ -836,10 +999,34 @@ class ModelRunner:
                 index.evict_pages(short, reason="pressure")
         return pool.allocate(n, op=op, shared=shared)
 
+    def _cow_executable(self):
+        """Device-side page copy for copy-on-write splits: clone one
+        physical page's k/v rows (every layer) from ``src`` into ``dst``.
+        src/dst are ``(1,)`` index tensors and the slabs are donated (the
+        copy is in place), so one program serves every page of a pool
+        geometry and mints no per-page key."""
+        key = ("cow_copy", self._device_key())
+        fn = self._executables.get(key)
+        if fn is not None:
+            return fn
+        with self._lock:
+            fn = self._executables.get(key)
+            if fn is None:
+                def _cow(cache, src, dst):
+                    for k, v in cache:
+                        src_d, dst_d = src.to(k.device), dst.to(k.device)
+                        k.index_copy_(0, dst_d, k.index_select(0, src_d))
+                        v.index_copy_(0, dst_d, v.index_select(0, src_d))
+                    return cache
+
+                fn = self._executables[key] = self._instrumented(
+                    _cow, suffix=".cow_copy", donate_argnums=(0,))
+        return fn
+
     def _cow_split_page(self, pool: PagePool, index, cache, donor: int):
         """Split a shared page before a divergent write lands on it: mint
         a private page, copy the donor's k/v rows into it in every layer
-        (in place on the slabs, one page each), drop the caller's
+        (the cow_copy program, in place on the slabs), drop the caller's
         reference on the donor, book the split.  Returns ``(cache,
         new_page)`` — the caller updates its page-table row and pages
         list.  Raises :class:`PagePoolExhausted` (after a pressure-eviction
@@ -849,13 +1036,153 @@ class ModelRunner:
         # the slabs are written under inference mode everywhere (they may
         # be inference tensors, which refuse in-place updates outside it)
         with torch.inference_mode():
-            for k, v in cache:
-                k[new_page].copy_(k[donor])
-                v[new_page].copy_(v[donor])
+            cache = self._cow_executable()(
+                cache, torch.tensor([donor], dtype=torch.int64),
+                torch.tensor([new_page], dtype=torch.int64))
         pool.free([donor])
         if index is not None:
             index.book_cow()
         return cache, new_page
+
+    def _decode_executables(self, batch_b: int, prompt_b: int,
+                            cache_len: Optional[int] = None, *,
+                            page_size: Optional[int] = None,
+                            table_w: Optional[int] = None,
+                            fused: bool = False,
+                            eos_id: Optional[int] = None):
+        """(prefill, step) programs for one decode signature, under the
+        reference's keys.
+
+        Dense: prefill keys on (batch bucket, prompt bucket, cache length),
+        the step on (batch bucket, cache length).  Paged: prefill keys on
+        (batch bucket, prompt bucket, page size, table width) and the step
+        on (batch bucket, page size, table width) — cache length is no
+        compile key.  ``fused=True`` builds the greedy/eos step that
+        samples and freezes on the device and returns the ``(B,)`` next
+        token; ``eos_id`` is part of its key.
+
+        Arguments, on the card: ``prefill(toks, positions, lengths,
+        table, cache)`` with host ``toks`` (int32), ``positions`` and
+        ``lengths`` (int64), the device ``table`` (int64; ``None`` dense)
+        and the device ``cache``; the fused ``step(tok, positions, table,
+        finished, cache)`` with the device ``tok`` and host ``positions``
+        ``(B,)``; the logits step ``step(tok, positions, table, cache)``
+        with host ``(B, 1)`` ``tok`` and ``positions``.  The cache and the
+        finished mask are donated: updated in place, returned as the
+        caller's tensors."""
+        module = self.module
+        dkey = self._device_key()
+        paged = page_size is not None
+        if paged:
+            kp = ("prefill_paged", dkey, batch_b, prompt_b, page_size,
+                  table_w)
+            ks = ("step_paged", dkey, batch_b, page_size, table_w)
+        else:
+            kp = ("prefill", dkey, batch_b, prompt_b, cache_len)
+            ks = ("step", dkey, batch_b, cache_len)
+        if fused:
+            ks = ks + ("fused", eos_id)
+        prefill = self._executables.get(kp)
+        step = self._executables.get(ks)
+        if prefill is not None and step is not None:
+            return prefill, step
+        sfx = "_paged" if paged else ""
+        with self._lock:
+            prefill = self._executables.get(kp)
+            if prefill is None:
+                def _prefill(toks, positions, lengths, table, cache,
+                             _m=module):
+                    logits, cache = _cached_apply(_m, toks, positions,
+                                                  table, cache)
+                    # last REAL token's logits per sequence, gathered on
+                    # the device so (B, P, V) never crosses to the host
+                    rows = torch.arange(logits.shape[0],
+                                        device=logits.device)
+                    last = logits[rows, (lengths - 1).to(logits.device)]
+                    return last, cache
+
+                prefill = self._executables[kp] = self._instrumented(
+                    _prefill, suffix=f".prefill{sfx}", donate_argnums=(4,))
+            step = self._executables.get(ks)
+            if step is None:
+                if fused:
+                    def _step(tok, positions, table, finished, cache,
+                              _m=module, _eos=eos_id):
+                        logits, cache = _cached_apply(
+                            _m, tok[:, None], positions[:, None], table,
+                            cache)
+                        nxt, fin = _greedy_freeze(logits[:, 0], finished,
+                                                  _eos)
+                        finished.copy_(fin)
+                        return nxt, finished, cache
+
+                    step = self._instrumented(
+                        _step, suffix=f".decode_step{sfx}",
+                        donate_argnums=(3, 4))
+                else:
+                    def _step(tok, positions, table, cache, _m=module):
+                        logits, cache = _cached_apply(_m, tok, positions,
+                                                      table, cache)
+                        return logits[:, 0], cache
+
+                    step = self._instrumented(
+                        _step, suffix=f".decode_step{sfx}",
+                        donate_argnums=(3,))
+                self._executables[ks] = step
+        return prefill, step
+
+    def _sample_executable(self, batch_b: int, eos_id: Optional[int]):
+        """On-device greedy sampler for the fused path: argmax + eos
+        freeze of the prefill's last logits; the finished mask is donated
+        (updated in place)."""
+        key = ("sample", self._device_key(), batch_b, eos_id)
+        fn = self._executables.get(key)
+        if fn is not None:
+            return fn
+        with self._lock:
+            fn = self._executables.get(key)
+            if fn is None:
+                def _sample(last, finished, _eos=eos_id):
+                    tok, fin = _greedy_freeze(last, finished, _eos)
+                    finished.copy_(fin)
+                    return tok, finished
+
+                fn = self._executables[key] = self._instrumented(
+                    _sample, suffix=".decode_sample", donate_argnums=(1,))
+        return fn
+
+    def _borrow_dense(self, batch_b: int, cache_len: int) -> _DenseCache:
+        """The dense cache of this geometry, held by one decode at a time
+        (a second decode at the geometry waits, as one-shot paged decodes
+        wait for a pool's slabs) and zeroed: equal to a fresh
+        ``init_cache``."""
+        key = (self._device_key(), int(batch_b), int(cache_len))
+        with self._dense_cond:
+            st = self._dense.get(key)
+            if st is None:
+                st = self._dense[key] = _DenseCache()
+            while st.busy:
+                # bounded waits: the holder is a decode loop on another
+                # thread, which returns the cache in its finally
+                self._dense_cond.wait(1.0)
+            st.busy = True
+        try:
+            if st.cache is None:
+                st.cache = self.module.init_cache(batch_b, cache_len)
+            else:
+                with torch.inference_mode():
+                    for k, v in st.cache:
+                        k.zero_()
+                        v.zero_()
+        except Exception:
+            self._return_dense(st)
+            raise
+        return st
+
+    def _return_dense(self, st: _DenseCache) -> None:
+        with self._dense_cond:
+            st.busy = False
+            self._dense_cond.notify_all()
 
     def decode(self, prompts: np.ndarray, lengths=None,
                max_new_tokens: int = 16, eos_id: Optional[int] = None,
@@ -980,6 +1307,9 @@ class ModelRunner:
                 pool = self._auto_pool(page_size, B_b * table_w + 1)
             if prefix_cache:
                 index = self.prefix_cache(page_size, pool=pool)
+            prefill, step = self._decode_executables(
+                B_b, P_b, page_size=page_size, table_w=table_w,
+                fused=fused, eos_id=eos_id)
             table = np.zeros((B_b, table_w), np.int64)
             seq_pages = [[] for _ in range(B_b)]
             try:
@@ -1049,6 +1379,7 @@ class ModelRunner:
                     raise
             pages_prefill = sum(len(p) for p in seq_pages)
             peak_pages = pool.pages_in_use()
+            store = pool
         else:
             S = cache_len or 1 << (P_b + max_new_tokens - 1).bit_length()
             if S < P_b + max_new_tokens:
@@ -1059,14 +1390,17 @@ class ModelRunner:
                     "so the reservation must cover the longest possible "
                     "generation — raise cache_len, or switch to "
                     "kv_layout='paged' to size by actual length instead")
-            cache = module.init_cache(B_b, S)
+            prefill, step = self._decode_executables(
+                B_b, P_b, cache_len=S, fused=fused, eos_id=eos_id)
+            store = self._borrow_dense(B_b, S)
+            cache = store.cache
             cache_nbytes = _nbytes(cache)
         # prefill positions offset past each row's cached prefix (all-zero
         # offsets without a hit — the cold layout); the gather lengths are
         # SUFFIX lengths so the last-real-token logits come from the final
         # uncached position
         positions = _prefill_positions(shared_n, P_b, module)
-        plens = lens - shared_n
+        plens = (lens - shared_n).astype(np.int64)
         sample = sample_fn or (lambda lg: np.argmax(lg, axis=-1))
         out_tokens = np.zeros((B_b, max_new_tokens), np.int32)
         out_logits: Optional[list] = [] if collect_logits else None
@@ -1098,18 +1432,19 @@ class ModelRunner:
         _phase = _enter_phase("runner.decode")
         try:
             with torch.inference_mode():
+                _check_positions(module, positions)
                 table_d = torch.from_numpy(table).to(dev) if paged else None
-                logits, cache = _cached_apply(
-                    module, torch.from_numpy(toks).to(dev),
-                    torch.from_numpy(positions), table_d, cache)
-                # last REAL token's logits per sequence, gathered on the
-                # device so the (B, P, V) tensor never crosses to the host
-                rows = torch.arange(B_b, device=dev)
-                last = logits[rows, torch.from_numpy(plens - 1).to(dev)]
+                last, cache = prefill(
+                    torch.from_numpy(toks), torch.from_numpy(positions),
+                    torch.from_numpy(plens), table_d, cache)
                 self._c_batches["decode"].inc()
                 if fused:
-                    tok_d, fin_d = _greedy_freeze(
-                        last, torch.from_numpy(finished).to(dev), eos_id)
+                    # the borrowed state's mask: donated, so it keeps its
+                    # storage from one decode to the next
+                    fin_d = store.finished_mask(B_b, dev)
+                    fin_d.copy_(torch.from_numpy(finished))
+                    tok_d, fin_d = self._sample_executable(B_b, eos_id)(
+                        last, fin_d)
                 for t in range(max_new_tokens):
                     if fused:
                         # the ONE host fetch of the fast path: the (B,)
@@ -1155,6 +1490,7 @@ class ModelRunner:
                     # step writes it at that frontier and returns logits
                     # for t+1 (host path) or the sampled token t+1 (fused)
                     pos = (lens + t).astype(np.int64)
+                    _check_positions(module, pos)
                     if paged:
                         # extend at page boundaries: the write position must
                         # be backed by a real page BEFORE the step runs;
@@ -1204,17 +1540,17 @@ class ModelRunner:
                             table_d = torch.from_numpy(table).to(dev)
                             table_dirty = False
                     t_disp0 = time.perf_counter()
-                    pos_t = torch.from_numpy(pos[:, None])
                     if fused:
-                        logits, cache = _cached_apply(
-                            module, tok_d[:, None], pos_t, table_d, cache)
-                        tok_d, fin_d = _greedy_freeze(logits[:, 0], fin_d,
-                                                      eos_id)
+                        # donated dispatch: fin_d and cache are updated in
+                        # place and come back as the same storage
+                        tok_d, fin_d, cache = step(
+                            tok_d, torch.from_numpy(pos), table_d, fin_d,
+                            cache)
                     else:
-                        logits, cache = _cached_apply(
-                            module, torch.from_numpy(tok[:, None]).to(dev),
-                            pos_t, table_d, cache)
-                        last = logits[:, 0]
+                        last, cache = step(
+                            torch.from_numpy(np.ascontiguousarray(
+                                tok[:, None])),
+                            torch.from_numpy(pos[:, None]), table_d, cache)
                     disp_s = time.perf_counter() - t_disp0
                     dispatch_s_total += disp_s
                     self._h_phase_dispatch.observe(disp_s)
@@ -1255,6 +1591,8 @@ class ModelRunner:
                 # after a failed step the slabs' state is unknown — drop
                 # them so the next borrower rebuilds zeros
                 pool.return_cache(cache if ok else None)
+            else:
+                self._return_dense(store)
         n_generated = t + 1
         # a denied row's post-denial slots hold whatever the trash-page
         # steps produced — overwrite with eos padding
@@ -1560,6 +1898,23 @@ class ContinuousDecoder:
         self._prefix_enabled = bool(prefix_cache)
         self.index = runner.prefix_cache(
             self.page_size, pool=self.pool) if prefix_cache else None
+        # the one-shot programs AT THE STREAM GEOMETRY — shared cache
+        # entries, so a warmed one-shot decode warms the stream and vice
+        # versa, and a join can never mint a new compile key.  The step
+        # runs at the full batch bucket; a join prefills its arrival ALONE
+        # at the (1, prompt_bucket) signature, device work proportional to
+        # the arrival, with one-shot parity by row independence
+        _, self._step = runner._decode_executables(
+            self.slots, self.prompt_bucket, page_size=self.page_size,
+            table_w=self.table_w, fused=True, eos_id=eos_id)
+        self._prefill1, _ = runner._decode_executables(
+            1, self.prompt_bucket, page_size=self.page_size,
+            table_w=self.table_w, fused=True, eos_id=eos_id)
+        self._sample1 = runner._sample_executable(1, eos_id)
+        #: the borrowed pool's finished masks (the step's and the join
+        #: sampler's donated state), fetched with the slabs
+        self._mask_step: Optional[torch.Tensor] = None
+        self._mask_join: Optional[torch.Tensor] = None
         # per-slot state: empty slots behave as pad rows
         self._tok = np.zeros(self.slots, np.int32)
         self._fin = np.ones(self.slots, bool)
@@ -1754,6 +2109,9 @@ class ContinuousDecoder:
     def _borrow(self) -> None:
         if self._cache is None:
             self._cache = self.pool.borrow_cache()
+            dev = self.runner.device
+            self._mask_step = self.pool.finished_mask(self.slots, dev)
+            self._mask_join = self.pool.finished_mask(1, dev)
 
     def _return_cache_if_idle(self) -> None:
         """Hand the borrowed slabs back while the engine is EMPTY (no live
@@ -1771,27 +2129,37 @@ class ContinuousDecoder:
         self.pool.return_cache(cache)
 
     def warmup(self) -> None:
-        """Run the join prefill, its sampler and the batch step once with
-        all-trash inputs (zero page tables: no pool pages held, no slot
-        state touched), so the first real join pays no one-time start-up
-        (cuBLAS handles, allocator growth)."""
+        """Run the join prefill, its sampler and the batch step (and, with
+        the prefix cache, the copy-on-write clone) once with all-trash
+        inputs (zero page tables: no pool pages held, no slot state
+        touched), so the first real join pays no capture.  The signatures
+        are shared with one-shot :meth:`ModelRunner.decode` at this
+        geometry, so a warmed one-shot also warms the stream."""
         self._borrow()
         S, P_b, W = self.slots, self.prompt_bucket, self.table_w
-        module, dev = self.runner.module, self.runner.device
-
-        def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-
+        dev = self.runner.device
         try:
             with torch.inference_mode():
-                for rows, cols in ((1, P_b), (S, 1)):   # join, then step
-                    logits, _ = _cached_apply(
-                        module, zeros((rows, cols), torch.int32),
-                        torch.arange(cols, dtype=torch.int64)[None].expand(
-                            rows, cols),
-                        zeros((rows, W), torch.int64), self._cache)
-                    tok, _ = _greedy_freeze(
-                        logits[:, 0], zeros(rows, torch.bool), self.eos_id)
+                last, _ = self._prefill1(
+                    torch.zeros((1, P_b), dtype=torch.int32),
+                    torch.arange(P_b, dtype=torch.int64)[None],
+                    torch.ones(1, dtype=torch.int64),
+                    torch.zeros((1, W), dtype=torch.int64, device=dev),
+                    self._cache)
+                self._mask_join.fill_(True)
+                self._sample1(last, self._mask_join)
+                self._mask_step.fill_(True)
+                tok, _, _ = self._step(
+                    torch.zeros(S, dtype=torch.int32, device=dev),
+                    torch.zeros(S, dtype=torch.int64),
+                    torch.zeros((S, W), dtype=torch.int64, device=dev),
+                    self._mask_step, self._cache)
+                if self.index is not None:
+                    # the CoW clone at this pool geometry, warmed by a
+                    # trash self-copy (page 0 -> page 0)
+                    self.runner._cow_executable()(
+                        self._cache, torch.zeros(1, dtype=torch.int64),
+                        torch.zeros(1, dtype=torch.int64))
                 tok.cpu()
         except Exception:
             with self._cond:
@@ -1891,18 +2259,21 @@ class ContinuousDecoder:
                 self._table[s, :n] = h.pages
                 self._table_dirty = True
                 self._handles[s] = h
-                cache = self._cache
+                cache, mask = self._cache, self._mask_join
+            positions = _prefill_positions(np.asarray([off], np.int64), P_b,
+                                           module)
+            _check_positions(module, positions)
             if self.watchdog is not None:
                 self.watchdog.arm("runner.decode.join")
-            # positions offset past the cached prefix (zero when cold)
-            logits, _ = _cached_apply(
-                module, torch.from_numpy(toks).to(dev),
-                torch.from_numpy(_prefill_positions(
-                    np.asarray([off], np.int64), P_b, module)),
+            # positions offset past the cached prefix (zero when cold):
+            # data at the same (1, prompt_bucket) signature, so a hit join
+            # replays the cold join's program
+            last, _ = self._prefill1(
+                torch.from_numpy(toks), torch.from_numpy(positions),
+                torch.tensor([suffix], dtype=torch.int64),
                 torch.from_numpy(jtable).to(dev), cache)
-            tok_d, fin_d = _greedy_freeze(
-                logits[:, suffix - 1],
-                torch.zeros(1, dtype=torch.bool, device=dev), self.eos_id)
+            mask.zero_()
+            tok_d, fin_d = self._sample1(last, mask)
             got = torch.stack([tok_d, fin_d.to(torch.int32)]).cpu().numpy()
             if self.watchdog is not None:
                 self.watchdog.disarm()
@@ -1988,23 +2359,26 @@ class ContinuousDecoder:
                     self._table_dirty = True
             if not self._live:
                 return
+            _check_positions(module, pos)
             if self._table_dirty or self._table_dev is None:
                 self._table_dev = torch.from_numpy(self._table).to(dev)
                 self._table_dirty = False
             tok_in = self._tok_dev if self._tok_dev is not None \
                 else torch.from_numpy(self._tok).to(dev)
-            fin_in = self._fin_dev if self._fin_dev is not None \
-                else torch.from_numpy(self._fin).to(dev)
+            fin_in = self._fin_dev
+            if fin_in is None:
+                # the donated mask keeps its storage: the host state is
+                # copied into it
+                fin_in = self._mask_step
+                fin_in.copy_(torch.from_numpy(self._fin))
             table_dev, cache = self._table_dev, self._cache
         if self.watchdog is not None:
             # the armed section covers the forward AND the host fetch
             # below — both are the hang shapes
             self.watchdog.arm("runner.decode.step")
         t_disp0 = time.perf_counter()
-        logits, _ = _cached_apply(module, tok_in[:, None],
-                                  torch.from_numpy(pos[:, None]), table_dev,
-                                  cache)
-        tok_d, fin_d = _greedy_freeze(logits[:, 0], fin_in, self.eos_id)
+        tok_d, fin_d, _ = self._step(tok_in, torch.from_numpy(pos),
+                                     table_dev, fin_in, cache)
         # the forward above is the host enqueue; the fetch below IS the
         # device wait (already a sync), so timing it costs one clock read
         disp_s = time.perf_counter() - t_disp0

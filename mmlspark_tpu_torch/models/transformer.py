@@ -18,8 +18,10 @@ The modules compute what the flax modules compute, on the same weights
 - LayerNorm with flax's epsilon 1e-6 (statistics in float32), GELU in
   flax's default tanh form;
 - ``pos_embed`` is a ``(1, max_len, E)`` parameter read at ``positions``
-  when they are given; a position ``>= max_len`` raises (the reference's
-  ``take`` would fill), it is never clamped.
+  when they are given; a host position ``>= max_len`` raises (the
+  reference's ``take`` would fill), it is never clamped.  Positions that
+  already lie on the card are not read back (that would be a sync inside
+  a captured forward): ``models.runner`` checks its own on the host.
 
 **KV-cached calls** (``positions`` + ``kv_cache``, dense attention only)
 keep the reference's cache math exactly.  A dense cache is ``num_layers``
@@ -305,7 +307,12 @@ class TransformerEncoder(nn.Module):
 
     def _check_positions(self, positions: torch.Tensor) -> None:
         # an out-of-range index on the card is a device-side assert that
-        # ends the CUDA context, so the bound is checked on the host
+        # ends the CUDA context, so the bound is checked on the host, on
+        # host positions only: reading a card's tensor here would be a
+        # sync inside a captured forward.  ``models.runner`` checks its
+        # positions while they are numpy, before they reach the card
+        if positions.device.type != "cpu":
+            return
         hi = int(positions.max()) if positions.numel() else 0
         if hi >= self.max_len or (positions.numel()
                                   and int(positions.min()) < 0):
@@ -324,6 +331,7 @@ class TransformerEncoder(nn.Module):
                 # explicit global positions (KV-cached decode: each
                 # sequence's token sits at its own frontier); checked
                 # while they are still on the host when they come from it
+                # (positions already on the card are the caller's to check)
                 self._check_positions(positions)
                 positions = positions.to(dev)
                 x = x + self.pos_embed[0][positions].to(self.dtype)

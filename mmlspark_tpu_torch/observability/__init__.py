@@ -8,9 +8,9 @@ module paths: ``metrics``, ``tracing``, ``instruments``, ``collector``
 ``attribution``, ``flightrecorder``, the fleet plane (``federation``,
 ``autoscale``) and the training monitor (``trainwatch``).  Twins with a
 PyTorch body: ``profiling`` (a ``torch.profiler`` capture hatch) and
-``compute`` (``InstrumentedJit``'s signature booking around an eager
-call, ``compile_report``, ``torch.cuda`` memory gauges, build info and
-host -> device transfer booking).
+``compute`` (``InstrumentedJit``'s signature booking, a captured CUDA
+graph per signature on the card, ``compile_report``, ``torch.cuda`` memory
+gauges, build info and host -> device transfer booking).
 """
 from .metrics import (Counter, DEFAULT_LATENCY_BUCKETS, Gauge, Histogram,
                       MetricsRegistry, get_registry, set_registry)

@@ -18,24 +18,32 @@
   booked on the host before the copy, with no sync.
 
 - :class:`InstrumentedJit` / :func:`instrumented_jit` — the reference's
-  compile-boundary telemetry around an eager callable.  Every call keys
-  its arguments' signature (the nest's structure and each leaf's shape and
-  dtype; static arguments by value); the first call of a new signature is
-  booked as that signature's "compile" (``mmlspark_jit_compile_total{fn}``,
-  its wall time in ``mmlspark_jit_compile_seconds{fn}``, the recompile-
-  storm trip at ``MMLSPARK_TPU_JIT_STORM_SIGS`` distinct signatures), and
-  the wrapper registers in the registry's ``_jit_wrappers`` table, so
-  :func:`compile_report` lists it in the reference's shape.  Nothing is
-  compiled or captured: the first call of a signature is where the port
-  builds its kernels, picks its cuDNN algorithms and allocates its caches,
-  which is what the count is for.  CUDA-graph capture is ROADMAP.md §2
-  (items 6, 11, 12 and 14).
+  compiled-program layer.  Every call keys its arguments' signature (the
+  nest's structure and each leaf's shape, dtype and device; static
+  arguments by value); the first call of a new signature is booked as
+  that signature's compile (``mmlspark_jit_compile_total{fn}``, its wall
+  time in ``mmlspark_jit_compile_seconds{fn}``, the recompile-storm trip
+  at ``MMLSPARK_TPU_JIT_STORM_SIGS`` distinct signatures), and the
+  wrapper registers in the registry's ``_jit_wrappers`` table, so
+  :func:`compile_report` lists it in the reference's shape.  On a CUDA
+  device the compiled program is a captured ``torch.cuda.CUDAGraph``:
+  the signature's first call runs eagerly on a side stream (its result
+  is that call's answer), the same call is captured into a memory pool
+  the process's graphs share, and every later call copies its tensors
+  into the graph's static inputs and replays.  On the CPU the call runs
+  eagerly under the same booking.
+- :class:`InstrumentedCall` / :func:`instrumented_call` — the same
+  booking around a call that is never captured, for the steps whose
+  collectives or backward passes cannot ride a graph (``parallel/``).
+- :func:`graph_pool_bytes` — the device bytes the shared graph pool
+  holds.
 
 ``torch`` is imported lazily inside functions, as the reference imports
 jax.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import inspect
@@ -47,6 +55,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .metrics import MetricsRegistry, get_registry
 
+#: ``InstrumentedCall``, ``instrumented_call`` and ``graph_pool_bytes`` are
+#: the port's own and stay out of ``__all__``, which is the reference's
 __all__ = ["InstrumentedJit", "instrumented_jit", "device_put",
            "transfer_nbytes", "compile_report",
            "ensure_device_memory_gauges", "ensure_build_info",
@@ -77,14 +87,25 @@ _DTYPE_SHORT = {"float32": "f32", "float64": "f64", "float16": "f16",
                 "uint16": "u16", "uint32": "u32", "bool": "b1"}
 
 
+#: dtype and device -> their names in a signature (memoized: the names are
+#: read on every call)
+_NAMES: Dict[Any, str] = {}
+
+
+def _name(x) -> str:
+    out = _NAMES.get(x)
+    if out is None:
+        out = _NAMES[x] = str(x).replace("torch.", "")
+    return out
+
+
 def _leaf_sig(leaf) -> Tuple:
     """One leaf's identity: a tensor or array keys on its shape, dtype and
     device; a Python scalar on its type only (a new value is not a new
     signature, as under ``jax.jit``)."""
     if hasattr(leaf, "shape") and hasattr(leaf, "dtype"):
-        return ("a", tuple(int(d) for d in leaf.shape),
-                str(leaf.dtype).replace("torch.", ""),
-                str(getattr(leaf, "device", "cpu")))
+        return ("a", tuple(leaf.shape), _name(leaf.dtype),
+                _name(getattr(leaf, "device", "cpu")))
     return ("py", type(leaf).__name__)
 
 
@@ -114,34 +135,34 @@ def _render_leaf(sig: Tuple) -> str:
 
 
 class _SigEntry:
-    __slots__ = ("rendered", "compile_s")
+    __slots__ = ("rendered", "compile_s", "capture_s")
 
-    def __init__(self, rendered: str, compile_s: float):
+    def __init__(self, rendered: str, compile_s: float,
+                 capture_s: Optional[float] = None):
         self.rendered, self.compile_s = rendered, compile_s
+        #: the capture's own wall time (None: the call was not captured)
+        self.capture_s = capture_s
 
 
-class InstrumentedJit:
+class InstrumentedCall:
     """``fn`` with the reference's compile-boundary telemetry (see the
-    module doc).  The steady state is one signature build and a dict hit
-    before the call; a new signature books its first call's wall time as
-    its compile, then checks the storm threshold.
+    module doc), called eagerly.  The steady state is one signature build
+    and a dict hit before the call; a new signature books its first
+    call's wall time as its compile, then checks the storm threshold.
 
     ``static_argnums`` / ``static_argnames`` key those arguments by value.
     ``in_shardings``, ``out_shardings``, ``donate_argnums`` and
     ``donate_argnames`` (and any other ``jax.jit`` keyword) are accepted
     for the reference's signature and kept on the wrapper
     (``jit_kwargs``): placement is the caller's (a rank already holds its
-    blocks, ``parallel.sharding``) and donation has no eager meaning (a
-    torch step updates its tensors in place).  ``last_cost_analysis`` is
-    always ``None``: nothing is lowered, so there is no cost analysis to
-    read.
+    blocks, ``parallel.sharding``); donation is read by
+    :class:`InstrumentedJit`'s capture.  ``last_cost_analysis`` is always
+    ``None``: nothing is lowered, so there is no cost analysis to read.
 
-    Not a tracing root of graft-lint's TRC rules
-    (``analysis/checkers.py``'s ``TracerSafetyChecker``), as the
-    reference's ``instrumented_jit`` is: the wrapper calls ``fn`` eagerly
-    and traces nothing, so host clocks, locks and syncs reached from it
-    are ordinary host code.  The change that makes it capture (a CUDA
-    graph) adds it to the checker's ``_TRACE_ROOTS``."""
+    This form captures nothing, so it is not a tracing root of
+    graft-lint's TRC rules: the ``parallel/`` steps book through it, and
+    the host clocks, locks and gloo collectives they run are ordinary
+    host code."""
 
     def __init__(self, fn: Callable, *, name: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
@@ -157,14 +178,14 @@ class InstrumentedJit:
             else static_argnums or ()))
         self._static_names = set((static_argnames,) if isinstance(
             static_argnames, str) else static_argnames or ())
-        if self._static_names:
-            try:
-                params = list(inspect.signature(fn).parameters)
-                self._static_nums |= {params.index(n)
-                                      for n in self._static_names
-                                      if n in params}
-            except (TypeError, ValueError):
-                pass
+        self._params: List[str] = []
+        try:
+            self._params = list(inspect.signature(fn).parameters)
+        except (TypeError, ValueError):
+            pass
+        self._static_nums |= {self._params.index(n)
+                              for n in self._static_names
+                              if n in self._params}
         self._entries: Dict[Tuple, _SigEntry] = {}
         self._lock = threading.Lock()
         self._storm_tripped = False
@@ -187,45 +208,59 @@ class InstrumentedJit:
             table = reg._jit_wrappers = {}
         table.setdefault(self.name, weakref.WeakSet()).add(self)
 
-    def _signature(self, args, kwargs) -> Tuple[Tuple, List]:
+    def _signature(self, args, kwargs) -> Tuple:
         sig: List = []
-        rendered: List[str] = []
         for i, a in enumerate(args):
             if i in self._static_nums:
                 sig.append(("static", a))
-                rendered.append(f"static:{a!r}")
                 continue
             leaves: List = []
             struct = _flat(a, leaves)
-            ls = tuple(_leaf_sig(l) for l in leaves)
-            sig.append((struct, ls))
-            rendered.append("/".join(map(_render_leaf, ls)) or "()")
+            sig.append((struct, tuple(_leaf_sig(l) for l in leaves)))
         for k in sorted(kwargs):
             if k in self._static_names:
                 sig.append((k, ("static", kwargs[k])))
-                rendered.append(f"{k}=static:{kwargs[k]!r}")
                 continue
             leaves = []
             struct = _flat(kwargs[k], leaves)
-            ls = tuple(_leaf_sig(l) for l in leaves)
-            sig.append((k, struct, ls))
-            rendered.append(f"{k}=" + ("/".join(map(_render_leaf, ls))
-                                       or "()"))
-        return tuple(sig), rendered
+            sig.append((k, struct, tuple(_leaf_sig(l) for l in leaves)))
+        return tuple(sig)
+
+    @staticmethod
+    def _render(sig: Tuple, n_pos: int) -> str:
+        """A signature as ``/debug/compile`` shows it (made only when a
+        signature is booked or named in an error)."""
+        out = []
+        for i, part in enumerate(sig):
+            if i < n_pos:
+                out.append(f"static:{part[1]!r}" if part[0] == "static"
+                           else "/".join(map(_render_leaf, part[1])) or "()")
+            elif len(part) == 2:             # (name, ("static", value))
+                out.append(f"{part[0]}=static:{part[1][1]!r}")
+            else:                            # (name, structure, leaves)
+                out.append(f"{part[0]}="
+                           + ("/".join(map(_render_leaf, part[2])) or "()"))
+        return ", ".join(out)
 
     def __call__(self, *args, **kwargs):
-        sig, rendered = self._signature(args, kwargs)
+        return self._run(self._signature(args, kwargs), args, kwargs)
+
+    def _run(self, sig, args, kwargs):
         if sig in self._entries:             # GIL-atomic read; hot path
             return self._fn(*args, **kwargs)
         t0 = time.perf_counter()
         out = self._fn(*args, **kwargs)
-        dt = time.perf_counter() - t0
+        self._book_new(sig, len(args), time.perf_counter() - t0)
+        return out
+
+    def _book_new(self, sig, n_pos: int, dt: float,
+                  capture_s: Optional[float] = None) -> None:
         with self._lock:
             if sig not in self._entries:
-                self._entries[sig] = _SigEntry(", ".join(rendered), dt)
+                self._entries[sig] = _SigEntry(self._render(sig, n_pos), dt,
+                                               capture_s)
                 self.last_compile_s = dt
                 self._book_compile(self._entries[sig], len(self._entries))
-        return out
 
     def _book_compile(self, entry: _SigEntry, n_sigs: int) -> None:
         self._c_compile.inc()
@@ -257,11 +292,392 @@ class InstrumentedJit:
                                 "compile_seconds": round(e.compile_s, 6),
                                 "cost_analysis": None, "aot": False}
                                for e in entries],
-                "last_cost_analysis": None}
+                "last_cost_analysis": None, **self._snapshot_extra()}
+
+    def _snapshot_extra(self) -> Dict[str, Any]:
+        return {}
 
     def __repr__(self):
-        return (f"InstrumentedJit({self.name!r}, "
+        return (f"{type(self).__name__}({self.name!r}, "
                 f"signatures={len(self._entries)})")
+
+
+#: captured graphs kept per signature, one per set of donated addresses
+#: (least recently replayed first out)
+MAX_GRAPHS_PER_SIGNATURE = 4
+
+#: one lock over every capture and replay of the process: the graphs share
+#: one memory pool, where a graph captured later may reuse the memory an
+#: earlier one's outputs sit in, so a replay and the copy-out of its
+#: outputs must not interleave with another graph's replay
+_GRAPH_LOCK = threading.RLock()
+#: card -> [pool handle, live graphs holding it]
+_POOLS: Dict[int, List] = {}
+_POOL_LOCK = threading.Lock()
+_SIDE_STREAMS: Dict[int, Any] = {}
+
+
+def _graph_pool(index: int):
+    """The memory pool every live captured graph on card ``index``
+    allocates from (``torch.cuda.graph_pool_handle()``).  The allocator
+    releases a pool once its last graph is gone and refuses its handle
+    after that, so a card with no live graph gets a fresh handle."""
+    import torch
+    with _POOL_LOCK:
+        ent = _POOLS.get(index)
+        if ent is None:
+            ent = _POOLS[index] = [torch.cuda.graph_pool_handle(), 0]
+        return ent[0]
+
+
+def _pool_held(index: int, handle, graph) -> None:
+    """Count ``graph`` among the pool's holders until it is collected."""
+    with _POOL_LOCK:
+        ent = _POOLS.get(index)
+        if ent is not None and ent[0] == handle:
+            ent[1] += 1
+    weakref.finalize(graph, _pool_released, index, handle, 1)
+
+
+def _pool_released(index: int, handle, n: int) -> None:
+    with _POOL_LOCK:
+        ent = _POOLS.get(index)
+        if ent is not None and ent[0] == handle:
+            ent[1] -= n
+            if ent[1] <= 0:
+                del _POOLS[index]
+
+
+def graph_pool_bytes(index: int = 0) -> Optional[int]:
+    """Device bytes reserved by the shared graph pool of card ``index``
+    (the segments ``torch.cuda.memory_snapshot()`` files under its pool
+    id); ``None`` when no captured graph is live on that card."""
+    import torch
+    with _POOL_LOCK:
+        ent = _POOLS.get(index)
+    if ent is None:
+        return None
+    want = tuple(ent[0])
+    return sum(int(seg["total_size"])
+               for seg in torch.cuda.memory_snapshot()
+               if seg.get("device") == index
+               and tuple(seg.get("segment_pool_id", ())) == want)
+
+
+def _tree_flatten(tree, leaves: List):
+    """Leaves of a nest of dicts, lists, tuples and named tuples, in
+    order, and a function that rebuilds the nest from a new leaf list."""
+    if tree is None:
+        return lambda it: None
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        subs = [_tree_flatten(tree[k], leaves) for k in keys]
+        return lambda it: {k: f(it) for k, f in zip(keys, subs)}
+    if isinstance(tree, (list, tuple)):
+        subs = [_tree_flatten(v, leaves) for v in tree]
+        kind = type(tree)
+        if hasattr(tree, "_fields"):
+            return lambda it: kind(*(f(it) for f in subs))
+        return lambda it: kind(f(it) for f in subs)
+    leaves.append(tree)
+    return lambda it: next(it)
+
+
+def _is_array(leaf) -> bool:
+    return hasattr(leaf, "shape") and hasattr(leaf, "dtype")
+
+
+def _as_tensor(leaf):
+    import torch
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    return torch.from_numpy(__import__("numpy").ascontiguousarray(leaf))
+
+
+def _card_index(leaves) -> Optional[int]:
+    """The CUDA device of the call's tensors (None: a host call).  Leaves
+    on two cards are refused: one graph runs on one card."""
+    import torch
+    cards = {l.device.index for l in leaves
+             if isinstance(l, torch.Tensor) and l.device.type == "cuda"}
+    if len(cards) > 1:
+        raise ValueError(f"one captured call takes tensors of one card, "
+                         f"got cuda:{sorted(cards)}")
+    if not cards:
+        return None
+    (index,) = cards
+    return index if index is not None else torch.cuda.current_device()
+
+
+def _addr(t) -> Tuple:
+    return (t.data_ptr(), tuple(t.shape), tuple(t.stride()), str(t.dtype))
+
+
+class _Graph:
+    """One capture: the graph, its static inputs (``None`` where a leaf is
+    donated and read in place), and how each output leaf comes back."""
+    __slots__ = ("graph", "statics", "outs", "rebuild_out", "inference")
+
+    def __init__(self, graph, statics, outs, rebuild_out, inference):
+        self.graph, self.statics, self.outs = graph, statics, outs
+        self.rebuild_out, self.inference = rebuild_out, inference
+
+
+class InstrumentedJit(InstrumentedCall):
+    """The reference's ``instrumented_jit``: :class:`InstrumentedCall`'s
+    booking, and on a CUDA device a captured program per signature.
+
+    **Capture** (a signature's first call whose tensors lie on a card):
+    the tensor arguments are copied into static inputs on the card (host
+    tensors and numpy arrays too: the copy is the one host -> device
+    transfer, outside the graph), ``fn`` runs eagerly on them on a side
+    stream (that call's answer, and the warm-up that makes cuBLAS handles
+    and workspaces before the capture), then the same call is captured
+    into a ``torch.cuda.CUDAGraph`` whose memory comes from one pool the
+    process's graphs share.  The compile booking times both; the capture
+    alone is ``snapshot()``'s ``capture_seconds``.  A capture that fails
+    (a host sync inside ``fn``, a refused launch) raises ``RuntimeError``
+    naming the function and the signature: no call on a card runs
+    eagerly in its place.
+
+    **Replay**: the call's tensors are copied into the static inputs and
+    the graph replays on the current stream.  Python values that are not
+    static arguments are refused on the card (a graph would freeze them).
+
+    **Donation** (``donate_argnums`` / ``donate_argnames``, the
+    reference's): a donated argument is the graph's in-place state.  It
+    is not copied: the graph reads and writes the caller's tensors at the
+    addresses they had at capture, and ``fn`` must update them in place.
+    A call whose donated tensors lie elsewhere (a rebuilt KV slab, another
+    decoder's mask) is captured again for those addresses: booked in
+    ``recaptures``, never as a compile, so ``compiles`` keeps the
+    reference's meaning of one per signature.  Up to
+    ``MAX_GRAPHS_PER_SIGNATURE`` captures are kept per signature.
+
+    **Outputs** never change under the caller: an output that is (a view
+    of) a donated argument comes back as that view of the caller's tensor;
+    every other output is copied out of the graph's pool at each replay,
+    so each call's tensors are its own (``apply_batch`` keeps every
+    chunk's output until the last; ``decode`` keeps every step's logits).
+
+    A replay computes no gradients: ``fn`` must run under
+    ``torch.inference_mode()`` or ``torch.no_grad()`` on the card (an
+    output that requires grad refuses the capture).  Captures and replays
+    of the process take one lock, as the pool's reuse across graphs
+    requires.
+
+    A tracing root of graft-lint's TRC rules (``analysis/checkers.py``):
+    a host clock, RNG draw, lock or sync inside ``fn`` is frozen into the
+    graph or refused by the capture."""
+
+    def __init__(self, fn: Callable, **kwargs):
+        super().__init__(fn, **kwargs)
+        donate = self.jit_kwargs.get("donate_argnums", ())
+        self._donate_nums = set(int(i) for i in (
+            (donate,) if isinstance(donate, int) else donate or ()))
+        names = self.jit_kwargs.get("donate_argnames", ())
+        names = (names,) if isinstance(names, str) else names or ()
+        self._donate_nums |= {self._params.index(n) for n in names
+                              if n in self._params}
+        self._donate_names = set(names)
+        #: signature -> {donated addresses: _Graph}, LRU-ordered
+        self._graphs: Dict[Tuple, collections.OrderedDict] = {}
+        self.captures = 0
+        self.recaptures = 0
+
+    def _run(self, sig, args, kwargs):
+        leaves: List = []
+        donated: List[bool] = []
+        kw_keys = sorted(kwargs)
+        parts = [(i in self._static_nums, i in self._donate_nums, a)
+                 for i, a in enumerate(args)]
+        parts += [(k in self._static_names, k in self._donate_names,
+                   kwargs[k]) for k in kw_keys]
+        rebuilds = []
+        for static, don, a in parts:
+            if static:
+                rebuilds.append(a)
+                continue
+            n0 = len(leaves)
+            rebuilds.append(_tree_flatten(a, leaves))
+            donated += [don] * (len(leaves) - n0)
+        index = _card_index(leaves)
+        if index is None:
+            return super()._run(sig, args, kwargs)
+        for leaf in leaves:
+            if not _is_array(leaf):
+                raise TypeError(
+                    f"{self.name}: a captured call takes tensors; the "
+                    f"Python value {leaf!r} would be frozen into the graph "
+                    "(pass it as a static argument or a tensor)")
+        key = tuple(_addr(l) for l, d in zip(leaves, donated) if d)
+
+        def call(call_leaves):
+            it = iter(call_leaves)
+            vals = [a if static else rb(it)
+                    for (static, _, a), rb in zip(parts, rebuilds)]
+            return self._fn(*vals[:len(args)],
+                            **dict(zip(kw_keys, vals[len(args):])))
+
+        with _GRAPH_LOCK:
+            graphs = self._graphs.get(sig)
+            entry = graphs.get(key) if graphs is not None else None
+            if entry is None:
+                return self._capture(sig, len(args), index, call, leaves,
+                                     donated, key)
+            graphs.move_to_end(key)
+            return self._replay(entry, leaves)
+
+    def _capture(self, sig, n_pos, index, call, leaves, donated, key):
+        import torch
+        t0 = time.perf_counter()
+        dev = torch.device("cuda", index)
+        inference = torch.is_inference_mode_enabled()
+        current = torch.cuda.current_stream(dev)
+        side = _SIDE_STREAMS.get(index)
+        if side is None:
+            side = _SIDE_STREAMS[index] = torch.cuda.Stream(dev)
+        statics, call_leaves = [], []
+        for leaf, don in zip(leaves, donated):
+            if don:
+                if not (isinstance(leaf, torch.Tensor)
+                        and leaf.device == dev):
+                    raise TypeError(f"{self.name}: a donated argument must "
+                                    f"be a tensor on {dev}")
+                statics.append(None)
+                call_leaves.append(leaf)
+                continue
+            src = _as_tensor(leaf)
+            st = torch.empty(src.shape, dtype=src.dtype, device=dev)
+            st.copy_(src, non_blocking=True)
+            statics.append(st)
+            call_leaves.append(st)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            first = call(call_leaves)
+        current.wait_stream(side)
+        firsts: List = []
+        _tree_flatten(first, firsts)
+        if any(isinstance(o, torch.Tensor) and o.requires_grad
+               for o in firsts):
+            raise RuntimeError(
+                f"{self.name} [{self._render(sig, n_pos)}]: a CUDA graph "
+                "replays no autograd; call it under torch.inference_mode()"
+                " or torch.no_grad()")
+        graph = torch.cuda.CUDAGraph()
+        t_cap = time.perf_counter()
+        # the warm-up's frees settle before the pool starts taking blocks
+        torch.cuda.synchronize(dev)
+        err = out = None
+        pool = _graph_pool(index)
+        with torch.cuda.stream(side):
+            try:
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+            except Exception as exc:  # noqa: BLE001 — re-raised below
+                err = exc
+            else:
+                try:
+                    out = call(call_leaves)
+                except Exception as exc:  # noqa: BLE001 — re-raised below
+                    err = exc
+                try:
+                    graph.capture_end()
+                except Exception as exc:  # noqa: BLE001 — re-raised below
+                    err = err or exc
+        if err is not None:
+            del graph
+            _pool_released(index, pool, 0)   # no live graph: a fresh pool
+            raise RuntimeError(
+                f"CUDA-graph capture of {self.name} "
+                f"[{self._render(sig, n_pos)}] failed: {err}") from err
+        capture_s = time.perf_counter() - t_cap
+        _pool_held(index, pool, graph)
+        outs: List = []
+        rebuild_out = _tree_flatten(out, outs)
+        donated_at = {l.untyped_storage().data_ptr(): i
+                      for i, (l, d) in enumerate(zip(leaves, donated)) if d}
+        static_ptrs = {s.untyped_storage().data_ptr()
+                       for s in statics if s is not None}
+        specs = []
+        for o in outs:
+            if not isinstance(o, torch.Tensor):
+                specs.append(("value", o))
+                continue
+            ptr = o.untyped_storage().data_ptr()
+            if ptr in donated_at:
+                specs.append(("donated", donated_at[ptr], tuple(o.shape),
+                              tuple(o.stride()), o.storage_offset()))
+            else:
+                specs.append(("static", o))
+        entry = _Graph(graph, statics, specs, rebuild_out, inference)
+        graphs = self._graphs.get(sig)
+        if graphs is None:
+            graphs = self._graphs[sig] = collections.OrderedDict()
+        else:
+            self.recaptures += 1
+        graphs[key] = entry
+        while len(graphs) > MAX_GRAPHS_PER_SIGNATURE:
+            graphs.popitem(last=False)
+        self.captures += 1
+        if sig in self._entries:
+            with self._lock:
+                self._entries[sig].capture_s = capture_s
+        else:
+            self._book_new(sig, n_pos, time.perf_counter() - t0,
+                           capture_s)
+        # the first call's answer: outputs that alias a static input are
+        # the graph's to overwrite, so they are copied
+        fixed = [o.clone() if isinstance(o, torch.Tensor)
+                 and o.untyped_storage().data_ptr() in static_ptrs else o
+                 for o in firsts]
+        return _tree_flatten(first, [])(iter(fixed))
+
+    def _replay(self, entry: _Graph, leaves):
+        import torch
+        ctx = torch.inference_mode() if entry.inference else \
+            torch.no_grad()
+        with ctx:
+            for st, leaf in zip(entry.statics, leaves):
+                if st is not None and leaf is not st:
+                    st.copy_(_as_tensor(leaf), non_blocking=True)
+            entry.graph.replay()
+            outs = []
+            for spec in entry.outs:
+                if spec[0] == "static":
+                    outs.append(spec[1].clone())
+                elif spec[0] == "donated":
+                    _, i, shape, stride, offset = spec
+                    outs.append(leaves[i].as_strided(shape, stride, offset))
+                else:
+                    outs.append(spec[1])
+        return entry.rebuild_out(iter(outs))
+
+    def _snapshot_extra(self) -> Dict[str, Any]:
+        with self._lock:
+            capture = [e.capture_s for e in self._entries.values()]
+        return {"captures": self.captures, "recaptures": self.recaptures,
+                "capture_seconds": [None if c is None else round(c, 6)
+                                    for c in capture]}
+
+
+def instrumented_call(fn: Optional[Callable] = None, *,
+                      name: Optional[str] = None,
+                      registry: Optional[MetricsRegistry] = None,
+                      storm_signatures: Optional[int] = None,
+                      static_argnums=(), static_argnames=(), **jit_kwargs):
+    """:class:`InstrumentedCall` as :func:`instrumented_jit` builds its
+    wrapper: ``instrumented_call(fn, name=...)`` or
+    ``@instrumented_call(name=...)``."""
+    if fn is None:
+        return functools.partial(
+            instrumented_call, name=name, registry=registry,
+            storm_signatures=storm_signatures, static_argnums=static_argnums,
+            static_argnames=static_argnames, **jit_kwargs)
+    return InstrumentedCall(fn, name=name, registry=registry,
+                            storm_signatures=storm_signatures,
+                            static_argnums=static_argnums,
+                            static_argnames=static_argnames, **jit_kwargs)
 
 
 def instrumented_jit(fn: Optional[Callable] = None, *,

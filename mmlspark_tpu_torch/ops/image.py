@@ -32,6 +32,22 @@ from .._device import float32_exact
 
 _GRAY = (0.299, 0.587, 0.114)
 
+#: per-device constant vectors (``normalize``'s mean and std, the gray
+#: weights), made once per device and values.  A captured program's first
+#: call is its eager warm-up, which makes them, so the capture itself
+#: copies nothing from the host (a pageable copy cannot be captured)
+_CONSTS: dict = {}
+
+
+def _const(values: Sequence[float], device) -> torch.Tensor:
+    key = (tuple(float(v) for v in values), str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTS[key] = torch.tensor(key[0], dtype=torch.float32,
+                                            device=device)
+    return t
+
 
 def resize(images: torch.Tensor, height: int, width: int,
            method: str = "linear") -> torch.Tensor:
@@ -82,8 +98,10 @@ def _weights(in_size: int, out_size: int, kernel, device) -> torch.Tensor:
     ``jax.image.scale_and_translate``'s ``compute_weight_mat`` at scale
     out/in, translation 0 and antialiasing on."""
     f32 = torch.float32
-    inv_scale = torch.tensor(in_size / out_size, dtype=f32, device=device)
-    kernel_scale = torch.clamp(inv_scale, min=1.)
+    # float32 scalars as Python floats (no host -> device copy): the same
+    # values the float32 tensors held
+    inv_scale = float(torch.tensor(in_size / out_size, dtype=f32))
+    kernel_scale = max(inv_scale, 1.)
     sample_f = (torch.arange(out_size, dtype=f32, device=device) + 0.5) \
         * inv_scale - 0.5
     x = torch.abs(sample_f[None, :] - torch.arange(
@@ -134,9 +152,7 @@ def normalize(images: torch.Tensor,
               std: Sequence[float] = (0.229, 0.224, 0.225),
               scale: float = 1.0 / 255.0) -> torch.Tensor:
     x = images.float() * scale
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(std, dtype=torch.float32, device=x.device)
-    return (x - m) / s
+    return (x - _const(mean, x.device)) / _const(std, x.device)
 
 
 def gaussian_kernel(size: int, sigma: float, device=None) -> torch.Tensor:
@@ -183,7 +199,7 @@ def threshold(images: torch.Tensor, thresh: float, max_val: float = 255.0,
 def to_grayscale(images: torch.Tensor) -> torch.Tensor:
     """RGB -> single-channel luminance (color-format op equivalent)."""
     x = images.float()
-    w = torch.tensor(_GRAY, dtype=torch.float32, device=x.device)
+    w = _const(_GRAY, x.device)
     return torch.sum(x * w, dim=-1, keepdim=True)
 
 

@@ -50,7 +50,7 @@ def make_pipeline_train_step(stage_apply: Callable, num_stages: int,
     ``x`` is ``(M, mb, d)`` microbatches (:func:`microbatch`), the same on
     every rank.  The steps run on the mesh's device
     (:func:`parallel.mesh.mesh_device`)."""
-    from ..observability.compute import device_put, instrumented_jit
+    from ..observability.compute import device_put, instrumented_call
     from .collectives import live_axes, ppermute, psum
     mesh = mesh or get_active_mesh()
     S = num_stages
@@ -100,9 +100,9 @@ def make_pipeline_train_step(stage_apply: Callable, num_stages: int,
                for k, v in leaves.items()}
         return new, loss.detach()
 
-    step_fn = instrumented_jit(local_step, name="parallel.pipeline_step")
-    forward_fn = instrumented_jit(local_collect,
-                                  name="parallel.pipeline_forward")
+    step_fn = instrumented_call(local_step, name="parallel.pipeline_step")
+    forward_fn = instrumented_call(local_collect,
+                                   name="parallel.pipeline_forward")
 
     def init_fn(params_stacked):
         s = mesh.axis_index(AXIS_PIPE)

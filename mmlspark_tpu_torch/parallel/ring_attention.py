@@ -134,9 +134,10 @@ def make_ring_attention_fn(mesh=None, axis_name: str = AXIS_SEQ,
     """``f(q, k, v)`` on global ``(batch, heads, seq, head_dim)`` inputs
     (every rank holds the same) with the sequence sharded over
     ``axis_name``: the reference's jitted ``shard_map``, booked through
-    ``instrumented_jit``, on the mesh's device
+    ``instrumented_call`` (its gloo collectives stay outside any CUDA
+    graph), on the mesh's device
     (:func:`parallel.mesh.mesh_device`)."""
-    from ..observability.compute import instrumented_jit
+    from ..observability.compute import instrumented_call
     from .collectives import all_gather, live_axes
     from .sharding import NamedSharding, PartitionSpec
     mesh = mesh or get_active_mesh()
@@ -152,4 +153,4 @@ def make_ring_attention_fn(mesh=None, axis_name: str = AXIS_SEQ,
         parts = all_gather(out, axis_name, tiled=False, mesh=mesh)
         return torch.cat(list(parts.unbind(0)), dim=-2)
 
-    return instrumented_jit(fn, name="parallel.ring_attention")
+    return instrumented_call(fn, name="parallel.ring_attention")

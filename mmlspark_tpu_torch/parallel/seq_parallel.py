@@ -42,7 +42,7 @@ def make_seq_parallel_train_step(module, learning_rate: float = 1e-3,
     It runs on the mesh's device (:func:`parallel.mesh.mesh_device`)."""
     import torch.nn.functional as F
     from torch.func import functional_call
-    from ..observability.compute import device_put, instrumented_jit
+    from ..observability.compute import device_put, instrumented_call
     from .collectives import live_axes, pmean, psum
     from .sharding import NamedSharding, PartitionSpec
     mesh = mesh or get_active_mesh()
@@ -78,7 +78,7 @@ def make_seq_parallel_train_step(module, learning_rate: float = 1e-3,
             new[n] = (p - learning_rate * g).detach()
         return new, loss.detach()
 
-    step_fn = instrumented_jit(local_step, name="parallel.seq_step")
+    step_fn = instrumented_call(local_step, name="parallel.seq_step")
 
     def init_fn(rng, tokens, positions):
         return device_put({n: p.detach().clone()

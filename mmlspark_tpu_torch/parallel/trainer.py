@@ -343,7 +343,7 @@ class Trainer:
         """One step on the global ``batch`` (every rank passes the same
         host arrays; each keeps its ``data`` block).  Returns the new
         state and the global batch's mean loss (a 0-d tensor).  The step
-        is booked through ``instrumented_jit("parallel.train_step")``: a
+        is booked through ``instrumented_call("parallel.train_step")``: a
         torch optimizer makes its state at its first step, so the first
         two steps are two signatures."""
         return self._dispatch(state, self._place_batch(
@@ -354,8 +354,8 @@ class Trainer:
             if self._opt is None:
                 raise RuntimeError(
                     "call init_state/shard_state before train_step")
-            from ..observability.compute import instrumented_jit
-            self._train_step = instrumented_jit(
+            from ..observability.compute import instrumented_call
+            self._train_step = instrumented_call(
                 self._step_fn, name="parallel.train_step",
                 donate_argnums=(0,))
         fn = self._train_step

@@ -10,8 +10,10 @@ package's (``mmlspark_tpu/analysis``), on the CPU.
   STG and CCY.
 - Torch TRC and CMP fixture pairs, written into ``tmp_path``: each marked
   line trips exactly its rule and nothing else trips.
-- ``instrumented_jit`` is not a root: ``parallel/collectives.py::_booked``
-  has no TRC finding.
+- ``instrumented_jit`` (a CUDA graph per signature on the card) is a root:
+  a host sync in a wrapped function is TRC004; ``instrumented_call``, the
+  booking the ``parallel/`` steps use, is not, so
+  ``parallel/collectives.py::_booked`` has no TRC finding.
 - The tier-1 gate: the port's package scans clean against
   ``mmlspark_tpu_torch/analysis/baseline.toml``.
 - Pragmas, the baseline workflow, ``--changed-only``, the CLI and the rule
@@ -621,19 +623,71 @@ def test_torch_cmp_fixture_pair(tmp_path):
 
 
 def test_instrumented_jit_is_not_a_root_of_the_port(port_scan):
-    """The reference roots ``instrumented_jit``, so its TRC flags the host
-    clock, lock and ``int()`` that the port's collectives book under it;
-    the port's wrapper runs eagerly and its TRC reports nothing."""
+    """(The name dates from when the port's ``instrumented_jit`` ran
+    eagerly; it captures CUDA graphs now and is a root, below.)  The
+    ``parallel/`` steps book through ``instrumented_call``, which is never
+    captured and is no root: neither the port's TRC nor the reference's
+    (which roots ``instrumented_jit`` by name) flags the host clock, lock
+    and ``int()`` of ``parallel/collectives.py::_booked``, and the port's
+    package has no TRC finding with ``instrumented_jit`` a root."""
     findings, _ = port_scan
     assert [f for f in findings if f.rule.startswith("TRC")] == []
     parallel = os.path.join(PKG, "parallel")
     files = list(port.iter_python_files(parallel))
-    by_ref = ref.AnalysisEngine([ref.TracerSafetyChecker()],
-                                root=REPO).run(files)
-    assert {(f.file, f.symbol) for f in by_ref} == \
-        {("mmlspark_tpu_torch/parallel/collectives.py", "_booked")}
+    assert ref.AnalysisEngine([ref.TracerSafetyChecker()],
+                              root=REPO).run(files) == []
     assert AnalysisEngine([TracerSafetyChecker()], root=REPO).run(
         files) == []
+
+
+IJ_BAD = '''
+from mmlspark_tpu_torch.observability.compute import (InstrumentedJit,
+                                                      instrumented_jit)
+
+
+def _sync(x):
+    return x.sum().item()                   # expect: TRC004
+
+
+step = instrumented_jit(_sync, name="fixture.step")
+
+
+@instrumented_jit(name="fixture.decorated")
+def decorated(x):
+    return x.tolist()                       # expect: TRC004
+
+
+def _cls(x):
+    return x.cpu()                          # expect: TRC004
+
+
+wrapped = InstrumentedJit(_cls, name="fixture.cls")
+'''
+
+IJ_OK = '''
+from mmlspark_tpu_torch.observability.compute import instrumented_call
+
+
+def _sync(x):
+    return x.sum().item()
+
+
+step = instrumented_call(_sync, name="fixture.step")
+'''
+
+
+def test_instrumented_jit_is_a_trc_root(tmp_path):
+    """A function wrapped by ``instrumented_jit`` (a call, a decorator, the
+    class) is captured as a CUDA graph on the card, so a host sync in it
+    is TRC004; the same function under ``instrumented_call`` is host
+    code."""
+    bad = _write(tmp_path, "models/ij_bad.py", IJ_BAD)
+    ok = _write(tmp_path, "models/ij_ok.py", IJ_OK)
+    found = _scan(TracerSafetyChecker(), bad, root=str(tmp_path))
+    assert sorted((f.rule, f.line) for f in found) == \
+        _expected(tmp_path, bad), [f.render() for f in found]
+    assert {f.symbol for f in found} == {"_sync", "decorated", "_cls"}
+    assert _scan(TracerSafetyChecker(), ok, root=str(tmp_path)) == []
 
 
 def test_the_port_has_no_raw_placement(port_scan):

@@ -168,11 +168,14 @@ def test_decode_rejects_cacheless_models_and_unported_options():
     with pytest.raises(ValueError, match="greedy fused path"):
         runner.decode(prompts, kv_layout="paged", prefix_cache=True,
                       sample_fn=lambda lg: np.argmax(lg, -1))
-    # what the port still lacks of the runner is its jit cache
-    for name in ("executable", "compile_stats"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            getattr(runner, name)(*(() if name == "compile_stats"
-                                    else (1, (4,))))
+    # the refusals mint no executable key; the jit cache itself is
+    # ported (tests/test_torch_compile_stats.py holds it to the reference)
+    assert runner.compile_stats() == {"executables": [], "compiles": 0}
+    logits = runner.executable(2, (4,))(prompts)
+    with torch.inference_mode():
+        want = runner.module(torch.from_numpy(prompts))
+    assert torch.equal(logits, want)
+    assert runner.compile_stats()["compiles"] == 1
 
 
 # ---------------------------------------------------------------------------

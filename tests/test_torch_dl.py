@@ -190,18 +190,23 @@ def test_runner_books_the_reference_counters():
 def test_serving_and_decode_names_raise(call):
     """The serving and continuous-decode side of the runner is ported
     (``tests/test_torch_continuous.py``, ``tests/test_torch_serving.py``):
-    none of these names raises ``NotImplementedError`` any more; what the
-    port still lacks of the runner, its jit cache, raises naming ROADMAP
-    §2 item 6."""
+    none of these names raises ``NotImplementedError`` any more, and
+    neither does the runner's jit cache: ``executable()`` returns a
+    callable equal to the module's output.  (The name dates from when the
+    names raised.)"""
     lm = TransformerEncoder(8, num_classes=8, embed_dim=8, num_heads=2,
                             num_layers=1, mlp_dim=8, max_len=64,
                             causal=True, pool="none")
     r = port_runner.ModelRunner(module=lm, device="cpu")
     assert call(r) is not None
-    with pytest.raises(NotImplementedError, match="item 6"):
-        r.executable(1, (2,))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        r.compile_stats()
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 8, (1, 2)).astype(np.int64))
+    fn = r.executable(1, (2,))
+    with torch.inference_mode():
+        want = lm(toks)
+    assert torch.equal(fn(toks), want)
+    assert fn is r.executable(1, (2,))
+    assert "apply/(0,)/1/(2,)" in r.compile_stats()["executables"]
 
 
 @pytest.mark.parametrize("cut", [1, 0])

@@ -359,8 +359,13 @@ def test_flight_recorder_dumps_the_live_engine(tmp_path, monkeypatch):
         (state,) = snap["decode_streams"]
         assert state["live"] == 1 and state["runner"] == "fr"
         assert snap["runners"][0]["runner"] == "fr"
-        assert snap["compile"] == {"functions": {},
-                                   "storm_threshold_default": 8}
+        # the engine's programs, booked as the reference's jit wrappers
+        # are: the join prefill, its sampler and the step, once each
+        assert snap["compile"]["storm_threshold_default"] == 8
+        assert {k: v["compiles"] for k, v in
+                snap["compile"]["functions"].items()} == {
+            "runner.fr.prefill_paged": 1, "runner.fr.decode_sample": 1,
+            "runner.fr.decode_step_paged": 1}
         sections = set(jax_fr.get_flight_recorder(
             jax_obs.MetricsRegistry()).snapshot())
         assert set(snap) == sections
