@@ -101,13 +101,14 @@ Phases; any failure exits nonzero and prints no result line:
    iterations level-wise (``max_depth=4``) and leaf-wise
    (``num_leaves=15``) on the card equal the CPU's in every booster
    array; the bench data at 1M x 200 in tiles of 131,072 (8 tiles, the
-   last with 82,496 real rows), level-wise ``max_depth=5`` (5 passes x 8
-   tiles x 8 iterations = 320 launches of each kernel) and leaf-wise
-   ``num_leaves=31`` (one launch per tile per pass, up to 1,984), each
+   last with 82,496 real rows), 6 iterations (``STREAM_ITERS``; 8 through
+   PR 20), level-wise ``max_depth=5`` (5 passes x 8 tiles x 6 iterations
+   = 240 launches of each kernel) and leaf-wise ``num_leaves=31`` (one
+   launch per tile per pass, up to 1,488), each
    with its binning and boosting times, prefetch wait and overlap, bytes
    per pass and the copy stream's rate, accuracy >= 0.9 on 100k fresh
    rows, and the leaf-wise fit's peak device memory under 150 MB; the
-   level-wise fit at 262,144 rows a tile (4 tiles, 5 x 4 x 8 = 160
+   level-wise fit at 262,144 rows a tile (4 tiles, 5 x 4 x 6 = 120
    launches of each kernel, accuracy >= 0.9) with edges equal to the
    host sketch fed those same tiles (1M rows are above the sketch's
    200,000-row sample cap, where the edges follow the tile width, as the
@@ -210,6 +211,29 @@ Phases; any failure exits nonzero and prints no result line:
    replays = the module called eagerly, bit for bit.  Capture seconds per
    signature and the graph pool's bytes printed.  No kernel of this
    repository runs (``launches_by_path["graphs"]``, 0).
+13c. gbdt_graphs — the GBDT family's compiled programs (budget 90 s,
+   stated before the run).  Every GBDT fit and transform of this script
+   runs them as CUDA graphs (``lightgbm.iter`` / ``iter_pre``, four
+   iterations a graph in ``lightgbm.multi_iter``, ``objective``,
+   ``valid_update``, ``tree_walk``, ``lambdarank_grads``, the four
+   ``ooc_*`` programs, ``models.gbdt_walk``, ``ops.bin_matrix``), so the
+   earlier GBDT phases' gates hold the replayed path; this phase holds it
+   against the same code with its programs eager
+   (``lightgbm.core.eager_programs``): (a) level-wise and leaf-wise at
+   the bench width: a first fit (its captures), a second same-shape fit
+   that compiles nothing and replays on the first fit's buffers, the
+   eager fit and the unchunked fit (``MMLSPARK_TPU_GBDT_CHUNK=1``),
+   boosters bit for bit, 40 / 248 launches of each kernel a fit; the
+   transform of 1M rows replayed = eager; fit rows/s, boosting
+   row-iterations/s and host enqueue per iteration eager and replayed,
+   the leaf-wise busy share from ``torch.profiler``, peak memory; (b)
+   multiclass (3), LambdaRank and DART at 200,000 x 200, replayed =
+   eager; (c) a leaf-wise streamed fit of 4 x 131,072 rows, replayed =
+   eager, its peak device memory under 150 MB; (d) the same fits and
+   transform on the card and the CPU with empty program caches book the
+   same compiles.  Capture seconds per program and the graph pool's bytes
+   printed.  ``launches_by_path["gbdt_graphs"]``: the replayed fits of
+   (a) and (c).
 14. fleet  — the training monitor on the kernels and a serving fleet on
    one card, no JAX on the card.  (a) A ``TopologyService`` on 127.0.0.1;
    ``train()`` leaf-wise with its defaults (31 leaves, 8 iterations,
@@ -446,7 +470,9 @@ Phases; any failure exits nonzero and prints no result line:
 24. results — one ``{"kernels": [...]}`` line (``launches`` sums the
    level-wise fit + transform, the leaf-wise fit, the two categorical
    fits, the two multiclass fits, the ranker fit, the two streamed fits,
-   the fleet phase's monitored ``train()`` and ``train_streamed()`` fits
+   the gbdt_graphs phase's replayed fits (each kernel launch a replay
+   makes counted, as the graph's capture tallied it), the fleet phase's
+   monitored ``train()`` and ``train_streamed()`` fits
    and the backends phase's unset and ``pallas`` fits and its booked
    streamed fit, the featurize phase's ``TrainClassifier`` and tuning
    fits, the explain phase's LightGBM fit, the harness phase's seed
@@ -487,6 +513,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_ROWS, N_FEAT, N_BINS, QUANT_BINS = 1_000_000, 200, 255, 16
 STREAM_TILE = 131_072           # train_streamed's tile rows at 1M x 200
+STREAM_ITERS = 6                # the streamed phase's iterations
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 SCALAR_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 SOURCE = "mmlspark_tpu_torch/csrc/frontier.cu"
@@ -1965,13 +1992,11 @@ def kernels_held_to_plain(CH, checked):
         checked["frontier_finish"] += 1
         return got
 
-    acc.launches, fin.launches = acc_kernel.launches, fin_kernel.launches
     CH.hist_accumulate, CH.frontier_finish = acc, fin
     try:
         yield
     finally:
         CH.hist_accumulate, CH.frontier_finish = acc_kernel, fin_kernel
-        acc_kernel.launches, fin_kernel.launches = acc.launches, fin.launches
 
 
 def ranker_grower_check(dev, X, rel, gp):
@@ -2300,8 +2325,12 @@ def streamed_fit(label, X, y, Xt, yt, params, tile_rows=STREAM_TILE,
                  **kw):
     """One streamed fit at the bench width with its launch counts (zeroed
     just before, read just after) and its peak device memory."""
-    from mmlspark_tpu_torch.lightgbm import train_streamed
+    from mmlspark_tpu_torch.lightgbm import core as LC, train_streamed
     from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    # the graphs earlier fits captured hold their static inputs and
+    # outputs, and idle fits' buffers wait for their next fit: dropped, so
+    # the peak is this fit's (its own graphs are captured inside it)
+    LC.release_programs()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2357,11 +2386,16 @@ def streamed_phase(dev):
     streamed_card_equals_cpu(dev)
     X, y = bench_data(N_ROWS, seed=0)
     Xt, yt = bench_data(100_000, seed=1)
-    level = GBDTParams(num_iterations=8, max_depth=5, objective="binary")
-    leaf = GBDTParams(num_iterations=8, num_leaves=31, objective="binary")
+    # 6 iterations (8 through PR 20; the gbdt_graphs phase holds the
+    # streamed path replayed against eager since PR 21)
+    level = GBDTParams(num_iterations=STREAM_ITERS, max_depth=5,
+                       objective="binary")
+    leaf = GBDTParams(num_iterations=STREAM_ITERS, num_leaves=31,
+                      objective="binary")
     r_level, rec_level = streamed_fit("level-wise", X, y, Xt, yt, level)
-    if rec_level["launches"]["hist_accumulate"] != 320:
-        raise AssertionError("level-wise: not 5 x 8 tiles x 8 iterations")
+    if rec_level["launches"]["hist_accumulate"] != 5 * 8 * STREAM_ITERS:
+        raise AssertionError(f"level-wise: not 5 x 8 tiles x "
+                             f"{STREAM_ITERS} iterations")
     r_leaf, rec_leaf = streamed_fit("leaf-wise", X, y, Xt, yt, leaf)
     T = STREAM_TILE
     tile_bytes = rec_leaf["hist_pass_bytes"] / rec_leaf["num_tiles"]
@@ -2385,9 +2419,9 @@ def streamed_phase(dev):
     t0 = time.perf_counter()
     wide, rec_wide = streamed_fit("level-wise at 262,144 rows a tile", X, y,
                                   Xt, yt, level, tile_rows=2 * T)
-    if rec_wide["launches"]["hist_accumulate"] != 160:
-        raise AssertionError("level-wise at 262,144: not 5 x 4 tiles x 8 "
-                             "iterations")
+    if rec_wide["launches"]["hist_accumulate"] != 5 * 4 * STREAM_ITERS:
+        raise AssertionError(f"level-wise at 262,144: not 5 x 4 tiles x "
+                             f"{STREAM_ITERS} iterations")
     host = BinMapper(N_BINS).fit_streaming(
         X[lo:lo + 2 * T] for lo in range(0, N_ROWS, 2 * T))
     if not np.array_equal(wide.bin_mapper.edges, host.edges):
@@ -2398,7 +2432,7 @@ def streamed_phase(dev):
                for k in BOOSTER_ARRAYS)
     log(f"[streamed] level-wise at 262,144 rows a tile "
         f"({wide.extras['num_tiles']:.0f} tiles): edges = the host sketch "
-        f"fed those tiles; 160 launches; booster "
+        f"fed those tiles; {5 * 4 * STREAM_ITERS} launches; booster "
         f"{'bit-identical to' if same else 'differs from'} 131,072's "
         f"(above the sketch's cap the edges follow the width) "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -2457,7 +2491,7 @@ def streamed_phase(dev):
         t2 = train(X, y, leaf, checkpoint_dir=d + "/t", checkpoint_every=2)
         if not (t1.extras["preempted"] == 1.0
                 and t2.extras["resumed_from_iteration"] == 4.0
-                and t2.booster.num_trees == 8):
+                and t2.booster.num_trees == STREAM_ITERS):
             raise AssertionError(f"train() preempt/resume: {t1.extras} "
                                  f"{t2.extras}")
         bitwise = booster_diff(
@@ -4077,6 +4111,406 @@ def graphs_phase(dev, smi: str):
 
 
 # --------------------------------------------------------------------------
+# gbdt_graphs phase: the GBDT family's compiled programs as CUDA graphs
+# --------------------------------------------------------------------------
+
+GG_BUDGET_S = 90.0
+GG_MODE_ROWS = 100_000          # multiclass, LambdaRank, DART
+GG_STREAM_TILES = 4             # train_streamed's 4 tiles of STREAM_TILE
+GG_PARITY_ROWS = 50_000         # the compile book card = CPU, chunked
+#: the GBDT family's names in ``compile_report()``
+GG_FAMILY = ("lightgbm.", "models.gbdt_walk", "ops.bin_matrix")
+
+
+def gg_compiles() -> dict:
+    """The process's compile counter by function."""
+    from mmlspark_tpu_torch.observability import get_registry
+    fam = get_registry().counter("mmlspark_jit_compile_total",
+                                 labels=("fn",))
+    return {k[0]: c.value for k, c in fam._snapshot()}
+
+
+def gg_programs() -> dict:
+    """Per GBDT-family function: compiles, captures, re-captures and the
+    capture seconds of each captured signature, over its live programs."""
+    from mmlspark_tpu_torch.observability import compute
+    out = {}
+    for w in list(compute._PROGRAMS):
+        if not w.name.startswith(GG_FAMILY):
+            continue
+        snap = w.snapshot()
+        r = out.setdefault(w.name, {"compiles": 0, "captures": 0,
+                                    "recaptures": 0, "replays": 0,
+                                    "capture_s": []})
+        for k in ("compiles", "captures", "recaptures", "replays"):
+            r[k] += snap[k]
+        r["capture_s"] += [c for c in snap["capture_seconds"]
+                           if c is not None]
+    return out
+
+
+def gg_fit(label: str, fit, iterations: int, rows: int, eager: bool,
+           profile_fit: bool = False) -> dict:
+    """One fit on the card, timed, with its compile-counter delta, its
+    peak device memory above what was held before, and with
+    ``profile_fit`` the device kernels' busy share of its boosting loop
+    (``torch.profiler``: kernels a replayed graph launches are device
+    events too).  ``eager`` runs it under ``eager_programs`` (the same
+    code, programs booked and never captured)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mmlspark_tpu_torch.lightgbm import core as LC
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = gg_compiles()
+    p0 = gg_programs()
+    ctx = LC.eager_programs() if eager else contextlib.nullcontext()
+    prof = profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA], acc_events=True) \
+        if profile_fit else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with ctx, prof:
+        res = fit()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ex = res.extras
+    p1 = gg_programs()
+    ran = {k: {f: v[f] - p0.get(k, {}).get(f, 0)
+               for f in ("captures", "recaptures", "replays")}
+           for k, v in p1.items()}
+    ran = {k: v for k, v in ran.items() if any(v.values())}
+    rec = {"wall_s": wall, "fit_rows_per_s": rows / wall,
+           "boosting_s": ex["boosting_s"],
+           "boosting_row_iterations_per_s": rows * iterations
+           / ex["boosting_s"],
+           "peak_above_base_bytes": torch.cuda.max_memory_allocated() - base,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "base_bytes": base,
+           "compiled": {k: v - c0.get(k, 0) for k, v in gg_compiles().items()
+                        if v != c0.get(k, 0)},
+           "programs_run": ran,
+           "captures": sum(v["captures"] for v in ran.values()),
+           "recaptures": sum(v["recaptures"] for v in ran.values()),
+           "replays": sum(v["replays"] for v in ran.values())}
+    if "dispatch_s" in ex:
+        rec["host_enqueue_ms_per_iteration"] = \
+            ex["dispatch_s"] * 1e3 / iterations
+    if profile_fit:
+        # the boosting loop's span (``train.boosting``): its device
+        # kernels, the graphs' included, and the host's launch calls
+        events = prof.events()
+        loop = next(e.time_range for e in events
+                    if e.name == "train.boosting"
+                    and e.device_type != torch.autograd.DeviceType.CUDA)
+
+        def inside(e):
+            return loop.start <= e.time_range.start <= loop.end
+
+        device_ms = sum(
+            e.time_range.elapsed_us() for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name != "train.boosting"
+            and "memcpy" not in e.name.lower() and inside(e)) / 1e3
+        rec.update(device_kernel_ms=device_ms,
+                   busy_share=device_ms / (ex["boosting_s"] * 1e3),
+                   kernel_launch_calls=sum(
+                       1 for e in events if e.name == "cudaLaunchKernel"
+                       and inside(e)),
+                   graph_launch_calls=sum(
+                       1 for e in events if e.name == "cudaGraphLaunch"
+                       and inside(e)))
+    log(f"[gbdt_graphs] {label}: fit {wall:.3f} s = "
+        f"{rec['fit_rows_per_s']:.0f} rows/s, boosting "
+        f"{ex['boosting_s']:.4f} s = "
+        f"{rec['boosting_row_iterations_per_s']:.0f} row-iterations/s"
+        + (f", host enqueue {rec['host_enqueue_ms_per_iteration']:.3f} ms "
+           f"an iteration" if "host_enqueue_ms_per_iteration" in rec else "")
+        + (f", busy share {rec['busy_share']:.3f} "
+           f"({rec['device_kernel_ms']:.1f} device ms, "
+           f"{rec['kernel_launch_calls']} kernel launches, "
+           f"{rec['graph_launch_calls']} graph launches)"
+           if profile_fit else "")
+        + f"; peak {rec['peak_above_base_bytes'] / 1e6:.1f} MB above "
+        f"{base / 1e6:.1f} MB; compiled {rec['compiled']}, captures "
+        f"{rec['captures']}, re-captures {rec['recaptures']}, replays "
+        f"{rec['replays']}")
+    return res, rec
+
+
+def gg_growth(label: str, X, y, params, want_launches: int) -> dict:
+    """(a) One growth mode at the bench width: the replayed fit (its
+    captures first, then a second same-shape fit that compiles nothing),
+    the eager baseline and the unchunked fit, boosters bit for bit; the
+    transform of every row replayed = eager."""
+    from mmlspark_tpu_torch.lightgbm import core as LC, train
+    rows, iters = len(y), params.num_iterations
+    leaf = params.num_leaves is not None
+
+    def fit():
+        return train(X, y, params)
+
+    (first, r_first), l_first = counted(
+        lambda: gg_fit(f"{label} replayed, first fit", fit, iters, rows,
+                       False))
+    (second, r_second), l_second = counted(
+        lambda: gg_fit(f"{label} replayed, second fit", fit, iters, rows,
+                       False))
+    if r_second["compiled"]:
+        raise AssertionError(f"gbdt_graphs {label}: the second same-shape "
+                             f"fit compiled {r_second['compiled']}")
+    eager, r_eager = gg_fit(f"{label} eager", fit, iters, rows, True)
+    if leaf:
+        # the busy share of the boosting loop, eager and replayed, from
+        # fits of their own (the profiler's cost stays out of the others;
+        # the eager one over 2 of the 8 iterations: its cost grows with
+        # its ~3,000 launches a tree)
+        r_eager["profile"] = gg_fit(
+            f"{label} eager, profiled (2 iterations)",
+            lambda: train(X, y, dataclasses.replace(params,
+                                                    num_iterations=2)),
+            2, rows, True, profile_fit=True)[1]
+        r_second["profile"] = gg_fit(f"{label} replayed, profiled", fit,
+                                     iters, rows, False,
+                                     profile_fit=True)[1]
+    os.environ["MMLSPARK_TPU_GBDT_CHUNK"] = "1"
+    try:
+        (plain, r_plain), l_plain = counted(
+            lambda: gg_fit(f"{label} replayed, unchunked", fit, iters, rows,
+                           False))
+    finally:
+        del os.environ["MMLSPARK_TPU_GBDT_CHUNK"]
+    for what, b in (("second", second), ("eager", eager),
+                    ("unchunked", plain)):
+        same_booster(b.booster, first.booster,
+                     f"gbdt_graphs {label}: {what} vs the first fit")
+    for what, got in (("first", l_first), ("second", l_second),
+                      ("unchunked", l_plain)):
+        if any(v != want_launches for v in got.values()):
+            raise AssertionError(f"gbdt_graphs {label}: {what} fit "
+                                 f"launched {got}, want {want_launches}")
+    for what, r in (("first", r_first), ("second", r_second)):
+        if "lightgbm.multi_iter" not in r["programs_run"]:
+            raise AssertionError(f"gbdt_graphs {label}: the {what} fit ran "
+                                 f"no chunk ({r['programs_run']})")
+    if r_second["captures"] or r_second["recaptures"]:
+        raise AssertionError(f"gbdt_graphs {label}: the second fit "
+                             f"captured ({r_second['programs_run']})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_replayed = first.booster.predict(X)
+    torch.cuda.synchronize()
+    t_replayed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_again = first.booster.predict(X)
+    torch.cuda.synchronize()
+    t_again = time.perf_counter() - t0
+    with LC.eager_programs():
+        t0 = time.perf_counter()
+        p_eager = first.booster.predict(X)
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+    if not (np.array_equal(p_replayed, p_eager)
+            and np.array_equal(p_again, p_eager)):
+        raise AssertionError(f"gbdt_graphs {label}: transform replayed != "
+                             f"eager")
+    log(f"[gbdt_graphs] {label}: boosters first = second = eager = "
+        f"unchunked bit for bit; launches {l_first} / {l_second} / "
+        f"{l_plain} (first, second, unchunked); transform of {rows} rows "
+        f"replayed = eager: first call {t_replayed:.3f} s (captures), "
+        f"replayed {t_again:.3f} s = {rows / t_again:.0f} rows/s, eager "
+        f"{t_eager:.3f} s = {rows / t_eager:.0f} rows/s")
+    return {"first": r_first, "second": r_second, "eager": r_eager,
+            "unchunked": r_plain,
+            "transform_s": {"first": t_replayed, "replayed": t_again,
+                            "eager": t_eager},
+            "launches": add_counts(add_counts(l_first, l_second), l_plain)}
+
+
+def gg_modes(dev) -> dict:
+    """(b) Multiclass (3 classes), LambdaRank and DART, leaf-wise at 200,000
+    x 200: replayed boosters = eager, bit for bit."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    X, y = bench_data(GG_MODE_ROWS, seed=5)
+    rng = np.random.default_rng(6)
+    ymc = np.digitize(X[:, 0] + 0.5 * X[:, 1], [-0.5, 0.5]).astype(
+        np.float32)
+    rel = np.digitize(X[:, 0] + 0.3 * rng.normal(size=len(y)),
+                      [-0.5, 0.5, 1.3, 2.1]).astype(np.float32)
+    gp = np.arange(0, len(y) + 1, 100)
+    out = {}
+    for name, labels, pkw, kw in (
+            ("multiclass", ymc, dict(objective="multiclass", num_class=3),
+             {}),
+            ("lambdarank", rel, dict(objective="lambdarank"),
+             {"group_ptr": gp}),
+            ("dart", y, dict(boosting_type="dart", drop_rate=0.5,
+                             skip_drop=0.0), {})):
+        params = GBDTParams(num_iterations=8, num_leaves=31, **pkw)
+
+        def fit():
+            return train(X, labels, params, **kw)
+
+        first, f = gg_fit(f"(b) {name} replayed, first fit", fit, 8,
+                          len(y), False)
+        replayed, r = gg_fit(f"(b) {name} replayed, second fit", fit, 8,
+                             len(y), False)
+        eager, e = gg_fit(f"(b) {name} eager", fit, 8, len(y), True)
+        for what, b in (("first", first), ("second", replayed)):
+            same_booster(b.booster, eager.booster,
+                         f"gbdt_graphs (b) {name}: {what} replayed fit")
+        out[name] = {"first": f, "replayed": r, "eager": e}
+    return out
+
+
+def gg_streamed(dev) -> dict:
+    """(c) A leaf-wise streamed fit of 4 tiles x 131,072 rows: replayed =
+    eager bit for bit, the replayed fit's peak device memory above what
+    the script held before it (its graphs captured inside it, every
+    earlier graph and idle buffer dropped first) under 150 MB."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, core as LC, \
+        train_streamed
+    n = GG_STREAM_TILES * STREAM_TILE
+    X, y = bench_data(n, seed=7)
+    params = GBDTParams(num_iterations=4, num_leaves=31)
+
+    def fit():
+        return train_streamed(X, y, params, tile_rows=STREAM_TILE)
+
+    LC.release_programs()
+    (replayed, r), launches = counted(
+        lambda: gg_fit("(c) streamed replayed", fit, 4, n, False))
+    eager, e = gg_fit("(c) streamed eager", fit, 4, n, True)
+    same_booster(replayed.booster, eager.booster, "gbdt_graphs (c) streamed")
+    if r["peak_above_base_bytes"] >= 150e6:
+        raise AssertionError(f"gbdt_graphs (c): replayed streamed peak "
+                             f"{r['peak_above_base_bytes']} B above the "
+                             f"held >= 150 MB")
+    return {"replayed": r, "eager": e, "launches": launches}
+
+
+def gg_parity(dev) -> dict:
+    """(d) One call sequence on the card and on the CPU, each with empty
+    program caches and four iterations a chunk: a leaf-wise fit with a
+    valid set, a DART fit and a transform past the host-walk threshold
+    book the same compiles under the same names."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, core as LC, train
+    from mmlspark_tpu_torch.models import gbdt as GM
+    rng = np.random.default_rng(8)
+    X = rng.normal(size=(GG_PARITY_ROWS, 10)).astype(np.float32)
+    y = (X[:, 0] + 0.3 * rng.normal(size=len(X)) > 0).astype(np.float32)
+    Xv, yv = X[:2_000] + 0.1, y[:2_000]
+    books = {}
+    saved = dict(LC._JIT_CACHE), dict(GM._WALKS)
+    os.environ["MMLSPARK_TPU_GBDT_CHUNK"] = "4"
+    try:
+        for where in ("cuda", "cpu"):
+            LC._JIT_CACHE.clear()
+            GM._WALKS.clear()
+            c0 = gg_compiles()
+            res = train(X, y, GBDTParams(num_iterations=8, num_leaves=7),
+                        valid=(Xv, yv), device=where)
+            train(X, y, GBDTParams(num_iterations=3, num_leaves=7,
+                                   boosting_type="dart", drop_rate=0.5,
+                                   skip_drop=0.0), device=where)
+            res.booster.predict(X, device=where)
+            books[where] = {k: v - c0.get(k, 0)
+                            for k, v in gg_compiles().items()
+                            if v != c0.get(k, 0)}
+    finally:
+        del os.environ["MMLSPARK_TPU_GBDT_CHUNK"]
+        LC._JIT_CACHE.clear()
+        LC._JIT_CACHE.update(saved[0])
+        GM._WALKS.clear()
+        GM._WALKS.update(saved[1])
+    if books["cuda"] != books["cpu"] or "lightgbm.multi_iter" not in \
+            books["cuda"]:
+        raise AssertionError(f"gbdt_graphs (d): compiles on the card "
+                             f"{books['cuda']} != on the CPU {books['cpu']}")
+    return books
+
+
+def gbdt_graphs_phase(dev, smi: str):
+    """The GBDT family's compiled programs on the card (``lightgbm.iter`` /
+    ``iter_pre`` / ``multi_iter`` / ``objective`` / ``valid_update`` /
+    ``tree_walk`` / ``lambdarank_grads``, the four ``ooc_*`` programs,
+    ``models.gbdt_walk``), each a CUDA graph per signature, against the
+    same code with its programs eager (``lightgbm.core.eager_programs``):
+    (a) level-wise and leaf-wise at the bench width, (b) multiclass,
+    LambdaRank and DART, (c) a streamed fit, (d) the compile book card =
+    CPU.  Launches are counted on the replayed fits of (a) and (c)."""
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, core as LC
+    from mmlspark_tpu_torch.observability import compute
+    log(f"[gbdt_graphs] budget {GG_BUDGET_S:.0f} s: (a) level-wise and "
+        f"leaf-wise at {N_ROWS:,} x {N_FEAT}, (b) three modes at "
+        f"{GG_MODE_ROWS:,}, (c) streamed {GG_STREAM_TILES} x "
+        f"{STREAM_TILE:,}, (d) the compile book card = CPU")
+    t0 = time.perf_counter()
+    # every graph and idle buffer set of the earlier phases dropped: the
+    # first fit of each growth mode captures its programs
+    LC.release_programs()
+    X, y = bench_data(N_ROWS, seed=0)
+    rec = {"level": gg_growth("(a) level-wise", X, y, GBDTParams(
+        num_iterations=8, max_depth=5, objective="binary"), 8 * 5)}
+    rec["leaf"] = gg_growth("(a) leaf-wise", X, y, GBDTParams(
+        num_iterations=8, num_leaves=31, objective="binary"), 8 * 31)
+    del X, y
+    rec["pool_bytes"] = compute.graph_pool_bytes(torch.cuda.current_device())
+    rec["programs"] = gg_programs()
+    rec["modes"] = gg_modes(dev)
+    rec["streamed"] = gg_streamed(dev)
+    rec["parity"] = gg_parity(dev)
+    rec.update(card=smi, total_s=time.perf_counter() - t0)
+    launches = add_counts(add_counts(rec["level"]["launches"],
+                                     rec["leaf"]["launches"]),
+                          rec["streamed"]["launches"])
+    rec["launches"] = launches
+    DETAIL["gbdt_graphs"] = rec
+    for g in ("level", "leaf"):
+        r = rec[g]
+        log(f"[gbdt_graphs] {smi} | (a) {g}: fit rows/s eager "
+            f"{r['eager']['fit_rows_per_s']:.0f}, replayed "
+            f"{r['second']['fit_rows_per_s']:.0f} (first, with captures, "
+            f"{r['first']['fit_rows_per_s']:.0f}); boosting "
+            f"row-iterations/s eager "
+            f"{r['eager']['boosting_row_iterations_per_s']:.0f}, replayed "
+            f"{r['second']['boosting_row_iterations_per_s']:.0f}; host "
+            f"enqueue ms an iteration eager "
+            f"{r['eager']['host_enqueue_ms_per_iteration']:.3f}, replayed "
+            f"{r['second']['host_enqueue_ms_per_iteration']:.3f}"
+            + (f"; busy share eager "
+               f"{r['eager']['profile']['busy_share']:.3f}, replayed "
+               f"{r['second']['profile']['busy_share']:.3f}"
+               if "profile" in r["eager"] else "")
+            + f"; peak MB above the held eager "
+            f"{r['eager']['peak_above_base_bytes'] / 1e6:.1f}, replayed "
+            f"{r['second']['peak_above_base_bytes'] / 1e6:.1f} (first "
+            f"{r['first']['peak_above_base_bytes'] / 1e6:.1f})")
+    m = rec["modes"]
+    log(f"[gbdt_graphs] {smi} | (b) replayed = eager bit for bit: "
+        + "; ".join(f"{k} boosting s eager {v['eager']['boosting_s']:.3f}, "
+                    f"replayed {v['replayed']['boosting_s']:.3f} (first, "
+                    f"with captures, {v['first']['boosting_s']:.3f})"
+                    for k, v in m.items()))
+    s = rec["streamed"]
+    log(f"[gbdt_graphs] {smi} | (c) streamed {GG_STREAM_TILES} x "
+        f"{STREAM_TILE:,}: replayed = eager bit for bit; boosting s eager "
+        f"{s['eager']['boosting_s']:.3f}, replayed "
+        f"{s['replayed']['boosting_s']:.3f}; peak above the held "
+        f"replayed {s['replayed']['peak_above_base_bytes'] / 1e6:.1f} MB "
+        f"(< 150), eager {s['eager']['peak_above_base_bytes'] / 1e6:.1f} "
+        f"MB (held before: {s['replayed']['base_bytes'] / 1e6:.1f} MB); "
+        f"launches {s['launches']}")
+    log(f"[gbdt_graphs] {smi} | (d) compiles card = CPU: "
+        f"{rec['parity']['cuda']}")
+    log(f"[gbdt_graphs] {smi} | capture s per program: " + json.dumps(
+        {k: [round(c, 4) for c in v["capture_s"]]
+         for k, v in rec["programs"].items() if v["capture_s"]})
+        + f"; graph pool {(rec['pool_bytes'] or 0) / 1e6:.1f} MB; phase "
+        f"{rec['total_s']:.1f} s (budget {GG_BUDGET_S:.0f} s)")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # fleet phase: the training monitor on the kernels, then a serving fleet
 # --------------------------------------------------------------------------
 
@@ -4184,11 +4618,24 @@ def fleet_monitored_fits(dev, topo: str):
     """(a) ``train()`` and ``train_streamed()`` leaf-wise with the live
     monitor, registered with the fleet: live progress, the kernels'
     launches, boosters equal to the unmonitored fits'."""
-    from mmlspark_tpu_torch.lightgbm import GBDTParams, train, train_streamed
-    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    from mmlspark_tpu_torch.lightgbm import GBDTParams
     X, y = bench_data(N_ROWS, seed=0)
     params = GBDTParams(num_iterations=8, num_leaves=31, objective="binary")
     cache: dict = {}
+    # the monitor ticks from the callbacks, which the chunked path calls
+    # once a chunk (the reference's contract): the in-memory fits here run
+    # one iteration a program, so the poller can see a step mid-way with
+    # its rate (a rate needs two ticks)
+    os.environ["MMLSPARK_TPU_GBDT_CHUNK"] = "1"
+    try:
+        return _fleet_monitored_fits(dev, topo, X, y, params, cache)
+    finally:
+        del os.environ["MMLSPARK_TPU_GBDT_CHUNK"]
+
+
+def _fleet_monitored_fits(dev, topo: str, X, y, params, cache):
+    from mmlspark_tpu_torch.lightgbm import train, train_streamed
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
     plain = train(X, y, params, bin_cache=cache)      # bins the data once
     rec = {"boosting_s": {"plain": [plain.extras["boosting_s"]]}}
 
@@ -5858,8 +6305,17 @@ def featurize_word2vec(dev) -> dict:
     tuner.set("models", [LightGBMClassifier().set_params(num_iterations=30)])
     tuner.set("param_space", GridSpace(space.build()))
     t0 = time.perf_counter()
+    g0 = gg_programs()
     tuned, t_launches = counted(lambda: tuner.fit(feats))
     tune_s = time.perf_counter() - t0
+    # the candidates' fits on two threads: each has its own state, so
+    # each captures its programs once (a graph per fit's buffers), and
+    # neither evicts the other's
+    g1 = gg_programs()
+    tune_graphs = {k: {f: v[f] - g0.get(k, {}).get(f, 0)
+                       for f in ("captures", "recaptures")}
+                   for k, v in g1.items()
+                   if v["captures"] != g0.get(k, {}).get("captures", 0)}
     launches = add_counts(launches, t_launches)
     # the same candidates, one at a time
     train, valid = feats.random_split([0.8, 0.2], seed=0)
@@ -5891,13 +6347,14 @@ def featurize_word2vec(dev) -> dict:
     wide_s = time.perf_counter() - t0
     rec["tune"] = {"seconds": tune_s, "launches": t_launches,
                    "all_metrics": metrics, "best_params": params[best],
-                   "candidates": len(metrics)}
+                   "candidates": len(metrics), "graphs": tune_graphs}
     rec["wide"] = {"vector_size": 300, "documents": W2V_SUBSET,
                    "fit_s": wide_s,
                    **wide.fit_stats}
     log(f"[featurize] (b) TuneHyperparameters(parallelism=2) over "
         f"{len(metrics)} candidates in {tune_s:.2f} s, {t_launches} "
-        f"launches: all_metrics = the candidates fitted alone "
+        f"launches, program captures / re-captures {tune_graphs}: "
+        f"all_metrics = the candidates fitted alone "
         f"({', '.join(f'{m:.4f}' for m in metrics)}), best "
         f"{params[best]} bit-identical to its candidate alone, "
         f"FindBestModel the same pick; Word2Vec(vector_size=300) on "
@@ -7129,9 +7586,16 @@ def harness_delegate(dev) -> dict:
         def after_training_iteration(self, iteration, eval_result=None):
             seen.append(iteration)
 
-    plain = train(X, y, params).booster
-    hooked, counts = counted(lambda: train(
-        X, y, params, callbacks=[Recorder().as_callback()]).booster)
+    # callbacks run once a program call: per iteration here (a chunk of
+    # four iterations, the card's default, calls them once, at its last
+    # iteration, as the reference's chunked path does)
+    os.environ["MMLSPARK_TPU_GBDT_CHUNK"] = "1"
+    try:
+        plain = train(X, y, params).booster
+        hooked, counts = counted(lambda: train(
+            X, y, params, callbacks=[Recorder().as_callback()]).booster)
+    finally:
+        del os.environ["MMLSPARK_TPU_GBDT_CHUNK"]
     if seen != list(range(8)):
         raise AssertionError(f"harness (c): the delegate saw {seen}")
     same_booster(plain, hooked, "harness (c) delegated vs plain")
@@ -8227,6 +8691,13 @@ def analysis_phase(smi: str):
     return launches
 
 
+def phase_done(name: str, t0: float) -> None:
+    """Log a phase's seconds and keep them in the details."""
+    seconds = time.perf_counter() - t0
+    DETAIL.setdefault("phase_s", {})[name] = seconds
+    log(f"[{name}] phase done in {seconds:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -8259,7 +8730,7 @@ def main() -> int:
     t0 = time.perf_counter()
     stats = kernel_phase(dev)
     torch.cuda.synchronize()
-    log(f"[kernels] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("kernels", t0)
 
     t0 = time.perf_counter()
     level_launches = slice_phase(dev)
@@ -8267,7 +8738,7 @@ def main() -> int:
     fit_phases(GBDTParams(num_iterations=8, max_depth=5,
                           objective="binary"), "slice")
     torch.cuda.synchronize()
-    log(f"[slice] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("slice", t0)
 
     t0 = time.perf_counter()
     leafwise_grower_check(dev)
@@ -8277,106 +8748,111 @@ def main() -> int:
                                 profile_iterations=2))
     modes_phase(dev)
     torch.cuda.synchronize()
-    log(f"[leaf] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("leaf", t0)
 
     t0 = time.perf_counter()
     data_phase(dev)
     torch.cuda.synchronize()
-    log(f"[data] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("data", t0)
 
     t0 = time.perf_counter()
     cat_grower_check(dev)
     cat_launches = cat_phase(dev)
     objectives_phase(dev)
     torch.cuda.synchronize()
-    log(f"[cat] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("cat", t0)
 
     t0 = time.perf_counter()
     multiclass_grower_check(dev)
     log(f"[multiclass] grower check done in {time.perf_counter() - t0:.1f} s")
     mc_launches = multiclass_phase(dev)
     torch.cuda.synchronize()
-    log(f"[multiclass] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("multiclass", t0)
 
     t0 = time.perf_counter()
     rank_launches = ranker_phase(dev)
     torch.cuda.synchronize()
-    log(f"[ranker] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("ranker", t0)
 
     t0 = time.perf_counter()
     stream_launches = streamed_phase(dev)
     torch.cuda.synchronize()
-    log(f"[streamed] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("streamed", t0)
 
     t0 = time.perf_counter()
     dnn_phase(dev)
     torch.cuda.synchronize()
-    log(f"[dnn] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("dnn", t0)
 
     t0 = time.perf_counter()
     seq_phase(dev)
     torch.cuda.synchronize()
-    log(f"[seq] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("seq", t0)
 
     t0 = time.perf_counter()
     served = serve_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[serve] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("serve", t0)
 
     t0 = time.perf_counter()
     graphs_launches = graphs_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[graphs] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("graphs", t0)
+
+    t0 = time.perf_counter()
+    gbdt_graphs_launches = gbdt_graphs_phase(dev, smi)
+    torch.cuda.synchronize()
+    phase_done("gbdt_graphs", t0)
 
     t0 = time.perf_counter()
     fleet_launches = fleet_phase(dev, smi, served)
     del served
     torch.cuda.synchronize()
-    log(f"[fleet] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("fleet", t0)
 
     t0 = time.perf_counter()
     backend_launches = backends_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[backends] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("backends", t0)
 
     t0 = time.perf_counter()
     vw_launches = vw_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[vw] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("vw", t0)
 
     t0 = time.perf_counter()
     featurize_launches = featurize_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[featurize] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("featurize", t0)
 
     t0 = time.perf_counter()
     neighbours_launches = neighbours_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[neighbours] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("neighbours", t0)
 
     t0 = time.perf_counter()
     explain_launches = explain_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[explain] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("explain", t0)
 
     t0 = time.perf_counter()
     harness_launches = harness_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[harness] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("harness", t0)
 
     t0 = time.perf_counter()
     sharded_launches = sharded_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[sharded] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("sharded", t0)
 
     t0 = time.perf_counter()
     parallel_launches = parallel_phase(dev, smi)
     torch.cuda.synchronize()
-    log(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("parallel", t0)
 
     t0 = time.perf_counter()
     analysis_launches = analysis_phase(smi)
-    log(f"[analysis] phase done in {time.perf_counter() - t0:.1f} s")
+    phase_done("analysis", t0)
 
     paths = {"level": level_launches, "leaf": leaf_launches,
              "cat_leaf": cat_launches["leaf"],
@@ -8389,7 +8865,7 @@ def main() -> int:
              **fleet_launches, "backends": backend_launches,
              "vw": vw_launches, "featurize": featurize_launches,
              "neighbours": neighbours_launches, "explain": explain_launches,
-             "graphs": graphs_launches,
+             "graphs": graphs_launches, "gbdt_graphs": gbdt_graphs_launches,
              "harness": harness_launches, "sharded": sharded_launches,
              "parallel": parallel_launches, "analysis": analysis_launches}
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,

@@ -39,11 +39,31 @@ streamed driver books every staged tile's bytes under
 ``mmlspark_device_transfer_bytes_total{site="lightgbm.ooc_tile"}``.  Row
 sharding and voting-parallel run over a ``torch.distributed`` process
 group (``train(shard_rows=True)``, ``parallelism="voting_parallel"``).
-The JAX package's fused iteration and its scan-chunked multi-iteration
-path (``lightgbm.iter`` / ``multi_iter``, compiled programs that amortize
-a device's per-dispatch latency) wait for ROADMAP.md §1's next slice,
-which captures them as CUDA graphs; until then the port launches per
-iteration.
+
+The JAX package's compiled programs are the port's, each booked under
+its name through ``observability.compute.instrumented_jit`` and, on the
+card, a CUDA graph captured per signature and replayed after: one
+boosting iteration (``lightgbm.iter``, or ``lightgbm.iter_pre`` on
+precomputed LambdaRank / DART gradients; ``scores`` donated), four of
+them in one program on the card (``lightgbm.multi_iter``, the
+reference's conditions; ``MMLSPARK_TPU_GBDT_CHUNK`` overrides, one on the
+CPU), ``lightgbm.objective``, ``lightgbm.valid_update``,
+``lightgbm.tree_walk``, ``lightgbm.lambdarank_grads``, ``lightgbm.grower``
+and the streamed driver's ``lightgbm.ooc_grad`` / ``ooc_tile_hist`` /
+``ooc_level_decide`` / ``ooc_leaf_best``; the sharded grower books
+through ``instrumented_call`` (its gloo collectives cannot ride a graph).
+Programs are cached across ``train()`` calls (``_JIT_CACHE``, keyed on
+the params, the histogram knobs and the shapes), so a second same-shape
+fit compiles nothing.  The random draws a program reads (GOSS's
+permutation, the quantizer's uniforms, from ``torch.Generator``s seeded
+per iteration) are taken before it, in the eager loop's order, into the
+fit's buffers, which the programs read in place with its bins, labels,
+weights and edges; the host draws (features, bag, DART's drop set) stay
+between calls.  A chunk takes its iterations' draws the same way, so a
+chunked fit grows the unchunked booster bit for bit (the reference's
+chunk draws its masks inside its scan: a departure kept on purpose).
+``eager_programs()`` builds the same programs through
+``instrumented_call``: the card's baseline for what the graphs replay.
 """
 from __future__ import annotations
 
@@ -51,6 +71,7 @@ import collections
 import contextlib
 import dataclasses
 import math
+import threading
 import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -64,7 +85,9 @@ from ..io.checkpoint import (CheckpointManager, book_reshard,
 from ..models.gbdt import GBDTBooster, children_depth_bound, \
     perfect_tree_children
 from ..ops import cuda_histogram
-from ..observability.compute import device_put
+from ..observability import compute as _compute
+from ..observability.compute import device_put, instrumented_call, \
+    instrumented_jit
 from ..observability.tracing import ambient_phase
 from ..ops import histogram as hist_ops
 from ..utils.resilience import PreemptionToken, preemption_scope
@@ -286,7 +309,8 @@ def _lambda_chunk(S, Y, M, sigmoid: float):
 def make_lambdarank_grad_fn(y: np.ndarray, group_ptr: np.ndarray,
                             sigmoid: float = 1.0, device: DeviceLike = None):
     """LambdaRank gradients with |ΔNDCG| weighting, resident on the device
-    (the JAX package's ``make_lambdarank_grad_fn``).
+    (the JAX package's ``make_lambdarank_grad_fn``): the compiled program
+    ``lightgbm.lambdarank_grads``, a CUDA graph on the card.
 
     Queries are packed to ``(Q, Gmax)`` by index gathers built once on the
     host; the returned ``fn(scores) -> (g, h)``, each ``(n, 1)``, stays on
@@ -331,8 +355,9 @@ def make_lambdarank_grad_fn(y: np.ndarray, group_ptr: np.ndarray,
         h_row = torch.where(covered, H[rq, rs], 1e-16)
         return g_row[:, None], h_row[:, None]
 
-    fn.chunks = bounds
-    return fn
+    prog = instrumented_jit(fn, name="lightgbm.lambdarank_grads")
+    prog.chunks = bounds
+    return prog
 
 
 def lambdarank_grads(scores: np.ndarray, y: np.ndarray, group_ptr: np.ndarray,
@@ -347,6 +372,114 @@ def lambdarank_grads(scores: np.ndarray, y: np.ndarray, group_ptr: np.ndarray,
                          .reshape(len(y), -1)).to(dev)
     g, h = fn(s)
     return g.cpu().numpy(), h.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# compiled programs: reused across train() calls (the JAX package's jit
+# caches), each a CUDA graph per signature on the card
+# ---------------------------------------------------------------------------
+
+_JIT_CACHE: Dict[tuple, object] = {}
+
+def _cached(key, builder):
+    """The program under ``key``, built once (the JAX package's
+    ``_cached``)."""
+    fn = _JIT_CACHE.get(key)
+    if fn is None:
+        fn = _JIT_CACHE.setdefault(key, builder())
+    return fn
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """Within the block the GBDT family's programs (here and in
+    ``models.gbdt``) are built by ``instrumented_call`` in place of
+    ``instrumented_jit``: booked as the programs are, never captured; the
+    cached programs come back after it.  The card's baseline for what the
+    captured programs replay."""
+    from ..models import gbdt as gbdt_model
+    saved = dict(_JIT_CACHE)
+    _JIT_CACHE.clear()
+    mods = (globals(), vars(gbdt_model))
+    for m in mods:
+        m["instrumented_jit"] = instrumented_call
+    try:
+        yield
+    finally:
+        for m in mods:
+            m["instrumented_jit"] = _compute.instrumented_jit
+        _JIT_CACHE.clear()
+        _JIT_CACHE.update(saved)
+
+
+#: idle device buffer sets of earlier card fits, by shape (``_checkout``)
+_FIT_BUFFERS: "collections.OrderedDict[tuple, List[dict]]" = \
+    collections.OrderedDict()
+_FIT_BUFFERS_LOCK = threading.Lock()
+#: idle sets kept in all, the least recently returned dropped first
+IDLE_FIT_BUFFERS = 2
+
+
+def _checkout(key: tuple, make: Callable[[], dict]) -> dict:
+    """A set of device buffers for one fit: an idle set an earlier fit of
+    the same shapes (``key``) returned, else ``make()``.  The programs
+    read the fit's inputs in place, so a fit on the buffers of an earlier
+    one replays the graphs that one captured instead of capturing again.
+    A set belongs to one fit at a time (fits on several threads get
+    their own); ``_checkin`` returns it."""
+    with _FIT_BUFFERS_LOCK:
+        idle = _FIT_BUFFERS.get(key)
+        if idle:
+            return idle.pop()
+    return make()
+
+
+def _checkin(key: tuple, bufs: dict) -> None:
+    with _FIT_BUFFERS_LOCK:
+        _FIT_BUFFERS.setdefault(key, []).append(bufs)
+        _FIT_BUFFERS.move_to_end(key)
+        extra = sum(len(v) for v in _FIT_BUFFERS.values()) - \
+            IDLE_FIT_BUFFERS
+        while extra > 0:
+            oldest = next(iter(_FIT_BUFFERS))
+            _FIT_BUFFERS[oldest].pop(0)
+            if not _FIT_BUFFERS[oldest]:
+                del _FIT_BUFFERS[oldest]
+            extra -= 1
+
+
+def release_programs() -> int:
+    """Drop every captured graph of the process and the idle buffer sets
+    of earlier fits, with the device memory they hold
+    (``observability.compute.release_graphs``); the programs and their
+    compile booking stay.  Returns the graphs dropped."""
+    with _FIT_BUFFERS_LOCK:
+        _FIT_BUFFERS.clear()
+    return _compute.release_graphs()
+
+
+def _program_key(p: "GBDTParams", hist_backend: str) -> tuple:
+    """What a cached GBDT program depends on beyond its shapes: the
+    params (quantization resolved), the histogram backend ``train()``
+    read, and the knobs the growers and builds read per call (frozen into
+    a captured graph, so a new value is a new program)."""
+    import os
+    knobs = tuple(os.environ.get(k, "") for k in (
+        "MMLSPARK_TPU_HIST_LAYOUT", "MMLSPARK_TPU_HIST_PALLAS",
+        "MMLSPARK_TPU_HIST_BLOCK_ROWS", "MMLSPARK_TPU_HIST_LO",
+        "MMLSPARK_TPU_HIST_RESID"))
+    return (_params_sig(p), hist_backend, cuda_histogram.FUSED_MAX_NODES,
+            knobs)
+
+
+def _device_scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """``x`` as a 0-d float32 tensor on ``like``'s device: a captured
+    program receives its Python scalars so (``observability.compute``),
+    an eager call fills one, so both divide alike (CUDA divides by a host
+    scalar through its reciprocal)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def init_score_of(objective: str, y: np.ndarray, w: np.ndarray,
@@ -767,6 +900,9 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
     min_gain = params.min_gain_to_split
     leaf_output, split_gains = _split_math(params, ct)
     lc_np, rc_np = perfect_tree_children(D)
+    # the perfect tree's children on each device, made once (by a
+    # program's eager warm-up, never inside its capture)
+    children: Dict[torch.device, tuple] = {}
     voting_k = params.voting_k
     # voting engages only under an axis, and where it means something
     # (F > k); with 2k >= F the vote picks every feature: no saving, the
@@ -962,8 +1098,10 @@ def make_tree_grower(max_depth: int, num_features: int, num_bins: int,
         lc = torch.stack([left_stats[:, 2], right_stats[:, 2]],
                          dim=1).reshape(L)
         leaf_value = torch.where(lc > 0, lv, torch.zeros_like(lv))
-        return Tree(torch.from_numpy(lc_np).to(dev),
-                    torch.from_numpy(rc_np).to(dev), split_feature,
+        if dev not in children:
+            children[dev] = (torch.from_numpy(lc_np).to(dev),
+                             torch.from_numpy(rc_np).to(dev))
+        return Tree(*(c.clone() for c in children[dev]), split_feature,
                     threshold, threshold_bin, split_gain, internal_value,
                     internal_count, leaf_value, lc, node,
                     cat_member if has_cat else None)
@@ -982,7 +1120,7 @@ def leafwise_store_dtype(n_bound, use_quant: bool, quant_bins: int,
     if not use_quant:
         return torch.float32
     qh_cap = max(1, quant_bins - 1)
-    if enabled and n_bound is not None and int(n_bound) * qh_cap < (1 << 15):
+    if enabled and n_bound is not None and n_bound * qh_cap < (1 << 15):
         return torch.int16
     return torch.int32
 
@@ -1322,10 +1460,18 @@ def make_binned_walker(depth_bound: int,
     threshold_bin, left_child, right_child, bitset=None) -> (n,) leaf
     ids``.  At a categorical node a code in the node's ``bitset`` row
     (``(M, B)``) goes left; without a bitset, the code ``threshold_bin``
-    alone goes left (one-vs-rest)."""
+    alone goes left (one-vs-rest).  The walk is the compiled program
+    ``lightgbm.tree_walk``."""
     D = max(1, depth_bound)
     cats = sorted(int(i) for i in (categorical_features or ()))
+    walk = _walk_fn(D, cats)
+    # the bins are read in place, never copied into the graph
+    return instrumented_jit(walk, name="lightgbm.tree_walk",
+                            inplace_argnums=(0,))
 
+
+def _walk_fn(D: int, cats):
+    """``make_binned_walker``'s walk, plain."""
     def walk(binned, split_feature, threshold_bin, left_child, right_child,
              bitset=None):
         n, F = binned.shape
@@ -1692,6 +1838,136 @@ def _sharded_lambdas(lambda_fn, scores: torch.Tensor, n: int, n_data: int,
             torch.nn.functional.pad(h, pad)[sl])
 
 
+def _rf_scale(p: GBDTParams, trees_before: int, K: int) -> float:
+    """RF's gradient scale: the trees grown so far per class (1 before the
+    first and outside RF)."""
+    return float(max(1, trees_before // K)) \
+        if p.boosting_type == "rf" and trees_before else 1.0
+
+
+def _iteration(p: GBDTParams, F: int, B: int, K: int, n: int,
+               hist_backend: str):
+    """One boosting iteration on the device, the body of the
+    ``lightgbm.iter`` / ``iter_pre`` / ``multi_iter`` programs:
+    ``step(scores, y, w, binned, base_mask, feat_mask, edges, grad_scale,
+    new_w, perm, noise, g_pre, h_pre) -> [Tree] * K``, updating
+    ``scores`` in place.  The gradients are the objective's at ``scores /
+    grad_scale`` (or ``g_pre`` / ``h_pre``, precomputed), then GOSS keeps
+    the top ``a_n`` rows by |g| and the first ``b_n`` of the rest in
+    ``perm``'s order, amplified; each class's tree grows from its
+    gradient column with ``noise[c]`` as the quantizer's uniforms, and
+    its shrunken leaf values, times ``new_w``, add to the class's scores.
+    The trees come back without their rows' leaves."""
+    grow_fn = _make_grower(p, F, B, backend=hist_backend)
+    objective = make_objective(p)
+    shrink = 1.0 if p.boosting_type == "rf" else p.learning_rate
+    is_goss = p.boosting_type == "goss"
+    a_n = int(p.top_rate * n) if is_goss else 0
+    b_n = int(p.other_rate * n) if is_goss else 0
+    goss_amp = (1.0 - p.top_rate) / max(p.other_rate, 1e-12)
+
+    def step(scores, y_d, w_d, binned, base_mask, feat_mask, edges,
+             grad_scale, new_w, perm, noise, g_pre, h_pre):
+        hist_mask = base_mask
+        if g_pre is not None:
+            g, h = g_pre, h_pre
+        else:
+            g, h = objective(scores / _device_scalar(grad_scale, scores),
+                             y_d, w_d)
+            if is_goss:
+                # the top a_n rows by |g|, b_n of the rest at random,
+                # amplified by (1 - top_rate) / other_rate
+                order = torch.argsort(-g.abs().sum(dim=1), stable=True)
+                small_idx = order[a_n:][perm[:b_n]]
+                keep_rows = torch.zeros((n,), dtype=torch.bool,
+                                        device=g.device)
+                keep_rows.index_fill_(0, order[:a_n], True)
+                keep_rows.index_fill_(0, small_idx, True)
+                amp = torch.ones((n,), dtype=torch.float32, device=g.device)
+                amp.index_fill_(0, small_idx, goss_amp)
+                hist_mask = hist_mask & keep_rows
+                g, h = g * amp[:, None], h * amp[:, None]
+        out = []
+        # one tree per class, from the class's (strided) gradient column
+        for c in range(K):
+            tree = grow_fn(binned, g[:, c], h[:, c], hist_mask, feat_mask,
+                           edges, noise=None if noise is None else noise[c])
+            lv_s = tree.leaf_value * shrink
+            scores[:, c] += lv_s[tree.leaf_of_row] * new_w
+            out.append(tree._replace(leaf_value=lv_s, leaf_of_row=None))
+        return out
+
+    return step
+
+
+#: the arguments of the iteration programs read in place: the labels,
+#: weights, bins and edges of the fit, and the fit's staged draws
+_ITER_INPLACE = ("y_d", "w_d", "binned", "base_mask", "edges", "perm",
+                 "noise")
+
+
+def _build_iter(p: GBDTParams, F: int, B: int, K: int, n: int,
+                hist_backend: str, use_pre: bool):
+    """``lightgbm.iter`` (the objective's gradients) or
+    ``lightgbm.iter_pre`` (precomputed ones, ``g_pre`` / ``h_pre``): one
+    iteration, ``scores`` donated and updated in place."""
+    step = _iteration(p, F, B, K, n, hist_backend)
+
+    def one(scores, y_d, w_d, binned, base_mask, feat_mask, edges,
+            grad_scale, new_w, perm, noise, g_pre=None, h_pre=None):
+        return scores, step(scores, y_d, w_d, binned, base_mask, feat_mask,
+                            edges, grad_scale, new_w, perm, noise, g_pre,
+                            h_pre)
+
+    return instrumented_jit(
+        one, name="lightgbm.iter_pre" if use_pre else "lightgbm.iter",
+        donate_argnums=(0,), inplace_argnames=_ITER_INPLACE)
+
+
+def _build_multi(p: GBDTParams, F: int, B: int, K: int, n: int,
+                 hist_backend: str, CH: int):
+    """``lightgbm.multi_iter``: ``CH`` iterations in one program, each with
+    its own drawn masks, RF scale and draws (the lists' entries), as
+    ``CH`` calls of ``lightgbm.iter`` would run them; ``scores`` donated.
+    Returns the scores and the ``CH`` iterations' ``K`` trees."""
+    step = _iteration(p, F, B, K, n, hist_backend)
+
+    def multi(scores, y_d, w_d, binned, base_masks, feat_masks, edges,
+              grad_scales, perms, noises):
+        return scores, [step(scores, y_d, w_d, binned, base_masks[j],
+                             feat_masks[j], edges, grad_scales[j], 1.0,
+                             perms[j], noises[j], None, None)
+                        for j in range(CH)]
+
+    return instrumented_jit(multi, name="lightgbm.multi_iter",
+                            donate_argnums=(0,),
+                            inplace_argnames=("y_d", "w_d", "binned",
+                                              "base_masks", "edges", "perms",
+                                              "noises"))
+
+
+def _build_valid_update(D: int, K: int):
+    """``lightgbm.valid_update``: a chunk's trees (``CH`` lists of ``K``)
+    walked over the valid set's bins, their values summed per class and
+    added to the valid scores once (numerical splits: the chunked path
+    takes no categorical features)."""
+    walk = _walk_fn(D, ())
+
+    def upd(scores_v, binned_v, chunk):
+        out = scores_v.clone()
+        for c in range(K):
+            vals = torch.stack([
+                trees_c[c].leaf_value[walk(
+                    binned_v, trees_c[c].split_feature,
+                    trees_c[c].threshold_bin, trees_c[c].left_child,
+                    trees_c[c].right_child)] for trees_c in chunk])
+            out[:, c] += vals.sum(dim=0)
+        return out
+
+    return instrumented_jit(upd, name="lightgbm.valid_update",
+                            inplace_argnames=("binned_v",))
+
+
 def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
           sample_weight: Optional[np.ndarray] = None,
           valid: Optional[Tuple[np.ndarray, np.ndarray]] = None,
@@ -1882,9 +2158,28 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         torch.cuda.synchronize(dev)
     t_transfer = time.perf_counter() - t0
 
-    # sharded: the psum's row bound is the GLOBAL padded row count
-    grow = _make_grower(p, F, B, backend=hist_backend, axis_name=axis,
-                        psum_row_bound=n if shard_rows else None, mesh=mesh)
+    # ---- the compiled programs (the JAX package's): unsharded, one
+    # iteration (``lightgbm.iter``, or ``lightgbm.iter_pre`` on
+    # precomputed LambdaRank / DART gradients) and, where it applies, CH
+    # iterations in one (``lightgbm.multi_iter``); sharded, the grower
+    # (``lightgbm.sharded_grower``, booked and never captured: its
+    # collectives cannot ride a graph)
+    key = _program_key(p, hist_backend)
+    if shard_rows:
+        # the psum's row bound is the GLOBAL padded row count
+        grower = _cached(("sharded_grower", key, F, B, id(mesh), n),
+                         lambda: instrumented_call(
+                             _make_grower(p, F, B, backend=hist_backend,
+                                          axis_name=axis, psum_row_bound=n,
+                                          mesh=mesh),
+                             name="lightgbm.sharded_grower"))
+    else:
+        # booked under its name, as the reference's; its iterations run
+        # the grower inside ``lightgbm.iter``
+        _cached(("grower", key, F, B),
+                lambda: instrumented_jit(
+                    _make_grower(p, F, B, backend=hist_backend),
+                    name="lightgbm.grower", inplace_argnums=(0,)))
     D = p.depth_bound
     L = p.num_leaves
 
@@ -1902,7 +2197,10 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
     tree_weights: List[float] = []
     walk_bound = max(D, init_booster.max_depth if init_booster is not None
                      else 0)
-    walker = make_binned_walker(walk_bound, p.categorical_features)
+    walker = _cached(("walker", walk_bound,
+                      tuple(p.categorical_features or ())),
+                     lambda: make_binned_walker(walk_bound,
+                                                p.categorical_features))
 
     def walk_tree(binned_x, t):
         return walker(binned_x, *(trees[k][t] for k in (
@@ -1974,15 +2272,168 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         bag_host = np.pad(bits, (0, max(0, n - bits.size)))[:n].astype(bool)
         bag_mask = torch.from_numpy(bag_host[lo:hi]).to(dev)
     gen = torch.Generator(device=dev)
-    shrink = 1.0 if p.boosting_type == "rf" else p.learning_rate
     # the JAX package's sharded loop takes no GOSS sample
     is_goss = p.boosting_type == "goss" and not shard_rows
     a_n = int(p.top_rate * n) if is_goss else 0
-    b_n = int(p.other_rate * n) if is_goss else 0
-    goss_amp = (1.0 - p.top_rate) / max(p.other_rate, 1e-12)
-    # the packing gathers, built once; the lambdas stay on the device
-    lambda_fn = make_lambdarank_grad_fn(y_data, group_ptr, p.sigmoid, dev) \
-        if is_rank else None
+    lambda_fn = None    # built at the first ranking iteration, then reused
+    # the objective as its own program (DART's gradients against the
+    # scores without the dropped trees; every sharded iteration)
+    jit_objective = instrumented_jit(objective, name="lightgbm.objective",
+                                     inplace_argnums=(1, 2)) \
+        if objective is not None else None
+
+    # scan-chunked multi-iteration path: CH iterations per dispatch, four
+    # on the card, one on the CPU; MMLSPARK_TPU_GBDT_CHUNK overrides either
+    # (the JAX package's rule and conditions)
+    import os
+    ch_env = os.environ.get("MMLSPARK_TPU_GBDT_CHUNK")
+    CH = max(1, int(ch_env)) if ch_env is not None \
+        else (4 if dev.type == "cuda" else 1)
+    chunk_ok = (CH > 1 and not shard_rows and not is_rank
+                and not p.categorical_features
+                and p.boosting_type != "dart" and p.bagging_freq <= 1
+                and p.num_iterations >= 2 * CH and n >= 50_000)
+    if not shard_rows:
+        iter_prog = {use_pre: _cached(
+            ("iter", key, F, B, K, n, use_pre),
+            lambda: _build_iter(p, F, B, K, n, hist_backend, use_pre))
+            for use_pre in (False, True)}
+    multi_iter = _cached(("multi", key, F, B, K, n, CH),
+                         lambda: _build_multi(p, F, B, K, n, hist_backend,
+                                              CH)) if chunk_ok else None
+    valid_update = _cached(("validupd", D, K),
+                           lambda: _build_valid_update(D, K))
+
+    # the draws a program reads, staged in buffers of the fit (read in
+    # place, so the programs copy none of them): the bag masks, GOSS's
+    # permutations and the quantizer's uniforms, CH iterations' worth
+    rows_ch = CH if chunk_ok else 1
+    bag_on = p.bagging_freq > 0 and p.bagging_fraction < 1.0
+    with_bag = bag_on and not shard_rows
+    with_perm = is_goss and not is_rank
+    with_noise = bool(p.use_quantized_grad) and not shard_rows
+    nv = binned_v.shape[0] if has_valid else 0
+
+    def make_buffers():
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev)
+        f32 = torch.float32
+        out = {"base": empty((rows_ch, n_loc), torch.bool) if with_bag
+               else None,
+               "perm": empty((rows_ch, n - a_n), torch.int64) if with_perm
+               else None,
+               "noise": empty((rows_ch, K, 2, n), f32) if with_noise
+               else None}
+        if dev.type == "cuda" and not shard_rows:
+            out.update(binned_fm=empty((F, n), torch.uint8),
+                       y=empty((n,), f32), w=empty((n,), f32),
+                       edges=torch.empty_like(edges),
+                       scores=empty((n, K), f32),
+                       ones=torch.ones((n,), dtype=torch.bool, device=dev),
+                       binned_v=empty((F, nv), torch.uint8))
+        return out
+
+    # on the card the fit's inputs move into a buffer set an earlier fit
+    # of these shapes may have left: the programs read them in place, so
+    # this fit replays that fit's graphs
+    buf_key = (str(dev), shard_rows, n, F, B, K, rows_ch, a_n, with_bag,
+               with_perm, with_noise, nv)
+    bufs = _checkout(buf_key, make_buffers)
+    if "binned_fm" in bufs:
+        binned = bufs["binned_fm"].copy_(binned.t()).t()
+        y_dev, w_dev = bufs["y"].copy_(y_dev), bufs["w"].copy_(w_dev)
+        edges = bufs["edges"].copy_(edges)
+        scores = bufs["scores"].copy_(scores)
+        hist_mask_full = bufs["ones"]
+        if has_valid:
+            binned_v = bufs["binned_v"].copy_(binned_v.t()).t()
+    base_buf, perm_buf, noise_buf = bufs["base"], bufs["perm"], \
+        bufs["noise"]
+
+    def host_draws(it: int):
+        """The iteration's host draws, in the JAX package's order: the
+        feature mask, the bag, the DART drop set."""
+        nonlocal bag_mask, bag_host
+        feat_mask = feat_mask_full
+        if p.feature_fraction < 1.0:
+            keep = max(1, int(round(p.feature_fraction * F)))
+            sel = rng.choice(F, size=keep, replace=False)
+            feat_mask = torch.zeros((F,), dtype=torch.bool, device=dev)
+            feat_mask[torch.from_numpy(sel).to(dev)] = True
+        if not is_goss and bag_on:
+            # resample on schedule, and on the first iteration of a warm
+            # start that begins off schedule
+            if it % p.bagging_freq == 0 or bag_mask is None:
+                # drawn over the unpadded rows: the rng stream, and so
+                # every later draw, does not depend on the width
+                bag_host = np.pad(rng.random(n_data) < p.bagging_fraction,
+                                  (0, n - n_data))
+                bag_mask = torch.from_numpy(bag_host[lo:hi]).to(dev)
+        dropped: List[int] = []
+        # ranking draws no drop (the reference's elif): rng unchanged
+        if p.boosting_type == "dart" and not is_rank and tree_weights \
+                and rng.random() >= p.skip_drop:
+            k_drop = min(p.max_drop, max(1, int(round(
+                p.drop_rate * len(tree_weights)))))
+            dropped = sorted(rng.choice(
+                len(tree_weights), size=min(k_drop, len(tree_weights)),
+                replace=False).tolist())
+        return feat_mask, dropped
+
+    def device_draws(it: int, j: int, use_pre: bool):
+        """The iteration's draws from ``gen``, seeded from (seed,
+        iteration), in the order the eager loop took them: GOSS's
+        permutation of the rows outside the top ``a_n``, then each class's
+        ``(2, n)`` quantizer uniforms; staged in row ``j`` of the
+        buffers.  Returns the (perm, noise) the program reads."""
+        gen.manual_seed(p.seed * 1000003 + it)
+        perm = noise = None
+        if perm_buf is not None and not use_pre:
+            perm = perm_buf[j]
+            perm.copy_(torch.randperm(n - a_n, generator=gen, device=dev))
+        if noise_buf is not None:
+            noise = [noise_buf[j, c] for c in range(K)]
+            for u in noise:
+                u.copy_(torch.rand((2, n), generator=gen, device=dev,
+                                   dtype=torch.float32))
+        return perm, noise
+
+    def base_of(j: int):
+        """The iteration's histogram mask (the bag, else every row)."""
+        if is_goss or not bag_on:
+            return hist_mask_full
+        if shard_rows:
+            return hist_mask_full & bag_mask
+        base_buf[j].copy_(bag_mask)
+        return base_buf[j]
+
+    def add_tree(tree, new_w: float) -> None:
+        for k in tree_keys:
+            trees[k].append(getattr(tree, k))
+        tree_weights.append(new_w)
+
+    def score_valid(trees_c, ks, new_w: float) -> None:
+        for c, tree in zip(ks, trees_c):
+            leaf_v = walker(binned_v, tree.split_feature, tree.threshold_bin,
+                            tree.left_child, tree.right_child,
+                            bitset=tree.cat_bitset if store_bitset else None)
+            scores_v[:, c] += tree.leaf_value[leaf_v] * new_w
+
+    def evaluate(it_done: int, step: int) -> bool:
+        """Score the valid set's metric after iteration ``it_done``;
+        True when early stopping ends the loop (``step`` iterations ran
+        since the last evaluation)."""
+        nonlocal best_metric, best_iter, rounds_no_improve
+        with ambient_phase("lightgbm.eval"):
+            m = metric_fn(yv, scores_v.cpu().numpy().astype(np.float64))
+        evals.append({metric_name: m, "iteration": it_done})
+        improved = m > best_metric if larger_better else m < best_metric
+        if improved:
+            best_metric, best_iter, rounds_no_improve = m, it_done, 0
+        else:
+            rounds_no_improve += step
+        return p.early_stopping_round > 0 and \
+            rounds_no_improve >= p.early_stopping_round
 
     start_iter = len(tree_weights) // K
     done_before = 0
@@ -2009,9 +2460,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                                   init_score, fingerprint, finished,
                                   p.num_iterations, "booster_v1",
                                   topology=topology)
-        mgr.save(done, _booster_ckpt_arrays(
-            trees, tree_weights, bag_host if shard_rows else bag_mask),
-            meta, block=block)
+        # the host bag: the device buffers are refilled in place
+        mgr.save(done, _booster_ckpt_arrays(trees, tree_weights, bag_host),
+                 meta, block=block)
 
     # the preemption scope only when checkpointing is on: without a
     # snapshot to write, a SIGTERM keeps its default behaviour
@@ -2023,6 +2474,9 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         "lightgbm.train", p, n, monitor_port, monitor_stall_timeout_s,
         callbacks)
     t0 = time.perf_counter()
+    # the host's seconds in the iteration programs' calls: their enqueue
+    # (a replay's, or every kernel's when eager)
+    t_dispatch = 0.0
     # a profiler range (a no-op unless a profiler runs) that lets a trace
     # tell the loop's device work from the binning kernels before it
     with contextlib.ExitStack() as stack:
@@ -2032,7 +2486,8 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         token = stack.enter_context(scope)
         if watch is not None:
             watch.set_preemption_token(token)
-        for it in range(start_iter, end_iter):
+        it = start_iter
+        while it < end_iter:
             requested = token.requested
             if shard_rows and mgr is not None:
                 # a signal may reach one rank: all stop at one boundary
@@ -2049,38 +2504,48 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                     and it - last_ckpt_iter >= checkpoint_every:
                 save_ckpt(finished=False)
                 last_ckpt_iter = it
+            if multi_iter is not None and end_iter - it >= CH:
+                # CH iterations in one program: their draws first, each
+                # iteration's in the unchunked loop's order, so the trees
+                # are the unchunked loop's
+                feats, bases, scales, perms, noises = [], [], [], [], []
+                for j in range(CH):
+                    feat_mask, _ = host_draws(it + j)
+                    feats.append(feat_mask)
+                    bases.append(base_of(j))
+                    scales.append(_rf_scale(p, len(tree_weights) + j * K,
+                                            K))
+                    perm, noise = device_draws(it + j, j, False)
+                    perms.append(perm)
+                    noises.append(noise)
+                t_call = time.perf_counter()
+                with ambient_phase("lightgbm.histogram"):
+                    scores, chunk = multi_iter(
+                        scores, y_dev, w_dev, binned, bases, feats, edges,
+                        scales, perms, noises)
+                t_dispatch += time.perf_counter() - t_call
+                for trees_c in chunk:
+                    for tree in trees_c:
+                        add_tree(tree, 1.0)
+                if has_valid:
+                    scores_v = valid_update(scores_v, binned_v, chunk)
+                    if evaluate(it + CH - 1, CH):
+                        break
+                if callbacks:
+                    for cb in callbacks:
+                        cb(it + CH - 1, evals[-1] if evals else None)
+                it += CH
+                continue
             # host-side draws, in the JAX package's order: features, bag, DART
-            feat_mask = feat_mask_full
-            if p.feature_fraction < 1.0:
-                keep = max(1, int(round(p.feature_fraction * F)))
-                sel = rng.choice(F, size=keep, replace=False)
-                feat_mask = torch.zeros((F,), dtype=torch.bool, device=dev)
-                feat_mask[torch.from_numpy(sel).to(dev)] = True
-            hist_mask = hist_mask_full
-            if not is_goss and p.bagging_freq > 0 and p.bagging_fraction < 1.0:
-                # resample on schedule, and on the first iteration of a warm
-                # start that begins off schedule
-                if it % p.bagging_freq == 0 or bag_mask is None:
-                    # drawn over the unpadded rows: the rng stream, and so
-                    # every later draw, does not depend on the width
-                    bag_host = np.pad(rng.random(n_data) < p.bagging_fraction,
-                                      (0, n - n_data))
-                    bag_mask = torch.from_numpy(bag_host[lo:hi]).to(dev)
-                hist_mask = hist_mask_full & bag_mask if shard_rows \
-                    else bag_mask
-            dropped: List[int] = []
-            # ranking draws no drop (the reference's elif): rng unchanged
-            if p.boosting_type == "dart" and not is_rank and tree_weights \
-                    and rng.random() >= p.skip_drop:
-                k_drop = min(p.max_drop, max(1, int(round(
-                    p.drop_rate * len(tree_weights)))))
-                dropped = sorted(rng.choice(
-                    len(tree_weights), size=min(k_drop, len(tree_weights)),
-                    replace=False).tolist())
-            gen.manual_seed(p.seed * 1000003 + it)
+            feat_mask, dropped = host_draws(it)
+            hist_mask = base_of(0)
+            g_pre = h_pre = None
             if is_rank:
                 # precomputed lambdas: no GOSS, no RF scale, no weights
-                g, h = lambda_fn(scores) if not shard_rows \
+                if lambda_fn is None:
+                    lambda_fn = make_lambdarank_grad_fn(y_data, group_ptr,
+                                                        p.sigmoid, dev)
+                g_pre, h_pre = lambda_fn(scores) if not shard_rows \
                     else _sharded_lambdas(lambda_fn, scores, n, n_data, lo,
                                           axis, mesh)
             elif dropped:
@@ -2089,44 +2554,39 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                 for t in dropped:
                     drop_delta[:, t % K] += trees["leaf_value"][t][
                         walk_tree(binned, t)] * tree_weights[t]
-                g, h = objective(scores - drop_delta, y_dev, w_dev)
-            else:
-                grad_scale = float(max(1, len(tree_weights) // K)) \
-                    if p.boosting_type == "rf" and tree_weights else 1.0
-                g, h = objective(scores / grad_scale, y_dev, w_dev)
-                if is_goss:
-                    # the top a_n rows by |g|, b_n of the rest at random,
-                    # amplified by (1 - top_rate) / other_rate
-                    order = torch.argsort(-g.abs().sum(dim=1), stable=True)
-                    rest = order[a_n:]
-                    perm = torch.randperm(rest.shape[0], generator=gen,
-                                          device=dev)
-                    small_idx = rest[perm[:b_n]]
-                    keep_rows = torch.zeros((n,), dtype=torch.bool, device=dev)
-                    keep_rows.index_fill_(0, order[:a_n], True)
-                    keep_rows.index_fill_(0, small_idx, True)
-                    amp = torch.ones((n,), dtype=torch.float32, device=dev)
-                    amp.index_fill_(0, small_idx, goss_amp)
-                    hist_mask = hist_mask & keep_rows
-                    g, h = g * amp[:, None], h * amp[:, None]
+                g_pre, h_pre = jit_objective(scores - drop_delta, y_dev,
+                                             w_dev)
             new_w = 1.0 / (1.0 + len(dropped)) if dropped else 1.0
-            # one tree per class, from the class's (strided) gradient column
-            for c in range(K):
+            grad_scale = _rf_scale(p, len(tree_weights), K)
+            if shard_rows:
+                if g_pre is None:
+                    g_pre, h_pre = jit_objective(scores / grad_scale,
+                                                 y_dev, w_dev)
+                shrink = 1.0 if p.boosting_type == "rf" else p.learning_rate
+                tree_out = []
+                for c in range(K):
+                    with ambient_phase("lightgbm.histogram"):
+                        tree = grower(binned, g_pre[:, c], h_pre[:, c],
+                                      hist_mask, feat_mask, edges)
+                    lv_s = tree.leaf_value * shrink
+                    scores[:, c] += lv_s[tree.leaf_of_row] * new_w
+                    tree_out.append(tree._replace(leaf_value=lv_s,
+                                                  leaf_of_row=None))
+            else:
+                use_pre = g_pre is not None
+                perm, noise = device_draws(it, 0, use_pre)
+                t_call = time.perf_counter()
                 with ambient_phase("lightgbm.histogram"):
-                    tree = grow(binned, g[:, c], h[:, c], hist_mask,
-                                feat_mask, edges, generator=gen)
-                lv_s = tree.leaf_value * shrink
-                scores[:, c] += lv_s[tree.leaf_of_row] * new_w
-                for k in tree_keys:
-                    trees[k].append(lv_s if k == "leaf_value"
-                                    else getattr(tree, k))
-                tree_weights.append(new_w)
-                if has_valid:
-                    leaf_v = walker(
-                        binned_v, tree.split_feature, tree.threshold_bin,
-                        tree.left_child, tree.right_child,
-                        bitset=tree.cat_bitset if store_bitset else None)
-                    scores_v[:, c] += lv_s[leaf_v] * new_w
+                    scores, tree_out = iter_prog[use_pre](
+                        scores, y_dev, w_dev, binned, hist_mask, feat_mask,
+                        edges, grad_scale, new_w, perm, noise,
+                        **({"g_pre": g_pre, "h_pre": h_pre} if use_pre
+                           else {}))
+                t_dispatch += time.perf_counter() - t_call
+            for tree in tree_out:
+                add_tree(tree, new_w)
+            if has_valid:
+                score_valid(tree_out, range(K), new_w)
             if dropped:
                 # DART: shrink each dropped tree by k / (1 + k), on the train
                 # and valid scores alike
@@ -2139,24 +2599,12 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
                         scores_v[:, t % K] += trees["leaf_value"][t][
                             walk_tree(binned_v, t)] * scale
                     tree_weights[t] *= factor
-            if has_valid:
-                with ambient_phase("lightgbm.eval"):
-                    m = metric_fn(yv,
-                                  scores_v.cpu().numpy().astype(np.float64))
-                evals.append({metric_name: m, "iteration": it})
-                improved = m > best_metric if larger_better \
-                    else m < best_metric
-                if improved:
-                    best_metric, best_iter, rounds_no_improve = m, it, 0
-                else:
-                    rounds_no_improve += 1
-                if p.early_stopping_round > 0 and \
-                        rounds_no_improve >= p.early_stopping_round:
-                    break
+            if has_valid and evaluate(it, 1):
+                break
             if callbacks:
                 for cb in callbacks:
                     cb(it, evals[-1] if evals else None)
-
+            it += 1
         if mgr is not None:
             if not preempted and (len(tree_weights) > trees_at_loop_start
                                   or resume_meta is None):
@@ -2167,6 +2615,7 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         # one sync, after the loop
         trees_np = {k: np.stack([t.cpu().numpy() for t in v])
                     for k, v in trees.items()}
+        _checkin(buf_key, bufs)
         # before the monitor stops: its server's shutdown waits up to one
         # poll interval of the serving loop
         t_boost = time.perf_counter() - t0
@@ -2192,7 +2641,7 @@ def train(X: np.ndarray, y: np.ndarray, params: GBDTParams,
         cat_bitset=trees_np.get("cat_bitset"))
     extras = {"binning_s": t_edges + t_apply, "edges_s": t_edges,
               "bin_apply_s": t_apply, "transfer_s": t_transfer,
-              "boosting_s": t_boost}
+              "boosting_s": t_boost, "dispatch_s": t_dispatch}
     if shard_rows:
         extras.update(shard_count=float(mesh.shape[axis]),
                       shard_rows=float(n_loc))
@@ -2295,12 +2744,14 @@ class _TileStager:
     into one of two pinned staging buffers (alternating; a buffer is
     refilled only after the copy out of its previous use has finished),
     then to the card with non-blocking copies on a dedicated copy stream,
-    after which an event is recorded.  ``ready`` (on the consumer's
-    thread) makes the consumer's current stream wait on that event and
-    ties each device tensor to that stream (``record_stream``), so the
-    caching allocator does not hand a tile's memory to the next tile while
-    a kernel still reads it.  On the CPU the padded host arrays are handed
-    over as tensors.  Books the bytes copied (``self.bytes``, and through
+    and on that stream into the same slot's device buffers, which the
+    programs read in place (a captured graph per slot and signature,
+    never a copy into a graph), after which an event is recorded.
+    ``ready`` (on the consumer's thread) makes the consumer's current
+    stream wait on that event; ``release`` records, after the consumer's
+    last launch on the tile, the event that the slot's next copy waits
+    for.  On the CPU the padded host arrays are handed over as
+    tensors.  Books the bytes copied (``self.bytes``, and through
     ``device_put`` under ``mmlspark_device_transfer_bytes_total{site=
     OOC_SITE}``: the padded tile as it is staged) and, on the card, the
     copy stream's time (CUDA events, read at the consumer's sync
@@ -2314,7 +2765,9 @@ class _TileStager:
         if self.cuda:
             self.stream = torch.cuda.Stream(dev)
             self._pinned = [{}, {}]
+            self._dev: List[Dict] = [{}, {}]
             self._done = [None, None]
+            self._released = [None, None]
             self._slot = 0
             self._timing = collections.deque()
 
@@ -2339,7 +2792,7 @@ class _TileStager:
                               for k, (src, fill) in enumerate(parts)],
                              self.dev, site=OOC_SITE)
             self.bytes += sum(t.nbytes for t in out)
-            return out, None
+            return out, None, None
         slot = self._slot
         self._slot ^= 1
         if self._done[slot] is not None:
@@ -2350,24 +2803,40 @@ class _TileStager:
         with torch.cuda.stream(self.stream):
             start = torch.cuda.Event(enable_timing=True)
             start.record(self.stream)
-            out = device_put(host, self.dev, site=OOC_SITE,
-                             non_blocking=True)
-            done = torch.cuda.Event(enable_timing=True)
+            staged = device_put(host, self.dev, site=OOC_SITE,
+                                non_blocking=True)
+            copied = torch.cuda.Event(enable_timing=True)
+            copied.record(self.stream)
+            if self._released[slot] is not None:
+                self.stream.wait_event(self._released[slot])
+            bufs, out = self._dev[slot], []
+            for k, t in enumerate(staged):
+                key = (k, tuple(t.shape), t.dtype)
+                if key not in bufs:
+                    bufs[key] = torch.empty_like(t)
+                out.append(bufs[key].copy_(t))
+            done = torch.cuda.Event()
             done.record(self.stream)
         self._done[slot] = done
-        self._timing.append((start, done))
+        self._timing.append((start, copied))
         self.bytes += sum(h.nbytes for h in host)
-        return out, done
+        return out, done, slot
 
     def ready(self, tile):
         """The tile's device tensors, safe to use on the current stream."""
-        out, done = tile
+        out, done, _ = tile
         if done is not None:
-            cur = torch.cuda.current_stream(self.dev)
-            cur.wait_event(done)
-            for t in out:
-                t.record_stream(cur)
+            torch.cuda.current_stream(self.dev).wait_event(done)
         return out
+
+    def release(self, tile) -> None:
+        """After the consumer's last launch on ``tile``: its slot's next
+        copy waits for those launches."""
+        _, done, slot = tile
+        if done is not None:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.dev))
+            self._released[slot] = ev
 
     def drain(self) -> None:
         """Book the copy time of every copy that has finished."""
@@ -2631,20 +3100,89 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     _, split_gains = _split_math(p, ct,
                                  float_prefix=cuda_histogram._cumsum_bins)
 
-    def best_splits(hist, scales, fmask, depth_ok: bool = True):
-        """Best split of each of the ``(N, F, B, 3)`` histograms, on their
-        device; one host sync.  Returns host arrays (gain, feature, bin,
-        left stats (N, 3), node totals (N, 3))."""
+    def record(hist, g_scale, h_scale, fmask, eok, depth_ok):
+        """Best split of each of the ``(N, F, B, 3)`` histograms: ``(N,
+        9)`` float32 rows of (gain, feature, bin, left stats, node
+        totals)."""
         N = hist.shape[0]
-        gain, left3, tot = split_gains(hist, fmask, edge_ok, depth_ok,
-                                       scales if use_quant else None)
+        gain, left3, tot = split_gains(hist, fmask, eok, depth_ok,
+                                       (g_scale, h_scale) if use_quant
+                                       else None)
         flat = gain.reshape(N, F * B)
         best = torch.argmax(flat, dim=1)
         rows = torch.arange(N, device=hist.device)
         bf, bb = best // B, best % B
-        rec = torch.cat([flat[rows, best][:, None], bf[:, None].to(f32),
-                         bb[:, None].to(f32), left3[rows, bf, bb],
-                         torch.stack(tot, dim=1)], dim=1).cpu().numpy()
+        return torch.cat([flat[rows, best][:, None], bf[:, None].to(f32),
+                          bb[:, None].to(f32), left3[rows, bf, bb],
+                          torch.stack(tot, dim=1)], dim=1)
+
+    # ---- the compiled programs (the JAX package's), one signature across
+    # all tiles: the tile's gradients; its histograms folded into the
+    # donated accumulator; a level's decisions; one leaf's best split
+    key = _program_key(p, hist_backend)
+
+    def _build_grad():
+        def grad_tile(sc_t, y_t, w_t):
+            g_t, h_t = objective(sc_t.double()[:, None], y_t.double(),
+                                 w_t.double())
+            return torch.stack([g_t[:, 0], h_t[:, 0]]).to(f32)
+        return instrumented_jit(grad_tile, name="lightgbm.ooc_grad",
+                                inplace_argnums=(0, 1, 2))
+
+    grad_fn = _cached(("ooc_grad", key, T), _build_grad)
+
+    def _build_accum():
+        def accum(acc, b_t, g_t, h_t, n_t):
+            nodes_d = acc.shape[0]
+            bins_t = b_t.t()                   # (T, F) feature-major view
+            if use_quant:
+                part = hist_ops.build_quantized(
+                    bins_t, g_t, h_t, n_t, nodes_d, B, quant_bins=qb,
+                    backend=hist_backend, node_rows_bound=T)
+            else:
+                part = hist_ops.build(bins_t, g_t, h_t, n_t, nodes_d, B,
+                                      backend=hist_backend)
+            acc += part
+            return acc
+        # level growth compiles one signature per level (the node axis
+        # doubles), so the storm threshold scales with the depth
+        return instrumented_jit(accum, name="lightgbm.ooc_tile_hist",
+                                donate_argnums=(0,),
+                                inplace_argnums=(1, 2, 3, 4),
+                                storm_signatures=D + 8)
+
+    accum_fn = _cached(("ooc_accum", key, F, B, T), _build_accum)
+
+    def _build_decide():
+        def decide(acc, g_scale, h_scale, fmask, eok):
+            return record(acc, g_scale, h_scale, fmask, eok, True)
+        # one signature per level, like the accumulator
+        return instrumented_jit(decide, name="lightgbm.ooc_level_decide",
+                                inplace_argnums=(0,),
+                                storm_signatures=D + 8)
+
+    decide_fn = _cached(("ooc_decide", key, F, B), _build_decide)
+
+    def _build_leaf_best():
+        def leaf_best(hist_f3, g_scale, h_scale, fmask, depth_ok, eok):
+            return record(hist_f3[None], g_scale, h_scale, fmask, eok,
+                          depth_ok)[0]
+        return instrumented_jit(leaf_best, name="lightgbm.ooc_leaf_best")
+
+    leaf_best_fn = _cached(("ooc_leaf_best", key, F, B), _build_leaf_best)
+
+    def best_splits(hist, scales, fmask, depth_ok=None):
+        """Best split of each of the ``(N, F, B, 3)`` histograms: a
+        level's by ``ooc_level_decide`` (``depth_ok`` None), else each
+        leaf's by ``ooc_leaf_best``; one host sync.  Returns host arrays
+        (gain, feature, bin, left stats (N, 3), node totals (N, 3))."""
+        if depth_ok is None:
+            rec = decide_fn(hist, *scales, fmask, edge_ok)
+        else:
+            rec = torch.stack([leaf_best_fn(hist[k], *scales, fmask,
+                                            depth_ok, edge_ok)
+                               for k in range(hist.shape[0])])
+        rec = rec.cpu().numpy()
         return (rec[:, 0], rec[:, 1].astype(np.int32),
                 rec[:, 2].astype(np.int32), rec[:, 3:6], rec[:, 6:9])
 
@@ -2705,7 +3243,7 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
         binned_v_h = mapper.transform(Xv)   # host copy: resume replay walks
         binned_v = torch.from_numpy(binned_v_h).to(dev)
         scores_v = np.full((Xv.shape[0], 1), init_score, np.float32)
-        walker = make_binned_walker(D)
+        walker = _cached(("walker", D, ()), lambda: make_binned_walker(D))
     best_metric = -np.inf if larger_better else np.inf
     best_iter = -1
     rounds_no_improve = 0
@@ -2845,16 +3383,11 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
         pf = stream(lambda i, lo, hi: [(scores_h[lo:hi], 0.0),
                                        (y[lo:hi], 0.0), (w[lo:hi], 0.0)])
         gmax = hmax = 0.0
-
-        def grads(m, sc_t, y_t, w_t):
-            g_t, h_t = objective(sc_t.double()[:, None], y_t.double(),
-                                 w_t.double())
-            return torch.stack([g_t[:m, 0], h_t[:m, 0]]).to(f32).cpu() \
-                .numpy()
-
         with ambient_phase("ooc.gradients"):
             for i, lo, hi, tile in pf:
-                gh = grads(hi - lo, *stager.ready(tile))
+                gh = grad_fn(*stager.ready(tile))
+                stager.release(tile)
+                gh = gh[:, :hi - lo].cpu().numpy()
                 del tile                    # see hist_pass
                 g_host[lo:hi], h_host[lo:hi] = gh
                 gmax = max(gmax, float(np.abs(gh[0]).max()))
@@ -2878,6 +3411,7 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
     # the tiles' gradient columns: int8 quantized values (filled once per
     # iteration) or the float32 gradients themselves
     grad_cols = {"g": g_host, "h": h_host}
+    accs: Dict[int, torch.Tensor] = {}
 
     def hist_pass(nodes_d, scales, decisions, node_of):
         """One accumulate pass over every tile: this level's routing (when
@@ -2894,24 +3428,22 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
             return [(binned_fm[:, lo:hi], 0), (gc[lo:hi], 0),
                     (hc[lo:hi], 0), (node_t, -1)]
 
-        acc = torch.zeros((nodes_d, F, B, 3),
-                          dtype=torch.int32 if use_quant else f32,
-                          device=dev)
-
-        def partial(b_t, g_t, h_t, n_t):
-            bins_t = b_t.t()                   # (T, F) feature-major view
-            if use_quant:
-                return hist_ops.build_quantized(
-                    bins_t, g_t, h_t, n_t, nodes_d, B, quant_bins=qb,
-                    backend=hist_backend, node_rows_bound=T)
-            return hist_ops.build(bins_t, g_t, h_t, n_t, nodes_d, B,
-                                  backend=hist_backend)
+        # one accumulator per node count, zeroed per pass: the program
+        # reads and writes it in place
+        acc = accs.get(nodes_d)
+        if acc is None:
+            acc = accs[nodes_d] = torch.zeros(
+                (nodes_d, F, B, 3), dtype=torch.int32 if use_quant else f32,
+                device=dev)
+        else:
+            acc.zero_()
 
         bytes0 = stager.bytes
         pf = stream(make_tile)
         with ambient_phase("ooc.histogram"):
             for i, lo, hi, tile in pf:
-                acc += partial(*stager.ready(tile))
+                accum_fn(acc, *stager.ready(tile))
+                stager.release(tile)
                 # taking tile k + 1 lets the worker stage k + 2 at once:
                 # the loop holds nothing of tile k by then, so two tiles
                 # are live
@@ -2955,7 +3487,7 @@ def train_streamed(X, y: Optional[np.ndarray] = None,
             fm_dev = torch.from_numpy(feat_mask).to(dev)
 
             g_scale, h_scale = grad_pass()
-            scales = torch.tensor([g_scale, h_scale], dtype=f32, device=dev)
+            scales = (g_scale, h_scale)
             if use_quant:
                 grad_cols["g"], grad_cols["h"] = _quantize_rows(
                     g_host, h_host, qb, g_scale, h_scale, p.seed,
@@ -3107,8 +3639,8 @@ def _grow_leafwise_streamed(p, F, B, scales, fm_dev, node_h, binned_fm,
     ``(num_leaves, F, B, 3)``.  The bookkeeping runs in host numpy, as in
     the JAX package; a step whose best gain fails ``min_gain_to_split``
     ends the tree (later steps could only see smaller global-best gains).
-    Both children's candidates come from one ``best_splits`` call on the
-    device."""
+    Both children's candidates come from ``best_splits``: one
+    ``lightgbm.ooc_leaf_best`` replay each, one host sync."""
     L, M = p.num_leaves, p.num_leaves - 1
     depth_cap = p.max_depth
     min_gain = p.min_gain_to_split

@@ -8,7 +8,12 @@ array-of-nodes with explicit child pointers: ``left_child[i] >= 0`` is an
 internal node, negative values encode leaves as ``~leaf_id``.
 ``max_depth`` is the walk bound; leaves self-loop, so a fixed-length walk
 resolves every tree shape.  Scoring moves the rows to ``device`` (the card
-unless the caller passes ``device="cpu"``) and walks all trees at once.
+unless the caller passes ``device="cpu"``) and walks all trees at once:
+past ``_SMALL_WALK`` rows x trees through the compiled program
+``models.gbdt_walk`` (a CUDA graph per signature on the card), over row
+buckets of at most ``_WALK_ROWS`` rows padded to a power of two, so any
+row count replays a few signatures; smaller walks (the serving regime,
+which the JAX package walks on the host) run as plain calls.
 
 Categorical nodes route as the JAX package's walk does: with a
 ``cat_bitset`` a code in the node's set goes left, without one the code
@@ -30,6 +35,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..core.serialize import Saveable
+from ..observability.compute import instrumented_jit
 
 OBJECTIVES = ("regression", "regression_l1", "huber", "quantile", "binary",
               "multiclass", "lambdarank")
@@ -71,6 +77,34 @@ def children_depth_bound(left_child: np.ndarray,
             d[rows, child[rows]] = np.maximum(d[rows, child[rows]],
                                               d[rows, i] + 1)
     return int(d.max()) if M else 1
+
+
+#: the walk programs built, per builder (``lightgbm.core.eager_programs``
+#: swaps ``instrumented_call`` in for ``instrumented_jit``) and depth
+_WALKS: dict = {}
+#: rows x trees up to which a walk is a plain call (the JAX package's host
+#: walk threshold)
+_SMALL_WALK = 1 << 17
+#: the largest row bucket of the walk program
+_WALK_ROWS = 1 << 16
+
+
+def _walk_program(depth: int):
+    """``models.gbdt_walk`` for trees walked ``depth`` rounds."""
+    key = (instrumented_jit, depth)
+    prog = _WALKS.get(key)
+    if prog is None:
+        def walk(X, split_feature, threshold, left_child, right_child,
+                 is_cat, bitset):
+            return walk_trees(X, split_feature, threshold, left_child,
+                              right_child, depth, is_cat, bitset)
+        prog = _WALKS.setdefault(key, instrumented_jit(
+            walk, name="models.gbdt_walk"))
+    return prog
+
+
+def _row_bucket(n: int) -> int:
+    return min(_WALK_ROWS, 1 << max(0, n - 1).bit_length())
 
 
 def walk_trees(X: torch.Tensor, split_feature: torch.Tensor,
@@ -228,8 +262,20 @@ class GBDTBooster(Saveable):
             if self.cat_bitset is not None:
                 bitset = torch.from_numpy(np.ascontiguousarray(
                     self.cat_bitset[use_trees])).to(dev)
-        return walk_trees(Xt, sf, th, lca, rca, self.max_depth, is_cat,
-                          bitset)
+        n = Xt.shape[0]
+        if n * sf.shape[0] <= _SMALL_WALK:
+            return walk_trees(Xt, sf, th, lca, rca, self.max_depth, is_cat,
+                              bitset)
+        prog = _walk_program(self.max_depth)
+        R = _row_bucket(n)
+        out = []
+        for lo in range(0, n, R):
+            x = Xt[lo:lo + R]
+            m = x.shape[0]
+            if m < R:
+                x = torch.cat([x, x.new_zeros((R - m, x.shape[1]))])
+            out.append(prog(x, sf, th, lca, rca, is_cat, bitset)[:m])
+        return out[0] if len(out) == 1 else torch.cat(out)
 
     def predict_leaf(self, X: np.ndarray,
                      device: DeviceLike = None) -> np.ndarray:

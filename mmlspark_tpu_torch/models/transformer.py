@@ -307,11 +307,14 @@ class TransformerEncoder(nn.Module):
 
     def _check_positions(self, positions: torch.Tensor) -> None:
         # an out-of-range index on the card is a device-side assert that
-        # ends the CUDA context, so the bound is checked on the host, on
-        # host positions only: reading a card's tensor here would be a
-        # sync inside a captured forward.  ``models.runner`` checks its
-        # positions while they are numpy, before they reach the card
-        if positions.device.type != "cpu":
+        # ends the CUDA context, so the bound is checked on the host first
+        # (the reference's out-of-range rows are NaN; the port raises).
+        # Positions on the card are read back for it, except inside a
+        # CUDA-graph capture, where a read would be a refused sync:
+        # ``models.runner`` checks its positions while they are numpy,
+        # before they reach the card
+        if positions.device.type == "cuda" \
+                and torch.cuda.is_current_stream_capturing():
             return
         hi = int(positions.max()) if positions.numel() else 0
         if hi >= self.max_len or (positions.numel()
@@ -329,9 +332,8 @@ class TransformerEncoder(nn.Module):
             x = self.embed(tokens.to(dev)).to(self.dtype)
             if positions is not None:
                 # explicit global positions (KV-cached decode: each
-                # sequence's token sits at its own frontier); checked
-                # while they are still on the host when they come from it
-                # (positions already on the card are the caller's to check)
+                # sequence's token sits at its own frontier), checked on
+                # the host unless a capture is under way
                 self._check_positions(positions)
                 positions = positions.to(dev)
                 x = x + self.pos_embed[0][positions].to(self.dtype)

@@ -36,7 +36,9 @@
   booking around a call that is never captured, for the steps whose
   collectives or backward passes cannot ride a graph (``parallel/``).
 - :func:`graph_pool_bytes` — the device bytes the shared graph pool
-  holds.
+  holds; :func:`release_graphs` drops every captured graph (their static
+  inputs and outputs with them): a later call captures again, booked as
+  a re-capture, never a compile.
 
 ``torch`` is imported lazily inside functions, as the reference imports
 jax.
@@ -55,8 +57,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .metrics import MetricsRegistry, get_registry
 
-#: ``InstrumentedCall``, ``instrumented_call`` and ``graph_pool_bytes`` are
-#: the port's own and stay out of ``__all__``, which is the reference's
+#: ``InstrumentedCall``, ``instrumented_call``, ``graph_pool_bytes``,
+#: ``release_graphs`` and ``capture_scope`` are the port's own and stay
+#: out of ``__all__``, which is the reference's
 __all__ = ["InstrumentedJit", "instrumented_jit", "device_put",
            "transfer_nbytes", "compile_report",
            "ensure_device_memory_gauges", "ensure_build_info",
@@ -306,6 +309,26 @@ class InstrumentedCall:
 #: (least recently replayed first out)
 MAX_GRAPHS_PER_SIGNATURE = 4
 
+#: the dtype a Python scalar is staged in on the card (``jax.jit`` traces a
+#: Python float weak-typed as float32, an int as int32; torch's int is
+#: int64, which indexes without a cast)
+_SCALAR_DTYPES = {bool: "bool", int: "int64", float: "float32"}
+
+#: per thread: the capture under way (see ``capture_scope``)
+_LOCAL = threading.local()
+
+
+def capture_scope() -> Optional[Dict[str, List]]:
+    """The CUDA-graph capture under way on this thread, or None.  Code that
+    ``fn`` runs keeps what the graph must own in it: ``"keep"`` holds
+    tensors the captured kernels read or write beyond the call (they live
+    as long as the graph), ``"on_replay"`` zero-argument callables each
+    replay runs on the host after the graph (the launch counters of
+    ``ops.cuda_histogram``: a replay launches what the capture recorded,
+    and runs no Python)."""
+    return getattr(_LOCAL, "scope", None)
+
+
 #: one lock over every capture and replay of the process: the graphs share
 #: one memory pool, where a graph captured later may reuse the memory an
 #: earlier one's outputs sit in, so a replay and the copy-out of its
@@ -315,6 +338,9 @@ _GRAPH_LOCK = threading.RLock()
 _POOLS: Dict[int, List] = {}
 _POOL_LOCK = threading.Lock()
 _SIDE_STREAMS: Dict[int, Any] = {}
+#: card -> (stream, event) of the last replay: a replay on another stream
+#: waits for it, so two graphs sharing the pool never run at once
+_LAST_REPLAY: Dict[int, Tuple] = {}
 
 
 def _graph_pool(index: int):
@@ -364,6 +390,23 @@ def graph_pool_bytes(index: int = 0) -> Optional[int]:
                and tuple(seg.get("segment_pool_id", ())) == want)
 
 
+#: every captured-program wrapper of the process (``release_graphs``)
+_PROGRAMS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def release_graphs() -> int:
+    """Drop the captured graphs of every program in the process, with the
+    static inputs, outputs and pool memory they hold; returns how many.
+    The compile booking stays: a later call of a dropped signature
+    captures again, booked in ``recaptures``."""
+    n = 0
+    with _GRAPH_LOCK:
+        for w in list(_PROGRAMS):
+            n += sum(len(g) for g in w._graphs.values())
+            w._graphs.clear()
+    return n
+
+
 def _tree_flatten(tree, leaves: List):
     """Leaves of a nest of dicts, lists, tuples and named tuples, in
     order, and a function that rebuilds the nest from a new leaf list."""
@@ -394,6 +437,10 @@ def _as_tensor(leaf):
     return torch.from_numpy(__import__("numpy").ascontiguousarray(leaf))
 
 
+def _is_scalar(leaf) -> bool:
+    return type(leaf) in _SCALAR_DTYPES
+
+
 def _card_index(leaves) -> Optional[int]:
     """The CUDA device of the call's tensors (None: a host call).  Leaves
     on two cards are refused: one graph runs on one card."""
@@ -409,18 +456,32 @@ def _card_index(leaves) -> Optional[int]:
     return index if index is not None else torch.cuda.current_device()
 
 
+def _refs(leaves, donated) -> List:
+    """Weak references to the tensors a graph reads in place."""
+    return [weakref.ref(l) for l, d in zip(leaves, donated) if d]
+
+
 def _addr(t) -> Tuple:
     return (t.data_ptr(), tuple(t.shape), tuple(t.stride()), str(t.dtype))
 
 
 class _Graph:
     """One capture: the graph, its static inputs (``None`` where a leaf is
-    donated and read in place), and how each output leaf comes back."""
-    __slots__ = ("graph", "statics", "outs", "rebuild_out", "inference")
+    donated or borrowed and read in place), how each output leaf comes
+    back, what the capture's code kept for it (``capture_scope``) and weak
+    references to the tensors it reads in place (a graph whose tensors
+    are all gone is the first to be dropped)."""
+    __slots__ = ("graph", "statics", "outs", "rebuild_out", "inference",
+                 "scope", "refs")
 
-    def __init__(self, graph, statics, outs, rebuild_out, inference):
+    def __init__(self, graph, statics, outs, rebuild_out, inference, scope,
+                 refs):
         self.graph, self.statics, self.outs = graph, statics, outs
         self.rebuild_out, self.inference = rebuild_out, inference
+        self.scope, self.refs = scope, refs
+
+    def alive(self) -> bool:
+        return any(r() is not None for r in self.refs) or not self.refs
 
 
 class InstrumentedJit(InstrumentedCall):
@@ -441,8 +502,13 @@ class InstrumentedJit(InstrumentedCall):
     eagerly in its place.
 
     **Replay**: the call's tensors are copied into the static inputs and
-    the graph replays on the current stream.  Python values that are not
-    static arguments are refused on the card (a graph would freeze them).
+    the graph replays on the current stream (after the last replay on the
+    card, when that ran on another stream).  A Python ``bool``, ``int``
+    or ``float`` that is not a static argument is staged as a 0-d tensor
+    (bool, int64, float32) among the static inputs, filled at each replay,
+    and ``fn`` receives that tensor: the signature keys a scalar by its
+    type, so a new value is not a new program (``jax.jit`` traces such a
+    value weak-typed).  Any other Python value is refused on the card.
 
     **Donation** (``donate_argnums`` / ``donate_argnames``, the
     reference's): a donated argument is the graph's in-place state.  It
@@ -452,7 +518,16 @@ class InstrumentedJit(InstrumentedCall):
     decoder's mask) is captured again for those addresses: booked in
     ``recaptures``, never as a compile, so ``compiles`` keeps the
     reference's meaning of one per signature.  Up to
-    ``MAX_GRAPHS_PER_SIGNATURE`` captures are kept per signature.
+    ``MAX_GRAPHS_PER_SIGNATURE`` captures are kept per signature; a new
+    capture first drops the graphs whose in-place tensors are all gone,
+    then the least recently replayed, so fits on several threads, each
+    with its own state, do not evict one another while they run.
+
+    **Borrowing** (``inplace_argnums`` / ``inplace_argnames``, the port's
+    own): a borrowed argument is read in place as a donated one is, but
+    ``fn`` does not write it.  A fit's fixed inputs (the bins, labels and
+    weights, the staged tiles) are borrowed, so a replay copies none of
+    them and no second copy lives on the card.
 
     **Outputs** never change under the caller: an output that is (a view
     of) a donated argument comes back as that view of the caller's tensor;
@@ -472,18 +547,22 @@ class InstrumentedJit(InstrumentedCall):
 
     def __init__(self, fn: Callable, **kwargs):
         super().__init__(fn, **kwargs)
-        donate = self.jit_kwargs.get("donate_argnums", ())
-        self._donate_nums = set(int(i) for i in (
-            (donate,) if isinstance(donate, int) else donate or ()))
-        names = self.jit_kwargs.get("donate_argnames", ())
-        names = (names,) if isinstance(names, str) else names or ()
-        self._donate_nums |= {self._params.index(n) for n in names
-                              if n in self._params}
-        self._donate_names = set(names)
+        self._donate_nums, self._donate_names = set(), set()
+        for kind in ("donate", "inplace"):
+            nums = self.jit_kwargs.get(f"{kind}_argnums", ())
+            self._donate_nums |= set(int(i) for i in (
+                (nums,) if isinstance(nums, int) else nums or ()))
+            names = self.jit_kwargs.get(f"{kind}_argnames", ())
+            names = (names,) if isinstance(names, str) else names or ()
+            self._donate_nums |= {self._params.index(n) for n in names
+                                  if n in self._params}
+            self._donate_names |= set(names)
         #: signature -> {donated addresses: _Graph}, LRU-ordered
         self._graphs: Dict[Tuple, collections.OrderedDict] = {}
         self.captures = 0
         self.recaptures = 0
+        self.replays = 0
+        _PROGRAMS.add(self)
 
     def _run(self, sig, args, kwargs):
         leaves: List = []
@@ -505,11 +584,11 @@ class InstrumentedJit(InstrumentedCall):
         if index is None:
             return super()._run(sig, args, kwargs)
         for leaf in leaves:
-            if not _is_array(leaf):
+            if not (_is_array(leaf) or _is_scalar(leaf)):
                 raise TypeError(
-                    f"{self.name}: a captured call takes tensors; the "
-                    f"Python value {leaf!r} would be frozen into the graph "
-                    "(pass it as a static argument or a tensor)")
+                    f"{self.name}: a captured call takes tensors and Python "
+                    f"scalars; the Python value {leaf!r} would be frozen "
+                    "into the graph (pass it as a static argument)")
         key = tuple(_addr(l) for l, d in zip(leaves, donated) if d)
 
         def call(call_leaves):
@@ -526,7 +605,10 @@ class InstrumentedJit(InstrumentedCall):
                 return self._capture(sig, len(args), index, call, leaves,
                                      donated, key)
             graphs.move_to_end(key)
-            return self._replay(entry, leaves)
+            if entry.refs:
+                entry.refs = _refs(leaves, donated)
+            self.replays += 1
+            return self._replay(entry, leaves, index)
 
     def _capture(self, sig, n_pos, index, call, leaves, donated, key):
         import torch
@@ -542,14 +624,18 @@ class InstrumentedJit(InstrumentedCall):
             if don:
                 if not (isinstance(leaf, torch.Tensor)
                         and leaf.device == dev):
-                    raise TypeError(f"{self.name}: a donated argument must "
-                                    f"be a tensor on {dev}")
+                    raise TypeError(f"{self.name}: a donated or borrowed "
+                                    f"argument must be a tensor on {dev}")
                 statics.append(None)
                 call_leaves.append(leaf)
                 continue
-            src = _as_tensor(leaf)
-            st = torch.empty(src.shape, dtype=src.dtype, device=dev)
-            st.copy_(src, non_blocking=True)
+            if _is_scalar(leaf):
+                st = torch.full((), leaf, device=dev, dtype=getattr(
+                    torch, _SCALAR_DTYPES[type(leaf)]))
+            else:
+                src = _as_tensor(leaf)
+                st = torch.empty_like(src, device=dev)
+                st.copy_(src, non_blocking=True)
             statics.append(st)
             call_leaves.append(st)
         side.wait_stream(current)
@@ -570,6 +656,7 @@ class InstrumentedJit(InstrumentedCall):
         torch.cuda.synchronize(dev)
         err = out = None
         pool = _graph_pool(index)
+        scope: Dict[str, List] = {"keep": [], "on_replay": []}
         with torch.cuda.stream(side):
             try:
                 graph.capture_begin(pool=pool,
@@ -577,10 +664,13 @@ class InstrumentedJit(InstrumentedCall):
             except Exception as exc:  # noqa: BLE001 — re-raised below
                 err = exc
             else:
+                _LOCAL.scope = scope
                 try:
                     out = call(call_leaves)
                 except Exception as exc:  # noqa: BLE001 — re-raised below
                     err = exc
+                finally:
+                    _LOCAL.scope = None
                 try:
                     graph.capture_end()
                 except Exception as exc:  # noqa: BLE001 — re-raised below
@@ -610,11 +700,14 @@ class InstrumentedJit(InstrumentedCall):
                               tuple(o.stride()), o.storage_offset()))
             else:
                 specs.append(("static", o))
-        entry = _Graph(graph, statics, specs, rebuild_out, inference)
+        entry = _Graph(graph, statics, specs, rebuild_out, inference, scope,
+                       _refs(leaves, donated))
         graphs = self._graphs.get(sig)
         if graphs is None:
             graphs = self._graphs[sig] = collections.OrderedDict()
-        else:
+        for k in [k for k, g in graphs.items() if not g.alive()]:
+            del graphs[k]
+        if sig in self._entries:
             self.recaptures += 1
         graphs[key] = entry
         while len(graphs) > MAX_GRAPHS_PER_SIGNATURE:
@@ -633,15 +726,28 @@ class InstrumentedJit(InstrumentedCall):
                  for o in firsts]
         return _tree_flatten(first, [])(iter(fixed))
 
-    def _replay(self, entry: _Graph, leaves):
+    def _replay(self, entry: _Graph, leaves, index: int):
         import torch
         ctx = torch.inference_mode() if entry.inference else \
             torch.no_grad()
         with ctx:
+            cur = torch.cuda.current_stream(index)
+            last = _LAST_REPLAY.get(index)
+            if last is not None and last[0] != cur:
+                cur.wait_event(last[1])
             for st, leaf in zip(entry.statics, leaves):
-                if st is not None and leaf is not st:
+                if st is None or leaf is st:
+                    continue
+                if _is_scalar(leaf):
+                    st.fill_(leaf)
+                else:
                     st.copy_(_as_tensor(leaf), non_blocking=True)
             entry.graph.replay()
+            for hook in entry.scope["on_replay"]:
+                hook()
+            if last is None or last[0] != cur:
+                last = _LAST_REPLAY[index] = (cur, torch.cuda.Event())
+            last[1].record(cur)
             outs = []
             for spec in entry.outs:
                 if spec[0] == "static":
@@ -657,6 +763,7 @@ class InstrumentedJit(InstrumentedCall):
         with self._lock:
             capture = [e.capture_s for e in self._entries.values()]
         return {"captures": self.captures, "recaptures": self.recaptures,
+                "replays": self.replays,
                 "capture_seconds": [None if c is None else round(c, 6)
                                     for c in capture]}
 

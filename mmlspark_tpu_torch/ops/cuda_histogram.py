@@ -51,11 +51,13 @@ from __future__ import annotations
 
 import functools
 import math
+import operator
 import threading
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..observability.compute import capture_scope
 from .histogram import _check_overflow, _pack_lanes, _packed_layout, \
     _scatter_rows, _unpack_lanes
 
@@ -124,12 +126,17 @@ def gain_params(g_scale, h_scale, feat_mask, edge_ok, depth_ok=None, *,
     def mask(x):
         return torch.as_tensor(x, device=dev).to(torch.bool).contiguous()
 
-    scales = torch.stack([
-        torch.as_tensor(g_scale, dtype=torch.float32, device=dev).reshape(()),
-        torch.as_tensor(h_scale, dtype=torch.float32, device=dev).reshape(())])
+    def scale(x):
+        # a Python number is filled on the card: no host -> card copy,
+        # which a captured program could not hold
+        if isinstance(x, torch.Tensor):
+            return x.to(device=dev, dtype=torch.float32).reshape(())
+        return torch.full((), x, dtype=torch.float32, device=dev)
+
+    scales = torch.stack([scale(g_scale), scale(h_scale)])
     return GainParams(scales, mask(feat_mask), mask(edge_ok),
                       None if depth_ok is None else mask(depth_ok).reshape(1),
-                      float(l1), float(l2), float(min_data), float(min_hess))
+                      l1, l2, min_data, min_hess)
 
 
 class FinishOut(NamedTuple):
@@ -368,7 +375,7 @@ def hist_accumulate(binned: torch.Tensor, qg: torch.Tensor, qh: torch.Tensor,
         raise ValueError(f"no kernel for device {binned.device}")
     dev = binned.device
     n, F = binned.shape
-    N, B = int(num_nodes), int(num_bins)
+    N, B = operator.index(num_nodes), operator.index(num_bins)
     if binned.dtype != torch.uint8:
         raise TypeError(f"binned must be uint8, got {binned.dtype}")
     if not 2 <= B <= 256 or N < 1:
@@ -389,7 +396,7 @@ def hist_accumulate(binned: torch.Tensor, qg: torch.Tensor, qh: torch.Tensor,
         _MODE_CODE[layout.mode], layout.cbits, layout.hbits,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "hist_accumulate", lib)
-    _count(hist_accumulate)
+    _count("hist_accumulate")
     return acc
 
 
@@ -408,15 +415,34 @@ _finish_state: dict = {}
 
 
 def _finish_buffers(dev: torch.device, stream: int, parts: int):
+    """The counters and scratch of one launch.  Inside a CUDA-graph capture
+    they are the graph's own (``compute.capture_scope``): the graph bakes
+    in their pointers, so a later capture that needs more parts must not
+    free what a live graph reads.  The counters are zeroed by a fill the
+    graph replays first."""
+    scope = capture_scope()
+    state = _finish_state if scope is None else \
+        _scope_state(scope, "finish", dict)
     key = (dev.index, stream)
-    counter, scratch = _finish_state.get(key, (None, None))
+    counter, scratch = state.get(key, (None, None))
     if counter is None:
         counter = torch.zeros(65535, dtype=torch.int32, device=dev)
     if scratch is None or scratch.numel() < parts * _PART:
         scratch = torch.empty(max(parts, 4096) * _PART, dtype=torch.float32,
                               device=dev)
-    _finish_state[key] = (counter, scratch)
+    if scope is not None and state.get(key) != (counter, scratch):
+        scope["keep"] += [counter, scratch]
+    state[key] = (counter, scratch)
     return counter, scratch
+
+
+def _scope_state(scope, name: str, make):
+    """This module's entry ``name`` in a capture's scope, made on first
+    use."""
+    key = (__name__, name)
+    if key not in scope:
+        scope[key] = make()
+    return scope[key]
 
 
 def _slot(name: str, t, dev) -> int:
@@ -545,34 +571,61 @@ def frontier_finish(acc: torch.Tensor, mode: str, cbits: int, hbits: int,
     if err != 0:
         _finish_state.pop((dev.index, stream), None)
     _raise_on(err, "frontier_finish", lib)
-    _count(frontier_finish)
+    _count("frontier_finish")
     if record:
         return hist, _record(out)
     return (hist, None) if out is None else None
 
 
-hist_accumulate.launches = 0
-frontier_finish.launches = 0
-#: fits on several threads (``TuneHyperparameters(parallelism=...)``)
-#: launch on one card: each count is a read-modify-write under this lock
-_COUNT_LOCK = threading.Lock()
+#: launches per kernel, one table per thread that launched: each table is
+#: written by its own thread alone (fits on several threads,
+#: ``TuneHyperparameters(parallelism=...)``, launch on one card), so a
+#: count takes no lock, which captured code could not hold
+_TALLIES: list = []
+_THREAD = threading.local()
+_KERNELS = ("hist_accumulate", "frontier_finish")
 
 
-def _count(kernel) -> None:
-    with _COUNT_LOCK:
-        kernel.launches += 1
+def _tally() -> dict:
+    t = getattr(_THREAD, "tally", None)
+    if t is None:
+        t = _THREAD.tally = {}
+        _TALLIES.append(t)
+    return t
+
+
+def _count(name: str) -> None:
+    """One launch of kernel ``name``.  Inside a CUDA-graph capture the
+    kernel does not run: the launch is tallied for the graph, and each
+    replay adds the tally (``compute.capture_scope``'s ``on_replay``)."""
+    scope = capture_scope()
+    tally = _tally() if scope is None else \
+        _scope_state(scope, "launches", dict)
+    if scope is not None and not tally:
+        scope["on_replay"].append(functools.partial(_add_counts, tally))
+    tally[name] = tally.get(name, 0) + 1
+
+
+def _add_counts(tally: dict) -> None:
+    mine = _tally()
+    for name, k in tally.items():
+        mine[name] = mine.get(name, 0) + k
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the last reset."""
-    return {"hist_accumulate": hist_accumulate.launches,
-            "frontier_finish": frontier_finish.launches}
+    """Launches of each kernel since the last reset, every thread's."""
+    out = dict.fromkeys(_KERNELS, 0)
+    for t in list(_TALLIES):
+        for name, k in list(t.items()):
+            out[name] += k
+    return out
 
 
 def reset_launch_counts() -> None:
-    with _COUNT_LOCK:
-        hist_accumulate.launches = 0
-        frontier_finish.launches = 0
+    """Zero the counts (between runs: a launch on another thread during
+    the reset may be lost)."""
+    for t in list(_TALLIES):
+        t.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -41,12 +41,14 @@ What is here:
 """
 from __future__ import annotations
 
+import operator
 import os
 from typing import Optional
 
 import torch
 
 from .._device import float32_exact
+from ..observability.compute import instrumented_jit
 
 
 _FLT_MAX = torch.finfo(torch.float32).max
@@ -59,6 +61,8 @@ def _search_fm(table: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
                               out_int32=True)
 
 
+@instrumented_jit(name="ops.bin_matrix", static_argnames=("num_bins",),
+                  inplace_argnums=(0,))
 def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
                num_bins: int) -> torch.Tensor:
     """Digitize raw features on ``x``'s device: bin = #edges < x, NaN -> 0,
@@ -66,7 +70,10 @@ def bin_matrix(x: torch.Tensor, edges: torch.Tensor,
     (``mmlspark_tpu/ops/histogram.py:96-111``, a vmapped
     ``jnp.searchsorted(side="left")``).  ``edges`` is ``(F, num_bins - 1)``
     ascending with +inf padding.  jnp's search orders NaN above +inf, so a
-    NaN edge is below no value: it searches here as +inf."""
+    NaN edge is below no value: it searches here as +inf.  A compiled
+    program, as the reference's: a CUDA graph per signature on the card
+    (``observability.compute.instrumented_jit``), reading ``x`` in place
+    (no second copy of a large matrix in the graph)."""
     table = torch.where(torch.isnan(edges), torch.inf, edges)
     xt = x.t().contiguous()
     bins = torch.where(torch.isnan(xt), 0, _search_fm(table, xt))
@@ -202,7 +209,8 @@ def row_noise(row_ids: torch.Tensor, seed: int, mix: int = 0) -> torch.Tensor:
     uniforms under any tiling, on the CPU and on the card alike (the role
     of the JAX package's ``fold_in(key, row_id)``, with other bits)."""
     r = _fmix32(row_ids.to(torch.int64) & _M32)
-    base = _fmix32_int(_fmix32_int(int(seed)) ^ (int(mix) & _M32))
+    base = _fmix32_int(_fmix32_int(operator.index(seed))
+                       ^ (operator.index(mix) & _M32))
     h = _fmix32(torch.stack([
         r ^ _fmix32_int(base ^ (0x9E3779B9 * (c + 1) & _M32))
         for c in (0, 1)]))
@@ -279,7 +287,7 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
         # its reciprocal, one ulp away from the true division of the CPU
         # and of the JAX package
         def cap(c):
-            return torch.full((), float(c), dtype=torch.float32,
+            return torch.full((), c, dtype=torch.float32,
                               device=g.device)
         gmax, hmax = g.abs().max(), h.max()
         if axis_name is not None:
@@ -289,10 +297,13 @@ def quantize_gradients(grad: torch.Tensor, hess: torch.Tensor,
         g_scale = torch.clamp(gmax, min=1e-12) / cap(qg_cap)
         h_scale = torch.clamp(hmax, min=1e-12) / cap(qh_cap)
     else:
-        g_scale = torch.clamp(torch.as_tensor(g_scale, dtype=torch.float32,
-                                              device=g.device), min=1e-30)
-        h_scale = torch.clamp(torch.as_tensor(h_scale, dtype=torch.float32,
-                                              device=g.device), min=1e-30)
+        def given(x):
+            # a Python number is filled on the device: no host copy
+            t = x.to(device=g.device, dtype=torch.float32) \
+                if isinstance(x, torch.Tensor) else torch.full(
+                    (), x, dtype=torch.float32, device=g.device)
+            return torch.clamp(t, min=1e-30)
+        g_scale, h_scale = given(g_scale), given(h_scale)
     if noise is None and row_ids is not None:
         if mix is None:
             mix = quant_mix(g, h, axis_name, mesh) \
@@ -462,19 +473,24 @@ def _node_pure_layout(binned, grad, hess, node_ids, num_nodes: int, R: int,
     else:
         order = torch.argsort(node_s, stable=True)
         ns = node_s[order]
-        counts = torch.bincount(node_s, minlength=P + 1)
+        # a count by scatter: bincount sizes its output from the data's
+        # maximum, a wait for the card that a captured program refuses
+        counts = torch.zeros(P + 1, dtype=i64, device=dev).index_add_(
+            0, node_s, torch.ones_like(node_s))
         start = torch.cumsum(counts, 0) - counts
     padded_counts = ((counts + R - 1) // R) * R
     padded_off = torch.cumsum(padded_counts, 0) - padded_counts
-    n_cap = n if max_rows is None else min(n, int(max_rows))
+    n_cap = n if max_rows is None else min(n, operator.index(max_rows))
     N_pad = ((n_cap + R - 1) // R + P + 1) * R
     if use_cumsum:
         pos, src = padded_off[node_s] + rank_all, rows
     else:
         pos, src = padded_off[ns] + (rows - start[ns]), order
-    keep = pos < N_pad
-    padded_idx = torch.full((N_pad,), -1, dtype=i64, device=dev)
-    padded_idx[pos[keep]] = src[keep]
+    # rows past the layout's end spill into one slot past it: no boolean
+    # index, which would wait for the card to count the kept rows
+    padded_idx = torch.full((N_pad + 1,), -1, dtype=i64, device=dev)
+    padded_idx.index_put_((torch.where(pos < N_pad, pos, N_pad),), src)
+    padded_idx = padded_idx[:N_pad]
 
     NB = N_pad // R
     block_starts = torch.arange(NB, dtype=i64, device=dev) * R

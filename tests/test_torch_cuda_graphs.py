@@ -164,3 +164,149 @@ def test_continuous_joins_replay_and_equal_the_eager_engine(dev):
     assert out[0] == out[1]
     pool = PagePool(graphed.module, num_pages=8, page_size=4)
     assert pool.pages_in_use() == 0
+
+
+# ---------------------------------------------------------------------------
+# the GBDT family's programs (lightgbm.iter / iter_pre / multi_iter /
+# objective / valid_update / tree_walk / lambdarank_grads, the ooc_*
+# programs, models.gbdt_walk): graphed fits = the same code with its
+# programs eager (``lightgbm.core.eager_programs``), bit for bit
+# ---------------------------------------------------------------------------
+
+_TREE_ARRAYS = ("split_feature", "threshold", "threshold_bin", "split_gain",
+                "internal_value", "internal_count", "leaf_value",
+                "leaf_count", "left_child", "right_child", "tree_weight")
+
+
+def _gbdt_data(n=20_000, F=12, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] + rng.normal(scale=0.3, size=n)
+         > 0).astype(np.float32)
+    return rng, X, y
+
+
+def _same_booster(a, b):
+    for k in _TREE_ARRAYS:
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k),
+                                      err_msg=k)
+
+
+def _graphed_and_eager(fit):
+    from mmlspark_tpu_torch.lightgbm import core
+    graphed = fit()
+    with core.eager_programs():
+        eager = fit()
+    _same_booster(graphed.booster, eager.booster)
+    return graphed, eager
+
+
+_RANK = {"objective": "lambdarank"}
+
+
+@pytest.mark.parametrize("pkw", [
+    dict(max_depth=5), dict(num_leaves=31),
+    dict(num_leaves=15, objective="multiclass", num_class=3),
+    dict(num_leaves=15, boosting_type="dart", drop_rate=0.5, skip_drop=0.0),
+    dict(num_leaves=15, boosting_type="goss"),
+    dict(max_depth=4, boosting_type="rf", bagging_fraction=0.7,
+         bagging_freq=1, feature_fraction=0.8),
+    dict(num_leaves=15, **_RANK)],
+    ids=["level", "leaf", "multiclass", "dart", "goss", "rf", "lambdarank"])
+def test_graphed_train_equals_eager_bit_for_bit(dev, pkw):
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    rng, X, y = _gbdt_data()
+    kw = {}
+    if pkw.get("objective") == "multiclass":
+        y = np.digitize(X[:, 0], [-0.5, 0.5]).astype(np.float32)
+    if pkw.get("objective") == "lambdarank":
+        y = rng.integers(0, 4, len(X)).astype(np.float32)
+        kw["group_ptr"] = np.arange(0, len(X) + 1, 40)
+    Xv = rng.normal(size=(2_000, X.shape[1])).astype(np.float32)
+    yv = (Xv[:, 0] > 0).astype(np.float32)
+    if "objective" not in pkw:
+        kw["valid"] = (Xv, yv)
+    params = GBDTParams(num_iterations=6, **pkw)
+    graphed, eager = _graphed_and_eager(lambda: train(X, y, params, **kw))
+    assert graphed.evals == eager.evals
+    np.testing.assert_array_equal(graphed.booster.predict(X),
+                                  eager.booster.predict(X))
+
+
+def test_chunked_fit_equals_the_unchunked_fit_on_the_card(dev, monkeypatch):
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, core, train
+    from mmlspark_tpu_torch.observability.compute import compile_report
+    _, X, y = _gbdt_data(n=60_000)
+    params = GBDTParams(num_iterations=9, num_leaves=15,
+                        boosting_type="goss")
+    monkeypatch.setenv("MMLSPARK_TPU_GBDT_CHUNK", "1")
+    plain = train(X, y, params).booster
+    monkeypatch.delenv("MMLSPARK_TPU_GBDT_CHUNK")       # four on the card
+    chunked = train(X, y, params).booster
+    _same_booster(chunked, plain)
+    assert compile_report()["functions"]["lightgbm.multi_iter"][
+        "compiles"] >= 1
+    assert any(k[0] == "multi" for k in core._JIT_CACHE)
+
+
+def test_streamed_graphed_equals_eager_and_replays_count_launches(dev):
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train_streamed
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    _, X, y = _gbdt_data(n=40_000)
+    for pkw in (dict(max_depth=4), dict(num_leaves=15)):
+        params = GBDTParams(num_iterations=3, **pkw)
+        CH.reset_launch_counts()
+        graphed, _ = _graphed_and_eager(
+            lambda: train_streamed(X, y, params, tile_rows=16_384))
+        ex = graphed.extras
+        # graphed and eager fits both launch once per tile per pass
+        want = 2 * ex["hist_passes"] * ex["num_tiles"]
+        assert CH.launch_counts() == {"hist_accumulate": want,
+                                      "frontier_finish": want}
+
+
+def test_replays_count_their_launches_and_a_second_fit_compiles_nothing(
+        dev):
+    from mmlspark_tpu_torch.lightgbm import GBDTParams, train
+    from mmlspark_tpu_torch.observability import get_registry
+    from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    _, X, y = _gbdt_data()
+    params = GBDTParams(num_iterations=4, num_leaves=15)
+    train(X, y, params)
+    fam = get_registry().counter("mmlspark_jit_compile_total",
+                                 labels=("fn",))
+    before = {k: c.value for k, c in fam._snapshot()}
+    CH.reset_launch_counts()
+    train(X, y, params)                  # replays only: no compile
+    assert {k: c.value for k, c in fam._snapshot()} == before
+    # one fused step at the root and one per split, every tree
+    assert CH.launch_counts() == {"hist_accumulate": 4 * 15,
+                                  "frontier_finish": 4 * 15}
+
+
+def test_python_scalars_are_staged_per_replay(dev):
+    """Fault 3.16 on the card: a Python float is a 0-d input filled per
+    replay, so one capture answers every value."""
+    reg = MetricsRegistry()
+    fn = compute.instrumented_jit(lambda x, s: x * s, name="g.scalar",
+                                  registry=reg)
+    x = torch.ones(3, device=dev)
+    with torch.inference_mode():
+        outs = [fn(x, s) for s in (1.5, 2.5, 3.5, 4.5)]
+    assert [float(o[0]) for o in outs] == [1.5, 2.5, 3.5, 4.5]
+    assert fn.compiles == 1 and fn.captures == 1 and fn.recaptures == 0
+
+
+def test_card_positions_past_max_len_raise_and_the_context_survives(dev):
+    """Fault 3.17 on the card: positions already on the card are read back
+    for the host check outside a capture, so an out-of-range one raises
+    ``ValueError`` instead of a device-side assert."""
+    lm = _lm(dev)
+    tokens = torch.zeros((1, 2), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        for bad in ([[0, 256]], [[-1, 0]]):
+            with pytest.raises(ValueError, match="max_len"):
+                lm(tokens, positions=torch.tensor(bad, device=dev))
+        out = lm(tokens, positions=torch.tensor([[0, 255]], device=dev))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
