@@ -296,30 +296,36 @@ Phases; any failure exits nonzero and prints no result line:
    stager's own ``h2d_bytes``; its booster equals the same fit's with the
    tiles copied as before the booking, in every array; ``device_put`` of
    a pinned tile runs under sync debug mode "error".
-16. vw — VowpalWabbit, BASELINE config 4, no JAX on the card: 400,000
+16. vw — VowpalWabbit, BASELINE config 4, no JAX on the card (budget
+   120 s): 400,000
    synthetic tweets and 100,000 held out (5-30 tokens over a 100,000-word
    Zipf(1.1) vocabulary; labels from a logistic model of 2,000 planted
    word weights, so the Bayes AUC is known).  (a) ``murmur3_batch_native``
    = ``murmur3_bytes`` on every word; ``VowpalWabbitFeaturizer(string_
    split_cols=["text"], num_bits=18)`` on every tweet, rows/s (the same
    tweets featurized at 24 bits in a child process meanwhile, for (c)).
-   (b) ``VowpalWabbitClassifier()`` defaults on the card and on the CPU:
-   weights within 1e-4 x max|w|, held-out AUC (``ComputeModelStatistics``)
-   card = CPU within 1e-4 and within 0.02 of the Bayes AUC; fit rows/s,
-   learn rows/s and steps/s of the step alone, host enqueue ms beside
-   device ms a step (CUDA events), device ops a step (``torch.profiler``
-   over 50 steps), peak device memory.  (c) The same at 24 bits (16.7M
-   weights, 201 MB of state): the same gates, the step's time and its
-   share of HBM bandwidth.  (d) ``optimizer="bfgs"`` (20 iterations) on
+   (b) ``VowpalWabbitClassifier()`` defaults on the card (the step a
+   captured program, replayed), on the card with the step eager
+   (``eager_plain_programs``) and on the CPU: weights within 1e-4 x
+   max|w| of the CPU's and of the eager fit's, held-out AUC
+   (``ComputeModelStatistics``) card = eager = CPU within 1e-4 and within
+   0.02 of the Bayes AUC; fit rows/s, learn rows/s and steps/s of the
+   step alone, host enqueue ms beside device ms a step (CUDA events),
+   device ops a step (``torch.profiler`` over 50 steps), eager and
+   replayed, peak device memory.  (c) The same at 24 bits (16.7M weights,
+   201 MB of state): the same gates, the step's time and its share of HBM
+   bandwidth.  (d) ``optimizer="bfgs"`` (20 iterations) on
    the first 100,000 tweets, card and CPU: objectives within 1e-4
    relative, AUC within 1e-3.  (e) ``VowpalWabbitRegressor(interactions=
    ["ab"])`` on 100,000 rows of two namespaces and
    ``VowpalWabbitContextualBandit()`` (4 actions, ips) on 100,000 logged
-   rows: card = CPU as in (b); the learned policy's true cost on held-out
+   rows: card = CPU as in (b), the bandit also replayed = eager; the
+   learned policy's true cost on held-out
    rows below the uniform logging policy's.  (f) ``model_bytes()``
    round-trips bit for bit; a saved model reloads and scores identically.
    No Hopper kernel of this repository runs in this phase.
-17. featurize — featurization, the auto-trainers, Word2Vec and tuning.
+17. featurize — featurization, the auto-trainers, Word2Vec and tuning
+   (budget 125 s).
    (a) UCI Adult's shape, seeded (32,561 rows to train, 16,281 to test; 6
    numeric columns with 1% NaN, 8 string columns at the published
    cardinalities; the label from a planted logistic model, so the Bayes
@@ -332,8 +338,14 @@ Phases; any failure exits nonzero and prints no result line:
    a plain ``LightGBMClassifier`` fitted on the card on the same frame in
    every array; test accuracy within 0.02 of the Bayes accuracy.  (b)
    ``Word2Vec()`` at its defaults on 100,000 of the vw phase's tweets,
-   each epoch under sync debug mode "error"; card = CPU within 1e-4 x
-   max|v| on 2,000 tweets with the same uniforms; a profile of 50 steps;
+   each epoch under sync debug mode "error", its steps replayed in
+   captured blocks of 32, and again with the blocks eager
+   (``eager_plain_programs``): vectors within 1e-3 x max|v| (two eager
+   fits differ by ~3e-4 there, ``tools/w2v_spread.py``), pairs/s of each,
+   the blocks' captures and capture seconds; on 2,000 tweets with the
+   same uniforms card = CPU and replayed = eager within 1e-4 x max|v|;
+   the step eager and the block replayed, host enqueue and device ms a
+   step and a profile of 50 steps each;
    the document vectors through ``TrainClassifier(LightGBMClassifier(
    num_iterations=30))`` (held-out AUC >= a floor calibrated on the CPU,
    beside the Bayes AUC; trained on 20,000 tweets with the same uniforms
@@ -360,19 +372,23 @@ Phases; any failure exits nonzero and prints no result line:
    equal, the planted outliers' AUC >= 0.9; rows/s of the walk.  No Hopper
    kernel of this repository runs in this phase.
 19. explain — the explainers, AccessAnomaly, streaming speech, io and the
-   cognitive services.  (a) Adult's shape index-encoded (32,561 x 14):
+   cognitive services (budget 110 s).  (a) Adult's shape index-encoded
+   (32,561 x 14):
    ``LightGBMClassifier()`` fitted on the card (its launches are the
    ``explain`` path's), ``TabularSHAP`` (5,000 samples, 100 background
    rows) and ``TabularLIME`` (defaults) on 5 held-out rows, on the card
    and on the CPU: masks equal, scores within 1e-6, SHAP coefficients
    within 1e-4, LIME's within 1e-4 x max|coef|, each row's SHAP
    coefficients plus intercept its own score within 1e-3; no kernel
-   launched while explaining.  (b) ``ImageLIME`` (256 samples) over the
+   launched while explaining; every LIME row's lasso (its 200 ISTA steps
+   one captured program) = the eager loop bit for bit, ms a call of
+   each.  (b) ``ImageLIME`` (256 samples) over the
    seeded float32 ResNet-50 (softmax, ``JaxModel``) on 4 procedural 224 x
    224 images, alpha 1e-7 (the random network's probabilities move by
    ~1e-4, so 0.01 zeroes every coefficient): superpixels = the CPU's, the
    card's lasso = the CPU's on the same inputs within 1e-4 x max|coef|
-   (and of the intercept), nonzero; samples/s.  (c)
+   (and of the intercept), nonzero, replayed = eager bit for bit;
+   samples/s.  (c)
    ``AccessAnomaly()`` (rank 10, 10 sweeps, implicit) on 3 tenants of
    40,000 users in 3 departments x 10,000 resources, 1,000,000 distinct
    pairs each with seeded counts: tenant 0 refitted on the CPU (factors
@@ -383,10 +399,13 @@ Phases; any failure exits nonzero and prints no result line:
    the fit's peak device memory beside the (chunk, k, k) buffer's bytes.
    (d) The streaming encoder's defaults from a seeded generator:
    ``SpeechToTextSDK`` on 32 seeded 20 s utterances at 16 kHz in 0.5 s
-   chunks, card = CPU per frame apart from near-ties (the CPU's top two
-   logits within 1e-5, reported) and streamed = one full-utterance pass
-   on the card by the same rule; host ms beside device ms a chunk, chunks
-   per second; ``ConversationTranscription``'s speaker turns on a
+   chunks (each chunk's LSTM, head and argmax one captured program a
+   chunk length), and again with the step eager: logits replayed = eager
+   bit for bit, card = CPU per frame apart from near-ties (the CPU's top
+   two logits within 1e-5, reported) and streamed = one full-utterance
+   pass on the card by the same rule; host ms beside device ms a chunk,
+   eager and replayed, chunks per second; ``ConversationTranscription``'s
+   speaker turns on a
    two-voice stream card = CPU; ``SpeechServingModel`` behind
    ``PipelineServer`` on 127.0.0.1 with 16 concurrent sessions of 5 s,
    each transcript = its offline one.  (e) A 200,000 x 20 numeric CSV:
@@ -430,7 +449,7 @@ Phases; any failure exits nonzero and prints no result line:
    seconds, the bytes all-reduced per tree and the seconds in
    ``all_reduce`` (timed between device syncs), world 1 against world 2.
 22. parallel — the rest of ``parallel/`` on ``torch.distributed`` (budget
-   75 s), two ranks on the one card over gloo (``all_gather`` and
+   95 s), two ranks on the one card over gloo (``all_gather`` and
    ``ppermute`` carried by the slot all_reduce of
    ``parallel.collectives``).  The seeded models are drawn once and saved
    whole; every process loads them.  (a) ``run_local_cluster`` with 2
@@ -444,9 +463,12 @@ Phases; any failure exits nonzero and prints no result line:
    momentum, BatchNorm over the global batch), 6 steps through
    ``train_stream`` with ``checkpoint_every=3``; again preempted after
    step 3 and resumed at world 2 (bit-identical to the uninterrupted run)
-   and here at world 1 (within 1e-4 relative); both ranks' params
-   bit-identical after every step; step time, gradient bytes and timed
-   ``all_reduce`` seconds a step.  (c) ``ring_attention`` at 2 x 4 x 4,096
+   and here at world 1 (within 1e-4 relative); the uninterrupted state
+   saved with ``backend="orbax"`` (``torch.distributed.checkpoint``) on
+   both ranks and restored into a fresh trainer's template there, and
+   here at world 1, bit for bit, save and load seconds; both ranks'
+   params bit-identical after every step; step time, gradient bytes and
+   timed ``all_reduce`` seconds a step.  (c) ``ring_attention`` at 2 x 4 x 4,096
    x 64 over ``seq`` 2, causal and not, within 1e-4 of dense attention;
    ``make_seq_parallel_train_step`` on the encoder at bench.py's LM width
    (ring mode, 2 x 4,096 tokens) for 3 steps, losses within 1e-4 relative
@@ -3816,6 +3838,75 @@ def eager_runner(**kw):
     return EagerRunner(**kw)
 
 
+def _eager_program_class():
+    from mmlspark_tpu_torch.observability import compute
+
+    class EagerProgram(compute.InstrumentedJit):
+        """``compute.captured``'s program with its capture swapped for an
+        eager call: the same code, never captured."""
+
+        def _run(self, sig, args, kwargs):
+            return compute.InstrumentedCall._run(self, sig, args, kwargs)
+
+    return EagerProgram
+
+
+def eager_captured(fn, **kw):
+    """What ``compute.captured(fn, **kw)`` builds, run eagerly: the
+    baseline the plain-jit twins' replays are held to."""
+    return _eager_program_class()(fn, booked=False, **kw)
+
+
+@contextlib.contextmanager
+def eager_plain_programs(*modules):
+    """Within the block, ``modules`` build their ``captured`` programs as
+    ``eager_captured`` ones (the VW step per fit, Word2Vec's blocks per
+    fit); the lasso's module-level program is swapped likewise."""
+    from mmlspark_tpu_torch.explainers import regression
+    saved = [(m, m.captured) for m in modules]
+    ista = regression._ISTA
+    try:
+        for m in modules:
+            m.captured = eager_captured
+        regression._ISTA = eager_captured(regression._ista,
+                                          static_argnums=(4,))
+        yield
+    finally:
+        for m, c in saved:
+            m.captured = c
+        regression._ISTA = ista
+
+
+def time_program(fn, calls) -> dict:
+    """``fn(*args)`` for each ``args`` of ``calls``: host enqueue ms a call
+    (the loop's wall before the closing sync) beside device ms a call
+    (CUDA events around the loop)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    h0 = time.perf_counter()
+    start.record()
+    for args in calls:
+        fn(*args)
+    end.record()
+    host_s = time.perf_counter() - h0
+    torch.cuda.synchronize()
+    n = max(len(calls), 1)
+    return {"calls": len(calls), "host_enqueue_ms": host_s / n * 1e3,
+            "device_ms": start.elapsed_time(end) / n}
+
+
+def program_stats(prog) -> dict:
+    """A captured program's captures, re-captures, replays and capture
+    seconds."""
+    snap = prog.snapshot()
+    return {"captures": snap.get("captures", 0),
+            "recaptures": snap.get("recaptures", 0),
+            "replays": snap.get("replays", 0),
+            "capture_s": [c for c in snap.get("capture_seconds", [])
+                          if c is not None]}
+
+
 def graphs_decode(runners):
     """(a) bench.py's decode arm (8 x 16 prompts, 32 new tokens) at the
     seq LM, dense and paged at 16, on the replayed and the eager runner:
@@ -5566,11 +5657,14 @@ def vw_card_vs_cpu(card, cpu, what: str, gate: bool = True) -> dict:
 
 
 def vw_fit_pair(est_cls, df, what: str, weights_gate: bool = True,
-                **params):
+                eager: bool = False, **params):
     """One fit on the card (its wall, peak memory, the Hopper kernels'
     launches) and the same on the CPU, the weights held as
-    ``vw_card_vs_cpu`` holds them."""
+    ``vw_card_vs_cpu`` holds them; with ``eager``, the card fit again with
+    its step eager (``eager_plain_programs``), the replayed weights held
+    to it within 1e-4 x max|w|."""
     from mmlspark_tpu_torch.ops import cuda_histogram as CH
+    from mmlspark_tpu_torch.vw import learners
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -5582,21 +5676,35 @@ def vw_fit_pair(est_cls, df, what: str, weights_gate: bool = True,
     t0 = time.perf_counter()
     cpu = est_cls().set_params(device="cpu", **params).fit(df)
     cpu_wall = time.perf_counter() - t0
+    out = {"card_fit_s": wall, "cpu_fit_s": cpu_wall, "peak_bytes": peak,
+           **vw_card_vs_cpu(card, cpu, what, weights_gate)}
+    if eager:
+        with eager_plain_programs(learners):
+            t0 = time.perf_counter()
+            out["eager_model"] = est_cls().set_params(**params).fit(df)
+            torch.cuda.synchronize()
+            out["eager_fit_s"] = time.perf_counter() - t0
+        we = out["eager_model"].weights
+        dw = float(np.abs(card.weights - we).max())
+        scale = float(np.abs(we).max())
+        if dw > 1e-4 * scale:
+            raise AssertionError(f"vw {what}: replayed vs eager max |dw| "
+                                 f"{dw} > 1e-4 x {scale}")
+        out["replayed_vs_eager_rel"] = dw / max(scale, 1e-30)
     if any(CH.launch_counts().values()):
         raise AssertionError(f"vw {what}: a Hopper kernel was launched")
-    return card, cpu, {"card_fit_s": wall, "cpu_fit_s": cpu_wall,
-                       "peak_bytes": peak,
-                       **vw_card_vs_cpu(card, cpu, what, weights_gate)}
+    return card, cpu, out
 
 
 def vw_step_profile(dev, df, bits: int) -> dict:
     """The SGD step alone over the fit's own minibatches (the estimator's
-    ``_make_trainer`` and staging): host enqueue ms a step beside device
-    ms a step (CUDA events), steps/s and learn rows/s, and from a
-    ``torch.profiler`` window over 50 steps the kernels and device busy
-    ms a step; the bytes a step must move (the batch's indices and values
-    read once, and read + write of weights, gsq and xmax at the batch's
-    distinct indices) against the step's time."""
+    ``_make_trainer`` and staging), eager (the step's function) and
+    replayed (its captured program, the fit's path): host enqueue ms a
+    step beside device ms a step (CUDA events), steps/s and learn rows/s,
+    and from a ``torch.profiler`` window over 50 steps the kernels and
+    device busy ms a step; the bytes a step must move (the batch's
+    indices and values read once, and read + write of weights, gsq and
+    xmax at the batch's distinct indices) against the step's time."""
     from torch.profiler import ProfilerActivity, profile
     from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
     from mmlspark_tpu_torch.vw.learners import _Staged, pack_sparse_column
@@ -5607,45 +5715,57 @@ def vw_step_profile(dev, df, bits: int) -> dict:
     y = np.where(data["label"] > 0, 1.0, -1.0).astype(np.float32)
     bs = est.get("batch_size")
     sp = _Staged(idx, val, y, np.ones(len(y), np.float32), bs, dev)
-    state = tuple(torch.zeros(D, device=dev) for _ in range(3))
-    batches = list(sp.batches(bs))
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    h0 = time.perf_counter()
-    start.record()
-    for _, bi, bv, by, bw in batches:
-        step(state, bi, bv, by, bw, None)
-    end.record()
-    host_s = time.perf_counter() - h0
-    torch.cuda.synchronize()
-    dev_s = start.elapsed_time(end) / 1e3
+    batches = [b[1:] for b in sp.batches(bs)]
     steps = len(batches)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _, bi, bv, by, bw in batches[:VW_PROFILE_STEPS]:
-            step(state, bi, bv, by, bw, None)
-        torch.cuda.synchronize()
-    kernels, busy_us = 0, 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels += evt.count
-            busy_us += evt.self_device_time_total
     k = idx.shape[1]
     uniq = np.mean([len(np.unique(idx[s:s + bs]))
                     for s in range(0, len(y), bs)])
     step_bytes = bs * k * (8 + 4) + bs * 8 + uniq * 3 * 8
-    step_ms = dev_s / steps * 1e3
-    return {"steps": steps, "rows": len(y), "nnz_width": k,
-            "host_enqueue_ms_per_step": host_s / steps * 1e3,
-            "device_ms_per_step": step_ms, "steps_per_s": steps / dev_s,
-            "learn_rows_per_s": len(y) / dev_s,
-            "kernels_per_step": kernels / VW_PROFILE_STEPS,
-            "device_busy_ms_per_step": busy_us / 1e3 / VW_PROFILE_STEPS,
-            "distinct_indices_per_step": float(uniq),
-            "step_bytes": float(step_bytes),
-            "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
-            "hbm_share": step_bytes / (step_ms / 1e3) / HBM_BYTES_PER_S}
+    out = {"steps": steps, "rows": len(y), "nnz_width": k,
+           "distinct_indices_per_step": float(uniq),
+           "step_bytes": float(step_bytes),
+           "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3}
+    for mode, fn in (("eager", step._fn), ("replayed", step)):
+        state = tuple(torch.zeros(D, device=dev) for _ in range(3))
+        fn(state, *batches[0], None)         # the replayed one: its capture
+        t = time_program(lambda *b: fn(state, *b, None), batches)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for b in batches[:VW_PROFILE_STEPS]:
+                fn(state, *b, None)
+            torch.cuda.synchronize()
+        kernels, busy_us = 0, 0.0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                kernels += evt.count
+                busy_us += evt.self_device_time_total
+        step_ms = t["device_ms"]
+        out[mode] = {"host_enqueue_ms_per_step": t["host_enqueue_ms"],
+                     "device_ms_per_step": step_ms,
+                     "steps_per_s": 1e3 / step_ms,
+                     "learn_rows_per_s": bs * 1e3 / step_ms,
+                     "kernels_per_step": kernels / VW_PROFILE_STEPS,
+                     "device_busy_ms_per_step":
+                         busy_us / 1e3 / VW_PROFILE_STEPS,
+                     "hbm_share": step_bytes / (step_ms / 1e3)
+                     / HBM_BYTES_PER_S}
+    out["program"] = program_stats(step)
+    return out
+
+
+def vw_step_line(prof: dict) -> str:
+    """The step profile's eager and replayed figures, for the log."""
+    e, r = prof["eager"], prof["replayed"]
+    return (f"{prof['steps']} steps; host enqueue "
+            f"{e['host_enqueue_ms_per_step']:.4f} ms eager, "
+            f"{r['host_enqueue_ms_per_step']:.4f} ms replayed, beside "
+            f"device {e['device_ms_per_step']:.4f} / "
+            f"{r['device_ms_per_step']:.4f} ms a step (busy "
+            f"{e['device_busy_ms_per_step']:.4f} / "
+            f"{r['device_busy_ms_per_step']:.4f} ms in "
+            f"{e['kernels_per_step']:.1f} / {r['kernels_per_step']:.1f} "
+            f"device ops); learn {r['learn_rows_per_s']:,.0f} rows/s "
+            f"replayed")
 
 
 def vw_objective(weights, df, l1=0.0, l2=0.0) -> float:
@@ -5770,32 +5890,33 @@ def vw_phase(dev, smi: str):
 
         # (b) defaults on the card and on the CPU
         card, cpu, fit = vw_fit_pair(VowpalWabbitClassifier, df_tr,
-                                     "defaults")
+                                     "defaults", eager=True)
         auc_card, auc_cpu = vw_auc(card, df_ho), vw_auc(cpu, df_ho)
-        if abs(auc_card - auc_cpu) > 1e-4 or abs(auc_card - bayes) > 0.02:
+        auc_eager = vw_auc(fit.pop("eager_model"), df_ho)
+        if abs(auc_card - auc_cpu) > 1e-4 or abs(auc_card - bayes) > 0.02 \
+                or abs(auc_card - auc_eager) > 1e-4:
             raise AssertionError(f"vw (b): held-out AUC card {auc_card}, "
-                                 f"CPU {auc_cpu}, Bayes {bayes}")
+                                 f"eager {auc_eager}, CPU {auc_cpu}, Bayes "
+                                 f"{bayes}")
         prof = vw_step_profile(dev, df_tr, VW_BITS)
         stats = card.get("stats")[0]
         rec["defaults"] = {**fit, "auc_card": auc_card, "auc_cpu": auc_cpu,
+                           "auc_eager": auc_eager,
                            "fit_rows_per_s": VW_TRAIN / fit["card_fit_s"],
                            "ingest_s": stats["ingest_time_s"],
                            "learn_s": stats["learn_time_s"], "step": prof}
         log(f"[vw] (b) VowpalWabbitClassifier() defaults at {VW_BITS} bits "
             f"on {VW_TRAIN:,} tweets: card = CPU within "
-            f"{fit['rel']:.2e} x max|w|; held-out AUC card {auc_card:.5f}, "
-            f"CPU {auc_cpu:.5f}, Bayes {bayes:.5f}; fit "
-            f"{fit['card_fit_s']:.2f} s ({VW_TRAIN / fit['card_fit_s']:,.0f} "
-            f"rows/s; ingest {stats['ingest_time_s']:.2f} s, learn "
-            f"{stats['learn_time_s']:.2f} s), CPU fit {fit['cpu_fit_s']:.2f}"
-            f" s; peak device memory {fit['peak_bytes'] / 1e6:.1f} MB; the "
-            f"step: {prof['steps']} steps, learn "
-            f"{prof['learn_rows_per_s']:,.0f} rows/s, "
-            f"{prof['steps_per_s']:,.0f} steps/s, host enqueue "
-            f"{prof['host_enqueue_ms_per_step']:.3f} ms beside device "
-            f"{prof['device_ms_per_step']:.3f} ms a step (busy "
-            f"{prof['device_busy_ms_per_step']:.3f} ms in "
-            f"{prof['kernels_per_step']:.1f} device ops a step)")
+            f"{fit['rel']:.2e} x max|w|, replayed = eager within "
+            f"{fit['replayed_vs_eager_rel']:.2e}; held-out AUC card "
+            f"{auc_card:.5f} (eager {auc_eager:.5f}), CPU {auc_cpu:.5f}, "
+            f"Bayes {bayes:.5f}; fit {fit['card_fit_s']:.2f} s replayed "
+            f"({VW_TRAIN / fit['card_fit_s']:,.0f} rows/s; ingest "
+            f"{stats['ingest_time_s']:.2f} s, learn "
+            f"{stats['learn_time_s']:.2f} s), {fit['eager_fit_s']:.2f} s "
+            f"eager, CPU fit {fit['cpu_fit_s']:.2f} s; peak device memory "
+            f"{fit['peak_bytes'] / 1e6:.1f} MB; the step: "
+            f"{vw_step_line(prof)}")
         # (f) interchange
         b = card.model_bytes()
         if VowpalWabbitClassificationModel.bytes_to_weights(
@@ -5851,7 +5972,8 @@ def vw_phase(dev, smi: str):
         r2 = 1.0 - float(np.mean((pred - yq) ** 2) / np.var(yq))
         df_cb, _ = vw_bandit_rows(VW_SIDE_ROWS, 167)
         cb_card, cb_cpu, cbfit = vw_fit_pair(VowpalWabbitContextualBandit,
-                                             df_cb, "bandit")
+                                             df_cb, "bandit", eager=True)
+        del cbfit["eager_model"]
         df_cb_ho, costs_ho = vw_bandit_rows(20_000, 168)
         scores = np.stack(cb_card.transform(df_cb_ho).collect()["prediction"])
         picked = scores.argmin(axis=1)
@@ -5868,7 +5990,10 @@ def vw_phase(dev, smi: str):
             f"{VW_SIDE_ROWS:,} rows: card = CPU within {qfit['rel']:.2e} x "
             f"max|w|, held-out R^2 {r2:.3f}; VowpalWabbitContextualBandit() "
             f"({VW_ACTIONS} actions, ips) on {VW_SIDE_ROWS:,} logged rows: "
-            f"card = CPU within {cbfit['rel']:.2e} x max|w|; held-out cost "
+            f"card = CPU within {cbfit['rel']:.2e} x max|w|, replayed = "
+            f"eager within {cbfit['replayed_vs_eager_rel']:.2e} (fit "
+            f"{cbfit['card_fit_s']:.2f} s replayed, {cbfit['eager_fit_s']:.2f}"
+            f" s eager); held-out cost "
             f"of the learned policy {v_policy:.4f} against the uniform "
             f"logging policy's {v_uniform:.4f}")
         del qcard, qcpu, cb_card, cb_cpu, df_q, df_cb
@@ -5887,22 +6012,28 @@ def vw_phase(dev, smi: str):
     df_tr, df_ho = vw_frames(_csr_column(tr24), y_tr, _csr_column(ho24),
                              y_ho)
     wcard, wcpu, wfit = vw_fit_pair(VowpalWabbitClassifier, df_tr,
-                                    "24 bits", num_bits=VW_WIDE_BITS)
+                                    "24 bits", eager=True,
+                                    num_bits=VW_WIDE_BITS)
     auc_c, auc_h = vw_auc(wcard, df_ho), vw_auc(wcpu, df_ho)
-    if abs(auc_c - auc_h) > 1e-4 or abs(auc_c - bayes) > 0.02:
-        raise AssertionError(f"vw (c): held-out AUC card {auc_c}, CPU "
-                             f"{auc_h}, Bayes {bayes}")
+    auc_e = vw_auc(wfit.pop("eager_model"), df_ho)
+    if abs(auc_c - auc_h) > 1e-4 or abs(auc_c - bayes) > 0.02 or \
+            abs(auc_c - auc_e) > 1e-4:
+        raise AssertionError(f"vw (c): held-out AUC card {auc_c}, eager "
+                             f"{auc_e}, CPU {auc_h}, Bayes {bayes}")
     wprof = vw_step_profile(dev, df_tr, VW_WIDE_BITS)
     rec["wide"] = {**wfit, "auc_card": auc_c, "auc_cpu": auc_h,
+                   "auc_eager": auc_e,
                    "state_bytes": 3 * 4 << VW_WIDE_BITS, "step": wprof}
     log(f"[vw] (c) the same fit at {VW_WIDE_BITS} bits "
         f"({1 << VW_WIDE_BITS:,} weights, {(3 * 4 << VW_WIDE_BITS) / 1e6:.0f}"
-        f" MB of state): card = CPU within {wfit['rel']:.2e} x max|w|; AUC "
-        f"card {auc_c:.5f}, CPU {auc_h:.5f}; step {wprof['device_ms_per_step']:.3f}"
-        f" ms device ({wprof['host_enqueue_ms_per_step']:.3f} ms host), "
+        f" MB of state): card = CPU within {wfit['rel']:.2e} x max|w|, "
+        f"replayed = eager within {wfit['replayed_vs_eager_rel']:.2e}; AUC "
+        f"card {auc_c:.5f} (eager {auc_e:.5f}), CPU {auc_h:.5f}; fit "
+        f"{wfit['card_fit_s']:.2f} s replayed, {wfit['eager_fit_s']:.2f} s "
+        f"eager; the step: {vw_step_line(wprof)}; "
         f"{wprof['step_bytes'] / 1e3:.0f} kB a step = "
-        f"{100 * wprof['hbm_share']:.3f}% of HBM bandwidth; peak device "
-        f"memory {wfit['peak_bytes'] / 1e6:.1f} MB")
+        f"{100 * wprof['replayed']['hbm_share']:.3f}% of HBM bandwidth "
+        f"replayed; peak device memory {wfit['peak_bytes'] / 1e6:.1f} MB")
     launches = CH.launch_counts()
     if any(launches.values()):
         raise AssertionError(f"vw: Hopper kernels launched {launches}")
@@ -5910,7 +6041,8 @@ def vw_phase(dev, smi: str):
     rec["seconds"] = time.perf_counter() - t_phase
     DETAIL["vw"] = rec
     log(f"[vw] launches of the repository's Hopper kernels in the VW phase: "
-        f"{launches} (VW runs no TPU kernel: its step is eager PyTorch)")
+        f"{launches} (VW runs no TPU kernel: its step is PyTorch, "
+        f"replayed as a CUDA graph)")
     return launches
 
 
@@ -5931,6 +6063,9 @@ W2V_SMALL = 2_000                                # card = CPU vectors
 W2V_HELD = 20_000                                # held out of W2V_TWEETS
 W2V_AUC_FLOOR = 0.60      # the port's CPU: 0.6229 (float), 0.6245 (quantized)
 W2V_PROFILE_STEPS = 50
+#: replayed vs eager at W2V_TWEETS, x max|v| (two eager fits differ by
+#: ~3e-4 there: tools/w2v_spread.py); 1e-4 holds at W2V_SMALL
+W2V_FULL_TOL = 1e-3
 TUNE_GRID = {"num_leaves": [15, 31], "learning_rate": [0.05, 0.1]}
 
 
@@ -6097,14 +6232,14 @@ def _w2v_class():
 
     class SyncCheckedWord2Vec(Word2Vec):
         def _epoch(self, ep, W_in, W_out, centers, contexts, cum, gen, K,
-                   lr):
+                   lr, block):
             self.last_epoch = (W_in.clone(), W_out.clone(), centers,
                                contexts, cum, K, lr)
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 super()._epoch(ep, W_in, W_out, centers, contexts, cum, gen,
-                               K, lr)
+                               K, lr, block)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
 
@@ -6112,60 +6247,71 @@ def _w2v_class():
 
 
 def w2v_step_profile(dev, est) -> dict:
-    """The SGD step alone over the first steps of the fit's last epoch
-    (its pairs, a draw of its negatives, its tables as the epoch began):
-    host enqueue ms a step beside device ms a step (CUDA events), and from
-    a ``torch.profiler`` window over 50 steps the device ops and busy ms a
-    step."""
+    """The SGD step over the first steps of the fit's last epoch (its
+    pairs, a draw of its negatives, its tables as the epoch began), eager
+    (``sgns_step`` a step) and replayed (``sgns_block``'s captured blocks
+    of ``BLOCK_STEPS``, the fit's program): host enqueue ms a step beside
+    device ms a step (CUDA events), and from a ``torch.profiler`` window
+    the device ops and busy ms a step of each."""
     from torch.profiler import ProfilerActivity, profile
-    from mmlspark_tpu_torch.featurize.word2vec import draw_negatives, \
-        sgns_step
+    from mmlspark_tpu_torch.featurize.word2vec import (BLOCK_STEPS,
+                                                       draw_negatives,
+                                                       sgns_block,
+                                                       sgns_step)
+    from mmlspark_tpu_torch.observability.compute import captured
     W_in, W_out, centers, contexts, cum, K, lr = est.last_epoch
-    S = min(len(centers), 400)
+    L = BLOCK_STEPS
+    S = min(len(centers), 400) // L * L
     B = centers.shape[1]
     cen = torch.from_numpy(centers[:S].astype(np.int64)).to(dev)
     ctx = torch.from_numpy(contexts[:S].astype(np.int64)).to(dev)
     negs = draw_negatives(cum, torch.rand((S, B, K), device=dev))
     ones_b = torch.ones(B, device=dev)
     ones_bk = torch.ones(B * K, device=dev)
-
-    def run(n):
-        for s in range(n):
-            sgns_step(W_in, W_out, cen[s], ctx[s], negs[s], lr, ones_b,
-                      ones_bk)
-
-    run(10)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    h0 = time.perf_counter()
-    start.record()
-    run(S)
-    end.record()
-    host_s = time.perf_counter() - h0
-    torch.cuda.synchronize()
-    dev_s = start.elapsed_time(end) / 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(W2V_PROFILE_STEPS)
-        torch.cuda.synchronize()
-    ops, busy_us = 0, 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            ops += evt.count
-            busy_us += evt.self_device_time_total
-    V, D = W_in.shape
+    block = captured(sgns_block, name="featurize.word2vec_block",
+                     donate_argnums=(0, 1), static_argnums=(5,))
+    tables = {"eager": (W_in.clone(), W_out.clone()),
+              "replayed": (W_in.clone(), W_out.clone())}
+    runs = {
+        "eager": (lambda s, t=tables["eager"]: sgns_step(
+            t[0], t[1], cen[s], ctx[s], negs[s], lr, ones_b, ones_bk),
+            [(s,) for s in range(S)], 1),
+        "replayed": (lambda s, t=tables["replayed"]: block(
+            t[0], t[1], cen[s:s + L], ctx[s:s + L], negs[s:s + L], lr),
+            [(s,) for s in range(0, S, L)], L)}
+    block(*tables["replayed"], cen[:L], ctx[:L], negs[:L], lr)  # capture
+    for s in range(10):
+        sgns_step(*tables["eager"], cen[s], ctx[s], negs[s], lr, ones_b,
+                  ones_bk)
+    out = {"steps": S, "batch": B, "vocab": int(W_in.shape[0]),
+           "width": int(W_in.shape[1]), "block_steps": L}
+    for mode, (fn, calls, per) in runs.items():
+        t = time_program(fn, calls)
+        n_prof = max(1, W2V_PROFILE_STEPS // per)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for args in calls[:n_prof]:
+                fn(*args)
+            torch.cuda.synchronize()
+        ops, busy_us = 0, 0.0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                ops += evt.count
+                busy_us += evt.self_device_time_total
+        steps = n_prof * per
+        out[mode] = {"host_enqueue_ms_per_step": t["host_enqueue_ms"] / per,
+                     "device_ms_per_step": t["device_ms"] / per,
+                     "steps_per_s": 1e3 * per / t["device_ms"],
+                     "device_ops_per_step": ops / steps,
+                     "device_busy_ms_per_step": busy_us / 1e3 / steps}
+    out["block_program"] = program_stats(block)
+    D = out["width"]
     # a step must read the B centre, B context and B*K negative rows and
     # write them back, and read its ids
     step_bytes = (B * (2 + K) * D * 4) * 2 + B * (2 + K) * 8
-    return {"steps": S, "batch": B, "vocab": V, "width": D,
-            "host_enqueue_ms_per_step": host_s / S * 1e3,
-            "device_ms_per_step": dev_s / S * 1e3,
-            "steps_per_s": S / dev_s,
-            "device_ops_per_step": ops / W2V_PROFILE_STEPS,
-            "device_busy_ms_per_step": busy_us / 1e3 / W2V_PROFILE_STEPS,
-            "step_bytes": float(step_bytes),
-            "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3}
+    out.update(step_bytes=float(step_bytes),
+               step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3)
+    return out
 
 
 def w2v_frame(n: int, seed: int):
@@ -6207,6 +6353,7 @@ def featurize_word2vec(dev) -> dict:
     from mmlspark_tpu_torch.lightgbm import LightGBMClassifier
     from mmlspark_tpu_torch.train import TrainClassifier
     from mmlspark_tpu_torch.train.metrics import _auc
+    from mmlspark_tpu_torch.featurize import word2vec as w2v_module
     SyncChecked = _w2v_class()
     rec = {}
     launches = {}
@@ -6218,20 +6365,57 @@ def featurize_word2vec(dev) -> dict:
     w2v = est.fit(df)
     fit_s = time.perf_counter() - t0
     st = w2v.fit_stats
+    # the same fit with the blocks eager: the same draws, so the vectors
+    # differ only by index_add_'s atomic order
+    with eager_plain_programs(w2v_module):
+        t0 = time.perf_counter()
+        w2v_eager = Word2Vec(**kw).fit(df)
+        eager_fit_s = time.perf_counter() - t0
+    est_e = w2v_eager.fit_stats
+    a = np.asarray(w2v.get("vectors"))
+    b = np.asarray(w2v_eager.get("vectors"))
+    dv, vmax = float(np.abs(a - b).max()), float(np.abs(b).max())
+    # index_add_'s atomic order compounds over the epoch's 17,465 steps:
+    # two eager fits differ by ~3e-4 x max|v| here (tools/w2v_spread.py),
+    # so this size is held to that order; the 1e-4 gate is below, at
+    # W2V_SMALL tweets, where the card is held to the CPU too
+    if w2v.get("vocab") != w2v_eager.get("vocab") or \
+            dv > W2V_FULL_TOL * vmax:
+        raise AssertionError(f"featurize (b): Word2Vec replayed vs eager "
+                             f"max |dv| {dv} > {W2V_FULL_TOL} x {vmax}")
+    if st["captures"] < 1 or st["replays"] < 1 or est_e["captures"]:
+        raise AssertionError(f"featurize (b): Word2Vec blocks captured "
+                             f"{st['captures']}, replayed {st['replays']}; "
+                             f"eager captured {est_e['captures']}")
+    del w2v_eager
     prof = w2v_step_profile(dev, est)
     rec["fit"] = {**st, "fit_s": fit_s, "pairs_per_s": st["pairs"] /
                   st["train_s"], "steps_per_s": st["steps"] / st["train_s"],
-                  "sync_debug": "error", "step": prof}
+                  "sync_debug": "error", "step": prof,
+                  "eager": {"fit_s": eager_fit_s, "train_s": est_e["train_s"],
+                            "pairs_per_s": est_e["pairs"] / est_e["train_s"]},
+                  "replayed_vs_eager_max_abs_dv": dv, "max_abs_v": vmax}
+    pe, pr = prof["eager"], prof["replayed"]
     log(f"[featurize] (b) Word2Vec() defaults on {W2V_TWEETS:,} tweets "
         f"(vocabulary {st['vocab']:,}, {st['pairs']:,} pairs, "
         f"{st['steps']:,} steps of {st['pairs'] // st['steps']}): host "
         f"pairs {st['pairs_s']:.2f} s, the epoch {st['train_s']:.2f} s "
-        f"under sync debug 'error' ({st['pairs'] / st['train_s']:,.0f} "
-        f"pairs/s, {st['steps'] / st['train_s']:,.0f} steps/s); a step: "
-        f"host enqueue {prof['host_enqueue_ms_per_step']:.3f} ms beside "
-        f"device {prof['device_ms_per_step']:.3f} ms (busy "
-        f"{prof['device_busy_ms_per_step']:.3f} ms in "
-        f"{prof['device_ops_per_step']:.1f} device ops)")
+        f"replayed under sync debug 'error' "
+        f"({st['pairs'] / st['train_s']:,.0f} pairs/s) against "
+        f"{est_e['train_s']:.2f} s eager "
+        f"({est_e['pairs'] / est_e['train_s']:,.0f} pairs/s); replayed = "
+        f"eager within {dv / vmax:.2e} x max|v|; blocks of "
+        f"{prof['block_steps']}: {st['captures']} captures "
+        f"({', '.join(f'{c:.3f}' for c in st['capture_s'])} s), "
+        f"{st['replays']} replays; a step eager: host enqueue "
+        f"{pe['host_enqueue_ms_per_step']:.4f} ms beside device "
+        f"{pe['device_ms_per_step']:.4f} ms (busy "
+        f"{pe['device_busy_ms_per_step']:.4f} ms in "
+        f"{pe['device_ops_per_step']:.1f} device ops); replayed: host "
+        f"{pr['host_enqueue_ms_per_step']:.4f} ms beside device "
+        f"{pr['device_ms_per_step']:.4f} ms (busy "
+        f"{pr['device_busy_ms_per_step']:.4f} ms in "
+        f"{pr['device_ops_per_step']:.1f} device ops)")
     del est
 
     # card = CPU on the same uniforms
@@ -6240,16 +6424,24 @@ def featurize_word2vec(dev) -> dict:
     S, B = probe["steps"], probe["pairs"] // probe["steps"]
     us = [np.random.default_rng(175).random((S, B, 5), dtype=np.float32)]
     card = Word2Vec(negative_uniforms=us, **kw).fit(small)
+    with eager_plain_programs(w2v_module):
+        card_eager = Word2Vec(negative_uniforms=us, **kw).fit(small)
     cpu = Word2Vec(negative_uniforms=us, device="cpu", **kw).fit(small)
     a, b = np.asarray(card.get("vectors")), np.asarray(cpu.get("vectors"))
+    c = np.asarray(card_eager.get("vectors"))
     dv, vmax = float(np.abs(a - b).max()), float(np.abs(b).max())
-    if card.get("vocab") != cpu.get("vocab") or dv > 1e-4 * vmax:
+    de = float(np.abs(a - c).max())
+    if card.get("vocab") != cpu.get("vocab") or dv > 1e-4 * vmax or \
+            de > 1e-4 * vmax or card.fit_stats["replays"] < 1:
         raise AssertionError(f"featurize (b): Word2Vec card vs CPU max |dv| "
-                             f"{dv} > 1e-4 x {vmax}")
+                             f"{dv}, replayed vs eager {de}, > 1e-4 x "
+                             f"{vmax}, or no replay")
     rec["card_vs_cpu"] = {"tweets": W2V_SMALL, "max_abs_dv": dv,
-                          "max_abs_v": vmax, "rel": dv / vmax}
-    log(f"[featurize] (b) Word2Vec card = CPU on {W2V_SMALL:,} tweets with "
-        f"the same uniforms: max |dv| {dv:.2e} = {dv / vmax:.2e} x max|v|")
+                          "max_abs_v": vmax, "rel": dv / vmax,
+                          "replayed_vs_eager_rel": de / vmax}
+    log(f"[featurize] (b) Word2Vec on {W2V_SMALL:,} tweets with the same "
+        f"uniforms: card = CPU within {dv / vmax:.2e} x max|v|, replayed = "
+        f"eager within {de / vmax:.2e} x max|v|")
 
     # downstream: TrainClassifier on the document vectors
     vec_df = doc_vectors(w2v, df, y)
@@ -6741,6 +6933,43 @@ def recorded(cls, **kw):
     return exp
 
 
+LASSO_TIMED_CALLS = 20
+
+
+def lasso_replayed_vs_eager(rows_seen, alpha: float, what: str) -> dict:
+    """Each recorded surrogate fit's lasso again with the ISTA loop eager
+    (``eager_plain_programs``): its coefficients and intercept = the
+    replayed ones the explainer kept, bit for bit; then the last row's
+    lasso timed ``LASSO_TIMED_CALLS`` times each way (``lasso_regression``
+    reads its answer back, so a call's wall is its latency)."""
+    from mmlspark_tpu_torch.explainers import lasso_regression, regression
+    prog = regression._ISTA
+    for i, row in enumerate(rows_seen):
+        with eager_plain_programs():
+            coefs, b = lasso_regression(row["mask"], row["scores"],
+                                        row["weights"], alpha=alpha)
+        if not np.array_equal(coefs, row["coefs"]) or b != row["intercept"]:
+            raise AssertionError(f"{what}: row {i}'s replayed lasso differs "
+                                 f"from the eager loop")
+    last = rows_seen[-1]
+    args = (last["mask"], last["scores"], last["weights"])
+    walls = {}
+    for mode, ctx in (("replayed", contextlib.nullcontext),
+                      ("eager", eager_plain_programs)):
+        with ctx():
+            lasso_regression(*args, alpha=alpha)
+            t0 = time.perf_counter()
+            for _ in range(LASSO_TIMED_CALLS):
+                lasso_regression(*args, alpha=alpha)
+            walls[mode] = (time.perf_counter() - t0) / LASSO_TIMED_CALLS
+    return {"rows_bit_identical": len(rows_seen),
+            "replayed_ms_per_call": walls["replayed"] * 1e3,
+            "eager_ms_per_call": walls["eager"] * 1e3,
+            "samples": int(len(last["scores"])),
+            "features": int(np.asarray(last["mask"]).shape[1]),
+            "program": program_stats(prog)}
+
+
 def explain_tabular(dev) -> dict:
     """(a) ``TabularSHAP`` (5,000 samples, 100 background rows) and
     ``TabularLIME`` (defaults) over ``LightGBMClassifier()`` fitted on the
@@ -6818,6 +7047,9 @@ def explain_tabular(dev) -> dict:
             if not np.array_equal(out["w"][i], a["coefs"]):
                 raise AssertionError(f"explain (a) {kind}: output column")
         n_samples = len(card[0]["scores"])
+        if kind == "lime":
+            rec["lasso"] = lasso_replayed_vs_eager(
+                card, exp.get("regularization"), "explain (a) lime")
         rec[kind] = {"samples_per_row": n_samples, "card_s": card_s,
                      "cpu_s": cpu_s, "max_abs_dscore": d_score,
                      "max_abs_dcoef": d_coef, "coef_tolerance": tol,
@@ -6834,7 +7066,12 @@ def explain_tabular(dev) -> dict:
                if kind == "shap" else "")
             + f"; {card_s:.2f} s on the card "
             f"({EXPLAIN_ROWS * n_samples / card_s:,.0f} samples/s), "
-            f"{cpu_s:.2f} s on the CPU")
+            f"{cpu_s:.2f} s on the CPU"
+            + (f"; the lasso replayed (one graph of 200 ISTA steps) = "
+               f"eager bit for bit on every row, "
+               f"{rec['lasso']['replayed_ms_per_call']:.3f} ms a call "
+               f"replayed against {rec['lasso']['eager_ms_per_call']:.3f} "
+               f"ms eager" if kind == "lime" else ""))
     return rec
 
 
@@ -6931,12 +7168,15 @@ def explain_image(dev) -> dict:
     if d_coef > LASSO_TOL:
         raise AssertionError(f"explain (b): lasso card vs CPU {d_coef} x "
                              f"max|coef| > {LASSO_TOL}")
+    lasso = lasso_replayed_vs_eager(exp.rows_seen, IMAGE_LIME_ALPHA,
+                                    "explain (b)")
     n = IMAGE_LIME_IMAGES * IMAGE_LIME_SAMPLES
     rec = {"images": IMAGE_LIME_IMAGES, "samples": IMAGE_LIME_SAMPLES,
            "superpixels": segs, "explain_s": explain_s,
            "samples_per_s": n / explain_s,
            "model_samples_per_s": IMAGE_LIME_SAMPLES / score_s,
            "lasso_rel_err": d_coef, "nonzero_coefs": nonzero,
+           "lasso": lasso,
            "alpha": IMAGE_LIME_ALPHA, "r2": [float(v) for v in out["r2"]]}
     log(f"[explain] (b) ImageLIME ({IMAGE_LIME_SAMPLES} samples) over the "
         f"seeded ResNet-50 (float32, JaxModel) on {IMAGE_LIME_IMAGES} "
@@ -6945,7 +7185,10 @@ def explain_image(dev) -> dict:
         f"end ({IMAGE_LIME_SAMPLES / score_s:,.0f}/s through the model "
         f"alone); alpha {IMAGE_LIME_ALPHA}: {nonzero} nonzero coefficients, "
         f"r2 {[round(float(v), 4) for v in out['r2']]}; the lasso card vs "
-        f"CPU on the same inputs within {d_coef:.1e} x max|coef|")
+        f"CPU on the same inputs within {d_coef:.1e} x max|coef|, replayed "
+        f"= eager bit for bit, {lasso['replayed_ms_per_call']:.3f} ms a "
+        f"call replayed against {lasso['eager_ms_per_call']:.3f} ms eager "
+        f"({lasso['features']} superpixels x {lasso['samples']} samples)")
     return rec
 
 
@@ -7166,6 +7409,9 @@ def explain_speech(dev) -> dict:
     from mmlspark_tpu_torch.io.audio import log_mel
     from mmlspark_tpu_torch.serving import PipelineServer
     rec_card = StreamingRecognizer(chunk_s=SPEECH_CHUNK_S, seed=182)
+    rec_eager = StreamingRecognizer(chunk_s=SPEECH_CHUNK_S, seed=182)
+    rec_eager._program = eager_captured(rec_eager._encode,
+                                        inplace_argnums=(0,))
     rec_cpu = StreamingRecognizer(chunk_s=SPEECH_CHUNK_S, device="cpu")
     rec_cpu.variables = rec_card.variables
     clips = [utterance(183 + i, SPEECH_S) for i in range(SPEECH_UTTERANCES)]
@@ -7173,42 +7419,61 @@ def explain_speech(dev) -> dict:
     for i, c in enumerate(clips):
         col[i] = c
     df = DataFrame.from_dict({"audio": col})
-    steps = {"card": [], "cpu": []}
+    steps = {"card": [], "eager": [], "cpu": []}
 
     def tap(rec, key, events=False):
-        """Keep each step's logits; on the card, time it with events.
-        Returns the untapped step."""
-        inner = rec._apply
+        """Keep each step's logits (read after the step's program, never
+        inside it: a capture refuses a sync); on the card, time the
+        program with events.  Returns the untapped program."""
+        inner = rec._program
 
-        def apply(v, c, f):
+        def program(v, c, f):
             if events:
                 a, b = torch.cuda.Event(enable_timing=True), \
                     torch.cuda.Event(enable_timing=True)
                 a.record()
-            c2, logits = inner(v, c, f)
+            out = inner(v, c, f)
             if events:
                 b.record()
-            steps[key].append((logits[0].float().cpu().numpy(),
+            steps[key].append((out[1][0].float().cpu().numpy(),
                                (a, b) if events else None))
-            return c2, logits
-        rec._apply = apply
+            return out
+        rec._program = program
         return inner
 
     untapped = tap(rec_card, "card", events=True)
+    tap(rec_eager, "eager", events=True)
     tap(rec_cpu, "cpu")
-    stt = SpeechToTextSDK(input_col="audio", output_col="ev",
-                          audio_format="pcm", chunk_s=SPEECH_CHUNK_S)
-    stt.set("recognizer", rec_card)
-    stt.transform(DataFrame.from_dict({"audio": col[:1]})).collect()
-    steps["card"].clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = stt.transform(df).collect()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    walls = {}
+    for key, rec_k in (("card", rec_card), ("eager", rec_eager)):
+        stt_k = SpeechToTextSDK(input_col="audio", output_col="ev",
+                                audio_format="pcm", chunk_s=SPEECH_CHUNK_S)
+        stt_k.set("recognizer", rec_k)
+        stt_k.transform(DataFrame.from_dict({"audio": col[:1]})).collect()
+        steps[key].clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_k = stt_k.transform(df).collect()
+        torch.cuda.synchronize()
+        walls[key] = time.perf_counter() - t0
+        if key == "card":
+            stt, out = stt_k, out_k
+        else:
+            out_eager = out_k
+    wall = walls["card"]
     n_steps = len(steps["card"])
     device_ms = [a.elapsed_time(b) for _, (a, b) in steps["card"]]
+    eager_ms = [a.elapsed_time(b) for _, (a, b) in steps["eager"]]
     host_ms = wall * 1e3 / n_steps
+    if len(steps["eager"]) != n_steps or any(
+            not np.array_equal(a, b) for (a, _), (b, _) in
+            zip(steps["card"], steps["eager"])) or \
+            list(out["ev_text"]) != list(out_eager["ev_text"]):
+        raise AssertionError("explain (d): replayed logits differ from the "
+                             "eager step's")
+    speech_prog = program_stats(untapped)
+    if speech_prog["captures"] < 1 or speech_prog["replays"] < n_steps - 3:
+        raise AssertionError(f"explain (d): the step program {speech_prog}")
     stt_cpu = SpeechToTextSDK(input_col="audio", output_col="ev",
                               audio_format="pcm", chunk_s=SPEECH_CHUNK_S)
     stt_cpu.set("recognizer", rec_cpu)
@@ -7264,7 +7529,7 @@ def explain_speech(dev) -> dict:
     if turns["card"] != turns["cpu"] or len(set(turns["card"])) < 2:
         raise AssertionError(f"explain (d): speaker turns {turns}")
     # 16 concurrent sessions through PipelineServer
-    rec_card._apply = untapped
+    rec_card._program = untapped
     model = SpeechServingModel(rec_card)
     srv = PipelineServer(model, port=0, mode="continuous").start()
     n_sess = int(SPEECH_SESSION_S * 16000)
@@ -7316,6 +7581,10 @@ def explain_speech(dev) -> dict:
            "audio_s_per_s": SPEECH_UTTERANCES * SPEECH_S / wall,
            "host_ms_per_chunk": host_ms,
            "device_ms_per_chunk": float(np.mean(device_ms)),
+           "eager_wall_s": walls["eager"],
+           "eager_host_ms_per_chunk": walls["eager"] * 1e3 / n_steps,
+           "eager_device_ms_per_chunk": float(np.mean(eager_ms)),
+           "replayed_logits_equal_eager": True, "program": speech_prog,
            "near_ties_cpu": ties, "texts_differing_cpu": int(differ),
            "near_ties_stream": stream_ties, "speakers": sorted(set(
                turns["card"])), "sessions": SPEECH_SESSIONS,
@@ -7326,8 +7595,13 @@ def explain_speech(dev) -> dict:
         f"{SPEECH_S:.0f} s at 16 kHz in {SPEECH_CHUNK_S} s chunks: "
         f"{n_steps:,} steps in {wall:.2f} s ({n_steps / wall:,.0f} "
         f"chunks/s, {SPEECH_UTTERANCES * SPEECH_S / wall:,.0f} s of audio "
-        f"a second); per chunk: host {host_ms:.3f} ms wall beside device "
-        f"{np.mean(device_ms):.3f} ms (the 2-layer LSTM + head); card = "
+        f"a second); per chunk replayed: host {host_ms:.3f} ms wall beside "
+        f"device {np.mean(device_ms):.3f} ms (the 2-layer LSTM, head and "
+        f"argmax as one captured program: {speech_prog['captures']} "
+        f"captures, {speech_prog['replays']} replays); eager: host "
+        f"{walls['eager'] * 1e3 / n_steps:.3f} ms beside device "
+        f"{np.mean(eager_ms):.3f} ms; replayed logits = eager bit for bit; "
+        f"card = "
         f"CPU text ({ties} near-tie frames, {differ} texts differ), "
         f"streamed = one full pass ({stream_ties} near-tie frames); "
         f"speaker turns card = CPU ({sorted(set(turns['card']))}); "
@@ -8066,6 +8340,43 @@ def _par_trainer(mesh, model_file: str):
                    softmax_cross_entropy, mesh=mesh, has_batch_stats=True)
 
 
+def _same_state(a, b) -> bool:
+    """Two whole host states equal bit for bit (params, optimizer state,
+    batch statistics, step)."""
+    from mmlspark_tpu_torch.parallel.partition import tree_leaves_with_path
+    for x, y in ((a.params, b.params), (a.opt_state, b.opt_state),
+                 (a.batch_stats or {}, b.batch_stats or {})):
+        fx, fy = dict(tree_leaves_with_path(x)), dict(tree_leaves_with_path(y))
+        if fx.keys() != fy.keys() or not all(
+                np.array_equal(np.asarray(fx[k]), np.asarray(fy[k]))
+                for k in fx):
+            return False
+    return int(a.step) == int(b.step)
+
+
+def _orbax_round_trip(tr, state, full, mesh, model_file: str,
+                      path: str) -> dict:
+    """Every rank: ``state`` saved with ``backend="orbax"``
+    (``torch.distributed.checkpoint``, host copies gathered whole) and
+    restored into a fresh trainer's template, equal to ``full`` (its whole
+    state) bit for bit; save and load seconds."""
+    from mmlspark_tpu_torch.parallel.checkpoint import (load_train_state,
+                                                        save_train_state)
+    t0 = time.perf_counter()
+    save_train_state(state, path, backend="orbax", trainer=tr)
+    save_s = time.perf_counter() - t0
+    tr_o = _par_trainer(mesh, model_file)
+    template = tr_o.init_state()
+    t0 = time.perf_counter()
+    back = load_train_state(path, trainer=tr_o, template=template)
+    load_s = time.perf_counter() - t0
+    equal = _same_state(full, tr_o.full_state(back))
+    del tr_o, back, template
+    return {"save_s": save_s, "load_s": load_s, "equal": equal,
+            "bytes": sum(os.path.getsize(os.path.join(path, "orbax", f))
+                         for f in os.listdir(os.path.join(path, "orbax")))}
+
+
 def parallel_trainer_rank(ckpt_dir: str, width: int,
                           model_file: str) -> dict:
     """Leg (b), one rank: ResNet-50 at full width trained data-parallel
@@ -8118,6 +8429,8 @@ def parallel_trainer_rank(ckpt_dir: str, width: int,
                    tr.module.parameters())
     out["grad_bytes_per_step"] = 4 * (n_params + 1)
     full = tr.full_state(st_full)
+    out["orbax"] = _orbax_round_trip(tr, st_full, full, mesh, model_file,
+                                     os.path.join(ckpt_dir, "orbax"))
     del tr, st_full
     _, _, out["preempted"] = run(
         "preempted", _par_batches(PAR_TRAIN_STEPS, width), part_dir,
@@ -8546,6 +8859,21 @@ def _leg_trainer(w, dev, width: int, files: dict, ckpt: str,
     _held("(b)", stats1["resharded"] == 1.0 and p_err <= 1e-4 and
           l_err <= 1e-4, f"world-1 resume: params rel err {p_err}, losses "
           f"rel err {l_err}, {stats1}")
+    # backend="orbax": the ranks' round trip, then its restore at world 1
+    from mmlspark_tpu_torch.parallel.checkpoint import load_train_state
+    _held("(b)", all(r["orbax"]["equal"] for r in ranks),
+          "orbax round trip on the ranks differs")
+    del tr1, st0, st1
+    tr_o = _par_trainer(make_mesh({"data": 1}, device=dev), files["resnet50"])
+    t2 = time.perf_counter()
+    st_o = load_train_state(os.path.join(ckpt, "orbax"), trainer=tr_o,
+                            template=tr_o.init_state())
+    orbax1_s = time.perf_counter() - t2
+    got = dict(tree_leaves_with_path(tr_o.full_state(st_o).params))
+    _held("(b)", got.keys() == ref.keys() and all(
+        np.array_equal(got[k], ref[k]) for k in ref),
+        "orbax checkpoint of the ranks restored at world 1 differs")
+    del tr_o, st_o, got
     ar = full0["routes"].get("all_reduce/sum", {})
     emit({"leg": "b", "seconds": b_s, "ok": True,
           "step_s_median": float(np.median(full0["step_s"])),
@@ -8557,6 +8885,8 @@ def _leg_trainer(w, dev, width: int, files: dict, ckpt: str,
           "world1_ckpt_write_s": _ckpt_save_s() - ckpt0,
           "world1_param_rel_err": p_err,
           "world1_loss_rel_err": l_err, "losses": full0["losses"],
+          "orbax": {"ranks": [r["orbax"] for r in ranks],
+                    "world1_load_s": orbax1_s},
           "launches": _sum_counts(ranks)})
     return _sum_counts(ranks)
 
@@ -8691,11 +9021,28 @@ def analysis_phase(smi: str):
     return launches
 
 
+#: the seconds a phase that holds captured programs to their eager runs
+#: is given, stated before it runs (each runs its eager baseline beside
+#: its replayed path)
+PHASE_BUDGET_S = {"vw": 120.0, "featurize": 125.0, "explain": 110.0,
+                  "parallel": 95.0}
+
+
+def phase_start(name: str) -> float:
+    """State a budgeted phase's budget; returns its start time."""
+    if name in PHASE_BUDGET_S:
+        log(f"[{name}] budget {PHASE_BUDGET_S[name]:.0f} s")
+    return time.perf_counter()
+
+
 def phase_done(name: str, t0: float) -> None:
-    """Log a phase's seconds and keep them in the details."""
+    """Log a phase's seconds (against its budget, where it has one) and
+    keep them in the details."""
     seconds = time.perf_counter() - t0
     DETAIL.setdefault("phase_s", {})[name] = seconds
-    log(f"[{name}] phase done in {seconds:.1f} s")
+    budget = PHASE_BUDGET_S.get(name)
+    log(f"[{name}] phase done in {seconds:.1f} s"
+        + (f" (budget {budget:.0f} s)" if budget else ""))
 
 
 def main() -> int:
@@ -8815,12 +9162,12 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_done("backends", t0)
 
-    t0 = time.perf_counter()
+    t0 = phase_start("vw")
     vw_launches = vw_phase(dev, smi)
     torch.cuda.synchronize()
     phase_done("vw", t0)
 
-    t0 = time.perf_counter()
+    t0 = phase_start("featurize")
     featurize_launches = featurize_phase(dev, smi)
     torch.cuda.synchronize()
     phase_done("featurize", t0)
@@ -8830,7 +9177,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_done("neighbours", t0)
 
-    t0 = time.perf_counter()
+    t0 = phase_start("explain")
     explain_launches = explain_phase(dev, smi)
     torch.cuda.synchronize()
     phase_done("explain", t0)
@@ -8845,7 +9192,7 @@ def main() -> int:
     torch.cuda.synchronize()
     phase_done("sharded", t0)
 
-    t0 = time.perf_counter()
+    t0 = phase_start("parallel")
     parallel_launches = parallel_phase(dev, smi)
     torch.cuda.synchronize()
     phase_done("parallel", t0)

@@ -44,6 +44,9 @@ _TRACE_ROOTS = {
     "InstrumentedJit", "compute.InstrumentedJit",
     "observability.compute.InstrumentedJit",
     "mmlspark_tpu_torch.observability.compute.InstrumentedJit",
+    # its unbooked twin of a plain jax.jit, captured the same way
+    "captured", "compute.captured", "observability.compute.captured",
+    "mmlspark_tpu_torch.observability.compute.captured",
 }
 
 #: transforms that call their function on batched or gradient-tracking
@@ -171,13 +174,20 @@ class TracerSafetyChecker(Checker):
     }
 
     SCOPE_DIRS = ("parallel/", "ops/", "models/", "lightgbm/")
+    #: the port's own package only: the directories whose programs it
+    #: captures beyond the reference's scope (the reference runs them as
+    #: plain ``jax.jit``), so the checkers run on the JAX package keep its
+    #: findings
+    PORT_SCOPE_DIRS = ("featurize/", "vw/", "cognitive/", "explainers/")
 
     def __init__(self):
         #: relpath -> _ModRecord, consumed by the finalize cross-module BFS
         self._records: Dict[str, _ModRecord] = {}
 
     def interested(self, relpath: str) -> bool:
-        return any(f"/{d}" in f"/{relpath}" for d in self.SCOPE_DIRS)
+        path = f"/{relpath}"
+        return any(f"/{d}" in path for d in self.SCOPE_DIRS) or any(
+            f"/{PACKAGE}/{d}" in path for d in self.PORT_SCOPE_DIRS)
 
     def begin_module(self, ctx: ModuleContext) -> None:
         ctx._trc_functions: Dict[str, _FnInfo] = {}

@@ -26,6 +26,15 @@ INFERENCE through a PyTorch acoustic model on the card:
   cosine-matching chunk feature centroids ("Guest-N" ids, the SDK's
   conversation semantics).
 
+A chunk's step (the encoder from the carry, the head and the per-frame
+argmax) is one program on either route (``StreamingRecognizer._encode``
+through ``observability.compute.captured``, the twin of the JAX package's
+plain ``jax.jit`` of its apply): on the card a CUDA graph per chunk length
+(the first chunk, later chunks with their lookback, a flush), captured
+once per recognizer and replayed by every session it serves; the host
+reads the ids afterwards and the CTC stays on the host.  On the CPU the
+step runs eagerly.
+
 An ``apply_fn(variables, carry, feats)`` with ``hidden_shapes`` replaces
 the encoder (an imported ONNX LSTM, ``dl/onnx_import.py``); the JAX
 package's encoder variables drive the port's encoder through
@@ -52,6 +61,7 @@ from .._device import DeviceLike, float32_exact, resolve_device
 from ..core import ComplexParam, DataFrame, HasInputCol, HasOutputCol, Param, Transformer
 from ..core.schema import ColumnType
 from ..io.audio import BlockingQueueIterator, audio_stream, log_mel
+from ..observability.compute import captured
 
 DEFAULT_ALPHABET = "_abcdefghijklmnopqrstuvwxyz '"  # index 0 = CTC blank
 
@@ -158,6 +168,35 @@ class StreamingRecognizer:
                 [self.module.hidden_size] * self.module.layers
             if variables is not None:
                 self.variables = variables
+            # cuDNN reads the LSTM's weights from one buffer: made once,
+            # before any capture (a graph reads the weights where they lie)
+            for m in self.module.modules():
+                if isinstance(m, nn.RNNBase):
+                    m.flatten_parameters()
+        self._program = self._make_program()
+
+    def _make_program(self):
+        """The chunk step as one program; its variables are read in
+        place."""
+        return captured(self._encode, name="cognitive.speech_step",
+                        inplace_argnums=(0,))
+
+    def __getstate__(self):
+        """Pickled and copied without its program (its locks and captured
+        graphs): the copy builds its own."""
+        state = dict(self.__dict__)
+        del state["_program"]
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._program = self._make_program()
+
+    def _encode(self, variables, carry, feats: torch.Tensor):
+        """The encoder from ``carry`` on one chunk's ``(1, T, n_mels)``
+        features -> (carry, logits, the per-frame argmax ids)."""
+        carry, logits = self._apply(variables, carry, feats)
+        return carry, logits, logits[0].argmax(dim=-1)
 
     def _placed(self, variables):
         """A dict of arrays -> the same keys as tensors on the device, moved
@@ -236,9 +275,9 @@ class StreamingRecognizer:
         x = torch.from_numpy(np.ascontiguousarray(feats[None], np.float32))
         with torch.inference_mode(), \
                 float32_exact(self.device.type == "cuda"):
-            state.carry, logits = self._apply(self._variables, state.carry,
-                                              x.to(self.device))
-            ids = logits[0].argmax(dim=-1).cpu().numpy()
+            state.carry, _, ids = self._program(
+                self._variables, state.carry, x.to(self.device))
+            ids = ids.cpu().numpy()
         self._ctc_append(state, ids)
         state.frames_seen += feats.shape[0]
 

@@ -6,9 +6,14 @@ Reference: ``explainers/`` breeze-based ``LassoRegression`` /
 the host in float64, copied verbatim, and the ISTA lasso in float32 on a
 ``device``: the weighted centring, the normal matrix ``A``, ``b``, the
 ``trace(A)`` Lipschitz bound, ``iters`` proximal steps and the intercept,
-as the JAX package's jitted loop computes them.  The loop is plain tensor
-ops and never waits for the device inside it; the coefficients come back
-once, at the end.
+as the JAX package's jitted loop computes them.  The loop never waits for
+the device inside it; the coefficients come back once, at the end.
+
+The loop is one program (``_ISTA``, the twin of the JAX package's plain
+``jax.jit`` of its ``fori_loop``, built once at module level so that every
+explained row replays it): on the card all ``iters`` steps are one
+captured CUDA graph per (d, iters, card), ``alpha`` a staged scalar (a
+new ``alpha`` is not a new graph); on the CPU it runs eagerly.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, float32_exact, resolve_device
+from ..observability.compute import captured
 
 
 def weighted_least_squares(X: np.ndarray, y: np.ndarray, w: np.ndarray,
@@ -46,17 +52,25 @@ def weighted_least_squares(X: np.ndarray, y: np.ndarray, w: np.ndarray,
     return beta, 0.0
 
 
-def _ista(A: torch.Tensor, b: torch.Tensor, L: torch.Tensor, alpha: float,
+def _ista(A: torch.Tensor, b: torch.Tensor, L: torch.Tensor, alpha,
           iters: int) -> torch.Tensor:
     """``iters`` proximal-gradient steps from zero for ``0.5 beta'A beta -
     b'beta + alpha |beta|_1`` at step ``1/L``: plain tensor ops on the
-    device of ``A``, nothing waiting for it."""
+    device of ``A``, nothing waiting for it.  ``alpha`` is a float or the
+    0-d float32 tensor a replay stages; both divide as tensors, so the
+    eager and the replayed loop agree bit for bit."""
+    if not isinstance(alpha, torch.Tensor):
+        alpha = torch.full_like(L, alpha)
     shrink = alpha / L
     beta = torch.zeros_like(b)
     for _ in range(iters):
         z = beta - (A @ beta - b) / L
         beta = torch.sign(z) * torch.clamp_min(z.abs() - shrink, 0.0)
     return beta
+
+
+#: the loop as one program, keyed on (d, iters, device) by its signature
+_ISTA = captured(_ista, name="explainers.lasso_ista", static_argnums=(4,))
 
 
 def lasso_regression(X: np.ndarray, y: np.ndarray, w: np.ndarray,
@@ -86,7 +100,7 @@ def lasso_regression(X: np.ndarray, y: np.ndarray, w: np.ndarray,
         A = WXc.T @ Xc
         b = WXc.T @ yc
         L = torch.clamp_min(torch.trace(A), 1e-9)   # Lipschitz upper bound
-        beta = _ista(A, b, L, alpha, iters)
+        beta = _ISTA(A, b, L, float(alpha), int(iters))
         intercept = y_mean - x_mean @ beta
         beta_h, intercept_h = beta.cpu().numpy(), float(intercept.cpu())
     return beta_h, (intercept_h if fit_intercept else 0.0)

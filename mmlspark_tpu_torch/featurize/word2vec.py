@@ -9,12 +9,20 @@ The host part is the JAX package's, call for call on numpy's generator:
 tokens, the frequency-capped vocabulary, the (center, context) pairs with
 word2vec's dynamic window, the unigram^0.75 negative table, the initial
 ``W_in`` drawn after the pairs and each epoch's ``rng.permutation``.  The
-JAX package then runs an epoch as one jitted ``lax.scan``; here each step
-runs eagerly on the model's ``device`` (``sgns_step``), and nothing inside
-an epoch waits for the card: the permuted pairs and the epoch's negatives
-go to the device once per epoch, and the steps index them with Python
-ints.  Each epoch is a ``torch.profiler`` range,
-``featurize.word2vec_epoch``.
+JAX package runs an epoch as one ``instrumented_jit`` program,
+``featurize.word2vec_epoch`` (a ``lax.scan`` of the steps), built anew in
+each fit; the port books an epoch under the same name and signature
+count (an ``instrumented_call`` built anew in each fit, so two same-shape
+fits book twice, as the reference's do) and runs its steps in blocks of
+``BLOCK_STEPS`` (``sgns_block``): one unbooked program
+(``observability.compute.captured``) per fit, which on the card captures
+a block once per length, with ``W_in``/``W_out`` donated, and replays it
+over the epoch's slices (the remainder is a capture of its own length);
+on the CPU the blocks run eagerly.  Nothing inside an epoch waits for the
+card: the permuted pairs and the epoch's negatives go to the device once
+per epoch, the negatives are drawn before any block (a generator draw is
+never inside a graph), and ``W_in`` comes back once, after the last
+epoch.  Each epoch is also a ``torch.profiler`` range of its name.
 
 Negatives are drawn as ``jax.random.choice(..., p=)`` draws them
 (``searchsorted(cumsum(p), cumsum(p)[-1] * (1 - u))``, left side, float32),
@@ -26,7 +34,8 @@ float32 in XLA's blocked order (``cumsum_blocked``), so every device
 draws the index JAX draws from the same uniform.
 
 ``index_add_`` on a CUDA device adds in atomic order: a card fit equals a
-CPU fit within a tolerance, never bit for bit.
+CPU fit within a tolerance, never bit for bit, and a replayed fit equals
+an eager one within a tolerance too.
 
 ``Word2VecModel.transform`` averages word vectors per document (exactly
 MLlib's document-embedding semantics); ``find_synonyms`` does a cosine
@@ -41,6 +50,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..observability.compute import (captured, device_put,
+                                     instrumented_call)
 from ..core import (DataFrame, Estimator, HasInputCol, HasOutputCol, Model,
                     Param)
 from ..core.schema import vector_column
@@ -135,6 +146,22 @@ def sgns_step(W_in: torch.Tensor, W_out: torch.Tensor, c_ids: torch.Tensor,
                      -lr * d_vn.reshape(-1, D) / cnt_out[negs_f][:, None])
 
 
+#: SGD steps a captured block runs (the last block of an epoch runs the
+#: remainder): a replay enqueues the block's ~30 kernels a step at once
+BLOCK_STEPS = 32
+
+
+def sgns_block(W_in: torch.Tensor, W_out: torch.Tensor, cen: torch.Tensor,
+               ctx: torch.Tensor, negs: torch.Tensor, lr: float) -> None:
+    """``len(cen)`` SGD steps in place, step ``s`` on ``cen[s]``,
+    ``ctx[s]`` and ``negs[s]`` (``(L, B)``, ``(L, B)``, ``(L, B, K)``)."""
+    L, B, K = negs.shape
+    ones_b = torch.ones(B, dtype=W_in.dtype, device=W_in.device)
+    ones_bk = torch.ones(B * K, dtype=W_in.dtype, device=W_in.device)
+    for s in range(L):
+        sgns_step(W_in, W_out, cen[s], ctx[s], negs[s], lr, ones_b, ones_bk)
+
+
 class Word2Vec(Estimator, _W2VParams):
     """Fit skip-gram/negative-sampling embeddings over a text (or
     pre-tokenized list) column."""
@@ -200,11 +227,17 @@ class Word2Vec(Estimator, _W2VParams):
         W_out = torch.zeros((V, D), dtype=torch.float32, device=dev)
         cum = torch.from_numpy(cumsum_blocked(neg_table)).to(dev)
         gen = torch.Generator(device=dev)
+        # the reference's wrapper is built per fit, so is the port's: both
+        # book one compile per fit and shape, and leave the report after it
+        epoch = instrumented_call(self._epoch,
+                                  name="featurize.word2vec_epoch")
+        block = captured(sgns_block, name="featurize.word2vec_block",
+                         donate_argnums=(0, 1), static_argnums=(5,))
         t_train = time.perf_counter()
         for ep in range(self.get("max_iter")):
             perm = rng.permutation(n_pairs)[:used]
-            self._epoch(ep, W_in, W_out, centers[perm].reshape(-1, B),
-                        contexts[perm].reshape(-1, B), cum, gen, K, lr)
+            epoch(ep, W_in, W_out, centers[perm].reshape(-1, B),
+                  contexts[perm].reshape(-1, B), cum, gen, K, lr, block)
         vectors = W_in.cpu().numpy()
         train_s = time.perf_counter() - t_train
 
@@ -213,22 +246,27 @@ class Word2Vec(Estimator, _W2VParams):
         m.set("vocab", list(vocab))
         m.set("vectors", vectors.tolist())
         #: host seconds to the pairs, seconds of training (the epochs and the
-        #: table's copy back), pairs and steps of each epoch
+        #: table's copy back), pairs and steps of each epoch; the block
+        #: program's captures, re-captures, replays and capture seconds
+        snap = block.snapshot()
         m.fit_stats = {"pairs_s": pairs_s, "train_s": train_s,
                        "pairs": used, "steps": steps_per_epoch,
-                       "epochs": int(self.get("max_iter")), "vocab": V}
+                       "epochs": int(self.get("max_iter")), "vocab": V,
+                       "captures": snap["captures"],
+                       "recaptures": snap["recaptures"],
+                       "replays": snap["replays"],
+                       "capture_s": [c for c in snap["capture_seconds"]
+                                     if c is not None]}
         return m
-
 
     def _epoch(self, ep: int, W_in: torch.Tensor, W_out: torch.Tensor,
                centers: np.ndarray, contexts: np.ndarray, cum: torch.Tensor,
-               gen: torch.Generator, K: int, lr: float) -> None:
+               gen: torch.Generator, K: int, lr: float, block) -> None:
         """One epoch over the permuted ``(steps, batch)`` pairs, in place on
         the tables' device.  Nothing here waits for the card: the pairs
         (and given uniforms) go over in one non-blocking copy each, the
-        negatives are drawn for the whole epoch at once, and the steps
-        index them with Python ints."""
-        from ..observability.compute import device_put
+        negatives are drawn for the whole epoch at once, then ``block``
+        runs the steps ``BLOCK_STEPS`` at a time."""
         dev = W_in.device
         S, B = centers.shape
         with torch.profiler.record_function("featurize.word2vec_epoch"):
@@ -246,11 +284,9 @@ class Word2Vec(Estimator, _W2VParams):
                 u = torch.rand((S, B, K), generator=gen, device=dev)
             negs = draw_negatives(cum, u)
             del u
-            ones_b = torch.ones(B, dtype=torch.float32, device=dev)
-            ones_bk = torch.ones(B * K, dtype=torch.float32, device=dev)
-            for s in range(S):
-                sgns_step(W_in, W_out, cen[s], ctx[s], negs[s], lr, ones_b,
-                          ones_bk)
+            for s0 in range(0, S, BLOCK_STEPS):
+                s1 = min(s0 + BLOCK_STEPS, S)
+                block(W_in, W_out, cen[s0:s1], ctx[s0:s1], negs[s0:s1], lr)
 
 
 class Word2VecModel(Model, _W2VParams):

@@ -35,6 +35,11 @@
 - :class:`InstrumentedCall` / :func:`instrumented_call` — the same
   booking around a call that is never captured, for the steps whose
   collectives or backward passes cannot ride a graph (``parallel/``).
+- :func:`captured` — the twin of a plain ``jax.jit``: the same capture
+  and replay as :class:`InstrumentedJit`, with nothing booked and
+  nothing registered, so :func:`compile_report` lists no name the
+  reference's lacks (the VW step, the speech encoder's step, the lasso's
+  ISTA loop, the Word2Vec epoch's blocks of steps).
 - :func:`graph_pool_bytes` — the device bytes the shared graph pool
   holds; :func:`release_graphs` drops every captured graph (their static
   inputs and outputs with them): a later call captures again, booked as
@@ -57,9 +62,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from .metrics import MetricsRegistry, get_registry
 
-#: ``InstrumentedCall``, ``instrumented_call``, ``graph_pool_bytes``,
-#: ``release_graphs`` and ``capture_scope`` are the port's own and stay
-#: out of ``__all__``, which is the reference's
+#: ``InstrumentedCall``, ``instrumented_call``, ``captured``,
+#: ``graph_pool_bytes``, ``release_graphs`` and ``capture_scope`` are the
+#: port's own and stay out of ``__all__``, which is the reference's
 __all__ = ["InstrumentedJit", "instrumented_jit", "device_put",
            "transfer_nbytes", "compile_report",
            "ensure_device_memory_gauges", "ensure_build_info",
@@ -165,13 +170,19 @@ class InstrumentedCall:
     This form captures nothing, so it is not a tracing root of
     graft-lint's TRC rules: the ``parallel/`` steps book through it, and
     the host clocks, locks and gloo collectives they run are ordinary
-    host code."""
+    host code.
+
+    ``booked=False`` (the port's own, :func:`captured`) keys signatures
+    as above but books no compile, storm or metric and registers nowhere:
+    the twin of a plain ``jax.jit``."""
 
     def __init__(self, fn: Callable, *, name: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
                  storm_signatures: Optional[int] = None,
-                 static_argnums=(), static_argnames=(), **jit_kwargs):
+                 static_argnums=(), static_argnames=(), booked: bool = True,
+                 **jit_kwargs):
         self._fn = fn
+        self.booked = bool(booked)
         self.name = name or getattr(fn, "__name__", None) or "anonymous"
         self.registry = registry if registry is not None else get_registry()
         self.storm_signatures = storm_signatures or _storm_threshold()
@@ -193,6 +204,8 @@ class InstrumentedCall:
         self._lock = threading.Lock()
         self._storm_tripped = False
         self.last_compile_s = 0.0
+        if not self.booked:
+            return
         reg = self.registry
         self._c_compile = reg.counter(
             "mmlspark_jit_compile_total",
@@ -266,6 +279,8 @@ class InstrumentedCall:
                 self._book_compile(self._entries[sig], len(self._entries))
 
     def _book_compile(self, entry: _SigEntry, n_sigs: int) -> None:
+        if not self.booked:
+            return
         self._c_compile.inc()
         self._h_compile.observe(entry.compile_s)
         if n_sigs >= self.storm_signatures:
@@ -804,6 +819,21 @@ def instrumented_jit(fn: Optional[Callable] = None, *,
                            storm_signatures=storm_signatures,
                            static_argnums=static_argnums,
                            static_argnames=static_argnames, **jit_kwargs)
+
+
+def captured(fn: Optional[Callable] = None, *, name: Optional[str] = None,
+             **jit_kwargs):
+    """The twin of a plain ``jax.jit``: :class:`InstrumentedJit`'s capture
+    and replay (one graph per signature in the shared pool, donated and
+    borrowed tensors read in place, Python scalars staged, outputs copied
+    out, a failed capture raising ``RuntimeError``; ``captures``,
+    ``recaptures`` and ``replays`` on the object) with nothing booked and
+    nothing registered: ``captured(fn, name=...)`` or
+    ``@captured(name=...)``.  On the CPU ``fn`` runs eagerly.  ``name``
+    only labels errors and the object."""
+    if fn is None:
+        return functools.partial(captured, name=name, **jit_kwargs)
+    return InstrumentedJit(fn, name=name, booked=False, **jit_kwargs)
 
 
 def compile_report(registry: Optional[MetricsRegistry] = None

@@ -8,12 +8,17 @@ allreduce between passes (``trainInternalDistributed:434-462``), and
 
 The model is a dense weight vector over the 2^b hash space on the device;
 examples arrive as padded (indices, values) minibatches.  The JAX package
-runs one jitted XLA step per minibatch; here the step is a plain function
-on tensors (``_make_trainer``): a gather for the prediction, ``scatter_
+runs one jitted XLA step per minibatch; here the step is a function on
+tensors (``_make_trainer``): a gather for the prediction, ``scatter_
 reduce_("amax")`` for the normalizer, ``index_add_`` for the AdaGrad sums
-and the weights, and the L1 shrink written back with ``index_put_``.  Each
-partition's packed arrays go to the device once (``device_put``, site
-``vw.ingest``) and every minibatch is a slice of them.  ``index_add_`` on
+and the weights, and the L1 shrink written back with ``index_put_``, as
+one unbooked program (``observability.compute.captured``, the twin of the
+plain ``jax.jit``): on the card a CUDA graph per (partition width,
+batch size), the state ``(weights, gsq, xmax)`` donated and updated in
+place, each minibatch's slices copied into the graph's inputs; on the CPU
+the step runs eagerly.  Each partition's packed arrays go to the device
+once (``device_put``, site ``vw.ingest``) and every minibatch is a slice
+of them.  ``--bfgs`` reads values every step and runs eagerly.  ``index_add_`` on
 CUDA adds through atomics, so sums over a duplicated index come in another
 order than the CPU's: the card equals the CPU within rounding.
 
@@ -41,7 +46,7 @@ from ..core import (ComplexParam, DataFrame, Estimator, HasFeaturesCol,
                     HasLabelCol, HasPredictionCol, HasProbabilityCol,
                     HasRawPredictionCol, HasWeightCol, Model, Param)
 from ..core.schema import ColumnType
-from ..observability.compute import device_put
+from ..observability.compute import captured, device_put
 from ..utils.stopwatch import StopWatch
 from .lbfgs import LBFGS, value_and_grad
 
@@ -304,7 +309,10 @@ class _VWBase(Estimator, HasFeaturesCol, HasLabelCol, HasWeightCol):
         """``step(state, idx, val, y, w, t)``: one minibatch's predict and
         VW update, in place on ``state = (weights, gsq, xmax)`` ((2^b,)
         float32 tensors); ``t`` is a 0-d float32 tensor (read only by the
-        non-adaptive rate).  Returns the predictions."""
+        non-adaptive rate) or None.  Returns the predictions.  The step is
+        a program of its own per fit (``captured``): every minibatch of a
+        partition has one shape, so the card captures it once per
+        (width, batch size) and replays it, the state donated."""
         D = 1 << self.get("num_bits")
         lr = self.get("learning_rate")
         adaptive = self.get("adaptive")
@@ -343,7 +351,7 @@ class _VWBase(Estimator, HasFeaturesCol, HasLabelCol, HasWeightCol):
                     torch.abs(wv) - lr * l1, min=0.0))
             return pred
 
-        return step, D
+        return captured(step, name="vw.step", donate_argnums=(0,)), D
 
     def _step_times(self, t: float, staged: _Staged, bs: int,
                     dev: torch.device) -> Optional[torch.Tensor]:

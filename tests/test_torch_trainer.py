@@ -118,7 +118,7 @@ def _same(a, b) -> bool:
         np.array_equal(np.asarray(fa[k]), np.asarray(fb[k])) for k in fa)
 
 
-def _rank_checkpoint_round_trip(path):
+def _rank_checkpoint_round_trip(path, backend="npz"):
     from mmlspark_tpu_torch.parallel.checkpoint import (load_train_state,
                                                         save_train_state)
     mesh = TP.make_mesh({"data": 2}, device="cpu")
@@ -126,9 +126,10 @@ def _rank_checkpoint_round_trip(path):
     tr = _resnet_trainer(mesh)
     st = tr.init_state()
     st, _ = tr.train_step(st, batch)
-    save_train_state(st, path, trainer=tr)
+    save_train_state(st, path, backend=backend, trainer=tr)
     tr2 = _resnet_trainer(mesh, seed=7)
-    restored = load_train_state(path, trainer=tr2)
+    template = tr2.init_state() if backend == "orbax" else None
+    restored = load_train_state(path, trainer=tr2, template=template)
     a, b = tr.full_state(st), tr2.full_state(restored)
     same = [_same(a.params, b.params), _same(a.opt_state, b.opt_state),
             _same(a.batch_stats, b.batch_stats), int(a.step) == int(b.step)]
@@ -301,15 +302,126 @@ def test_batchnorm_convnet_losses_and_statistics_equal_jax(world2):
 
 
 def test_resnet18_checkpoint_round_trip(world2, tmp_path):
-    runs = world2.run(_rank_checkpoint_round_trip, str(tmp_path / "ck"))
-    for same, next_equal, step in runs:
-        assert same == [True, True, True, True] and next_equal and step == 1
+    """Both backends round-trip at world 2 (``orbax`` through
+    ``torch.distributed.checkpoint`` into a template), and both
+    snapshots of the ranks' state resume at world 1, equal bit for bit
+    with the same next loss."""
+    from mmlspark_tpu_torch.parallel.checkpoint import load_train_state
+    for backend in ("npz", "orbax"):
+        runs = world2.run(_rank_checkpoint_round_trip,
+                          str(tmp_path / backend), backend)
+        for same, next_equal, step in runs:
+            assert same == [True, True, True, True] and next_equal and \
+                step == 1
+    assert (tmp_path / "orbax" / "LATEST_BACKEND").read_text() == "orbax"
+    assert (tmp_path / "orbax" / "orbax" / ".metadata").exists()
+    mesh1 = TP.make_mesh({"data": 1}, device="cpu")
+    tr_n, tr_o = _resnet_trainer(mesh1, seed=3), _resnet_trainer(mesh1,
+                                                                 seed=5)
+    st_n = load_train_state(str(tmp_path / "npz"), trainer=tr_n)
+    st_o = load_train_state(str(tmp_path / "orbax"), trainer=tr_o,
+                            template=tr_o.init_state())
+    a, b = tr_n.full_state(st_n), tr_o.full_state(st_o)
+    assert _same(a.params, b.params) and _same(a.opt_state, b.opt_state)
+    assert _same(a.batch_stats, b.batch_stats) and int(b.step) == 1
+    batch = next(_resnet_batches(1))
+    assert float(tr_n.train_step(st_n, batch)[1]) == \
+        float(tr_o.train_step(st_o, batch)[1])
+
+
+def _mlp_state(seed, steps=1):
+    """A world-1 MLP trainer under Adam (its state made at the first
+    step) after ``steps`` steps."""
+    from mmlspark_tpu_torch.parallel.trainer import (Trainer,
+                                                     softmax_cross_entropy)
+    torch.manual_seed(seed)
+    tr = Trainer(_mlp(), lambda ps: torch.optim.Adam(ps, lr=1e-2),
+                 softmax_cross_entropy,
+                 mesh=TP.make_mesh({"data": 1}, device="cpu"))
+    st = tr.init_state()
+    rng = np.random.default_rng(seed)
+    batch = {"x": rng.normal(size=(8, 16)).astype(np.float32),
+             "y": rng.integers(0, 8, 8)}
+    for _ in range(steps):
+        st, _ = tr.train_step(st, batch)
+    return tr, st, batch
+
+
+def test_orbax_backend_round_trips_at_world_1_and_needs_a_template(tmp_path):
+    """The Adam state a fresh template lacks is restored from the
+    checkpoint's own entries; without ``template`` the restore raises."""
     from mmlspark_tpu_torch.parallel.checkpoint import (load_train_state,
                                                         save_train_state)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        load_train_state(str(tmp_path / "ck"), backend="orbax")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        save_train_state(None, str(tmp_path / "o"), backend="orbax")
+    tr, st, batch = _mlp_state(0)
+    save_train_state(st, str(tmp_path), backend="orbax", trainer=tr)
+    tr2, _, _ = _mlp_state(1, steps=0)
+    with pytest.raises(ValueError, match="template"):
+        load_train_state(str(tmp_path), trainer=tr2)
+    template = tr2.init_state()
+    assert template.opt_state == {}
+    restored = load_train_state(str(tmp_path), trainer=tr2,
+                                template=template)
+    a, b = tr.full_state(st), tr2.full_state(restored)
+    assert _same(a.params, b.params) and _same(a.opt_state, b.opt_state)
+    assert a.opt_state and int(b.step) == 1
+    assert float(tr.train_step(st, batch)[1]) == \
+        float(tr2.train_step(restored, batch)[1])
+    # a second save publishes over the first
+    st, _ = tr.train_step(st, batch)
+    save_train_state(st, str(tmp_path), backend="orbax", trainer=tr)
+    again = load_train_state(str(tmp_path), template=tr2.init_state(),
+                             backend="orbax")
+    assert int(again.step) == int(st.step) == 2
+    assert sorted(p.name for p in tmp_path.iterdir()) == \
+        ["LATEST_BACKEND", "orbax"]
+
+
+def test_checkpoint_backend_marker_beats_mtime(tmp_path):
+    """The port's twin of the reference's marker test
+    (``tests/test_advice_fixes.py``): where both backends wrote, the
+    marker decides, not cp/rsync-fragile mtimes; a forced ``backend=``
+    wins over everything; without the marker the newer artifact wins."""
+    import os
+    from mmlspark_tpu_torch.parallel.checkpoint import (load_train_state,
+                                                        save_train_state)
+    from mmlspark_tpu_torch.parallel.trainer import TrainState
+    w = np.arange(4, dtype=np.float32)
+    state_a = TrainState(params={"w": w}, opt_state={}, step=1)
+    state_b = TrainState(params={"w": w + 10}, opt_state={}, step=2)
+    path = str(tmp_path / "ckpt")
+    save_train_state(state_a, path, backend="orbax")
+    save_train_state(state_b, path, backend="npz")   # npz wrote last
+    os.utime(os.path.join(path, "orbax"))            # adversarial mtime
+    assert int(load_train_state(path).step) == 2     # marker wins
+    template = TrainState(params={"w": np.zeros(4, np.float32)},
+                          opt_state={}, step=0)
+    forced = load_train_state(path, template=template, backend="orbax")
+    assert int(forced.step) == 1                     # explicit wins
+    np.testing.assert_array_equal(forced.params["w"], w)
+    os.remove(os.path.join(path, "LATEST_BACKEND"))  # a pre-marker dir
+    assert int(load_train_state(path, template=template).step) == 1
+    later = os.path.getmtime(os.path.join(path, "orbax")) + 10
+    os.utime(os.path.join(path, "state.npz"), (later, later))
+    assert int(load_train_state(path, template=template).step) == 2
+
+
+def test_a_jax_written_orbax_checkpoint_says_what_it_is(tmp_path):
+    """The JAX package's orbax directory has no DCP metadata: the port
+    refuses it with a message naming its writer (ROADMAP fact 3.20)."""
+    import jax.numpy as jnp
+    import optax
+    from mmlspark_tpu.parallel.checkpoint import \
+        save_train_state as j_save
+    from mmlspark_tpu.parallel.trainer import TrainState as JState
+    from mmlspark_tpu_torch.parallel.checkpoint import load_train_state
+    from mmlspark_tpu_torch.parallel.trainer import TrainState
+    params = {"w": jnp.arange(4, dtype=jnp.float32)}
+    j_save(JState(params=params, opt_state=optax.sgd(0.1).init(params),
+                  step=1), str(tmp_path), backend="orbax")
+    template = TrainState(params={"w": np.zeros(4, np.float32)},
+                          opt_state={}, step=0)
+    with pytest.raises(NotImplementedError, match="JAX package's orbax"):
+        load_train_state(str(tmp_path), template=template)
 
 
 def test_trainer_stream_resume_across_device_count(world2, tmp_path):
