@@ -178,7 +178,8 @@ class TracerSafetyChecker(Checker):
     #: captures beyond the reference's scope (the reference runs them as
     #: plain ``jax.jit``), so the checkers run on the JAX package keep its
     #: findings
-    PORT_SCOPE_DIRS = ("featurize/", "vw/", "cognitive/", "explainers/")
+    PORT_SCOPE_DIRS = ("featurize/", "vw/", "cognitive/", "explainers/",
+                       "nn/", "cyber/", "opencv/")
 
     def __init__(self):
         #: relpath -> _ModRecord, consumed by the finalize cross-module BFS

@@ -15,17 +15,32 @@ k)`` outer products never exceed a fixed budget): each chunk's outer
 products times ``(c-1)`` (implicit) or ``c`` (explicit) are summed per row
 with ``index_add_`` into ``(n_rows, k, k)`` and ``(n_rows, k)`` buffers,
 and the chunk's sums are added to running sums that stay on the device
-across chunks.  One batched ``torch.linalg.solve`` of ``A + gram + reg I``
-then gives every row's factors.  O(nnz k^2 + rows k^3) per sweep, never
-O(users x resources).  Implicit mode is Hu-Koren confidence weighting: the
-all-pairs term collapses to the k x k gram matrix V^T V, so unobserved
-pairs cost nothing.  The init draws (numpy, seeded), the duplicate-pair
-aggregation, the complement negatives and the standardisation stats are the
-JAX package's, on the host; scoring (hash-map index lookups and a factor
-dot per row) is host code, as there.
+across chunks.  One batched solve of ``A + gram + reg I`` then gives every
+row's factors.  O(nnz k^2 + rows k^3) per sweep, never O(users x
+resources).  Implicit mode is Hu-Koren confidence weighting: the all-pairs
+term collapses to the k x k gram matrix V^T V, so unobserved pairs cost
+nothing.  The init draws (numpy, seeded), the duplicate-pair aggregation,
+the complement negatives and the standardisation stats are the JAX
+package's, on the host; scoring (hash-map index lookups and a factor dot
+per row) is host code, as there.
+
+The chunk's accumulation and the batched solve are the reference's two
+plain-``jax.jit`` programs, here two unbooked programs
+(``observability.compute.captured``) kept by the estimator
+(``_ALSPrograms``): on the card ``cyber.als_accumulate`` is a CUDA graph
+per (chunk length, rows, k, implicit), reading the other side's factors
+in place and adding into the running sums, which are donated state at
+fixed storage, and ``cyber.als_solve`` a graph per (rows, k) writing the
+factors into their fixed buffer.  The solve is ``torch.linalg.solve_ex``
+without its error check (a host sync, which a capture cannot hold); its
+``info`` is read after each half-sweep and a singular system raises the
+``LinAlgError`` ``torch.linalg.solve`` raises.  On the CPU both run
+eagerly.  The buffers are kept per (device, rows, k, side), so a second
+fit of the same shape reuses them and replays.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -34,14 +49,76 @@ import torch
 from .._device import DeviceLike, float32_exact, resolve_device
 from ..core import (ComplexParam, DataFrame, Estimator, Model, Param)
 from ..core.dataframe import _as_column
+from ..observability.compute import captured
 
 _CHUNK_NNZ = 250_000  # caps the (chunk, k, k) outer-product buffer
+
+
+def _accumulate(other: torch.Tensor, col: torch.Tensor, tgt: torch.Tensor,
+                cf: torch.Tensor, seg: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, implicit: bool) -> None:
+    """One chunk of nonzeros into the running sums ``A`` ``(n_rows, k, k)``
+    and ``B`` ``(n_rows, k)``, in place: implicit ``A += (c-1) f f^T, B +=
+    c*t*f``; explicit ``A += c f f^T``, with ``f = other[col]``.  The
+    chunk's per-row sums are formed apart and then added to the running
+    sums, the order in which the JAX package adds its jitted chunk sums on
+    the host; within a chunk the card's ``index_add_`` adds in atomic
+    order, so the last bits of a row's sum can change from run to run
+    there (the CPU adds in index order, as XLA's ``segment_sum`` does on
+    the CPU)."""
+    F = other[col]
+    w_outer = cf - 1.0 if implicit else cf
+    outer = (F[:, :, None] * F[:, None, :]) * w_outer[:, None, None]
+    A += torch.zeros_like(A).index_add_(0, seg, outer)
+    B += torch.zeros_like(B).index_add_(0, seg, F * (cf * tgt)[:, None])
+
+
+def _solve_all(A: torch.Tensor, B: torch.Tensor, base: torch.Tensor,
+               out: torch.Tensor) -> torch.Tensor:
+    """``out = (A + base)^-1 B`` row by row, in place; returns the LU's
+    ``info`` per row (0: solved), unchecked."""
+    X, info = torch.linalg.solve_ex(A + base, B, check_errors=False)
+    out.copy_(X)
+    return info
+
+
+class _ALSPrograms:
+    """The half-sweep's two programs and the fixed buffers they read and
+    write in place, kept across fits by the estimator that owns them (one
+    ``(A, B, X)`` per device, rows, rank and side, the
+    ``MAX_BUFFER_SETS`` most recently used)."""
+
+    MAX_BUFFER_SETS = 8
+
+    def __init__(self):
+        self.accumulate = captured(
+            _accumulate, name="cyber.als_accumulate", inplace_argnums=(0,),
+            donate_argnums=(5, 6), static_argnames=("implicit",))
+        self.solve = captured(_solve_all, name="cyber.als_solve",
+                              inplace_argnums=(0, 1), donate_argnums=(3,))
+        self._buffers: "collections.OrderedDict" = collections.OrderedDict()
+
+    def buffers(self, dev: torch.device, n_rows: int, k: int, side: str):
+        """``(A, B, X)`` for one side: the running sums and the factors."""
+        key = (str(dev), n_rows, k, side)
+        bufs = self._buffers.get(key)
+        if bufs is None:
+            def z(*shape):
+                return torch.zeros(shape, dtype=torch.float32, device=dev)
+            bufs = self._buffers[key] = (z(n_rows, k, k), z(n_rows, k),
+                                         z(n_rows, k))
+            while len(self._buffers) > self.MAX_BUFFER_SETS:
+                self._buffers.popitem(last=False)
+        self._buffers.move_to_end(key)
+        return bufs
 
 
 def _solve_side(other: torch.Tensor, row_idx: torch.Tensor,
                 col_idx: torch.Tensor, target: torch.Tensor,
                 conf: torch.Tensor, n_rows: int, reg: float,
-                gram: Optional[torch.Tensor]) -> torch.Tensor:
+                gram: Optional[torch.Tensor],
+                programs: Optional[_ALSPrograms] = None,
+                side: str = "rows") -> torch.Tensor:
     """One ALS half-sweep from COO triples, on the device of ``other``.
 
     For each row r: solve (gram? + sum_nnz c f f^T + reg I) x = b with
@@ -49,33 +126,30 @@ def _solve_side(other: torch.Tensor, row_idx: torch.Tensor,
     term V^T V (None for explicit mode, where only the nonzeros carry
     weight and ``conf`` is the per-entry weight directly).  ``row_idx`` and
     ``col_idx`` are int64, ``target`` and ``conf`` float32, all on that
-    device.
-
-    Each chunk's per-row sums are formed apart and then added to the running
-    sums, the order in which the JAX package adds its jitted chunk sums on
-    the host; within a chunk the card's ``index_add_`` adds in atomic order,
-    so the last bits of a row's sum can change from run to run there (the
-    CPU adds in index order, as XLA's ``segment_sum`` does on the CPU)."""
+    device.  Runs ``programs`` (fresh ones when None) on their ``side``
+    buffers and returns the factors' buffer: its values change with the
+    next half-sweep of that side."""
+    programs = programs if programs is not None else _ALSPrograms()
     dev = other.device
     k = other.shape[1]
     implicit = gram is not None
-    A = torch.zeros((n_rows, k, k), dtype=torch.float32, device=dev)
-    B = torch.zeros((n_rows, k), dtype=torch.float32, device=dev)
+    A, B, X = programs.buffers(dev, n_rows, k, side)
+    A.zero_()
+    B.zero_()
     for s in range(0, len(row_idx), _CHUNK_NNZ):
         e = s + _CHUNK_NNZ
-        F = other[col_idx[s:e]]
-        cf, seg = conf[s:e], row_idx[s:e]
-        # implicit: A += (c-1) f f^T, b += c*t*f ; explicit: A += c f f^T
-        w_outer = cf - 1.0 if implicit else cf
-        outer = (F[:, :, None] * F[:, None, :]) * w_outer[:, None, None]
-        A += torch.zeros_like(A).index_add_(0, seg, outer)
-        B += torch.zeros_like(B).index_add_(
-            0, seg, F * (cf * target[s:e])[:, None])
-        del outer
+        programs.accumulate(other, col_idx[s:e], target[s:e], conf[s:e],
+                            row_idx[s:e], A, B, implicit=implicit)
     base = reg * torch.eye(k, dtype=torch.float32, device=dev)
     if implicit:
         base = gram + base
-    return torch.linalg.solve(A + base, B)
+    info = programs.solve(A, B, base, X).cpu().numpy()
+    bad = np.flatnonzero(info)
+    if len(bad):
+        raise torch.linalg.LinAlgError(
+            f"torch.linalg.solve: (Batch element {int(bad[0])}): The solver "
+            "failed because the input matrix is singular.")
+    return X
 
 
 def sparse_als(u_idx: np.ndarray, r_idx: np.ndarray, counts: np.ndarray,
@@ -84,8 +158,9 @@ def sparse_als(u_idx: np.ndarray, r_idx: np.ndarray, counts: np.ndarray,
                neg_u: Optional[np.ndarray] = None,
                neg_r: Optional[np.ndarray] = None,
                neg_score: float = 0.0, neg_weight: float = 0.5,
-               pos_score: float = 1.0,
-               device: DeviceLike = None) -> Tuple[np.ndarray, np.ndarray]:
+               pos_score: float = 1.0, device: DeviceLike = None,
+               programs: Optional[_ALSPrograms] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
     """Per-tenant ALS over COO observations on ``device`` (``None``: the
     card, an error without one; ``"cpu"``: the host).
 
@@ -96,7 +171,8 @@ def sparse_als(u_idx: np.ndarray, r_idx: np.ndarray, counts: np.ndarray,
     implicit=False: explicit ridge ALS over observed entries (target
     ``pos_score`` scaled by count) plus the supplied complement-sampled
     negatives at ``neg_score`` with weight ``neg_weight``.
-    Returns the host float32 factors ``(U, V)``.
+    ``programs``: the half-sweep's programs and buffers (fresh ones when
+    None).  Returns the host float32 factors ``(U, V)``.
     """
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -128,17 +204,25 @@ def sparse_als(u_idx: np.ndarray, r_idx: np.ndarray, counts: np.ndarray,
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=dev)
 
+    programs = programs if programs is not None else _ALSPrograms()
     with torch.inference_mode(), float32_exact(dev.type == "cuda"):
         uu_d, rr_d = put(uu, torch.int64), put(rr, torch.int64)
         tgt_d = put(np.asarray(tgt, np.float32), torch.float32)
         conf_d = put(np.asarray(conf, np.float32), torch.float32)
-        U_d, V_d = put(U, torch.float32), put(V, torch.float32)
+        U_d = programs.buffers(dev, n_u, rank, "users")[2]
+        V_d = programs.buffers(dev, n_i, rank, "resources")[2]
+        U_d.copy_(put(U, torch.float32))
+        V_d.copy_(put(V, torch.float32))
         for _ in range(iters):
             gram_v = V_d.T @ V_d if implicit else None
-            U_d = _solve_side(V_d, uu_d, rr_d, tgt_d, conf_d, n_u, reg, gram_v)
+            _solve_side(V_d, uu_d, rr_d, tgt_d, conf_d, n_u, reg, gram_v,
+                        programs, "users")
             gram_u = U_d.T @ U_d if implicit else None
-            V_d = _solve_side(U_d, rr_d, uu_d, tgt_d, conf_d, n_i, reg, gram_u)
-        return U_d.cpu().numpy(), V_d.cpu().numpy()
+            _solve_side(U_d, rr_d, uu_d, tgt_d, conf_d, n_i, reg, gram_u,
+                        programs, "resources")
+        # copies: the buffers are the next fit's
+        return (U_d.to("cpu", copy=True).numpy(),
+                V_d.to("cpu", copy=True).numpy())
 
 
 class ComplementAccessTransformer:
@@ -199,6 +283,20 @@ class AccessAnomaly(Estimator):
                    "card (an error without one), 'cpu' = the host", "string",
                    default=None)
 
+    def _programs(self) -> _ALSPrograms:
+        """The estimator's half-sweep programs and buffers (made at first
+        use, kept across fits, never pickled)."""
+        progs = self.__dict__.get("_als")
+        if progs is None:
+            progs = self._als = _ALSPrograms()
+        return progs
+
+    def __getstate__(self):
+        """Pickled and copied without its programs and buffers."""
+        state = dict(self.__dict__)
+        state.pop("_als", None)
+        return state
+
     def _fit(self, df: DataFrame) -> "AccessAnomalyModel":
         data = df.collect()
         tc = self.get("tenant_col")
@@ -243,7 +341,8 @@ class AccessAnomaly(Estimator):
                               neg_u=neg_u, neg_r=neg_r,
                               neg_score=self.get("neg_score"),
                               pos_score=self.get("pos_score"),
-                              device=self.get("device"))
+                              device=self.get("device"),
+                              programs=self._programs())
             # standardisation stats over OBSERVED pairs only — a gather, not
             # a dense (n_u, n_i) matmul
             obs = np.einsum("nk,nk->n", U[u_idx], V[r_idx])

@@ -53,6 +53,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import gc
 import inspect
 import os
 import threading
@@ -389,10 +390,33 @@ def _pool_released(index: int, handle, n: int) -> None:
                 del _POOLS[index]
 
 
+def _abandon_capture(index: int, handle) -> None:
+    """Undo what a failed capture left behind.  A capture that fails
+    before ``capture_end`` stops its recording leaves the allocator
+    recording into the pool and holding the use the capture took: end the
+    recording and give the use back (when ``capture_end`` got as far as
+    ending it, there is nothing to undo).  A pool whose capture failed
+    with a CUDA error is refused by every later capture ("already
+    recording"), so its handle is retired: the graphs that hold it keep
+    it, later captures share a fresh one."""
+    import torch
+    try:
+        torch._C._cuda_endAllocateToPool(index, handle)
+    except RuntimeError:
+        pass
+    else:
+        torch._C._cuda_releasePool(index, handle)
+    with _POOL_LOCK:
+        ent = _POOLS.get(index)
+        if ent is not None and ent[0] == handle:
+            del _POOLS[index]
+
+
 def graph_pool_bytes(index: int = 0) -> Optional[int]:
     """Device bytes reserved by the shared graph pool of card ``index``
     (the segments ``torch.cuda.memory_snapshot()`` files under its pool
-    id); ``None`` when no captured graph is live on that card."""
+    id; a pool retired after a failed capture is not counted); ``None``
+    when no captured graph is live on that card."""
     import torch
     with _POOL_LOCK:
         ent = _POOLS.get(index)
@@ -514,7 +538,8 @@ class InstrumentedJit(InstrumentedCall):
     alone is ``snapshot()``'s ``capture_seconds``.  A capture that fails
     (a host sync inside ``fn``, a refused launch) raises ``RuntimeError``
     naming the function and the signature: no call on a card runs
-    eagerly in its place.
+    eagerly in its place; the pool it was recording into is retired, so
+    later captures go on in a fresh one.
 
     **Replay**: the call's tensors are copied into the static inputs and
     the graph replays on the current stream (after the last replay on the
@@ -667,35 +692,50 @@ class InstrumentedJit(InstrumentedCall):
                 " or torch.no_grad()")
         graph = torch.cuda.CUDAGraph()
         t_cap = time.perf_counter()
-        # the warm-up's frees settle before the pool starts taking blocks
+        # the warm-up's frees settle before the pool starts taking blocks.
+        # The cyclic collector waits until the capture ends, so no dead
+        # object of the process is finalized inside it: a finalizer's CUDA
+        # calls (freeing pinned host memory queries CUDA events) are not
+        # allowed while the thread captures, and their errors invalidate
+        # the capture
         torch.cuda.synchronize(dev)
         err = out = None
         pool = _graph_pool(index)
         scope: Dict[str, List] = {"keep": [], "on_replay": []}
-        with torch.cuda.stream(side):
-            try:
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-            except Exception as exc:  # noqa: BLE001 — re-raised below
-                err = exc
-            else:
-                _LOCAL.scope = scope
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
                 try:
-                    out = call(call_leaves)
+                    graph.capture_begin(pool=pool,
+                                        capture_error_mode="thread_local")
                 except Exception as exc:  # noqa: BLE001 — re-raised below
                     err = exc
-                finally:
-                    _LOCAL.scope = None
-                try:
-                    graph.capture_end()
-                except Exception as exc:  # noqa: BLE001 — re-raised below
-                    err = err or exc
+                else:
+                    _LOCAL.scope = scope
+                    try:
+                        out = call(call_leaves)
+                    except Exception as exc:  # noqa: BLE001 — re-raised
+                        err = exc
+                    finally:
+                        _LOCAL.scope = None
+                    try:
+                        graph.capture_end()
+                    except Exception as exc:  # noqa: BLE001 — re-raised
+                        err = err or exc
+        finally:
+            if collecting:
+                gc.enable()
         if err is not None:
             del graph
-            _pool_released(index, pool, 0)   # no live graph: a fresh pool
+            _abandon_capture(index, pool)
+            free, total = torch.cuda.mem_get_info(dev)
             raise RuntimeError(
                 f"CUDA-graph capture of {self.name} "
-                f"[{self._render(sig, n_pos)}] failed: {err}") from err
+                f"[{self._render(sig, n_pos)}] failed: {err} (card "
+                f"{free / 2**30:.1f} of {total / 2**30:.1f} GiB free, "
+                f"{torch.cuda.memory_reserved(dev) / 2**30:.1f} GiB "
+                "reserved)") from err
         capture_s = time.perf_counter() - t_cap
         _pool_held(index, pool, graph)
         outs: List = []

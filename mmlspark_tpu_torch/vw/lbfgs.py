@@ -20,13 +20,23 @@ arithmetic optax makes it in.  Dot products accumulate in float64 and
 round to float32: the path of L-BFGS over many line searches magnifies
 rounding (at 20 iterations on 100,000 hashed tweets, a float32 sum in
 another order moved the objective by 5e-4 relative), and this way the
-card and the CPU round every reduction alike.  Each trial point costs one
-host read of its value and slope.
+card and the CPU round every reduction alike.
+
+The device work is two functions on tensors, each a program where the
+caller makes it one (``vw.learners`` captures both): ``two_loop``, the
+memory's update and the direction, and a trial point, which evaluates the
+objective at ``params + stepsize * updates`` and returns its value and
+slope in one 2-element tensor beside the gradient.  The memory keeps its
+pairs oldest first in fixed storage (each update shifts it by one and
+writes the newest last: the ring's order, so the same products in the
+same order) and the first step's branch is a 0-d input, so one program
+serves every iteration.  Each trial point costs one host read of its
+value and slope, and each iteration one more of the direction's slope.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +44,9 @@ import torch
 F32 = np.float32
 
 ValueAndGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+#: ``trial(params, updates, stepsize) -> (value and slope, grad)``
+Trial = Callable[[torch.Tensor, torch.Tensor, float],
+                 Tuple[torch.Tensor, torch.Tensor]]
 
 
 def value_and_grad(fn: Callable[[torch.Tensor], torch.Tensor]
@@ -54,6 +67,72 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (so the card and the CPU take the same line-search branches)."""
     return torch.dot(a.reshape(-1).double(), b.reshape(-1).double()) \
         .to(a.dtype)
+
+
+def trial_of(vg: ValueAndGrad) -> Trial:
+    """The trial point of the objective ``vg``: its value and gradient at
+    ``params + updates * stepsize``, and the slope ``<grad, updates>``,
+    value and slope stacked in one float32 tensor (one host read)."""
+    def trial(params, updates, stepsize):
+        value, grad = vg(params + updates * stepsize)
+        return torch.stack([value, _dot(grad, updates)]), grad
+    return trial
+
+
+def new_memory(w: torch.Tensor, m: int):
+    """Zeroed L-BFGS memory for weights like ``w``: ``(dw, du, rho,
+    prev_params, prev_updates)``, the ``m`` pairs oldest first."""
+    dw = torch.zeros((m,) + tuple(w.shape), dtype=w.dtype, device=w.device)
+    return (dw, torch.zeros_like(dw),
+            torch.zeros(m, dtype=torch.float32, device=w.device),
+            torch.zeros_like(w), torch.zeros_like(w))
+
+
+def two_loop(memory, w: torch.Tensor, grad: torch.Tensor, first,
+             scale_init_precond: bool = True):
+    """``-P_k g_k`` and its slope ``<-P_k g_k, g_k>``: ``memory`` (see
+    ``new_memory``) updated in place with the last step's pair, then the
+    two-loop product (Nocedal and Wright algorithm 7.4).  ``first`` (a
+    bool, or a 0-d bool tensor) marks the first step, whose pair is zero
+    and whose scale is ``min(1, 1 / |g|)``.  Scalars stay 0-d tensors on
+    the device."""
+    dw, du_mem, rho, prev_params, prev_updates = memory
+    m = rho.shape[0]
+    zero = torch.zeros((), dtype=torch.float32, device=w.device)
+    first = torch.as_tensor(first, device=w.device)
+    dp = torch.where(first, zero, w - prev_params)
+    du = torch.where(first, zero, grad - prev_updates)
+    vd = _dot(du, dp)
+    weight = torch.where(vd == 0.0, zero, 1.0 / vd)
+    # oldest first: shift out the oldest pair, the newest goes last
+    dw.copy_(torch.roll(dw, -1, 0))
+    du_mem.copy_(torch.roll(du_mem, -1, 0))
+    rho.copy_(torch.roll(rho, -1, 0))
+    dw[m - 1] = dp
+    du_mem[m - 1] = du
+    rho[m - 1] = weight
+    if scale_init_precond:
+        num = _dot(du, dp)
+        den = _dot(du, du)
+        norm = torch.sqrt(_dot(grad, grad))
+        scale = torch.where(first, torch.minimum(zero + 1.0, 1.0 / norm),
+                            torch.where(den > 0.0, num / den, zero + 1.0))
+    else:
+        scale = zero + 1.0
+    vec = grad
+    alphas = [None] * m
+    for i in reversed(range(m)):
+        alpha = rho[i] * _dot(dw[i], vec)
+        vec = vec + (-alpha) * du_mem[i]
+        alphas[i] = alpha
+    vec = scale * vec
+    for i in range(m):
+        beta = rho[i] * _dot(du_mem[i], vec)
+        vec = vec + (alphas[i] - beta) * dw[i]
+    prev_params.copy_(w)
+    prev_updates.copy_(grad)
+    updates = -vec
+    return updates, _dot(updates, grad)
 
 
 class _Line:
@@ -103,17 +182,26 @@ class LBFGS:
 
     ``vg(w) -> (value, grad)`` is the objective; ``run(w0, iterations)``
     returns the weights after ``iterations`` steps, each of which starts
-    from the previous line search's accepted value and gradient."""
+    from the previous line search's accepted value and gradient.
+    ``trial`` (default ``trial_of(vg)``) evaluates a trial point and
+    ``direction`` (default ``two_loop``) the direction, each with the
+    signature of the default: pass programs of them to run each as one.
+    ``memory`` is the memory's storage (``new_memory`` at the first
+    ``init`` unless set before), zeroed by ``init``.  ``trials`` and
+    ``host_reads`` count the last run's trial points and host reads."""
 
-    def __init__(self, vg: ValueAndGrad, memory_size: int = 10,
+    def __init__(self, vg: Optional[ValueAndGrad], memory_size: int = 10,
                  scale_init_precond: bool = True,
                  max_linesearch_steps: int = 20, tol: float = 0.0,
                  increase_factor: float = 2.0, slope_rtol: float = 1e-4,
                  curv_rtol: float = 0.9, approx_dec_rtol: float = 1e-6,
-                 stepsize_precision: float = 1e-5):
+                 stepsize_precision: float = 1e-5,
+                 trial: Optional[Trial] = None, direction=None):
         if memory_size < 1:
             raise ValueError("memory_size must be >= 1")
-        self.vg = vg
+        self.trial = trial if trial is not None else trial_of(vg)
+        self.direction = direction if direction is not None else two_loop
+        self.memory = None
         self.m = memory_size
         self.scale_init_precond = scale_init_precond
         self.max_steps = max_linesearch_steps
@@ -128,63 +216,34 @@ class LBFGS:
     # -- the two-loop recursion (scale_by_lbfgs) -------------------------
 
     def init(self, w: torch.Tensor) -> None:
-        m, dev = self.m, w.device
         self.count = 0
-        self.prev_params = torch.zeros_like(w)
-        self.prev_updates = torch.zeros_like(w)
-        self.dw = torch.zeros((m,) + tuple(w.shape), dtype=w.dtype,
-                              device=dev)
-        self.du = torch.zeros_like(self.dw)
-        self.rho = torch.zeros(m, dtype=torch.float32, device=dev)
+        self.trials = self.host_reads = 0
+        if self.memory is None:
+            self.memory = new_memory(w, self.m)
+        else:
+            for t in self.memory:
+                t.zero_()
         self.ls_value = F32(np.inf)
         self.ls_grad = torch.zeros_like(w)
+        self.zeros = torch.zeros_like(w)
 
     def _direction(self, w: torch.Tensor, grad: torch.Tensor):
-        """``P_k g_k``: the memory updated with the last step's pair, then
-        the two-loop product.  Scalars stay 0-d tensors on the device."""
-        m = self.m
-        mi, pi = self.count % m, (self.count - 1) % m
-        zero = torch.zeros((), dtype=torch.float32, device=w.device)
-        if self.count > 0:
-            dp = w - self.prev_params
-            du = grad - self.prev_updates
-            vd = _dot(du, dp)
-            weight = torch.where(vd == 0.0, zero, 1.0 / vd)
-        else:
-            dp, du, weight = torch.zeros_like(w), torch.zeros_like(w), zero
-        self.dw[pi] = dp
-        self.du[pi] = du
-        self.rho[pi] = weight
-        if self.scale_init_precond:
-            num = _dot(du, dp)
-            den = _dot(du, du)
-            scale = torch.where(den > 0.0, num / den, zero + 1.0)
-            if self.count == 0:
-                norm = torch.sqrt(_dot(grad, grad))
-                scale = torch.minimum(zero + 1.0, 1.0 / norm)
-        else:
-            scale = zero + 1.0
-        idx = [(mi + j) % m for j in range(m)]
-        vec = grad
-        alphas = {}
-        for i in reversed(idx):
-            alpha = self.rho[i] * _dot(self.dw[i], vec)
-            vec = vec + (-alpha) * self.du[i]
-            alphas[i] = alpha
-        vec = scale * vec
-        for i in idx:
-            beta = self.rho[i] * _dot(self.du[i], vec)
-            vec = vec + (alphas[i] - beta) * self.dw[i]
+        """``(-P_k g_k, its slope as a float32 host scalar)``."""
+        updates, slope = self.direction(self.memory, w, grad,
+                                        self.count == 0,
+                                        self.scale_init_precond)
         self.count += 1
-        self.prev_params, self.prev_updates = w, grad
-        return vec
+        self.host_reads += 1
+        return updates, F32(slope.item())
 
     # -- the zoom line search --------------------------------------------
 
     def _on_line(self, params, stepsize, updates):
-        value, grad = self.vg(params + updates * float(stepsize))
-        slope = F32(_dot(grad, updates).item())
-        return F32(value.item()), grad, slope
+        vs, grad = self.trial(params, updates, float(stepsize))
+        value, slope = vs.cpu().numpy()
+        self.trials += 1
+        self.host_reads += 1
+        return F32(value), grad, F32(slope)
 
     def _decrease_error(self, stepsize, value, slope, value_init,
                         slope_init):
@@ -274,8 +333,7 @@ class LBFGS:
         s.stepsize, s.value, s.grad, s.slope = middle, value, grad, slope
         s.decrease_error, s.curvature_error = de, ce
 
-    def _linesearch(self, params, updates, value, grad):
-        slope = F32(_dot(updates, grad).item())
+    def _linesearch(self, params, updates, value, grad, slope):
         s = _Line(params, updates, value, grad, slope)
         s.stepsize_guess = F32(1.0)
         with np.errstate(all="ignore"):
@@ -296,11 +354,10 @@ class LBFGS:
         if np.isfinite(self.ls_value):
             value, grad = self.ls_value, self.ls_grad
         else:
-            v, grad = self.vg(w)
-            value = F32(v.item())
-        updates = -self._direction(w, grad)
-        lr, self.ls_value, self.ls_grad = self._linesearch(w, updates,
-                                                           value, grad)
+            value, grad, _ = self._on_line(w, F32(0.0), self.zeros)
+        updates, slope = self._direction(w, grad)
+        lr, self.ls_value, self.ls_grad = self._linesearch(
+            w, updates, value, grad, slope)
         return w + updates * float(lr)
 
     def run(self, w0: torch.Tensor, iterations: int) -> torch.Tensor:

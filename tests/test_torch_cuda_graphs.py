@@ -1,5 +1,8 @@
 """The runner's compiled programs on the card: CUDA graphs captured per
-signature by ``observability.compute.InstrumentedJit``.  Marked ``cuda``:
+signature by ``observability.compute.InstrumentedJit`` (and the plain-jit
+twins through ``captured``: the VW step and ``--bfgs``, Word2Vec's
+blocks, the speech step, the lasso, KNN's search, the ALS half-sweep,
+the image chain).  Marked ``cuda``:
 without a CUDA device every test skips (the CPU tier-1 run holds the keys
 and compile counts to the JAX package's in ``test_torch_compile_stats.py``).
 On the card:
@@ -573,6 +576,21 @@ def test_a_failing_capture_of_an_unbooked_program_raises(dev):
     assert prog.captures == 0
 
 
+def test_a_capture_after_a_failed_one_succeeds(dev):
+    """A failed capture gives its pool back: with another graph holding
+    the shared pool, the next program still captures and replays."""
+    held = compute.captured(lambda x: x * 2, name="g.holder")
+    held(torch.ones(4, device=dev))                # a live graph
+    bad = compute.captured(lambda x: x * x.sum().item(), name="g.bad")
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="g.bad"):
+            bad(torch.ones(4, device=dev))
+    good = compute.captured(lambda x: x + 1, name="g.good")
+    for _ in range(2):
+        assert good(torch.ones(4, device=dev)).tolist() == [2.0] * 4
+    assert (good.captures, good.replays, held.captures) == (1, 1, 1)
+
+
 def test_orbax_checkpoint_round_trips_card_tensors(dev, tmp_path):
     """``backend="orbax"`` (torch.distributed.checkpoint) saves a card
     trainer's state as host copies and restores it into a template,
@@ -606,3 +624,195 @@ def test_orbax_checkpoint_round_trips_card_tensors(dev, tmp_path):
             np.testing.assert_array_equal(a.params[k][n], b.params[k][n])
     assert float(tr.train_step(st, batch)[1]) == \
         float(tr2.train_step(restored, batch)[1])
+
+
+# ---------------------------------------------------------------------------
+# KNN's search, the ALS half-sweep, the image chain, --bfgs
+# ---------------------------------------------------------------------------
+
+def _knn_frames(n=3000, d=64, queries=2500, seed=6):
+    from mmlspark_tpu_torch.core import DataFrame, vector_column
+    rng = np.random.default_rng(seed)
+    X = np.abs(rng.normal(size=(n, d))).astype(np.float32)
+    Q = np.abs(rng.normal(size=(queries, d))).astype(np.float32)
+    return (DataFrame.from_dict({"features": vector_column(list(X))}),
+            DataFrame.from_dict({"features": vector_column(list(Q))}))
+
+
+def _matches(df):
+    rows = df.collect()["m"]
+    return (np.asarray([[r["value"] for r in row] for row in rows]),
+            np.asarray([[r["distance"] for r in row] for row in rows]))
+
+
+def test_knn_search_replays_bit_for_bit(dev, monkeypatch):
+    """2,500 queries in three 1,024-row chunks (the tail padded): one
+    capture and two replays; a second transform captures nothing and
+    uploads no item table; replayed = the eager search bit for bit."""
+    from mmlspark_tpu_torch.nn import KNN, knn
+    items, queries = _knn_frames()
+    model = KNN().set_params(output_col="m", k=5).fit(items)
+    got = _matches(model.transform(queries))
+    prog = model._program()
+    table = model._item_cache[1][torch.device("cuda", 0)]
+    assert (prog.captures, prog.recaptures, prog.replays) == (1, 0, 2)
+    again = _matches(model.transform(queries))
+    assert (prog.captures, prog.replays) == (1, 5)
+    assert model._item_cache[1][torch.device("cuda", 0)] is table
+    monkeypatch.setattr(knn, "captured", _eager_captured)
+    want = _matches(model.copy().transform(queries))
+    for a, b, c in zip(got, again, want):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, c)
+
+
+def _access_frame(seed=3, n=6000):
+    from mmlspark_tpu_torch.core import DataFrame
+    rng = np.random.default_rng(seed)
+    return DataFrame.from_dict({
+        "user": np.asarray([f"u{i}" for i in rng.integers(0, 400, n)],
+                           dtype=object),
+        "res": np.asarray([f"r{i}" for i in rng.integers(0, 90, n)],
+                          dtype=object),
+        "count": rng.geometric(0.3, n).astype(np.float64)})
+
+
+@pytest.mark.parametrize("implicit", [True, False])
+def test_als_half_sweep_replays_within_1e4(dev, monkeypatch, implicit):
+    """Chunks of 1,000 nonzeros (a tail too): the replayed factors within
+    1e-4 x max of the eager fit's (``index_add_`` adds in atomic order);
+    a second fit of the same shape captures nothing."""
+    from mmlspark_tpu_torch.cyber import AccessAnomaly, anomaly
+    monkeypatch.setattr(anomaly, "_CHUNK_NNZ", 1_000)
+    df = _access_frame()
+    kw = dict(likelihood_col="count", rank=6, max_iter=3,
+              implicit_cf=implicit)
+    est = AccessAnomaly().set_params(**kw)
+    got = est.fit(df).get("factors")["_"]
+    progs = est._programs()
+    caps = (progs.accumulate.captures, progs.solve.captures)
+    assert min(caps) >= 1 and progs.accumulate.replays > 0
+    est.fit(df)
+    assert (progs.accumulate.captures, progs.solve.captures) == caps
+    monkeypatch.setattr(anomaly, "captured", _eager_captured)
+    want = AccessAnomaly().set_params(**kw).fit(df).get("factors")["_"]
+    for key in ("U", "V"):
+        assert np.abs(got[key] - want[key]).max() <= \
+            1e-4 * np.abs(want[key]).max()
+
+
+def _frames_column(seed=8):
+    rng = np.random.default_rng(seed)
+    shapes = [(48, 64, 3)] * 11 + [(36, 48, 3)] * 5
+    col = np.empty(len(shapes), dtype=object)
+    for j, i in enumerate(rng.permutation(len(shapes))):
+        col[j] = (rng.random(shapes[i]) * 255).astype(np.float32)
+    return col
+
+
+def _featurizer_chain(t):
+    return t.resize(32, 32).center_crop(28, 28).blur(5, 5, 1.0) \
+        .normalize().unroll()
+
+
+def test_image_chain_replays_bit_for_bit_and_equals_the_cpu(dev,
+                                                            monkeypatch):
+    """Two partitions of mixed shapes in row buckets: replayed = the eager
+    chain bit for bit, = the CPU within 1e-4; a second transform captures
+    nothing."""
+    from mmlspark_tpu_torch.core import DataFrame
+    from mmlspark_tpu_torch.opencv import ImageTransformer, image_transformer
+    df = DataFrame.from_dict({"image": _frames_column()}, num_partitions=2)
+
+    def transformer(**kw):
+        return _featurizer_chain(ImageTransformer(
+            input_col="image", output_col="out", **kw))
+
+    t = transformer()
+    got = t.transform(df).collect()["out"]
+    (prog,) = t._programs.values()
+    caps = prog.captures
+    again = t.transform(df).collect()["out"]
+    assert prog.captures == caps and prog.replays >= caps
+    cpu = transformer(device="cpu").transform(df).collect()["out"]
+    monkeypatch.setattr(image_transformer, "captured", _eager_captured)
+    eager = transformer().transform(df).collect()["out"]
+    for a, b, e, c in zip(got, again, eager, cpu):
+        np.testing.assert_array_equal(a, e)
+        np.testing.assert_array_equal(b, e)
+        np.testing.assert_allclose(a, c, rtol=0, atol=1e-4)
+
+
+def _bfgs_objective_of(weights, df):
+    from mmlspark_tpu_torch.vw.learners import pack_sparse_column
+    data = df.collect()
+    idx, val = pack_sparse_column(data["features"], mask=len(weights) - 1)
+    pred = (weights[idx].astype(np.float64) * val).sum(1)
+    ysgn = np.where(data["label"] > 0, 1.0, -1.0)
+    return float(np.mean(np.logaddexp(0.0, -ysgn * pred)))
+
+
+def test_bfgs_replays_and_a_second_fit_captures_nothing(dev, monkeypatch):
+    """``optimizer="bfgs"``: one capture of each program, every other
+    direction and trial point a replay; a second fit of the same shape
+    captures nothing; the objective within 1e-4 relative of the eager
+    fit's (the gather's backward adds in atomic order, so the line search
+    may step elsewhere)."""
+    from mmlspark_tpu_torch.vw import VowpalWabbitClassifier, learners
+    df = _vw_frame()
+    est = VowpalWabbitClassifier().set_params(num_bits=12,
+                                              optimizer="bfgs")
+    got = est.fit(df).weights
+    progs = est._bfgs_programs()
+    run = progs.last_run
+    assert (progs.direction.captures, progs.trial.captures) == (1, 1)
+    assert progs.direction.replays == run["iterations"] - 1
+    assert progs.trial.replays == run["trials"] - 1
+    est.fit(df)
+    assert (progs.direction.captures, progs.trial.captures) == (1, 1)
+    monkeypatch.setattr(learners, "captured", _eager_captured)
+    want = VowpalWabbitClassifier().set_params(
+        num_bits=12, optimizer="bfgs").fit(df).weights
+    og, ow = _bfgs_objective_of(got, df), _bfgs_objective_of(want, df)
+    assert abs(og - ow) <= 1e-4 * abs(ow)
+
+
+@pytest.mark.parametrize("module, fn, name", [
+    ("nn.knn", "_search", "nn.knn_search"),
+    ("cyber.anomaly", "_accumulate", "cyber.als_accumulate"),
+    ("cyber.anomaly", "_solve_all", "cyber.als_solve"),
+    ("opencv.image_transformer", "_apply_stages", "opencv.image_chain"),
+    ("vw.learners", "two_loop", "vw.bfgs_direction"),
+    ("vw.learners", "_bfgs_trial", "vw.bfgs_trial"),
+])
+def test_a_failing_capture_of_each_path_raises(dev, monkeypatch, module,
+                                               fn, name):
+    """A host sync inside each program refuses its capture, and the entry
+    point raises naming the program: nothing runs eagerly instead."""
+    import importlib
+    from mmlspark_tpu_torch.core import DataFrame
+    mod = importlib.import_module(f"mmlspark_tpu_torch.{module}")
+    inner = getattr(mod, fn)
+
+    def synced(*args, **kwargs):
+        torch.ones(1, device=dev).sum().item()
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(mod, fn, synced)
+    with pytest.raises(RuntimeError, match=name.replace(".", r"\.")):
+        if module == "nn.knn":
+            from mmlspark_tpu_torch.nn import KNN
+            items, queries = _knn_frames(n=200, queries=50)
+            KNN().set_params(output_col="m").fit(items).transform(queries)
+        elif module == "cyber.anomaly":
+            from mmlspark_tpu_torch.cyber import AccessAnomaly
+            AccessAnomaly().set_params(rank=3, max_iter=1).fit(
+                _access_frame(n=500))
+        elif module == "opencv.image_transformer":
+            from mmlspark_tpu_torch.opencv import ImageTransformer
+            ImageTransformer(input_col="image", output_col="o").flip(1) \
+                .transform(DataFrame.from_dict({"image": _frames_column()}))
+        else:
+            from mmlspark_tpu_torch.vw import VowpalWabbitClassifier
+            VowpalWabbitClassifier().set_params(
+                num_bits=12, optimizer="bfgs", num_passes=2).fit(_vw_frame())
